@@ -6,19 +6,34 @@
 Phases, one JSON line each; any failure raises and exits nonzero:
 
 1. device:  the card, its power limit, and the build of every kernel
-            source (one nvcc each, started together).
+            source (one nvcc each, started together), with the registers
+            and spills ptxas reports.
 2. goldens: the five tests/goldens scenes through VolumeRenderer on the
             card, held against the committed images.
-3. kernel_vs_plain: the march kernel against its plain PyTorch version
-            (ops/forward.py) on the card at 128^3 / 256x192, per mode.
-4. main_path: VolumeRenderer.render() at 256^3 / 512^2 for the unlit (K1),
+3. kernel_vs_plain: the forward march kernel against its plain PyTorch
+            version (ops/forward.py) on the card at 128^3 / 256x192, per
+            mode.
+4. grads_vs_plain: the backward march kernel through voxel_grads_fast (K3
+            unlit, K6 lit) and transfer_grads_fast (K2) against its plain
+            version (ops/vjp.py:replay_backward) at 128^3 / 256x192, every
+            gradient key, and both against the replay summed in float64.
+5. main_path: VolumeRenderer.render() at 256^3 / 512^2 for the unlit (K1),
             lit on-the-fly (K4) and lit lookup (K5) flagship scenes, with
             the launch counts set to 0 just before and read just after;
             each image is held against the plain version on the whole image.
-5. timing:  the kernel (CUDA events, warm, median of 7) and the plain
-            version at 256^3 / 512^2 (K1, K4, K5) and 512^3 / 1024^2 (K1,
-            K4; the plain version on a 64-row band through the middle),
-            with rays/s, the march samples the rays took and the bound.
+6. train_main_path: at 256^3 / 512^2, three Adam steps of
+            train.train_step_fast on the unlit scene (K1 + K3 a step) and on
+            the lit one (K4 + K6), and a three-step transfer-parameter fit
+            through transfer_grads_fast (K1 + K2), counted like phase 5.
+            The loss must fall. Before the counted steps, the first step's
+            gradients are held against the plain replay on a 64-row band.
+7. timing:  the forward kernel (CUDA events, warm, median of 5) and the
+            plain version at 256^3 / 512^2 (K1, K4, K5) and 512^3 / 1024^2
+            (K1, K4; the plain version on a 64-row band through the
+            middle), with rays/s, the march samples the rays took and the
+            bound; then the forward + backward pair, the backward kernel
+            alone and the whole training step for K3, K6 and K2 at
+            256^3 / 512^2 and K3 at 512^3 / 1024^2, with the bound.
 
 Then the kernels line and, last, {"ok": true, "device": {...}}. It needs
 the repository around it and a CUDA card; it imports nothing of JAX.
@@ -27,8 +42,10 @@ the repository around it and a CUDA card; it imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -66,6 +83,30 @@ def flops_per_step(mode: str, ab_aliased: bool, re_aliased: bool, n_lights: int)
     return ops
 
 
+# float32 operations of one step of csrc/march_bwd.cu, counted the same way:
+# the replayed forward step with the under operator's cotangents and the
+# per-ray sums; a scatter is 45 for corners and weights plus 8 atomic adds.
+_SCATTER = 45 + 8
+_BWD_STEP = 99
+_BWD_PER_LIGHT = 145      # forward terms, per-light sums, d contrib, d reflection
+_BWD_LIT = 6 * (1 + _COORDS + _FETCH) + 6 + 12 + 1 + 3 + 5 + 6 + 2  # taps, normal, light_in
+_BWD_PER_LIGHT_CHAIN = 26 + 1 + 3 * (54 + 2) + 10 + 30  # LUT derivatives, 3 angle adjoints, d n
+_BWD_LIT_SCATTER = 20 + 6 * (1 + 1 + _COORDS + _SCATTER)  # d gradient, six tap scatters
+
+
+def bwd_flops_per_step(lit: bool, scatter: bool, ab_aliased: bool, re_aliased: bool,
+                       n_lights: int) -> int:
+    ops = _BWD_STEP + (0 if ab_aliased else _FETCH)
+    if lit:
+        ops += (0 if re_aliased else _FETCH) + _BWD_LIT + n_lights * _BWD_PER_LIGHT
+    if scatter:
+        ops += 7 + 1 + _SCATTER + (1 if ab_aliased else _SCATTER)
+        if lit:
+            ops += n_lights * _BWD_PER_LIGHT_CHAIN + _BWD_LIT_SCATTER
+            ops += 1 + (1 if re_aliased else _SCATTER)
+    return ops
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -84,9 +125,13 @@ def main() -> None:
     from volume_renderer_tpu_torch import (
         Camera, LightSource, RenderSettings, Scene, StereoRenderMode, Volume, VolumeRenderer,
         henyey_greenstein_lut)
+    from volume_renderer_tpu_torch import train
     from volume_renderer_tpu_torch.ops import _build, cuda_march
+    from volume_renderer_tpu_torch.ops.cuda_grads import (
+        grad_mode, march_backward, transfer_grads_fast, voxel_grads_fast)
     from volume_renderer_tpu_torch.ops.cuda_march import kernel_mode, render_forward_fast
     from volume_renderer_tpu_torch.ops.forward import render_forward, render_rows
+    from volume_renderer_tpu_torch.ops.vjp import replay_backward
 
     lines = []
 
@@ -106,8 +151,13 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for name in _build.SOURCES for ln in _build.build_log(name).splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {}
+    for name in _build.SOURCES:
+        log = _build.build_log(name)
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
+        ptxas[name] = {"kernels": len(regs), "registers_min": min(regs),
+                       "registers_max": max(regs), "spill_store_bytes_max": max(spills)}
     record({"phase": "device", "kind": kind, "nvidia_smi": smi_line,
             "count": torch.cuda.device_count(), "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas})
@@ -177,15 +227,24 @@ def main() -> None:
     record({"phase": "goldens", "atol": 1e-4, "rtol": 1e-3, "max_abs_err": golden_err})
 
     # ---- scenes: the flagship gaussian shell (__graft_entry__.py) -------
-    def shell(n):
+    def shell(n, noise=0.0):
         i = torch.arange(n, dtype=torch.float32, device=dev)
         c = (n - 1) / 2.0
         r2 = ((i[None, None, :] - c) ** 2 + (i[None, :, None] - c) ** 2
               + (i[:, None, None] - c) ** 2) / (c * c)
-        return torch.exp(-4.0 * (torch.sqrt(r2) - 0.6) ** 2).contiguous()
+        vol = torch.exp(-4.0 * (torch.sqrt(r2) - 0.6) ** 2)
+        if noise:
+            # Seeded multiplicative noise for the gradient phases. On the
+            # smooth shell the normal equals the view direction over the
+            # whole camera-facing cap, where the angle adjoint amplifies
+            # rounding a thousandfold; real volumes are not that smooth.
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(n)
+            vol = vol * (1.0 + noise * (torch.rand(vol.shape, generator=gen, device=dev) - 0.5))
+        return vol.contiguous()
 
-    def flagship(n, mode, n_lights=1, ab_aliased=True, re_aliased=False):
-        em = shell(n)
+    def flagship(n, mode, n_lights=1, ab_aliased=True, re_aliased=False, noise=0.0):
+        em = shell(n, noise)
         ramp = torch.linspace(0.5, 1.0, n, device=dev)[None, None, :]
         ab = None if ab_aliased else Volume.create((em * ramp).contiguous())
         lit = {}
@@ -233,7 +292,83 @@ def main() -> None:
             "tolerance": {k: {"atol": a, "rtol": r} for k, (a, r) in tol.items()},
             "max_abs_err": compare})
 
-    # ---- 4. the main path: VolumeRenderer.render() at 256^3 / 512^2 -----
+    # ---- 4. backward kernel vs plain replay at 128^3 / 256x192 ----------
+    # Kernel and plain replay compute each sample's terms with the same
+    # float32 arithmetic and differ in the order of their sums: the kernel's
+    # atomic adds land in no fixed order, index_add_ and torch.sum have their
+    # own. The tolerance is a share of each gradient's largest magnitude.
+    # Measured on an H100 at most 1.4e-5 (factor_emission of a lit scene: a
+    # scalar whose per-ray terms cancel under a cotangent of mixed sign);
+    # typically 3e-7.
+    GRAD_TOL = 1e-4
+    grad_err = {"K2": 0.0, "K3": 0.0, "K6": 0.0}       # share of the scale
+    grad_abs_err = {"K2": 0.0, "K3": 0.0, "K6": 0.0}
+
+    def check_grads(name, got, want, mode, keys=None):
+        """Every key of ``got`` against ``want``; returns the errors by key."""
+        if keys is not None:
+            assert set(got) == set(keys), (name, sorted(got), sorted(keys))
+        errs = {}
+        for key, value in got.items():
+            a, b = value.double(), want[key].double()
+            assert a.shape == b.shape, (name, key, a.shape, b.shape)
+            if not bool(torch.isfinite(a).all()):
+                raise RuntimeError(f"{name} {key}: non-finite values")
+            scale = max(float(b.abs().max()), 1e-30)
+            abs_err = float((a - b).abs().max())
+            errs[key] = abs_err / scale
+            if mode is not None:
+                grad_err[mode] = max(grad_err[mode], errs[key])
+                grad_abs_err[mode] = max(grad_abs_err[mode], abs_err)
+                if errs[key] > GRAD_TOL:
+                    raise RuntimeError(f"{name} {key}: kernel and plain replay differ by "
+                                       f"{errs[key]:.3e} of the gradient's scale {scale:.3e}")
+        return errs
+
+    def cotangent(height, width, seed):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return torch.randn((height, width, 3), generator=gen, device=dev) * 1e-3
+
+    transfer_keys = ("factor_emission", "factor_absorption", "factor_reflection", "color",
+                     "light_colors")
+    grads_compare = {}
+    for name, mode, kw, offset, reuse, with_f64 in (
+            ("K3_absorption_aliased", "K1", dict(ab_aliased=True), 0.0, False, True),
+            ("K3_absorption_separate_stereo_0.25_image_reuse", "K1", dict(ab_aliased=False),
+             0.25, True, False),
+            ("K6_one_light_reflection_separate", "K4", dict(ab_aliased=False), 0.0, False, True),
+            ("K6_two_lights_reflection_aliased_image_reuse", "K4",
+             dict(n_lights=2, re_aliased=True), 0.0, True, False)):
+        scene = flagship(COMPARE["volume"], mode, noise=0.05, **kw)
+        opts = scene.options(COMPARE["width"], COMPARE["height"])
+        g = cotangent(COMPARE["height"], COMPARE["width"], seed=len(grads_compare))
+        img0 = render_forward_fast(scene, opts, offset) if reuse else None
+        img, got = voxel_grads_fast(scene, opts, g, offset, image=img0)
+        _, got_transfer = transfer_grads_fast(scene, opts, g, offset, image=img)
+        torch.cuda.synchronize()
+        assert img0 is None or img is img0
+        want = replay_backward(scene, opts, g, img, offset, angle_floor=True)
+        bmode = grad_mode(scene, scatter=True)
+        entry = {"mode": bmode,
+                 "err_of_scale": check_grads(name, got, want, bmode, keys=want.keys()),
+                 "K2_err_of_scale": check_grads(
+                     name + " K2", got_transfer, want, "K2",
+                     keys=[k for k in want if k in transfer_keys])}
+        if with_f64:
+            # which side of the comparison the order-free sums are closer to
+            ref64 = replay_backward(scene, opts, g, img, offset, angle_floor=True,
+                                    accum_dtype=torch.float64)
+            entry["kernel_vs_float64_sums"] = check_grads(name, got, ref64, None)
+            entry["plain_vs_float64_sums"] = check_grads(name, want, ref64, None)
+        grads_compare[name] = entry
+        del scene, got, want
+    record({"phase": "grads_vs_plain", "volume": COMPARE["volume"],
+            "image": [COMPARE["width"], COMPARE["height"]], "volume_noise": 0.05,
+            "tolerance_of_scale": GRAD_TOL, "max_err_of_scale": dict(grad_err),
+            "cases": grads_compare})
+
+    # ---- 5. the main path: VolumeRenderer.render() at 256^3 / 512^2 -----
     def facade(mode):
         em = shell(MAIN["volume"]).cpu().numpy()
         r = VolumeRenderer()
@@ -279,7 +414,111 @@ def main() -> None:
     record({"phase": "main_path", "entry": "VolumeRenderer.render", "volume": MAIN["volume"],
             "image": MAIN["image"], **main})
 
-    # ---- 5. timing at 256^3 / 512^2 and 512^3 / 1024^2 -------------------
+    # ---- 6. the training main path at 256^3 / 512^2 ---------------------
+    # Adam's rates. Lit, the loss feels the emission grid through the
+    # normals (differences of neighbouring voxels, about 0.01 here) and the
+    # sharp LUT: its emission gradient is 1e5 times the unlit one, and steps
+    # of 2e-5 per voxel already scramble the normals and raise the loss.
+    TRAIN_STEPS, BAND = 3, 64
+    TRAIN_LR = {"K3": 2e-3, "K6": 2e-6, "K2": 1e-2}
+    size = MAIN["image"]
+
+    def timed(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def band_check(name, scene, opts, g, img, scatter):
+        """The kernel on the whole image, with g zero outside a 64-row band,
+        against the plain replay of that band alone."""
+        band0 = (opts.height - BAND) // 2
+        g_band = torch.zeros_like(g)
+        g_band[band0:band0 + BAND] = g[band0:band0 + BAND]
+        entry = voxel_grads_fast if scatter else transfer_grads_fast
+        _, got = entry(scene, opts, g_band, image=img)
+        torch.cuda.synchronize()
+        want, plain_ms = timed(lambda: replay_backward(
+            scene, opts, g[band0:band0 + BAND].contiguous(), img[band0:band0 + BAND].contiguous(),
+            y_offset=band0, n_rows=BAND, angle_floor=True))
+        mode = grad_mode(scene, scatter)
+        return {"mode": mode, "band_rows": BAND, "plain_ms": plain_ms,
+                "err_of_scale": check_grads(name, got, want, mode)}
+
+    def transfer_scene(scene, params):
+        return scene.replace(settings=dataclasses.replace(scene.settings, **params))
+
+    def transfer_step(params, optimizer, scene, opts, target):
+        """One step of a transfer-function fit: the grids stay fixed."""
+        with torch.no_grad():
+            merged = transfer_scene(scene, params)
+            img = render_forward_fast(merged, opts)
+            resid = img - target
+            _, grads = transfer_grads_fast(merged, opts, 2.0 * resid, image=img)
+            for key, p in params.items():
+                p.grad = grads[key]
+        optimizer.step()
+        return torch.sum(resid ** 2)
+
+    train_scenes = {"K3": flagship(MAIN["volume"], "K1", ab_aliased=False, noise=0.05),
+                    "K6": flagship(MAIN["volume"], "K4", ab_aliased=False, noise=0.05)}
+    runs, first_step, plain_band_ms = {}, {}, {}
+    for mode, scene in train_scenes.items():
+        opts = scene.options(size, size)
+        target = render_forward_fast(scene, opts)
+        params, static_scene = train.split_params(scene)
+        with torch.no_grad():
+            params["emission"].mul_(1.3).add_(0.05)
+        optimizer = torch.optim.Adam(list(params.values()), lr=TRAIN_LR[mode])
+        merged = train.merge_params(params, static_scene)
+        img = render_forward_fast(merged, opts)
+        first_step[mode] = band_check(f"first step {mode}", merged, opts, 2.0 * (img - target),
+                                      img, scatter=True)
+        plain_band_ms[mode] = first_step[mode]["plain_ms"]
+        runs[mode] = (lambda p=params, o=optimizer, sc=static_scene, op=opts, t=target:
+                      train.train_step_fast(p, o, sc, op, t))
+    # the transfer fit: the unlit scene's factors and color, the grids fixed
+    scene = train_scenes["K3"]
+    opts = scene.options(size, size)
+    target = render_forward_fast(scene, opts)
+    tparams = {"factor_emission": scene.settings.factor_emission * 1.3,
+               "factor_absorption": scene.settings.factor_absorption * 1.3,
+               "color": scene.settings.color * 0.8}
+    tparams = {k: v.detach().clone().requires_grad_(True) for k, v in tparams.items()}
+    toptimizer = torch.optim.Adam(list(tparams.values()), lr=TRAIN_LR["K2"])
+    merged = transfer_scene(scene, tparams)
+    img = render_forward_fast(merged, opts)
+    first_step["K2"] = band_check("first step K2", merged, opts, 2.0 * (img - target), img,
+                                  scatter=False)
+    plain_band_ms["K2"] = first_step["K2"]["plain_ms"]
+    runs["K2"] = lambda: transfer_step(tparams, toptimizer, scene, opts, target)
+    del merged, img
+
+    torch.cuda.synchronize()
+    cuda_march.reset_launch_counts()
+    losses = {mode: [float(step()) for _ in range(TRAIN_STEPS)] for mode, step in runs.items()}
+    torch.cuda.synchronize()
+    train_launches = dict(cuda_march.LAUNCHES_BY_MODE)
+    for mode, values in losses.items():
+        if train_launches[mode] < TRAIN_STEPS:
+            raise RuntimeError(f"the training path launched {mode} {train_launches[mode]} times")
+        if not (all(np.isfinite(values)) and all(b < a for a, b in zip(values, values[1:]))):
+            raise RuntimeError(f"the {mode} loss did not fall: {values}")
+    if train_launches["K1"] < 2 * TRAIN_STEPS or train_launches["K4"] < TRAIN_STEPS:
+        raise RuntimeError(f"the training path skipped a forward kernel: {train_launches}")
+    record({"phase": "train_main_path",
+            "entry": {"K3": "train.train_step_fast (unlit)", "K6": "train.train_step_fast (lit)",
+                      "K2": "transfer_grads_fast fit"},
+            "volume": MAIN["volume"], "image": size, "steps": TRAIN_STEPS, "optimizer": "Adam",
+            "lr": TRAIN_LR, "volume_noise": 0.05,
+            "launches": train_launches, "losses": losses, "first_step_vs_plain_band": first_step,
+            "tolerance_of_scale": GRAD_TOL})
+    del runs, train_scenes, params, optimizer, static_scene, target, tparams, toptimizer
+    torch.cuda.empty_cache()
+
+    # ---- 7. timing at 256^3 / 512^2 and 512^3 / 1024^2 -------------------
     def volume_bytes(scene, mode):
         vols = [scene.emission.data]
         if not scene.absorption_aliased:
@@ -292,7 +531,7 @@ def main() -> None:
                 vols += [scene.gradient_x.data, scene.gradient_y.data, scene.gradient_z.data]
         return sum(v.numel() * 4 for v in vols)
 
-    def time_cell(scene, size, band_rows=None, reps=7):
+    def time_cell(scene, size, band_rows=None, reps=5):
         mode = kernel_mode(scene)
         opts = scene.options(size, size)
         steps = torch.zeros((size, size), dtype=torch.int32, device=dev)
@@ -331,16 +570,89 @@ def main() -> None:
                 "nonzero_frac": float((img.amax(-1) > 0).float().mean())}
 
     cells = {}
-    for cfg, modes, band, reps in ((MAIN, ("K1", "K4", "K5"), None, 7),
-                                   (BIG, ("K1", "K4"), BIG["band"], 5)):
+    for cfg, modes, band in ((MAIN, ("K1", "K4", "K5"), None),
+                             (BIG, ("K1", "K4"), BIG["band"])):
         for mode in modes:
             key = f"{mode}_{cfg['volume']}_{cfg['image']}"
             scene = flagship(cfg["volume"], mode, ab_aliased=False)
-            cells[key] = time_cell(scene, cfg["image"], band_rows=band, reps=reps)
+            cells[key] = time_cell(scene, cfg["image"], band_rows=band)
             record({"phase": "timing", "cell": key, "volume": cfg["volume"], **cells[key]})
             del scene
             if DEVICE == "cuda":
                 torch.cuda.empty_cache()
+
+    # ---- forward + backward at 256^3 / 512^2 and 512^3 / 1024^2 ---------
+    def median_ms(fn, reps=5):
+        fn()  # warm
+        torch.cuda.synchronize()
+        times = [timed(fn)[1] for _ in range(reps)]
+        return float(np.median(times)), times
+
+    def time_train_cell(scene, size, scatter, plain=None):
+        """The first training step's state (emission x 1.3 + 0.05 against a
+        target of the true scene): the backward kernel alone, the forward +
+        backward pair and, with grids, the whole train_step_fast."""
+        mode, fmode = grad_mode(scene, scatter), kernel_mode(scene)
+        opts = scene.options(size, size)
+        entry = voxel_grads_fast if scatter else transfer_grads_fast
+        with torch.no_grad():
+            target = render_forward_fast(scene, opts)
+            params, static_scene = train.split_params(scene)
+            params["emission"].mul_(1.3).add_(0.05)
+            merged = train.merge_params(params, static_scene)
+            steps = torch.zeros((size, size), dtype=torch.int32, device=dev)
+            img = render_forward_fast(merged, opts, steps=steps)
+            g = 2.0 * (img - target)
+            if plain is None:
+                plain = band_check(f"timing cell {mode} {size}", merged, opts, g, img, scatter)
+            bwd_ms, bwd_all = median_ms(
+                lambda: march_backward(merged, opts, g, img, scatter=scatter))
+
+            def fwd_bwd():
+                image = render_forward_fast(merged, opts)
+                return entry(merged, opts, 2.0 * (image - target), image=image)
+
+            pair_ms, pair_all = median_ms(fwd_bwd)
+        out = {"mode": mode, "forward_mode": fmode, "image": size, "ms": bwd_ms,
+               "ms_all": bwd_all, "fwd_bwd_ms": pair_ms, "fwd_bwd_ms_all": pair_all}
+        if scatter:
+            optimizer = torch.optim.Adam(list(params.values()), lr=TRAIN_LR[mode])
+            out["train_step_ms"], out["train_step_ms_all"] = median_ms(
+                lambda: train.train_step_fast(params, optimizer, static_scene, opts, target))
+        lit = scene.has_lighting
+        n_lights = scene.light_positions.shape[0] if lit else 0
+        samples = int(steps.sum())
+        flops = samples * bwd_flops_per_step(lit, scatter, scene.absorption_aliased,
+                                             scene.reflection_aliased, n_lights)
+        # each volume read once, each gradient grid written once, g and the
+        # image read once, the per-ray planes written once
+        grids = 0
+        if scatter:
+            grids = scene.emission.data.numel() * 4 * (
+                1 + (not scene.absorption_aliased) + (lit and not scene.reflection_aliased))
+        nbytes = (volume_bytes(scene, fmode) + grids + 2 * size * size * 3 * 4
+                  + (3 + 3 * n_lights) * size * size * 4)
+        bound = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
+                 "operations": flops / PEAK_FP32_FLOPS * 1e3}
+        bound_by = max(bound, key=bound.get)
+        out.update({"samples": samples, "samples_per_ray": samples / (size * size),
+                    "flops": flops, "bytes": nbytes, "bound_ms": bound[bound_by],
+                    "bound_by": bound_by, "plain_ms": plain["plain_ms"],
+                    "plain_rows": plain["band_rows"],
+                    "plain_err_of_scale": plain["err_of_scale"]})
+        return out
+
+    for cfg, modes in ((MAIN, ("K3", "K6", "K2")), (BIG, ("K3",))):
+        for mode in modes:
+            key = f"{mode}_{cfg['volume']}_{cfg['image']}"
+            scene = flagship(cfg["volume"], "K4" if mode == "K6" else "K1", ab_aliased=False,
+                             noise=0.05)
+            # at 256^3 the band was held against the plain replay in phase 6
+            plain = first_step[mode] if cfg is MAIN else None
+            cells[key] = time_train_cell(scene, cfg["image"], scatter=mode != "K2", plain=plain)
+            record({"phase": "timing", "cell": key, "volume": cfg["volume"], **cells[key]})
+            del scene
+            torch.cuda.empty_cache()
 
     # ---- kernels line and the result ------------------------------------
     kernels = []
@@ -357,8 +669,23 @@ def main() -> None:
             "mode": what, "cell": f"{MAIN['volume']}^3 volume, {MAIN['image']}^2 image",
             "ms_big": cells.get(f"{mode}_{BIG['volume']}_{BIG['image']}", {}).get("ms"),
         })
+    for mode, what in (("K2", "transfer-parameter replay"), ("K3", "voxel-gradient scatter"),
+                       ("K6", "lit voxel-gradient scatter")):
+        cell = cells[f"{mode}_{MAIN['volume']}_{MAIN['image']}"]
+        kernels.append({
+            "name": f"march_bwd[{mode}]", "route": "cuda",
+            "source": "volume_renderer_tpu_torch/csrc/march_bwd.cu",
+            "replaces": "volume_renderer_tpu/ops/pallas_march.py:688",
+            "launches": train_launches[mode], "max_abs_err": grad_abs_err[mode],
+            "max_err_of_scale": grad_err[mode],
+            "ms": cell["ms"], "plain_ms": cell["plain_ms"], "plain_rows": cell["plain_rows"],
+            "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"], "library_ms": None,
+            "fwd_bwd_ms": cell["fwd_bwd_ms"], "mode": what,
+            "cell": f"{MAIN['volume']}^3 volume, {MAIN['image']}^2 image",
+            "ms_big": cells.get(f"{mode}_{BIG['volume']}_{BIG['image']}", {}).get("ms"),
+        })
     for name, cell in cells.items():
-        if not (cell["finite"] and cell["nonzero_frac"] > 0.05):
+        if "finite" in cell and not (cell["finite"] and cell["nonzero_frac"] > 0.05):
             raise RuntimeError(f"cell {name} rendered nothing useful: {cell}")
     record({"kernels": kernels})
     if args.out:

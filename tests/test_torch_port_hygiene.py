@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import os
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -19,6 +20,7 @@ from volume_renderer_tpu_torch import Volume, VolumeRenderer, henyey_greenstein_
 from volume_renderer_tpu_torch.models.camera import Camera
 from volume_renderer_tpu_torch.models.lights import LightSource, pack_lights
 from volume_renderer_tpu_torch.models.scene import RenderSettings
+from volume_renderer_tpu_torch.ops import _build
 
 PKG = Path(volume_renderer_tpu_torch.__file__).resolve().parent
 REPO = PKG.parent
@@ -26,6 +28,8 @@ REPO = PKG.parent
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, volume_renderer_tpu_torch, volume_renderer_tpu_torch.convert\n"
+            "import volume_renderer_tpu_torch.train, volume_renderer_tpu_torch.ops.vjp\n"
+            "import volume_renderer_tpu_torch.ops.cuda_grads\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
             " or m == 'volume_renderer_tpu' or m.startswith('volume_renderer_tpu.'))\n"
             "print(bad)\n")
@@ -56,3 +60,28 @@ def test_no_default_device_without_a_card(monkeypatch):
             call()
     assert Volume.create(data, device="cpu").data.device.type == "cpu"
     assert VolumeRenderer(device="cpu").device.type == "cpu"
+
+
+def test_edited_header_changes_every_library_path(tmp_path, monkeypatch):
+    """A library's name hashes its source, the flags and every header under
+    csrc/ it could include, so a stale library is never loaded."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    assert {p.stem for p in csrc.glob("*.cu")} == set(_build.SOURCES)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers, "the kernels share a header"
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    before = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert before == {name: _build.library_path(name) for name in _build.SOURCES}
+    assert len(set(before.values())) == len(before)
+
+    with open(headers[0], "a") as f:
+        f.write("\n// edited\n")
+    after_header = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert all(after_header[name] != before[name] for name in _build.SOURCES)
+
+    with open(csrc / "march_bwd.cu", "a") as f:
+        f.write("\n// edited\n")
+    after_source = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert after_source["march_bwd"] != after_header["march_bwd"]
+    assert after_source["march_fwd"] == after_header["march_fwd"]

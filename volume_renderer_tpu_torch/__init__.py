@@ -5,7 +5,10 @@ float32 tensors with an explicit device; the entry points run on the CUDA
 card unless the caller passes ``device="cpu"``, and raise when there is no
 card and no device was named. The forward march is one hand-written CUDA
 kernel for Hopper (``csrc/march_fwd.cu``) behind ``render_forward_fast``;
-``render_forward`` is its plain PyTorch version.
+``render_forward`` is its plain PyTorch version. The backward march is a
+second kernel (``csrc/march_bwd.cu``) behind ``voxel_grads_fast`` and
+``transfer_grads_fast``; ``ops.vjp.replay_backward`` is its plain version
+and the backward of ``render_fused``. ``train`` holds the training steps.
 """
 
 from volume_renderer_tpu_torch.models.volume import Volume
@@ -20,8 +23,11 @@ from volume_renderer_tpu_torch.models.scene import (
 from volume_renderer_tpu_torch.ops.hg import henyey_greenstein_lut
 from volume_renderer_tpu_torch.ops.forward import render_forward
 from volume_renderer_tpu_torch.ops.cuda_march import render_forward_fast
+from volume_renderer_tpu_torch.ops.cuda_grads import transfer_grads_fast, voxel_grads_fast
+from volume_renderer_tpu_torch.ops.vjp import merge_scene, render_fused, split_scene
+from volume_renderer_tpu_torch import train
 from volume_renderer_tpu_torch.api.renderer import StereoRenderMode, VolumeRenderer
-from volume_renderer_tpu_torch.convert import scene_from_arrays
+from volume_renderer_tpu_torch.convert import params_from_arrays, scene_from_arrays
 
 __all__ = [
     "Volume",
@@ -35,7 +41,14 @@ __all__ = [
     "henyey_greenstein_lut",
     "render_forward",
     "render_forward_fast",
+    "render_fused",
+    "split_scene",
+    "merge_scene",
+    "voxel_grads_fast",
+    "transfer_grads_fast",
+    "train",
     "VolumeRenderer",
     "StereoRenderMode",
     "scene_from_arrays",
+    "params_from_arrays",
 ]

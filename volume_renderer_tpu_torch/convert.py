@@ -1,10 +1,11 @@
-"""Builds a port ``Scene`` from plain arrays.
+"""Builds a port ``Scene``, and its training parameters, from plain arrays.
 
 ``scene_from_arrays`` takes the leaves of a scene as numpy arrays or
 numbers: the volumes, the illumination LUT, the lights, the camera and the
 render settings. It is how a scene of the JAX package is carried across
 (fill the dict with ``np.asarray`` of each leaf there); the port itself
-never sees an object of the JAX package.
+never sees an object of the JAX package. ``params_from_arrays`` does the
+same for the parameter dict of a training step.
 """
 
 from __future__ import annotations
@@ -64,3 +65,21 @@ def scene_from_arrays(arrays: Dict[str, ArrayLike], device: DeviceLike = None) -
                            distance_to_object=float(get("distance_to_object") or 0.0),
                            device=dev)
     return Scene(camera=camera, settings=settings, **vols, **tensors)
+
+
+PARAM_KEYS = ("emission", "absorption", "factor_emission", "factor_absorption",
+              "factor_reflection", "color")
+
+
+def params_from_arrays(arrays: Dict[str, ArrayLike], device: DeviceLike = None
+                       ) -> Dict[str, torch.Tensor]:
+    """The parameter dict of ``train.split_params`` from numpy: float32 leaf
+    tensors on ``device`` that require grad. Keys: ``emission``, the three
+    factors, ``color`` and, unless aliased, ``absorption``."""
+    dev = resolve_device(device)
+    unknown = set(arrays) - set(PARAM_KEYS)
+    missing = set(PARAM_KEYS) - {"absorption"} - set(arrays)
+    if unknown or missing:
+        raise KeyError(f"parameter keys: unknown {sorted(unknown)}, missing {sorted(missing)}")
+    return {k: torch.tensor(np.asarray(v, np.float32), device=dev).requires_grad_(True)
+            for k, v in arrays.items()}

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface under ``build/kernels/`` at the repository root.
-The file name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded. Nothing is built or
+The file name carries a hash of the source, of every header under ``csrc/``
+that it could include (``*.cuh``) and of the flags, so an edited source or
+header is rebuilt and a stale library is never loaded. Nothing is built or
 imported when this module is imported: the CPU tests import every module,
 and the CPU has no ``nvcc``.
 """
@@ -23,7 +24,7 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 
 # every kernel source of the port
-SOURCES = ("march_fwd",)
+SOURCES = ("march_fwd", "march_bwd")
 
 # -fmad=false: no contraction of a*b + c into one fused multiply-add, so
 # the kernel rounds where its plain version does. Where the normal of a
@@ -47,9 +48,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:

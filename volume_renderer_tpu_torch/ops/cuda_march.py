@@ -1,5 +1,7 @@
 """The forward march kernel's wrapper (port of the forward modes of
-``volume_renderer_tpu.ops.pallas_march.render_forward_fast``).
+``volume_renderer_tpu.ops.pallas_march.render_forward_fast``), and what it
+shares with the backward kernel's wrapper (``ops/cuda_grads.py``): the
+launch counts and the argument struct.
 
 ``render_forward_fast`` renders through ``csrc/march_fwd.cu`` when the
 scene's tensors lie on a CUDA device: one launch per render, for unlit
@@ -13,7 +15,7 @@ raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,9 +24,10 @@ from volume_renderer_tpu_torch.models.scene import RenderOptions, Scene
 from volume_renderer_tpu_torch.ops import _build
 from volume_renderer_tpu_torch.ops.forward import render_rows
 
-# launches of the kernel since the last reset, in all and by mode
+# launches of the kernels since the last reset, in all and by mode: the
+# forward march (K1, K4, K5) and the backward march (K2, K3, K6)
 LAUNCHES = 0
-LAUNCHES_BY_MODE: Dict[str, int] = {"K1": 0, "K4": 0, "K5": 0}
+LAUNCHES_BY_MODE: Dict[str, int] = {"K1": 0, "K4": 0, "K5": 0, "K2": 0, "K3": 0, "K6": 0}
 
 _MODE_IDS = {"K1": 0, "K4": 1, "K5": 2}
 
@@ -36,13 +39,20 @@ def reset_launch_counts() -> None:
         LAUNCHES_BY_MODE[k] = 0
 
 
+def count_launch(mode: str) -> None:
+    """One more launch of ``mode``; called where a kernel was launched."""
+    global LAUNCHES
+    LAUNCHES += 1
+    LAUNCHES_BY_MODE[mode] += 1
+
+
 class _Vol(ctypes.Structure):
     _fields_ = [("data", ctypes.c_void_p), ("d", ctypes.c_int), ("h", ctypes.c_int),
                 ("w", ctypes.c_int)]
 
 
 class _MarchArgs(ctypes.Structure):
-    """Mirror of ``MarchArgs`` in csrc/march_fwd.cu."""
+    """Mirror of ``MarchArgs`` in csrc/march_common.cuh."""
 
     _fields_ = [
         *((role, _Vol) for role in ("em", "ab", "re", "gx", "gy", "gz", "lut")),
@@ -78,7 +88,7 @@ def _library() -> ctypes.CDLL:
         lib.vr_cuda_error_string.argtypes = [ctypes.c_int]
         lib.vr_cuda_error_string.restype = ctypes.c_char_p
         if lib.vr_march_args_size() != ctypes.sizeof(_MarchArgs):
-            raise RuntimeError("MarchArgs in csrc/march_fwd.cu and its ctypes mirror differ")
+            raise RuntimeError("MarchArgs in csrc/march_common.cuh and its ctypes mirror differ")
         lib._vr_typed = True
     return lib
 
@@ -115,23 +125,14 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
-def render_forward_fast(scene: Scene, opts: RenderOptions, camera_x_offset: float = 0.0,
-                        steps: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Forward render, (H, W, 3) float32 on the scene's device.
-
-    On CUDA one launch of the march kernel; on the CPU the plain version.
-    If ``steps`` (int32, (H, W), on the scene's device) is given, it
-    receives each ray's number of composited samples.
+def march_args(scene: Scene, opts: RenderOptions, camera_x_offset: float,
+               lookup: bool) -> Tuple[_MarchArgs, torch.Tensor]:
+    """The kernels' arguments for a CUDA ``scene`` (``out`` and ``steps``
+    left null), checked, and the settings tensor that they point into: keep
+    it until the launch is enqueued. ``lookup``: also the gradient volumes.
     """
-    global LAUNCHES
     dev = scene.device
-    if dev.type == "cpu":
-        return render_rows(scene, opts, camera_x_offset, 0, opts.height, steps=steps)
-    if dev.type != "cuda":
-        raise ValueError(f"render_forward_fast takes CPU or CUDA scenes, not {dev.type}")
-
-    mode = kernel_mode(scene)
-    lit = mode != "K1"
+    lit = scene.has_lighting
     s = scene.settings
     settings = torch.stack([
         _checked(s.factor_emission, "factor_emission", dev, 0),
@@ -146,12 +147,6 @@ def render_forward_fast(scene: Scene, opts: RenderOptions, camera_x_offset: floa
     if rotation.shape != (3, 3):
         raise ValueError(f"camera.rotation must be (3, 3), got {tuple(rotation.shape)}")
 
-    out = torch.empty((opts.height, opts.width, 3), dtype=torch.float32, device=dev)
-    if steps is not None:
-        if (steps.dtype != torch.int32 or steps.device != dev or not steps.is_contiguous()
-                or tuple(steps.shape) != (opts.height, opts.width)):
-            raise ValueError("steps must be a contiguous int32 (H, W) tensor on the scene's device")
-
     args = _MarchArgs()
     args.em = _vol(scene.emission.data, "emission", dev)
     args.ab = _vol(None if scene.absorption_aliased else scene.absorption.data, "absorption", dev)
@@ -160,7 +155,7 @@ def render_forward_fast(scene: Scene, opts: RenderOptions, camera_x_offset: floa
         if not scene.reflection_aliased:
             args.re = _vol(scene.reflection.data, "reflection", dev)
         args.lut = _vol(scene.illumination, "illumination", dev)
-        if mode == "K5":
+        if lookup:
             args.gx = _vol(scene.gradient_x.data, "gradient_x", dev)
             args.gy = _vol(scene.gradient_y.data, "gradient_y", dev)
             args.gz = _vol(scene.gradient_z.data, "gradient_z", dev)
@@ -172,8 +167,6 @@ def render_forward_fast(scene: Scene, opts: RenderOptions, camera_x_offset: floa
         args.n_lights = light_pos.shape[0]
     args.rotation = rotation.data_ptr()
     args.settings = settings.data_ptr()
-    args.out = out.data_ptr()
-    args.steps = None if steps is None else steps.data_ptr()
     args.width, args.height, args.n_steps = opts.width, opts.height, opts.n_steps
     args.ratio = _f32(np.float32(opts.height) / np.float32(opts.width))
     args.cam_off = _f32(camera_x_offset)
@@ -185,6 +178,33 @@ def render_forward_fast(scene: Scene, opts: RenderOptions, camera_x_offset: floa
         args.boxmax[i] = _f32(opts.boxmax[i])
         args.boxscale[i] = _f32(1.0 / (opts.boxmax[i] - opts.boxmin[i]))
         args.gstep[i] = _f32(opts.gradient_step[i])
+    return args, settings
+
+
+def render_forward_fast(scene: Scene, opts: RenderOptions, camera_x_offset: float = 0.0,
+                        steps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Forward render, (H, W, 3) float32 on the scene's device.
+
+    On CUDA one launch of the march kernel; on the CPU the plain version.
+    If ``steps`` (int32, (H, W), on the scene's device) is given, it
+    receives each ray's number of composited samples.
+    """
+    dev = scene.device
+    if dev.type == "cpu":
+        return render_rows(scene, opts, camera_x_offset, 0, opts.height, steps=steps)
+    if dev.type != "cuda":
+        raise ValueError(f"render_forward_fast takes CPU or CUDA scenes, not {dev.type}")
+
+    mode = kernel_mode(scene)
+    # settings stays referenced until the launch is enqueued
+    args, settings = march_args(scene, opts, camera_x_offset, lookup=mode == "K5")
+    out = torch.empty((opts.height, opts.width, 3), dtype=torch.float32, device=dev)
+    if steps is not None:
+        if (steps.dtype != torch.int32 or steps.device != dev or not steps.is_contiguous()
+                or tuple(steps.shape) != (opts.height, opts.width)):
+            raise ValueError("steps must be a contiguous int32 (H, W) tensor on the scene's device")
+    args.out = out.data_ptr()
+    args.steps = None if steps is None else steps.data_ptr()
 
     lib = _library()
     with torch.cuda.device(dev):
@@ -194,7 +214,5 @@ def render_forward_fast(scene: Scene, opts: RenderOptions, camera_x_offset: floa
                                ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"march_fwd launch failed: {lib.vr_cuda_error_string(err).decode()}")
-    LAUNCHES += 1
-    LAUNCHES_BY_MODE[mode] += 1
+    count_launch(mode)
     return out
-

@@ -1,5 +1,5 @@
 """Batched forward ray-march in plain PyTorch (port of
-``volume_renderer_tpu.ops.forward``, non-differentiable variant).
+``volume_renderer_tpu.ops.forward``).
 
 All rays advance together in lock-step; per-ray early termination (opacity
 threshold / box exit) is an active mask, and the march stops once every
@@ -10,6 +10,12 @@ This is the plain version of the march kernel (``ops/cuda_march.py``):
 the same per-ray arithmetic, with positions and t advanced by repeated
 accumulation (``pos += step``, ``t += tstep``). It runs on any device and
 is the CPU path of ``render_forward_fast``.
+
+``differentiable=True`` runs the fixed trip count ``opts.n_steps`` with the
+same masks and the same values; the march updates nothing of the graph in
+place, so plain ``torch.autograd`` goes through it. It keeps every step's
+tensors alive for the backward: it is the gradient oracle of the replay
+backward (``ops/vjp.py``), for small scenes only.
 """
 
 from __future__ import annotations
@@ -61,11 +67,13 @@ def render_rows(
     y_offset: int,
     n_rows: int,
     steps: Optional[torch.Tensor] = None,
+    differentiable: bool = False,
 ) -> torch.Tensor:
     """March a band of ``n_rows`` image rows starting at ``y_offset``.
 
     Returns (n_rows, W, 3). If ``steps`` (int32, (n_rows, W)) is given, it
-    receives each ray's number of composited samples.
+    receives each ray's number of composited samples. ``differentiable``:
+    the fixed trip count, for ``torch.autograd`` (see the module docstring).
     """
     consts, origin, pos, step, t, tfar, active = _init_rays(
         scene, opts, camera_x_offset, y_offset, n_rows
@@ -76,7 +84,7 @@ def render_rows(
     count = torch.zeros_like(t, dtype=torch.int32)
 
     i = 0
-    while i < opts.n_steps and bool(active.any()):
+    while i < opts.n_steps and (differentiable or bool(active.any())):
         shaded_rgb, alpha = core.march_step(scene, consts, pos, origin, samplers)
         new_rgb, new_w = core.composite_under(sum_rgb, sum_w, shaded_rgb, alpha)
         sum_rgb = F3(torch.where(active, new_rgb.x, sum_rgb.x),
@@ -95,6 +103,8 @@ def render_rows(
     return torch.stack([c.reshape(n_rows, opts.width) for c in sum_rgb], dim=-1)
 
 
-def render_forward(scene: Scene, opts: RenderOptions, camera_x_offset: float = 0.0) -> torch.Tensor:
+def render_forward(scene: Scene, opts: RenderOptions, camera_x_offset: float = 0.0,
+                   differentiable: bool = False) -> torch.Tensor:
     """Batched forward render on the scene's device. Returns (H, W, 3) float32."""
-    return render_rows(scene, opts, camera_x_offset, 0, opts.height)
+    return render_rows(scene, opts, camera_x_offset, 0, opts.height,
+                       differentiable=differentiable)

@@ -1,5 +1,4 @@
-"""Per-step ray-march math (port of ``volume_renderer_tpu.ops.raymarch_core``,
-forward only).
+"""Per-step ray-march math (port of ``volume_renderer_tpu.ops.raymarch_core``).
 
 Per step at world position ``pos`` (reference volumeRender_kernel.cu:435-493):
 
@@ -27,6 +26,12 @@ Gradients with |g|^2 <= GRAD_EPS2 clamp to the zero normal, and ``angle``
 takes pi/2 for near-zero-length inputs: deterministic where the reference
 shades with rounding noise. ``csrc/march_fwd.cu`` repeats this arithmetic
 per ray in the same order.
+
+A step is split into ``gather_taps`` (the texture fetches) and
+``step_from_taps`` (closed-form math on the fetched values and the
+``StepParams``). Plain ``torch.autograd`` goes through both; the replay
+backward (``ops/vjp.py``) writes the adjoint of ``step_from_taps`` out by
+hand and scatters the tap cotangents itself.
 """
 
 from __future__ import annotations
@@ -119,15 +124,30 @@ def make_consts(scene: Scene, opts: RenderOptions) -> MarchConsts:
     )
 
 
+# angle(): where |ratio| >= 1 - ANGLE_POLE_EPS the angle's gradient is zero
+ANGLE_POLE_EPS = 1e-6
+
+
 def angle(a: F3, b: F3) -> torch.Tensor:
     """acos of the normalized dot product, guarded against zero-length
-    inputs (angle pi/2) and rounding outside [-1, 1]."""
+    inputs (angle pi/2) and rounding outside [-1, 1].
+
+    Safe under autograd: acos' is infinite at the poles and rsqrt' at zero
+    length, and a zero cotangent times either is NaN. So near the poles the
+    angle keeps its value and takes gradient zero, and the ratio is built
+    from squared lengths with every branch guarded by the same predicate.
+    """
     d2 = dot(a, a) * dot(b, b)
     safe_d = d2 > float(ANGLE_DENOM_EPS * ANGLE_DENOM_EPS)
     ratio = torch.where(
         safe_d, dot(a, b) * torch.rsqrt(torch.where(safe_d, d2, 1.0)), 0.0
     )
-    return torch.arccos(torch.clamp(ratio, -1.0, 1.0))
+    ratio = torch.clamp(ratio, -1.0, 1.0)
+    if not ratio.requires_grad:
+        return torch.arccos(ratio)
+    safe = torch.abs(ratio) < 1.0 - ANGLE_POLE_EPS
+    return torch.where(safe, torch.arccos(torch.where(safe, ratio, 0.0)),
+                       torch.arccos(ratio.detach()))
 
 
 def to_sample_coords(pos: F3, consts: MarchConsts) -> F3:
@@ -144,6 +164,26 @@ class Taps(NamedTuple):
     grad_taps: Optional[Tuple[torch.Tensor, ...]]
     # lighting only: on-the-fly mode -> 6 emission taps (xp, xm, yp, ym,
     # zp, zm); lookup mode -> 3 gradient-volume taps (gx, gy, gz)
+
+
+class StepParams(NamedTuple):
+    """The differentiable per-step parameters (subset of the settings)."""
+
+    factor_emission: torch.Tensor
+    factor_absorption: torch.Tensor
+    factor_reflection: torch.Tensor
+    color: F3
+    light_colors: Optional[torch.Tensor]  # (L, 3)
+
+
+def params_of(scene: Scene, consts: MarchConsts) -> StepParams:
+    return StepParams(
+        factor_emission=consts.factor_emission,
+        factor_absorption=consts.factor_absorption,
+        factor_reflection=consts.factor_reflection,
+        color=consts.color,
+        light_colors=scene.light_colors if scene.has_lighting else None,
+    )
 
 
 def otf_tap_positions(pos: F3, consts: MarchConsts) -> Tuple[F3, ...]:
@@ -176,30 +216,42 @@ def gather_taps(scene: Scene, consts: MarchConsts, pos: F3, samplers: Samplers) 
     return Taps(em=em, ab=ab, re=re, grad_taps=grad_taps)
 
 
-def shade_from_taps(scene: Scene, consts: MarchConsts, taps: Taps, pos: F3,
-                    eye_origin: F3, samplers: Samplers) -> Optional[F3]:
-    """Illumination sum over all light sources; None if lighting is off."""
+def tap_gradient(scene: Scene, taps: Taps) -> F3:
+    """The emission gradient from the step's gradient taps."""
+    if scene.has_gradient_volumes:
+        return F3(*taps.grad_taps)
+    xp, xm, yp, ym, zp, zm = taps.grad_taps
+    return F3((xp - xm) * 0.5, (yp - ym) * 0.5, (zp - zm) * 0.5)
+
+
+def normal_inv_len(grad: F3) -> torch.Tensor:
+    """1 / |grad|, or 0 where |grad|^2 <= GRAD_EPS2 (the zero normal). Both
+    selects use the same predicate, so no infinite rsqrt' reaches autograd."""
+    g2 = dot(grad, grad)
+    keep = g2 > float(GRAD_EPS2)
+    return torch.where(keep, torch.rsqrt(torch.where(keep, g2, 1.0)), 0.0)
+
+
+def shade_from_taps(scene: Scene, consts: MarchConsts, params: StepParams, taps: Taps,
+                    pos: F3, eye_origin: F3, samplers: Samplers) -> Optional[F3]:
+    """Illumination sum over all light sources; None if lighting is off.
+
+    Differentiable in ``taps`` and ``params``; the LUT is a constant, but
+    its angle coordinates carry gradient back to the normal and the taps.
+    """
     if not scene.has_lighting:
         return None
 
-    if scene.has_gradient_volumes:
-        grad = F3(*taps.grad_taps)
-    else:
-        xp, xm, yp, ym, zp, zm = taps.grad_taps
-        grad = F3((xp - xm) * 0.5, (yp - ym) * 0.5, (zp - zm) * 0.5)
-
     # negative normalized gradient approximates the surface normal; noise-
     # level gradients clamp to the zero normal
-    g2 = dot(grad, grad)
-    keep = g2 > float(GRAD_EPS2)
-    inv_len = torch.where(keep, torch.rsqrt(torch.where(keep, g2, 1.0)), 0.0)
-    surface_normal = grad * (-inv_len)
+    grad = tap_gradient(scene, taps)
+    surface_normal = grad * (-normal_inv_len(grad))
 
-    reflection = consts.factor_reflection * taps.re
-    color = consts.color
+    reflection = params.factor_reflection * taps.re
+    color = params.color
 
     result = None
-    for lp, lc in zip(scene.light_positions, scene.light_colors):
+    for lp, lc in zip(scene.light_positions, params.light_colors):
         light_out = F3(lp[0] - pos.x, lp[1] - pos.y, lp[2] - pos.z)
         light_in = eye_origin - pos
 
@@ -216,23 +268,30 @@ def shade_from_taps(scene: Scene, consts: MarchConsts, taps: Taps, pos: F3,
     return result
 
 
-def march_step(scene: Scene, consts: MarchConsts, pos: F3, eye_origin: F3,
-               samplers: Samplers) -> Tuple[F3, torch.Tensor]:
-    """One march step: returns (premultiplied rgb, alpha) at ``pos``."""
-    taps = gather_taps(scene, consts, pos, samplers)
-    emission = consts.factor_emission * taps.em
-    absorption = consts.factor_absorption * taps.ab
+def step_from_taps(scene: Scene, consts: MarchConsts, params: StepParams, taps: Taps,
+                   pos: F3, eye_origin: F3, samplers: Samplers) -> Tuple[F3, torch.Tensor]:
+    """Closed-form step math from fetched taps: (premultiplied rgb, alpha)."""
+    emission = params.factor_emission * taps.em
+    absorption = params.factor_absorption * taps.ab
 
     alpha = 1.0 - torch.exp(-absorption * consts.tstep)
 
     ds = consts.tstep
-    color = consts.color
+    color = params.color
     illuminated = F3(emission * ds * color.x, emission * ds * color.y, emission * ds * color.z)
-    illumination = shade_from_taps(scene, consts, taps, pos, eye_origin, samplers)
+    illumination = shade_from_taps(scene, consts, params, taps, pos, eye_origin, samplers)
     if illumination is not None:
         illuminated = illuminated + illumination
 
     return illuminated * alpha, alpha
+
+
+def march_step(scene: Scene, consts: MarchConsts, pos: F3, eye_origin: F3,
+               samplers: Samplers) -> Tuple[F3, torch.Tensor]:
+    """One march step: returns (premultiplied rgb, alpha) at ``pos``."""
+    taps = gather_taps(scene, consts, pos, samplers)
+    return step_from_taps(scene, consts, params_of(scene, consts), taps, pos, eye_origin,
+                          samplers)
 
 
 def composite_under(sum_rgb: F3, sum_w: torch.Tensor, shaded_rgb: F3,

@@ -47,26 +47,30 @@ def trilinear_setup(shape_dhw: Tuple[int, int, int], coords: F3):
     return (F3(ix0, iy0, iz0), F3(ix1, iy1, iz1), ux - fx0, uy - fy0, uz - fz0)
 
 
-def sample_trilinear(volume: torch.Tensor, coords: F3) -> torch.Tensor:
-    """Trilinear sample of ``volume`` (D, H, W) at normalized coords (x, y, z)."""
+def corner_indices(shape_dhw: Tuple[int, int, int], i0: F3, i1: F3) -> Tuple[torch.Tensor, ...]:
+    """Flat indices of the 8 corners, in the order c000, c100, c010, c110,
+    c001, c101, c011, c111 (the digits are the x, y, z corner)."""
+    _, h, w = shape_dhw
+    stride_y = w
+    stride_z = w * h
+    return tuple(ix + iy * stride_y + iz * stride_z
+                 for iz in (i0.z, i1.z) for iy in (i0.y, i1.y) for ix in (i0.x, i1.x))
+
+
+def sample_trilinear(volume: torch.Tensor, coords: F3, with_grad: bool = False):
+    """Trilinear sample of ``volume`` (D, H, W) at normalized coords (x, y, z).
+
+    ``with_grad=True`` returns (value, d/dx, d/dy, d/dz): the derivatives
+    with respect to the coordinates, from the same corner fetches (the lerp
+    differences times the axis length, since u = c * N - 0.5). A clamped
+    corner pair is one texel twice, so the derivative vanishes at an edge.
+    """
     d, h, w = volume.shape
     i0, i1, fx, fy, fz = trilinear_setup((d, h, w), coords)
 
     flat = volume.reshape(-1)
-    stride_y = w
-    stride_z = w * h
-
-    def fetch(ix, iy, iz):
-        return flat[ix + iy * stride_y + iz * stride_z]
-
-    c000 = fetch(i0.x, i0.y, i0.z)
-    c100 = fetch(i1.x, i0.y, i0.z)
-    c010 = fetch(i0.x, i1.y, i0.z)
-    c110 = fetch(i1.x, i1.y, i0.z)
-    c001 = fetch(i0.x, i0.y, i1.z)
-    c101 = fetch(i1.x, i0.y, i1.z)
-    c011 = fetch(i0.x, i1.y, i1.z)
-    c111 = fetch(i1.x, i1.y, i1.z)
+    c000, c100, c010, c110, c001, c101, c011, c111 = (
+        flat[i] for i in corner_indices((d, h, w), i0, i1))
 
     # blend x, then y, then z (the GPU filtering order)
     c00 = c000 + fx * (c100 - c000)
@@ -77,4 +81,13 @@ def sample_trilinear(volume: torch.Tensor, coords: F3) -> torch.Tensor:
     c0 = c00 + fy * (c10 - c00)
     c1 = c01 + fy * (c11 - c01)
 
-    return c0 + fz * (c1 - c0)
+    value = c0 + fz * (c1 - c0)
+    if not with_grad:
+        return value
+    dx0 = (c100 - c000) + fy * ((c110 - c010) - (c100 - c000))
+    dx1 = (c101 - c001) + fy * ((c111 - c011) - (c101 - c001))
+    d_dx = (dx0 + fz * (dx1 - dx0)) * float(w)
+    dy0, dy1 = c10 - c00, c11 - c01
+    d_dy = (dy0 + fz * (dy1 - dy0)) * float(h)
+    d_dz = (c1 - c0) * float(d)
+    return value, d_dx, d_dy, d_dz
