@@ -35,6 +35,28 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             alone and the whole training step for K3, K6 and K2 at
             256^3 / 512^2 and K3 at 512^3 / 1024^2, with the bound.
 
+8. bricks_vs_plain: the z-brick kernels (K7) at 128^3 / 256x192, 4 bricks:
+            each launch form on every brick (phase 1 opacity, phase 2
+            contribution and exit opacity, the gradient segment's padded
+            grids and parameter sums) against its plain pass
+            (ops/brick_march.py) on the same inputs, for cameras whose rays
+            rise in z, fall in z and do both; the bricked image against the
+            single-device kernel's; a lit scene, which the fast entry points
+            must refuse and the plain bricked render must get right.
+9. bricks_main_path: at 256^3 / 512^2 on the noisy K3 scene, the launch
+            forms against their plain passes on a 64-row band; then, counted
+            like phase 5, render_forward_bricked_fast with 4 and 8 bricks,
+            also on a dense scene with opacity threshold 0.3 (rays die
+            mid-volume), one voxel_grads_bricked_fast call and three Adam
+            steps of train_step_fast_bricked. Expected launches: 2 a brick
+            and render, 3 a brick and gradient call or step. Images and
+            first-step gradients are held against the single-device kernels,
+            and the loss must fall.
+10. bricks_timing: with 4 bricks, each launch form over all bricks, the
+            bricked forward, forward + backward and training step (CUDA
+            events, warm, median of 5) beside the single-device kernels on
+            the same scene, with the samples each phase took and the bound.
+
 Then the kernels line and, last, {"ok": true, "device": {...}}. It needs
 the repository around it and a CUDA card; it imports nothing of JAX.
 """
@@ -107,6 +129,22 @@ def bwd_flops_per_step(lit: bool, scatter: bool, ab_aliased: bool, re_aliased: b
     return ops
 
 
+# float32 operations of csrc/brick_common.cuh and brick_fwd.cu per composited
+# sample: the walk (to_sample, owner, owner and opacity tests, t, tfar test,
+# position) is 17, alpha 4, the opacity update 3, the shaded composite 16.
+_BRICK_WALK = _COORDS + 4 + 2 + 1 + 1 + 3
+
+
+def brick_flops_per_sample(form: str, ab_aliased: bool) -> int:
+    """form: transmittance (phase 1), segment (phase 2) or scatter."""
+    if form == "transmittance":
+        return _BRICK_WALK + _FETCH + 4 + 3
+    if form == "segment":
+        return _BRICK_WALK + _FETCH + (0 if ab_aliased else _FETCH) + 4 + 3 + 16
+    # the single-device backward step plus the owner (mul, floor, 2 clamps, test)
+    return bwd_flops_per_step(False, True, ab_aliased, True, 0) + 5
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -126,12 +164,14 @@ def main() -> None:
         Camera, LightSource, RenderSettings, Scene, StereoRenderMode, Volume, VolumeRenderer,
         henyey_greenstein_lut)
     from volume_renderer_tpu_torch import train
-    from volume_renderer_tpu_torch.ops import _build, cuda_march
+    from volume_renderer_tpu_torch.ops import _build, brick_march, cuda_bricks, cuda_march
     from volume_renderer_tpu_torch.ops.cuda_grads import (
         grad_mode, march_backward, transfer_grads_fast, voxel_grads_fast)
     from volume_renderer_tpu_torch.ops.cuda_march import kernel_mode, render_forward_fast
     from volume_renderer_tpu_torch.ops.forward import render_forward, render_rows
     from volume_renderer_tpu_torch.ops.vjp import replay_backward
+    from volume_renderer_tpu_torch.parallel import bricks
+    from volume_renderer_tpu_torch.parallel.mesh import make_mesh
 
     lines = []
 
@@ -654,6 +694,308 @@ def main() -> None:
             del scene
             torch.cuda.empty_cache()
 
+
+    # ---- 8. the z-brick kernels vs their plain passes at 128^3 / 256x192 --
+    BRICKS = 4
+    K7_FORMS = ("transmittance", "segment", "scatter")
+    brick_err = {form: 0.0 for form in K7_FORMS}  # max abs error against the plain pass
+    brick_grad_err = [0.0]                        # share of the gradient's scale
+
+    def brick_scene(n, rot, ab_aliased=False, factor_absorption=0.6, opacity_threshold=0.95):
+        """The noisy unlit flagship scene under another camera and settings."""
+        scene = flagship(n, "K1", ab_aliased=ab_aliased, noise=0.05)
+        return scene.replace(
+            camera=Camera.create(focal_length=3.0, distance_to_object=6.0).rotate(*rot),
+            settings=RenderSettings.create(factor_emission=1.0, factor_reflection=0.4,
+                                           factor_absorption=factor_absorption,
+                                           color=(1.0, 0.9, 0.8),
+                                           opacity_threshold=opacity_threshold))
+
+    def image_tolerance(name, got, want):
+        """A bricked image against the single-device kernel's. The entry
+        opacity 1 - prod T equals the sequential recurrence only to
+        rounding, so a ray that stops within an ulp of the threshold may
+        take one sample more or less. A sample adds about alpha / threshold
+        of its pixel, 5e-3 / 0.3 on the dense scene: allowed are 2e-2 of the
+        image's largest value (measured 3.9e-3 there), on fewer than 1e-3 of
+        the values; everywhere else 1e-5 of it."""
+        assert got.shape == want.shape and bool(torch.isfinite(got).all()), name
+        scale = float(want.abs().max())
+        diff = (got - want).abs()
+        err, off = float(diff.max()), float((diff > 1e-5 * scale).float().mean())
+        if err > 2e-2 * scale or off > 1e-3:
+            raise RuntimeError(f"{name}: bricked and single-device images differ by {err:.3e} "
+                               f"(scale {scale:.3e}), {off:.2e} of the values beyond 1e-5")
+        return {"max_abs_err": err, "scale": scale, "share_beyond_1e-5_of_scale": off}
+
+    def bricks_compare(name, scene, opts, g, band=None):
+        """Every K7 launch form on every brick, on the whole image, against
+        its plain pass on the same inputs; the plain passes march the whole
+        image or, with ``band``, that many rows through the middle (g is
+        then zero outside them)."""
+        y0, rows = (0, opts.height) if band is None else ((opts.height - band) // 2, band)
+        if band is not None:
+            g_band = torch.zeros_like(g)
+            g_band[y0:y0 + rows] = g[y0:y0 + rows]
+            g = g_band
+
+        def cut(t):
+            return t[y0:y0 + rows].contiguous()
+
+        split = bricks.split_bricks(scene, make_mesh(BRICKS))
+        fwd = bricks._forward(split, opts, 0.0, fast=True)
+        up_dots = bricks._upstream([brick_march.own_dot(g, own) for own in fwd.own],
+                                   fwd.ascending, torch.cumsum, 0.0)
+        errs = {form: 0.0 for form in K7_FORMS}
+        plain_ms = {form: 0.0 for form in K7_FORMS}
+        got_grads, want_grads = [], []
+        for brick, w_in, up in zip(split.bricks, fwd.w_in, up_dots):
+            w_in, up = w_in.contiguous(), up.contiguous()
+            w_own = cuda_bricks.brick_transmittance(brick, opts)
+            own, w_out = cuda_bricks.brick_segment(brick, opts, 0.0, w_in)
+            got_grads.append(cuda_bricks.brick_gradients(brick, opts, 0.0, g, fwd.image, w_in, up))
+            torch.cuda.synchronize()
+            band_kw = dict(y_offset=y0, n_rows=rows)
+            p_own, ms = timed(lambda: brick_march.transmittance_pass(brick, opts, 0.0, **band_kw))
+            plain_ms["transmittance"] += ms
+            (p_contrib, p_out), ms = timed(lambda: brick_march.shaded_pass(
+                brick, opts, 0.0, cut(w_in), **band_kw))
+            plain_ms["segment"] += ms
+            want, ms = timed(lambda: brick_march.replay_pass(
+                brick, opts, 0.0, cut(g), cut(fwd.image), cut(w_in), cut(up), angle_floor=True,
+                **band_kw))
+            plain_ms["scatter"] += ms
+            want_grads.append(want)
+            tag = f"{name} brick {brick.index}"
+            errs["transmittance"] = max(errs["transmittance"], check(
+                f"{tag} phase 1 opacity", cut(w_own), p_own, *tol["K1"], None))
+            errs["segment"] = max(
+                errs["segment"],
+                check(f"{tag} phase 2 contribution", cut(own), p_contrib, *tol["K1"], None),
+                check(f"{tag} phase 2 exit opacity", cut(w_out), p_out, *tol["K1"], None))
+        # the gradient segment: each key as a share of its largest magnitude
+        # over the bricks (kernel and plain pass differ in the order of sums)
+        grad_errs = {}
+        for key in want_grads[0]:
+            scale = max(max(float(w[key].abs().max()) for w in want_grads), 1e-30)
+            for got, want in zip(got_grads, want_grads):
+                assert got[key].shape == want[key].shape, (name, key)
+                if not bool(torch.isfinite(got[key]).all()):
+                    raise RuntimeError(f"{name} {key}: non-finite values")
+                abs_err = float((got[key].double() - want[key].double()).abs().max())
+                grad_errs[key] = max(grad_errs.get(key, 0.0), abs_err / scale)
+                errs["scatter"] = max(errs["scatter"], abs_err)
+            if grad_errs[key] > GRAD_TOL:
+                raise RuntimeError(f"{name} {key}: brick kernel and plain pass differ by "
+                                   f"{grad_errs[key]:.3e} of the gradient's scale {scale:.3e}")
+        assert set(got_grads[0]) == set(want_grads[0]), (name, sorted(got_grads[0]))
+        for form in K7_FORMS:
+            brick_err[form] = max(brick_err[form], errs[form])
+        brick_grad_err[0] = max(brick_grad_err[0], max(grad_errs.values()))
+        return {"ascending_share": float(fwd.ascending.float().mean()),
+                "max_abs_err": errs, "grad_err_of_scale": grad_errs, "plain_ms": plain_ms,
+                "plain_rows": rows, "image": fwd.image}
+
+    bricks_cases = {}
+    for i, (name, rot, ab_aliased) in enumerate((
+            ("dz_positive", (10, 5, 0), False), ("dz_negative_aliased", (180, 20, 0), True),
+            ("dz_mixed", (88, 0, 0), False))):
+        scene = brick_scene(COMPARE["volume"], rot, ab_aliased)
+        opts = scene.options(COMPARE["width"], COMPARE["height"])
+        entry = bricks_compare(name, scene, opts,
+                               cotangent(COMPARE["height"], COMPARE["width"], seed=10 + i))
+        image = entry.pop("image")
+        entry["vs_single_device_kernel"] = image_tolerance(
+            name, image, render_forward_fast(scene, opts))
+        entry["nonzero_frac"] = float((image.amax(-1) > 0).float().mean())
+        bricks_cases[name] = entry
+        del scene
+    signs = [c["ascending_share"] for c in bricks_cases.values()]
+    if not (signs[0] == 1.0 and signs[1] == 0.0 and 0.05 < signs[2] < 0.95):
+        raise RuntimeError(f"the cameras do not cover rising, falling and mixed rays: {signs}")
+
+    # a lit scene: refused by the fast entry points, rendered by the plain path
+    lit_scene = flagship(64, "K4", ab_aliased=False)
+    lit_opts = lit_scene.options(96, 64)
+    refused = []
+    for call in (lambda: bricks.render_forward_bricked_fast(lit_scene, lit_opts,
+                                                            mesh=make_mesh(BRICKS)),
+                 lambda: bricks.voxel_grads_bricked_fast(lit_scene, lit_opts,
+                                                         cotangent(64, 96, seed=20),
+                                                         mesh=make_mesh(BRICKS))):
+        try:
+            call()
+        except NotImplementedError as exc:
+            refused.append(str(exc))
+    if len(refused) != 2:
+        raise RuntimeError("a fast brick entry point took a lit scene")
+    lit_err = check("lit plain bricked render",
+                    bricks.render_forward_bricked(lit_scene, lit_opts, mesh=make_mesh(BRICKS)),
+                    render_forward_fast(lit_scene, lit_opts), *tol["K4"], None)
+    record({"phase": "bricks_vs_plain", "volume": COMPARE["volume"],
+            "image": [COMPARE["width"], COMPARE["height"]], "bricks": BRICKS, "volume_noise": 0.05,
+            "tolerance": {"atol": tol["K1"][0], "rtol": tol["K1"][1],
+                          "gradients_of_scale": GRAD_TOL},
+            "cases": bricks_cases,
+            "lit": {"refused_by_fast_entry_points": True,
+                    "plain_bricked_vs_K4_kernel_max_abs_err": lit_err, "volume": 64,
+                    "image": [96, 64]}})
+    del lit_scene
+
+    # ---- 9. the z-brick main path at 256^3 / 512^2 ------------------------
+    scene = brick_scene(MAIN["volume"], (125, 25, 0))      # the noisy K3 scene
+    dense = brick_scene(MAIN["volume"], (125, 25, 0), factor_absorption=4.0,
+                        opacity_threshold=0.3)
+    opts = scene.options(size, size)
+    single = render_forward_fast(scene, opts)
+    single_dense_steps = torch.zeros((size, size), dtype=torch.int32, device=dev)
+    single_dense = render_forward_fast(dense, opts, steps=single_dense_steps)
+    splits = {n: bricks.split_bricks(scene, make_mesh(n)) for n in (BRICKS, 2 * BRICKS)}
+    dense_splits = {n: bricks.split_bricks(dense, make_mesh(n)) for n in (BRICKS, 2 * BRICKS)}
+    # the first training step's state, whole and cut
+    params, static_scene = train.split_params(scene)
+    bparams, bstatic = bricks.split_params_bricked(scene, make_mesh(BRICKS))
+    with torch.no_grad():
+        params["emission"].mul_(1.3).add_(0.05)
+        for p in bparams["emission"]:
+            p.mul_(1.3).add_(0.05)
+    with torch.no_grad():
+        merged = train.merge_params(params, static_scene)
+        img0 = render_forward_fast(merged, opts)
+        g0 = 2.0 * (img0 - single)
+        _, want_grads = voxel_grads_fast(merged, opts, g0, image=img0)
+        main_compare = bricks_compare("main shapes", merged, opts, g0, band=BAND)
+        main_compare.pop("image")
+    boptimizer = torch.optim.Adam(bricks.param_leaves(bparams), lr=TRAIN_LR["K3"])
+    bmerged = bricks.merge_params_bricked(bparams, bstatic)
+
+    torch.cuda.synchronize()
+    cuda_march.reset_launch_counts()
+    brick_images = {n: bricks.render_forward_bricked_fast(split, opts)
+                    for n, split in splits.items()}
+    dense_images = {n: bricks.render_forward_bricked_fast(split, opts)
+                    for n, split in dense_splits.items()}
+    render_launches = dict(cuda_march.LAUNCHES_BY_MODE)
+    img_b, got_grads = bricks.voxel_grads_bricked_fast(bmerged, opts, g0)
+    grads_launches = dict(cuda_march.LAUNCHES_BY_MODE)
+    brick_losses = [
+        float(bricks.train_step_fast_bricked(bparams, boptimizer, bstatic, opts, single))
+        for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    brick_launches = {form: cuda_march.LAUNCHES_BY_MODE[f"K7_{form}"] for form in K7_FORMS}
+    other = {k: v for k, v in cuda_march.LAUNCHES_BY_MODE.items() if not k.startswith("K7") and v}
+    renders = 2 * (BRICKS + 2 * BRICKS)
+    expected = {"transmittance": renders + BRICKS + TRAIN_STEPS * BRICKS,
+                "segment": renders + BRICKS + TRAIN_STEPS * BRICKS,
+                "scatter": BRICKS + TRAIN_STEPS * BRICKS}
+    if (brick_launches != expected or other
+            or render_launches["K7_transmittance"] != renders
+            or render_launches["K7_segment"] != renders or render_launches["K7_scatter"] != 0
+            or grads_launches["K7_scatter"] != BRICKS):
+        raise RuntimeError(f"the brick main path launched {brick_launches} (others {other}), "
+                           f"expected {expected}")
+    if not (all(np.isfinite(brick_losses))
+            and all(b < a for a, b in zip(brick_losses, brick_losses[1:]))):
+        raise RuntimeError(f"the bricked loss did not fall: {brick_losses}")
+    main_images = {f"{n}_bricks": image_tolerance(f"main path {n} bricks", img, single)
+                   for n, img in brick_images.items()}
+    for n, img in dense_images.items():
+        main_images[f"dense_threshold_0.3_{n}_bricks"] = image_tolerance(
+            f"main path dense {n} bricks", img, single_dense)
+    main_images["dense_threshold_0.3_samples_per_ray"] = (
+        float(single_dense_steps.sum()) / (size * size))
+    main_images["first_step"] = image_tolerance("main path first step", img_b, img0)
+    first_step_errs = check_grads(
+        "bricked first step", {k: bricks.assemble(v) if isinstance(v, list) else v
+                               for k, v in got_grads.items()}, want_grads, None,
+        keys=want_grads.keys())
+    if max(first_step_errs.values()) > GRAD_TOL:
+        raise RuntimeError(f"bricked and single-device gradients differ: {first_step_errs}")
+    record({"phase": "bricks_main_path",
+            "entry": ["render_forward_bricked_fast", "voxel_grads_bricked_fast",
+                      "train_step_fast_bricked"],
+            "volume": MAIN["volume"], "image": size, "bricks": [BRICKS, 2 * BRICKS],
+            "volume_noise": 0.05, "launches": brick_launches, "expected_launches": expected,
+            "vs_single_device_kernel": main_images,
+            "first_step_grads_vs_voxel_grads_fast_of_scale": first_step_errs,
+            "tolerance_of_scale": GRAD_TOL, "steps": TRAIN_STEPS, "optimizer": "Adam",
+            "lr": TRAIN_LR["K3"], "losses": brick_losses,
+            "kernels_vs_plain_band": main_compare})
+    del splits, dense_splits, dense, brick_images, dense_images, single_dense, bmerged, got_grads
+    del want_grads, img_b
+    torch.cuda.empty_cache()
+
+    # ---- 10. timing the z-brick path with 4 bricks at 256^3 / 512^2 -------
+    with torch.no_grad():
+        for key, value in bparams.items():  # both sides time the same state
+            params[key].copy_(bricks.assemble(value) if isinstance(value, list) else value)
+        split = bricks.merge_params_bricked(bparams, bstatic)
+        merged = train.merge_params(params, static_scene)
+        fwd = bricks._forward(split, opts, 0.0, fast=True)
+        g = 2.0 * (fwd.image - single)
+        up_dots = [u.contiguous() for u in bricks._upstream(
+            [brick_march.own_dot(g, own) for own in fwd.own], fwd.ascending, torch.cumsum, 0.0)]
+        w_ins = [w.contiguous() for w in fwd.w_in]
+        samples = {"transmittance": 0, "segment": 0}
+        for brick, w_in in zip(split.bricks, w_ins):
+            steps = torch.zeros((size, size), dtype=torch.int32, device=dev)
+            cuda_bricks.brick_transmittance(brick, opts, steps=steps)
+            samples["transmittance"] += int(steps.sum())
+            cuda_bricks.brick_segment(brick, opts, 0.0, w_in, steps=steps)
+            samples["segment"] += int(steps.sum())
+        samples["scatter"] = samples["segment"]  # g is nonzero on every ray that marches
+        single_steps = torch.zeros((size, size), dtype=torch.int32, device=dev)
+        render_forward_fast(merged, opts, steps=single_steps)
+        form_ms = {
+            "transmittance": median_ms(lambda: [cuda_bricks.brick_transmittance(b, opts)
+                                                for b in split.bricks]),
+            "segment": median_ms(lambda: [cuda_bricks.brick_segment(b, opts, 0.0, w)
+                                          for b, w in zip(split.bricks, w_ins)]),
+            "scatter": median_ms(lambda: [
+                cuda_bricks.brick_gradients(b, opts, 0.0, g, fwd.image, w, u)
+                for b, w, u in zip(split.bricks, w_ins, up_dots)]),
+        }
+        path_ms = {
+            "bricked_forward": median_ms(lambda: bricks.render_forward_bricked_fast(split, opts)),
+            "bricked_fwd_bwd": median_ms(lambda: bricks.voxel_grads_bricked_fast(split, opts, g)),
+            "single_forward_K1": median_ms(lambda: render_forward_fast(merged, opts)),
+            "single_fwd_bwd_K1_K3": median_ms(lambda: voxel_grads_fast(merged, opts, g)),
+        }
+    path_ms["bricked_train_step"] = median_ms(lambda: bricks.train_step_fast_bricked(
+        bparams, boptimizer, bstatic, opts, single))
+    optimizer = torch.optim.Adam(list(params.values()), lr=TRAIN_LR["K3"])
+    path_ms["single_train_step"] = median_ms(lambda: train.train_step_fast(
+        params, optimizer, static_scene, opts, single))
+    pixels = size * size * 4
+    grid_bytes = {"em": sum(b.scene.emission.data.numel() * 4 for b in split.bricks),
+                  "ab": sum(b.scene.absorption.data.numel() * 4 for b in split.bricks)}
+    # each brick reads its padded grids once and its per-ray planes once, and
+    # writes its own outputs once
+    form_bytes = {
+        "transmittance": grid_bytes["ab"] + BRICKS * pixels,
+        "segment": grid_bytes["em"] + grid_bytes["ab"] + BRICKS * pixels * (1 + 3 + 1),
+        "scatter": (2 * (grid_bytes["em"] + grid_bytes["ab"])
+                    + BRICKS * pixels * (3 + 3 + 1 + 1 + 2)),
+    }
+    brick_cells = {}
+    for form in K7_FORMS:
+        flops = samples[form] * brick_flops_per_sample(form, ab_aliased=False)
+        bound = {"bytes": form_bytes[form] / PEAK_BYTES_PER_S * 1e3,
+                 "operations": flops / PEAK_FP32_FLOPS * 1e3}
+        bound_by = max(bound, key=bound.get)
+        brick_cells[form] = {
+            "ms": form_ms[form][0], "ms_all": form_ms[form][1], "launches_timed": BRICKS,
+            "samples": samples[form], "flops": flops, "bytes": form_bytes[form],
+            "bound_ms": bound[bound_by], "bound_by": bound_by,
+            "plain_ms": main_compare["plain_ms"][form], "plain_rows": main_compare["plain_rows"]}
+    record({"phase": "bricks_timing", "volume": MAIN["volume"], "image": size, "bricks": BRICKS,
+            "single_device_samples": int(single_steps.sum()),
+            "forms": brick_cells,
+            "paths_ms": {k: v[0] for k, v in path_ms.items()},
+            "paths_ms_all": {k: v[1] for k, v in path_ms.items()}})
+    del split, merged, fwd, params, bparams, bstatic, static_scene, optimizer, boptimizer
+    torch.cuda.empty_cache()
+
     # ---- kernels line and the result ------------------------------------
     kernels = []
     for mode, what in (("K1", "unlit"), ("K4", "lit, on-the-fly gradients"),
@@ -683,6 +1025,23 @@ def main() -> None:
             "fwd_bwd_ms": cell["fwd_bwd_ms"], "mode": what,
             "cell": f"{MAIN['volume']}^3 volume, {MAIN['image']}^2 image",
             "ms_big": cells.get(f"{mode}_{BIG['volume']}_{BIG['image']}", {}).get("ms"),
+        })
+    for form, source, what in (
+            ("transmittance", "brick_fwd", "z-brick phase 1: opacity of the brick's own samples"),
+            ("segment", "brick_fwd", "z-brick phase 2: shaded segment from the entry opacity"),
+            ("scatter", "brick_bwd", "z-brick gradient segment with the scatter")):
+        cell = brick_cells[form]
+        kernels.append({
+            "name": f"{source}[K7 {form}]", "route": "cuda",
+            "source": f"volume_renderer_tpu_torch/csrc/{source}.cu",
+            "replaces": "volume_renderer_tpu/ops/pallas_march.py:688",
+            "launches": brick_launches[form], "max_abs_err": brick_err[form],
+            **({"max_err_of_scale": brick_grad_err[0]} if form == "scatter" else {}),
+            "ms": cell["ms"], "plain_ms": cell["plain_ms"], "plain_rows": cell["plain_rows"],
+            "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"], "library_ms": None,
+            "mode": what,
+            "cell": f"{MAIN['volume']}^3 volume, {MAIN['image']}^2 image, {BRICKS} bricks "
+                    f"(ms over all bricks)",
         })
     for name, cell in cells.items():
         if "finite" in cell and not (cell["finite"] and cell["nonzero_frac"] > 0.05):

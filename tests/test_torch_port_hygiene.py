@@ -20,7 +20,7 @@ from volume_renderer_tpu_torch import Volume, VolumeRenderer, henyey_greenstein_
 from volume_renderer_tpu_torch.models.camera import Camera
 from volume_renderer_tpu_torch.models.lights import LightSource, pack_lights
 from volume_renderer_tpu_torch.models.scene import RenderSettings
-from volume_renderer_tpu_torch.ops import _build
+from volume_renderer_tpu_torch.ops import _build, cuda_bricks, cuda_grads, cuda_march
 
 PKG = Path(volume_renderer_tpu_torch.__file__).resolve().parent
 REPO = PKG.parent
@@ -30,6 +30,10 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, volume_renderer_tpu_torch, volume_renderer_tpu_torch.convert\n"
             "import volume_renderer_tpu_torch.train, volume_renderer_tpu_torch.ops.vjp\n"
             "import volume_renderer_tpu_torch.ops.cuda_grads\n"
+            "import volume_renderer_tpu_torch.ops.brick_march\n"
+            "import volume_renderer_tpu_torch.ops.cuda_bricks\n"
+            "import volume_renderer_tpu_torch.parallel.mesh\n"
+            "import volume_renderer_tpu_torch.parallel.bricks\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
             " or m == 'volume_renderer_tpu' or m.startswith('volume_renderer_tpu.'))\n"
             "print(bad)\n")
@@ -85,3 +89,50 @@ def test_edited_header_changes_every_library_path(tmp_path, monkeypatch):
     after_source = {name: _build.library_path(name) for name in _build.SOURCES}
     assert after_source["march_bwd"] != after_header["march_bwd"]
     assert after_source["march_fwd"] == after_header["march_fwd"]
+
+
+def test_brick_sources_are_built_and_hashed(tmp_path, monkeypatch):
+    """The z-brick kernels are sources of the build like the others: an edit
+    of one renames its library and no other."""
+    assert {"brick_fwd", "brick_bwd"} <= set(_build.SOURCES)
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    assert (csrc / "brick_common.cuh").exists()
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    before = {name: _build.library_path(name) for name in _build.SOURCES}
+    with open(csrc / "brick_fwd.cu", "a") as f:
+        f.write("\n// edited\n")
+    after = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert after["brick_fwd"] != before["brick_fwd"]
+    assert all(after[name] == before[name] for name in _build.SOURCES if name != "brick_fwd")
+
+
+def struct_fields(source: Path, struct: str):
+    """The member names of ``struct`` in a CUDA source, in order."""
+    text = re.sub(r"//[^\n]*", "", source.read_text())
+    body = re.search(r"struct\s+%s\s*\{(.*?)\n\};" % struct, text, re.S).group(1)
+    names = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if not decl:
+            continue
+        first, *rest = decl.split(",")
+        for part in [first.split()[-1], *rest]:
+            names.append(re.sub(r"\[\d+\]", "", part).strip().lstrip("*"))
+    return names
+
+
+@pytest.mark.parametrize("source,struct,mirror", [
+    ("march_common.cuh", "Vol", cuda_march._Vol),
+    ("march_common.cuh", "MarchArgs", cuda_march._MarchArgs),
+    ("march_bwd.cu", "GradArgs", cuda_grads._GradArgs),
+    ("brick_common.cuh", "BrickArgs", cuda_bricks._BrickArgs),
+    ("brick_bwd.cu", "BrickGradArgs", cuda_bricks._BrickGradArgs),
+])
+def test_ctypes_mirrors_list_the_structs_fields(source, struct, mirror):
+    """A field added to a kernel's argument struct must appear in its ctypes
+    mirror, in the same place; the size check at load time would catch a
+    mismatch only on the card."""
+    want = struct_fields(_build.CSRC_DIR / source, struct)
+    assert len(want) >= 4
+    assert [name for name, _ in mirror._fields_] == want

@@ -9,6 +9,10 @@ kernel for Hopper (``csrc/march_fwd.cu``) behind ``render_forward_fast``;
 second kernel (``csrc/march_bwd.cu``) behind ``voxel_grads_fast`` and
 ``transfer_grads_fast``; ``ops.vjp.replay_backward`` is its plain version
 and the backward of ``render_fused``. ``train`` holds the training steps.
+``parallel.bricks`` cuts the volume along z into bricks over a list of
+devices (``parallel.mesh.make_mesh``), each marched by the brick kernels
+(``csrc/brick_fwd.cu``, ``csrc/brick_bwd.cu`` behind ``ops/cuda_bricks.py``;
+``ops/brick_march.py`` is their plain version).
 """
 
 from volume_renderer_tpu_torch.models.volume import Volume
@@ -26,6 +30,14 @@ from volume_renderer_tpu_torch.ops.cuda_march import render_forward_fast
 from volume_renderer_tpu_torch.ops.cuda_grads import transfer_grads_fast, voxel_grads_fast
 from volume_renderer_tpu_torch.ops.vjp import merge_scene, render_fused, split_scene
 from volume_renderer_tpu_torch import train
+from volume_renderer_tpu_torch.parallel.mesh import make_mesh
+from volume_renderer_tpu_torch.parallel.bricks import (
+    render_forward_bricked,
+    render_forward_bricked_fast,
+    render_fused_bricked,
+    train_step_fast_bricked,
+    voxel_grads_bricked_fast,
+)
 from volume_renderer_tpu_torch.api.renderer import StereoRenderMode, VolumeRenderer
 from volume_renderer_tpu_torch.convert import params_from_arrays, scene_from_arrays
 
@@ -47,6 +59,12 @@ __all__ = [
     "voxel_grads_fast",
     "transfer_grads_fast",
     "train",
+    "make_mesh",
+    "render_forward_bricked",
+    "render_forward_bricked_fast",
+    "render_fused_bricked",
+    "voxel_grads_bricked_fast",
+    "train_step_fast_bricked",
     "VolumeRenderer",
     "StereoRenderMode",
     "scene_from_arrays",

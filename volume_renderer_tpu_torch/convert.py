@@ -5,12 +5,13 @@ numbers: the volumes, the illumination LUT, the lights, the camera and the
 render settings. It is how a scene of the JAX package is carried across
 (fill the dict with ``np.asarray`` of each leaf there); the port itself
 never sees an object of the JAX package. ``params_from_arrays`` does the
-same for the parameter dict of a training step.
+same for the parameter dict of a training step, whole or, with ``mesh=``,
+cut into the per-brick leaves of the z-brick path.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -71,15 +72,37 @@ PARAM_KEYS = ("emission", "absorption", "factor_emission", "factor_absorption",
               "factor_reflection", "color")
 
 
-def params_from_arrays(arrays: Dict[str, ArrayLike], device: DeviceLike = None
-                       ) -> Dict[str, torch.Tensor]:
+def params_from_arrays(arrays: Dict[str, ArrayLike], device: DeviceLike = None,
+                       mesh: Optional[Sequence[torch.device]] = None):
     """The parameter dict of ``train.split_params`` from numpy: float32 leaf
     tensors on ``device`` that require grad. Keys: ``emission``, the three
-    factors, ``color`` and, unless aliased, ``absorption``."""
-    dev = resolve_device(device)
+    factors, ``color`` and, unless aliased, ``absorption``.
+
+    With ``mesh`` (a list of devices, one per brick) it is the dict of
+    ``parallel.bricks.split_params_bricked`` instead: the grids cut along z
+    into one leaf per brick, each on its device, the other leaves on
+    ``mesh[0]``; ``device`` is then not used."""
     unknown = set(arrays) - set(PARAM_KEYS)
     missing = set(PARAM_KEYS) - {"absorption"} - set(arrays)
     if unknown or missing:
         raise KeyError(f"parameter keys: unknown {sorted(unknown)}, missing {sorted(missing)}")
-    return {k: torch.tensor(np.asarray(v, np.float32), device=dev).requires_grad_(True)
-            for k, v in arrays.items()}
+
+    def leaf(value, dev):
+        return torch.tensor(np.asarray(value, np.float32), device=dev).requires_grad_(True)
+
+    if mesh is None:
+        dev = resolve_device(device)
+        return {k: leaf(v, dev) for k, v in arrays.items()}
+    mesh = [torch.device(d) for d in mesh]
+    params = {}
+    for key, value in arrays.items():
+        if key in ("emission", "absorption"):
+            value = np.asarray(value, np.float32)
+            if value.shape[0] % len(mesh) != 0:
+                raise ValueError(f"{key} depth {value.shape[0]} must be divisible by the "
+                                 f"brick mesh size {len(mesh)}")
+            params[key] = [leaf(part, dev)
+                           for part, dev in zip(np.split(value, len(mesh), axis=0), mesh)]
+        else:
+            params[key] = leaf(value, mesh[0])
+    return params

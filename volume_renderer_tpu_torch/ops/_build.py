@@ -24,7 +24,7 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 
 # every kernel source of the port
-SOURCES = ("march_fwd", "march_bwd")
+SOURCES = ("march_fwd", "march_bwd", "brick_fwd", "brick_bwd")
 
 # -fmad=false: no contraction of a*b + c into one fused multiply-add, so
 # the kernel rounds where its plain version does. Where the normal of a

@@ -125,23 +125,33 @@ def march_backward(scene: Scene, opts: RenderOptions, g: torch.Tensor, image: to
         raise RuntimeError(f"march_bwd launch failed: {lib.vr_cuda_error_string(err).decode()}")
     cuda_march.count_launch(grad_mode(scene, scatter))
 
-    # The per-ray planes close to the parameters' gradients here, where the
-    # raw colors are at hand. A cotangent of mixed sign makes these sums
-    # cancel, so they are taken in float64: the planes are small.
+    out = dict(grids)
+    if scatter and not scene.reflection_aliased and not lit:
+        out["reflection"] = torch.zeros_like(scene.reflection.data)
+    out.update(parameter_grads(scene, opts, g, planes))
+    return out
+
+
+def parameter_grads(scene: Scene, opts: RenderOptions, g: torch.Tensor,
+                    planes: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Closes a backward kernel's per-ray planes (E, F, rac, then 3 per
+    light; (2, H, W) with E and F alone for an unlit brick) to the
+    parameters' gradients, where the raw colors are at hand. A cotangent of
+    mixed sign makes these sums cancel, so they are taken in float64: the
+    planes are small."""
     with torch.no_grad():
         s = scene.settings
+        n_lights = max(planes.shape[0] - 3, 0) // 3
         ts = cuda_march._f32(opts.tstep)
         g_e = (g.double() * planes[0, :, :, None].double()).sum(dim=(0, 1))  # sum_rays g_c E
         sums = planes[1:].sum(dim=(1, 2), dtype=torch.float64)
         color = s.color.double()
-        out = dict(grids)
-        if scatter and not scene.reflection_aliased and not lit:
-            out["reflection"] = torch.zeros_like(scene.reflection.data)
+        out = {}
         out["factor_emission"] = ts * torch.dot(g_e, color)
         out["factor_absorption"] = sums[0]
-        out["factor_reflection"] = sums[1]
+        out["factor_reflection"] = sums[1] if sums.shape[0] > 1 else torch.zeros_like(sums[0])
         out["color"] = s.factor_emission.double() * ts * g_e
-        if lit:
+        if n_lights:
             p = sums[2:].reshape(n_lights, 3)
             out["light_colors"] = p * color
             out["color"] = out["color"] + (p * scene.light_colors.double()).sum(dim=0)

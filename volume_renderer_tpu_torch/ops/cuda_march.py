@@ -25,9 +25,13 @@ from volume_renderer_tpu_torch.ops import _build
 from volume_renderer_tpu_torch.ops.forward import render_rows
 
 # launches of the kernels since the last reset, in all and by mode: the
-# forward march (K1, K4, K5) and the backward march (K2, K3, K6)
+# forward march (K1, K4, K5), the backward march (K2, K3, K6) and the three
+# launch forms of the z-brick march (K7: phase 1 opacity, phase 2 shaded
+# segment, gradient segment; ops/cuda_bricks.py)
 LAUNCHES = 0
-LAUNCHES_BY_MODE: Dict[str, int] = {"K1": 0, "K4": 0, "K5": 0, "K2": 0, "K3": 0, "K6": 0}
+LAUNCHES_BY_MODE: Dict[str, int] = {
+    "K1": 0, "K4": 0, "K5": 0, "K2": 0, "K3": 0, "K6": 0,
+    "K7_transmittance": 0, "K7_segment": 0, "K7_scatter": 0}
 
 _MODE_IDS = {"K1": 0, "K4": 1, "K5": 2}
 

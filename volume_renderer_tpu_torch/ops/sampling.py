@@ -57,22 +57,12 @@ def corner_indices(shape_dhw: Tuple[int, int, int], i0: F3, i1: F3) -> Tuple[tor
                  for iz in (i0.z, i1.z) for iy in (i0.y, i1.y) for ix in (i0.x, i1.x))
 
 
-def sample_trilinear(volume: torch.Tensor, coords: F3, with_grad: bool = False):
-    """Trilinear sample of ``volume`` (D, H, W) at normalized coords (x, y, z).
+def _blend(flat: torch.Tensor, idx, fx, fy, fz, dims_dhw, with_grad: bool):
+    """Blends the 8 corner texels ``flat[idx]``: x, then y, then z (the GPU
+    filtering order); with the coordinate derivatives if asked."""
+    d, h, w = dims_dhw
+    c000, c100, c010, c110, c001, c101, c011, c111 = (flat[i] for i in idx)
 
-    ``with_grad=True`` returns (value, d/dx, d/dy, d/dz): the derivatives
-    with respect to the coordinates, from the same corner fetches (the lerp
-    differences times the axis length, since u = c * N - 0.5). A clamped
-    corner pair is one texel twice, so the derivative vanishes at an edge.
-    """
-    d, h, w = volume.shape
-    i0, i1, fx, fy, fz = trilinear_setup((d, h, w), coords)
-
-    flat = volume.reshape(-1)
-    c000, c100, c010, c110, c001, c101, c011, c111 = (
-        flat[i] for i in corner_indices((d, h, w), i0, i1))
-
-    # blend x, then y, then z (the GPU filtering order)
     c00 = c000 + fx * (c100 - c000)
     c10 = c010 + fx * (c110 - c010)
     c01 = c001 + fx * (c101 - c001)
@@ -91,3 +81,48 @@ def sample_trilinear(volume: torch.Tensor, coords: F3, with_grad: bool = False):
     d_dy = (dy0 + fz * (dy1 - dy0)) * float(h)
     d_dz = (c1 - c0) * float(d)
     return value, d_dx, d_dy, d_dz
+
+
+def sample_trilinear(volume: torch.Tensor, coords: F3, with_grad: bool = False):
+    """Trilinear sample of ``volume`` (D, H, W) at normalized coords (x, y, z).
+
+    ``with_grad=True`` returns (value, d/dx, d/dy, d/dz): the derivatives
+    with respect to the coordinates, from the same corner fetches (the lerp
+    differences times the axis length, since u = c * N - 0.5). A clamped
+    corner pair is one texel twice, so the derivative vanishes at an edge.
+    """
+    d, h, w = volume.shape
+    i0, i1, fx, fy, fz = trilinear_setup((d, h, w), coords)
+    idx = corner_indices((d, h, w), i0, i1)
+    return _blend(volume.reshape(-1), idx, fx, fy, fz, (d, h, w), with_grad)
+
+
+def zslab_corner_indices(slab_shape_dhw: Tuple[int, int, int], z_offset: int, full_d: int,
+                         coords: F3):
+    """Corner indices into a z-slab and the weights, for a fetch at GLOBAL
+    normalized coords: the z corners are clamped against the full depth
+    ``full_d`` first, exactly as ``trilinear_setup`` on the full volume
+    clamps them, then shifted by ``z_offset`` into the slab (and clamped to
+    it, so that no index leaves the slab whatever the coords).
+    Returns (flat indices in ``corner_indices`` order, fx, fy, fz).
+    """
+    slab_d, h, w = slab_shape_dhw
+    i0, i1, fx, fy, fz = trilinear_setup((full_d, h, w), coords)
+    z0 = torch.clamp(i0.z - int(z_offset), 0, slab_d - 1)
+    z1 = torch.clamp(i1.z - int(z_offset), 0, slab_d - 1)
+    idx = corner_indices((slab_d, h, w), F3(i0.x, i0.y, z0), F3(i1.x, i1.y, z1))
+    return idx, fx, fy, fz
+
+
+def sample_trilinear_zslab(slab: torch.Tensor, coords: F3, z_offset: int, full_d: int):
+    """Trilinear sample from a z-slab of a (full_d, H, W) volume.
+
+    ``slab`` holds rows [z_offset, z_offset + slab_d) of the full volume,
+    halo rows included. ``coords`` are global normalized coords; the values
+    equal ``sample_trilinear`` on the full array as long as every z row the
+    fetch touches lies inside the slab (the caller packs enough halo).
+    The sampling primitive of the z-brick path (``parallel/bricks.py``).
+    """
+    slab_d, h, w = slab.shape
+    idx, fx, fy, fz = zslab_corner_indices((slab_d, h, w), z_offset, full_d, coords)
+    return _blend(slab.reshape(-1), idx, fx, fy, fz, (full_d, h, w), False)
