@@ -6,17 +6,22 @@
 Phases, one JSON line each; any failure raises and exits nonzero:
 
 1. device:  the card, its power limit, and the build of every kernel
-            source (one nvcc each, started together), with the registers
-            and spills ptxas reports.
+            source (one nvcc each, started together), with the registers,
+            spills and resulting blocks an SM that ptxas reports for each
+            kernel instantiation. K4 and K6 must not spill.
 2. goldens: the five tests/goldens scenes through VolumeRenderer on the
             card, held against the committed images.
 3. kernel_vs_plain: the forward march kernel against its plain PyTorch
             version (ops/forward.py) on the card at 128^3 / 256x192, per
-            mode.
+            mode, and lit (K4) on an anisotropic (36, 24, 64) volume and
+            on a 48^3 one seen near an axis (taps on faces and edges). K4
+            must equal its plain version exactly, here and wherever else
+            it is compared.
 4. grads_vs_plain: the backward march kernel through voxel_grads_fast (K3
             unlit, K6 lit) and transfer_grads_fast (K2) against its plain
-            version (ops/vjp.py:replay_backward) at 128^3 / 256x192, every
-            gradient key, and both against the replay summed in float64.
+            version (ops/vjp.py:replay_backward) at 128^3 / 256x192 and on
+            the two scenes of phase 3, every gradient key, and both
+            against the replay summed in float64.
 5. main_path: VolumeRenderer.render() at 256^3 / 512^2 for the unlit (K1),
             lit on-the-fly (K4) and lit lookup (K5) flagship scenes, with
             the launch counts set to 0 just before and read just after;
@@ -35,6 +40,13 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             alone and the whole training step for K3, K6 and K2 at
             256^3 / 512^2 and K3 at 512^3 / 1024^2, with the bound.
 
+7b. parent_vs_new, only with --parent DIR: DIR holds another version of
+            the port's package (e.g. the parent commit's, unpacked with git
+            archive). K4 (256^3 / 512^2, 512^3 / 1024^2; the images must be
+            equal) and K6 (the backward alone, forward + backward, the
+            training step, 256^3 / 512^2) are timed in turns, each turn a
+            process of its own that builds and imports one version: DIR's,
+            the checkout's, the checkout's, DIR's, a median of 5 each.
 8. bricks_vs_plain: the z-brick kernels (K7) at 128^3 / 256x192, 4 bricks:
             each launch form on every brick (phase 1 opacity, phase 2
             contribution and exit opacity, the gradient segment's padded
@@ -65,6 +77,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -81,51 +94,80 @@ DEVICE = "cuda"
 COMPARE = dict(volume=128, width=256, height=192)
 MAIN = dict(volume=256, image=512)
 BIG = dict(volume=512, image=1024, band=64)
+# Training steps, the plain replay's band rows, and Adam's rates. Lit, the
+# loss feels the emission grid through the normals (differences of
+# neighbouring voxels, about 0.01 here) and the sharp LUT: its emission
+# gradient is 1e5 times the unlit one, and steps of 2e-5 per voxel already
+# scramble the normals and raise the loss.
+TRAIN_STEPS, BAND = 3, 64
+TRAIN_LR = {"K3": 2e-3, "K6": 2e-6, "K2": 1e-2}
 
 # Published peaks of one H100 SXM at its full 700 W power limit.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# float32 operations of one march step of csrc/march_fwd.cu, counted from
-# its source (a transcendental counts as one): a trilinear fetch is 39
-# (3 x (mul, sub, floor, sub, 2 clamps) + 7 lerps x 3), to_sample 6.
-_FETCH, _COORDS = 39, 6
+# float32 operations of one march step, the least the step's function needs
+# (a transcendental counts as one, index math as none), whatever a kernel
+# does: one axis's coordinate is 2 (sub, mul), its corner and weight 6
+# (mul, sub, floor, sub, 2 clamps), a lerp 3. A trilinear fetch at a
+# position of its own is 39: three corners and 7 lerps. A volume of the
+# emission's shape (every scene here, checked where the bounds are taken)
+# is fetched at the emission's corners: 7 lerps.
+_AXIS_COORD, _AXIS_CORNER, _LERP = 2, 6, 3
+_COORDS, _BLEND = 3 * _AXIS_COORD, 7 * _LERP
+_FETCH = 3 * _AXIS_CORNER + _BLEND
 _STEP_UNLIT = _COORDS + _FETCH + 2 + 4 + 6 + 10 + 1 + 2 + 3  # + composite, t, stop, pos
-_STEP_OTF_TAPS = 6 * (1 + _COORDS + _FETCH) + 6
-_STEP_LOOKUP_TAPS = 3 * _FETCH
+# The six emission taps, half a voxel from the centre as in every timed
+# scene: a tap's coordinate and corner on its own axis (the other two are
+# the centre's, float for float) and 27 lerps, a lerp shared where it is the
+# same one on the same floats (x taps 2 x 7; y taps 2 on the extra rows +
+# 2 x 3; z taps 2 + 1 + 2), then the three differences.
+_STEP_OTF_TAPS = 6 * (1 + _AXIS_COORD + _AXIS_CORNER) + 27 * _LERP + 6
+_STEP_LOOKUP_TAPS = 3 * _BLEND
 _STEP_NORMAL = 11 + 1  # + factor_reflection * re
 _STEP_PER_LIGHT = 3 + 3 + 3 * 23 + 22 + _FETCH + 1 + 9
 
 
 def flops_per_step(mode: str, ab_aliased: bool, re_aliased: bool, n_lights: int) -> int:
-    ops = _STEP_UNLIT + (0 if ab_aliased else _FETCH)
+    ops = _STEP_UNLIT + (0 if ab_aliased else _BLEND)
     if mode != "K1":
-        ops += (0 if re_aliased else _FETCH) + _STEP_NORMAL + 3 + n_lights * _STEP_PER_LIGHT
+        ops += (0 if re_aliased else _BLEND) + _STEP_NORMAL + 3 + n_lights * _STEP_PER_LIGHT
         ops += _STEP_LOOKUP_TAPS if mode == "K5" else _STEP_OTF_TAPS
     return ops
 
 
-# float32 operations of one step of csrc/march_bwd.cu, counted the same way:
-# the replayed forward step with the under operator's cotangents and the
-# per-ray sums; a scatter is 45 for corners and weights plus 8 atomic adds.
-_SCATTER = 45 + 8
+# float32 operations of one backward step, counted the same way: the
+# replayed forward step with the under operator's cotangents and the per-ray
+# sums. A scatter at the centre reuses the replay's corners: the weights'
+# complements and y-z products are 7, the eight trilinear weights 8 more,
+# and a cotangent spread over them 8 products and 8 atomic adds. Lit, the
+# centre's and the six taps' emission scatters go to the 20 voxels of their
+# window at half-voxel taps, one atomic add each, after 74 operations: the
+# taps' weights by window slot 9, the x slots' centre-and-tap terms 7, the
+# y and z taps' terms 6, the four centre rows 4 x 10, the four rows of the
+# y and z taps alone 4 x 3.
+_CORNER_WEIGHTS, _X_WEIGHTS, _SCATTER = 3 + 4, 8, 8 + 8
+_EM_TAPS_SCATTER = 9 + 7 + 6 + 4 * 10 + 4 * 3 + 20
 _BWD_STEP = 99
 _BWD_PER_LIGHT = 145      # forward terms, per-light sums, d contrib, d reflection
-_BWD_LIT = 6 * (1 + _COORDS + _FETCH) + 6 + 12 + 1 + 3 + 5 + 6 + 2  # taps, normal, light_in
+_BWD_LIT = _STEP_OTF_TAPS + 12 + 1 + 3 + 5 + 6 + 2  # taps, normal, light_in
 _BWD_PER_LIGHT_CHAIN = 26 + 1 + 3 * (54 + 2) + 10 + 30  # LUT derivatives, 3 angle adjoints, d n
-_BWD_LIT_SCATTER = 20 + 6 * (1 + 1 + _COORDS + _SCATTER)  # d gradient, six tap scatters
+_BWD_D_GRADIENT = 20      # the taps' cotangents from the normal's
 
 
 def bwd_flops_per_step(lit: bool, scatter: bool, ab_aliased: bool, re_aliased: bool,
                        n_lights: int) -> int:
-    ops = _BWD_STEP + (0 if ab_aliased else _FETCH)
+    ops = _BWD_STEP + (0 if ab_aliased else _BLEND)
     if lit:
-        ops += (0 if re_aliased else _FETCH) + _BWD_LIT + n_lights * _BWD_PER_LIGHT
+        ops += (0 if re_aliased else _BLEND) + _BWD_LIT + n_lights * _BWD_PER_LIGHT
     if scatter:
-        ops += 7 + 1 + _SCATTER + (1 if ab_aliased else _SCATTER)
+        # the eight weights, for every volume scattered as one sample
+        eight = not lit or not ab_aliased or not re_aliased
+        ops += 7 + 1 + _CORNER_WEIGHTS + (_X_WEIGHTS if eight else 0)
+        ops += (_BWD_D_GRADIENT + _EM_TAPS_SCATTER) if lit else _SCATTER
+        ops += 1 if ab_aliased else _SCATTER
         if lit:
-            ops += n_lights * _BWD_PER_LIGHT_CHAIN + _BWD_LIT_SCATTER
-            ops += 1 + (1 if re_aliased else _SCATTER)
+            ops += n_lights * _BWD_PER_LIGHT_CHAIN + 1 + (1 if re_aliased else _SCATTER)
     return ops
 
 
@@ -140,9 +182,68 @@ def brick_flops_per_sample(form: str, ab_aliased: bool) -> int:
     if form == "transmittance":
         return _BRICK_WALK + _FETCH + 4 + 3
     if form == "segment":
-        return _BRICK_WALK + _FETCH + (0 if ab_aliased else _FETCH) + 4 + 3 + 16
+        return _BRICK_WALK + _FETCH + (0 if ab_aliased else _BLEND) + 4 + 3 + 16
     # the single-device backward step plus the owner (mul, floor, 2 clamps, test)
     return bwd_flops_per_step(False, True, ab_aliased, True, 0) + 5
+
+
+# Template parameters of each kernel of csrc/, in order, and the mode that a
+# set of their values makes.
+KERNEL_PARAMS = {
+    "march_kernel": ("LIT", "LOOKUP", "AB_ALIASED", "RE_ALIASED"),
+    "march_bwd_kernel": ("LIT", "SCATTER", "AB_ALIASED", "RE_ALIASED"),
+    "march_bwd_lit_scatter_kernel": ("AB_ALIASED", "RE_ALIASED"),
+    "brick_fwd_kernel": ("SHADE", "AB_ALIASED"),
+    "brick_bwd_kernel": ("AB_ALIASED",),
+}
+# Threads a block, where it is not 16x16 (csrc/march_bwd.cu: K6's 16x8)
+KERNEL_THREADS = {"march_bwd_lit_scatter_kernel": 128}
+
+
+def kernel_mode_of(kernel: str, args) -> str:
+    if kernel == "march_kernel":
+        return "K1" if not args[0] else ("K5" if args[1] else "K4")
+    if kernel == "march_bwd_kernel":
+        return "K2" if not args[1] else ("K6" if args[0] else "K3")
+    if kernel == "march_bwd_lit_scatter_kernel":
+        return "K6"
+    if kernel == "brick_fwd_kernel":
+        return "K7_segment" if args[0] else "K7_transmittance"
+    return "K7_scatter"
+
+
+def blocks_per_sm(registers: int, threads: int) -> int:
+    """Blocks of ``threads`` that the registers of an H100 SM hold: 65,536
+    of them, allocated to a warp in units of 256, at most 64 warps and 32
+    blocks an SM."""
+    per_warp = -(-registers * 32 // 256) * 256
+    return min(min(65536 // per_warp, 64) // (threads // 32), 32)
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """What ``nvcc -Xptxas -v`` reports for each kernel instantiation, keyed
+    "<mode> <kernel><template arguments>", e.g. "K6 march_bwd_kernel<1,1,0,0>"."""
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(%s)I((?:Lb[01]E)+)E" % "|".join(KERNEL_PARAMS),
+                      line)
+        if m:
+            args = [int(b) for b in re.findall(r"Lb([01])E", m.group(2))]
+            assert len(args) == len(KERNEL_PARAMS[m.group(1)]), line
+            key = f"{kernel_mode_of(m.group(1), args)} {m.group(1)}<{','.join(map(str, args))}>"
+            out[key] = {"threads": KERNEL_THREADS.get(m.group(1), 256)}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and key:
+            out[key].update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                            spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key:
+            blocks = blocks_per_sm(int(m.group(1)), out[key]["threads"])
+            out[key].update(registers=int(m.group(1)), blocks_per_sm=blocks,
+                            warps_per_sm=blocks * out[key]["threads"] // 32)
+    return out
 
 
 def emit(obj) -> None:
@@ -152,13 +253,21 @@ def emit(obj) -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write every JSON line to this file")
+    parser.add_argument("--parent", metavar="DIR",
+                        help="a directory holding another version of volume_renderer_tpu_torch/ "
+                             "(e.g. the parent commit's): its K4 and K6 are timed in turns with "
+                             "the checkout's (phase 7b)")
+    parser.add_argument("--lit-turn", action="store_true",
+                        help="one turn of phase 7b: build, time K4 and K6, print one JSON line")
+    parser.add_argument("--repo", metavar="DIR", default=REPO,
+                        help="import the port from DIR instead of the checkout around this script")
     args = parser.parse_args()
 
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, os.path.abspath(args.repo))
 
     from volume_renderer_tpu_torch import (
         Camera, LightSource, RenderSettings, Scene, StereoRenderMode, Volume, VolumeRenderer,
@@ -191,16 +300,16 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build()
     build_s = time.perf_counter() - t0
-    ptxas = {}
-    for name in _build.SOURCES:
-        log = _build.build_log(name)
-        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
-        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
-        ptxas[name] = {"kernels": len(regs), "registers_min": min(regs),
-                       "registers_max": max(regs), "spill_store_bytes_max": max(spills)}
+    ptxas = {name: ptxas_by_kernel(_build.build_log(name)) for name in _build.SOURCES}
+    # the redesigned lit march keeps every value in registers
+    spilled = {k: v for name in ("march_fwd", "march_bwd") for k, v in ptxas[name].items()
+               if k.split()[0] in ("K4", "K6") and v["spill_store_bytes"]}
+    if spilled and not args.lit_turn:  # a turn may time an older version
+        raise RuntimeError(f"ptxas spills in the lit march: {spilled}")
     record({"phase": "device", "kind": kind, "nvidia_smi": smi_line,
             "count": torch.cuda.device_count(), "torch": torch.__version__,
-            "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas})
+            "cuda": torch.version.cuda, "build_s": build_s,
+            "ptxas": ptxas})
 
     max_err = {"K1": 0.0, "K4": 0.0, "K5": 0.0}
 
@@ -212,7 +321,135 @@ def main() -> None:
         if mode is not None:
             max_err[mode] = max(max_err[mode], err)
         np.testing.assert_allclose(got, want, atol=atol, rtol=rtol, err_msg=name)
+        # K4's tap fetch reads the voxels of seven sample() calls once each
+        # and blends them as those do: its image is its plain version's
+        if mode == "K4" and err != 0.0:
+            raise RuntimeError(f"{name}: the K4 kernel is {err:.3e} off its plain version")
         return err
+
+    # ---- scenes: the flagship gaussian shell (__graft_entry__.py) -------
+    def shell(n, noise=0.0, shape=None):
+        """The shell in an n^3 volume or, with ``shape`` (D, H, W), an
+        ellipsoidal one filling that box alike."""
+        if shape is None:
+            i = torch.arange(n, dtype=torch.float32, device=dev)
+            c = (n - 1) / 2.0
+            r2 = ((i[None, None, :] - c) ** 2 + (i[None, :, None] - c) ** 2
+                  + (i[:, None, None] - c) ** 2) / (c * c)
+        else:
+            r2 = 0.0
+            for axis, m in enumerate(shape):
+                c = (m - 1) / 2.0
+                i = torch.arange(m, dtype=torch.float32, device=dev).reshape(
+                    [m if a == axis else 1 for a in range(3)])
+                r2 = r2 + (i - c) ** 2 / (c * c)
+        vol = torch.exp(-4.0 * (torch.sqrt(r2) - 0.6) ** 2)
+        if noise:
+            # Seeded multiplicative noise for the gradient phases. On the
+            # smooth shell the normal equals the view direction over the
+            # whole camera-facing cap, where the angle adjoint amplifies
+            # rounding a thousandfold; real volumes are not that smooth.
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(n)
+            vol = vol * (1.0 + noise * (torch.rand(vol.shape, generator=gen, device=dev) - 0.5))
+        return vol.contiguous()
+
+    def flagship(n, mode, n_lights=1, ab_aliased=True, re_aliased=False, noise=0.0, shape=None,
+                 element_size=(1.0, 1.0, 1.0), rotate=(125, 25, 0)):
+        em = shell(n, noise, shape)
+        ramp = torch.linspace(0.5, 1.0, em.shape[2], device=dev)[None, None, :]
+        ab = None if ab_aliased else Volume.create((em * ramp).contiguous(), element_size)
+        lit = {}
+        if mode != "K1":
+            lit = dict(illumination=henyey_greenstein_lut(32),
+                       light_positions=torch.tensor([[2.0, 3.0, -1.5], [-1.0, 2.0, 2.0]],
+                                                    device=dev)[:n_lights].contiguous(),
+                       light_colors=torch.tensor([[1.0, 1.0, 1.0], [0.5, 0.6, 1.0]],
+                                                 device=dev)[:n_lights].contiguous())
+            if not re_aliased:
+                lit["reflection"] = Volume.create(em.clone(), element_size)
+            if mode == "K5":
+                lit.update(zip(("gradient_x", "gradient_y", "gradient_z"),
+                               Volume.create(em).gradient_volumes()))
+        return Scene(
+            emission=Volume.create(em, element_size), absorption=ab,
+            camera=Camera.create(focal_length=3.0, distance_to_object=6.0).rotate(*rotate),
+            settings=RenderSettings.create(factor_emission=1.0, factor_reflection=0.4,
+                                           factor_absorption=0.6, color=(1.0, 0.9, 0.8),
+                                           opacity_threshold=0.95),
+            **lit)
+
+    # tolerances: the kernel repeats the plain version's arithmetic in the
+    # same order, without FMA contraction (-fmad=false); what may remain are
+    # acosf/expf/rsqrtf ulps, carried when lit through the normal into the LUT
+    tol = {"K1": (1e-5, 1e-4), "K4": (3e-5, 3e-4), "K5": (3e-5, 3e-4)}
+
+    # Two lit scenes for the branches of the shared tap fetch
+    # (csrc/march_common.cuh), the volumes of tests/test_torch_march.py: a
+    # non-cubic anisotropic (36, 24, 64) volume, whose y taps lie 1.33 voxels
+    # out (a far axis) and whose z taps 0.56 (near: window slots 0 and 3 both
+    # in use); and a 48^3 volume under a camera near the z axis, whose rays
+    # enter through a face and leave through the side faces and edges, where
+    # corners and taps clamp.
+    ANISOTROPIC = dict(ab_aliased=False, noise=0.05, shape=(36, 24, 64),
+                       element_size=(1.0, 1.0, 1.6), rotate=(70, 20, 5))
+    FACES = dict(ab_aliased=False, noise=0.05, rotate=(3, 2, 0))
+
+    def timed(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def median_ms(fn, reps=5):
+        fn()  # warm
+        torch.cuda.synchronize()
+        times = [timed(fn)[1] for _ in range(reps)]
+        return float(np.median(times)), times
+
+    def lit_turn():
+        """K4 at 256^3 / 512^2 and 512^3 / 1024^2 and K6 at 256^3 / 512^2 (the
+        backward alone, the forward + backward pair, the training step from
+        the first step's state), timed as phase 7 times them, with a digest
+        of each K4 image."""
+        out = {"phase": "lit_turn", "repo": os.path.abspath(args.repo),
+               "ptxas": {name: ptxas[name] for name in ("march_fwd", "march_bwd")}}
+        for cfg in (MAIN, BIG):
+            scene = flagship(cfg["volume"], "K4", ab_aliased=False)
+            opts = scene.options(cfg["image"], cfg["image"])
+            img = render_forward_fast(scene, opts)
+            out[f"K4_{cfg['volume']}_{cfg['image']}"] = {
+                "ms": median_ms(lambda: render_forward_fast(scene, opts))[0],
+                "image_sha1": hashlib.sha1(img.cpu().numpy().tobytes()).hexdigest()}
+            del scene, img
+            torch.cuda.empty_cache()
+        scene = flagship(MAIN["volume"], "K4", ab_aliased=False, noise=0.05)
+        opts = scene.options(MAIN["image"], MAIN["image"])
+        with torch.no_grad():
+            target = render_forward_fast(scene, opts)
+            params, static_scene = train.split_params(scene)
+            params["emission"].mul_(1.3).add_(0.05)
+            merged = train.merge_params(params, static_scene)
+            img = render_forward_fast(merged, opts)
+            g = 2.0 * (img - target)
+
+            def fwd_bwd():
+                image = render_forward_fast(merged, opts)
+                return voxel_grads_fast(merged, opts, 2.0 * (image - target), image=image)
+
+            k6 = {"backward_ms": median_ms(lambda: march_backward(merged, opts, g, img))[0],
+                  "fwd_bwd_ms": median_ms(fwd_bwd)[0]}
+        optimizer = torch.optim.Adam(list(params.values()), lr=TRAIN_LR["K6"])
+        k6["train_step_ms"] = median_ms(
+            lambda: train.train_step_fast(params, optimizer, static_scene, opts, target))[0]
+        out["K6_256_512"] = k6
+        return out
+
+    if args.lit_turn:
+        emit(lit_turn())
+        return
 
     # ---- 2. goldens through the facade ----------------------------------
     # the scenes of tests/test_goldens.py, rebuilt with numpy
@@ -266,52 +503,6 @@ def main() -> None:
         golden_err[name] = check(f"golden {name}", golden_render(name), golden, 1e-4, 1e-3, None)
     record({"phase": "goldens", "atol": 1e-4, "rtol": 1e-3, "max_abs_err": golden_err})
 
-    # ---- scenes: the flagship gaussian shell (__graft_entry__.py) -------
-    def shell(n, noise=0.0):
-        i = torch.arange(n, dtype=torch.float32, device=dev)
-        c = (n - 1) / 2.0
-        r2 = ((i[None, None, :] - c) ** 2 + (i[None, :, None] - c) ** 2
-              + (i[:, None, None] - c) ** 2) / (c * c)
-        vol = torch.exp(-4.0 * (torch.sqrt(r2) - 0.6) ** 2)
-        if noise:
-            # Seeded multiplicative noise for the gradient phases. On the
-            # smooth shell the normal equals the view direction over the
-            # whole camera-facing cap, where the angle adjoint amplifies
-            # rounding a thousandfold; real volumes are not that smooth.
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(n)
-            vol = vol * (1.0 + noise * (torch.rand(vol.shape, generator=gen, device=dev) - 0.5))
-        return vol.contiguous()
-
-    def flagship(n, mode, n_lights=1, ab_aliased=True, re_aliased=False, noise=0.0):
-        em = shell(n, noise)
-        ramp = torch.linspace(0.5, 1.0, n, device=dev)[None, None, :]
-        ab = None if ab_aliased else Volume.create((em * ramp).contiguous())
-        lit = {}
-        if mode != "K1":
-            lit = dict(illumination=henyey_greenstein_lut(32),
-                       light_positions=torch.tensor([[2.0, 3.0, -1.5], [-1.0, 2.0, 2.0]],
-                                                    device=dev)[:n_lights].contiguous(),
-                       light_colors=torch.tensor([[1.0, 1.0, 1.0], [0.5, 0.6, 1.0]],
-                                                 device=dev)[:n_lights].contiguous())
-            if not re_aliased:
-                lit["reflection"] = Volume.create(em.clone())
-            if mode == "K5":
-                lit.update(zip(("gradient_x", "gradient_y", "gradient_z"),
-                               Volume.create(em).gradient_volumes()))
-        return Scene(
-            emission=Volume.create(em), absorption=ab,
-            camera=Camera.create(focal_length=3.0, distance_to_object=6.0).rotate(125, 25, 0),
-            settings=RenderSettings.create(factor_emission=1.0, factor_reflection=0.4,
-                                           factor_absorption=0.6, color=(1.0, 0.9, 0.8),
-                                           opacity_threshold=0.95),
-            **lit)
-
-    # tolerances: the kernel repeats the plain version's arithmetic in the
-    # same order, without FMA contraction (-fmad=false); what may remain are
-    # acosf/expf/rsqrtf ulps, carried when lit through the normal into the LUT
-    tol = {"K1": (1e-5, 1e-4), "K4": (3e-5, 3e-4), "K5": (3e-5, 3e-4)}
-
     # ---- 3. kernel vs plain at 128^3 / 256x192 --------------------------
     compare = {}
     for name, mode, kw, offset in (
@@ -319,8 +510,10 @@ def main() -> None:
             ("K1_absorption_separate", "K1", dict(ab_aliased=False), 0.0),
             ("K4_two_lights", "K4", dict(n_lights=2, ab_aliased=False), 0.0),
             ("K5_lookup", "K5", dict(), 0.0),
-            ("K4_stereo_offset_0.25", "K4", dict(re_aliased=True), 0.25)):
-        scene = flagship(COMPARE["volume"], mode, **kw)
+            ("K4_stereo_offset_0.25", "K4", dict(re_aliased=True), 0.25),
+            ("K4_anisotropic_36x24x64", "K4", ANISOTROPIC, 0.0),
+            ("K4_faces_and_edges_48", "K4", FACES, 0.0)):
+        scene = flagship(48 if kw is FACES else COMPARE["volume"], mode, **kw)
         assert kernel_mode(scene) == mode
         opts = scene.options(COMPARE["width"], COMPARE["height"])
         got = render_forward_fast(scene, opts, offset)
@@ -330,7 +523,7 @@ def main() -> None:
     record({"phase": "kernel_vs_plain", "volume": COMPARE["volume"],
             "image": [COMPARE["width"], COMPARE["height"]],
             "tolerance": {k: {"atol": a, "rtol": r} for k, (a, r) in tol.items()},
-            "max_abs_err": compare})
+            "K4_exact": True, "max_abs_err": compare})
 
     # ---- 4. backward kernel vs plain replay at 128^3 / 256x192 ----------
     # Kernel and plain replay compute each sample's terms with the same
@@ -379,8 +572,11 @@ def main() -> None:
              0.25, True, False),
             ("K6_one_light_reflection_separate", "K4", dict(ab_aliased=False), 0.0, False, True),
             ("K6_two_lights_reflection_aliased_image_reuse", "K4",
-             dict(n_lights=2, re_aliased=True), 0.0, True, False)):
-        scene = flagship(COMPARE["volume"], mode, noise=0.05, **kw)
+             dict(n_lights=2, re_aliased=True), 0.0, True, False),
+            ("K6_anisotropic_36x24x64", "K4", ANISOTROPIC, 0.0, False, False),
+            ("K6_faces_and_edges_48", "K4", FACES, 0.0, False, False)):
+        scene = flagship(48 if kw is FACES else COMPARE["volume"], mode,
+                         **{"noise": 0.05, **kw})
         opts = scene.options(COMPARE["width"], COMPARE["height"])
         g = cotangent(COMPARE["height"], COMPARE["width"], seed=len(grads_compare))
         img0 = render_forward_fast(scene, opts, offset) if reuse else None
@@ -455,21 +651,7 @@ def main() -> None:
             "image": MAIN["image"], **main})
 
     # ---- 6. the training main path at 256^3 / 512^2 ---------------------
-    # Adam's rates. Lit, the loss feels the emission grid through the
-    # normals (differences of neighbouring voxels, about 0.01 here) and the
-    # sharp LUT: its emission gradient is 1e5 times the unlit one, and steps
-    # of 2e-5 per voxel already scramble the normals and raise the loss.
-    TRAIN_STEPS, BAND = 3, 64
-    TRAIN_LR = {"K3": 2e-3, "K6": 2e-6, "K2": 1e-2}
     size = MAIN["image"]
-
-    def timed(fn):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        end.synchronize()
-        return out, start.elapsed_time(end)
 
     def band_check(name, scene, opts, g, img, scatter):
         """The kernel on the whole image, with g zero outside a 64-row band,
@@ -569,6 +751,8 @@ def main() -> None:
                 vols.append(scene.reflection.data)
             if mode == "K5":
                 vols += [scene.gradient_x.data, scene.gradient_y.data, scene.gradient_z.data]
+        # the operation counts fetch every volume but the LUT at the emission's corners
+        assert all(v.shape == vols[0].shape for v in vols if v is not scene.illumination)
         return sum(v.numel() * 4 for v in vols)
 
     def time_cell(scene, size, band_rows=None, reps=5):
@@ -622,12 +806,6 @@ def main() -> None:
                 torch.cuda.empty_cache()
 
     # ---- forward + backward at 256^3 / 512^2 and 512^3 / 1024^2 ---------
-    def median_ms(fn, reps=5):
-        fn()  # warm
-        torch.cuda.synchronize()
-        times = [timed(fn)[1] for _ in range(reps)]
-        return float(np.median(times)), times
-
     def time_train_cell(scene, size, scatter, plain=None):
         """The first training step's state (emission x 1.3 + 0.05 against a
         target of the true scene): the backward kernel alone, the forward +
@@ -694,6 +872,38 @@ def main() -> None:
             del scene
             torch.cuda.empty_cache()
 
+
+    # ---- 7b. another version's K4 and K6 against the checkout's ----------
+    if args.parent:
+        t_phase = time.perf_counter()
+        turns = {"parent": [], "new": []}
+        for who in ("parent", "new", "new", "parent"):
+            repo = os.path.abspath(args.parent if who == "parent" else args.repo)
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--lit-turn",
+                                   "--repo", repo], capture_output=True, text=True, timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"the {who} turn failed:\n{proc.stdout[-4000:]}"
+                                   f"{proc.stderr[-4000:]}")
+            turns[who].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        compared = {}
+        for key, metrics in (("K4_256_512", ("ms",)), ("K4_512_1024", ("ms",)),
+                             ("K6_256_512", ("backward_ms", "fwd_bwd_ms", "train_step_ms"))):
+            cell = {"bound_ms": cells[key]["bound_ms"]}
+            for metric in metrics:
+                parent_ms = [t[key][metric] for t in turns["parent"]]
+                new_ms = [t[key][metric] for t in turns["new"]]
+                cell[metric] = {"parent_ms": parent_ms, "ms": new_ms,
+                                "parent_mean_ms": float(np.mean(parent_ms)),
+                                "mean_ms": float(np.mean(new_ms))}
+            if key.startswith("K4"):
+                # K4 equals its plain version in both versions: one image
+                if len({t[key]["image_sha1"] for t in turns["parent"] + turns["new"]}) != 1:
+                    raise RuntimeError(f"{key}: the parent's K4 image differs from the checkout's")
+                cell["images_equal"] = True
+            compared[key] = cell
+        record({"phase": "parent_vs_new", "parent": args.parent, "order": "parent, new, new, parent",
+                "reps": 5, "parent_ptxas": turns["parent"][0]["ptxas"], "cells": compared,
+                "seconds": time.perf_counter() - t_phase})
 
     # ---- 8. the z-brick kernels vs their plain passes at 128^3 / 256x192 --
     BRICKS = 4
@@ -977,6 +1187,8 @@ def main() -> None:
         "scatter": (2 * (grid_bytes["em"] + grid_bytes["ab"])
                     + BRICKS * pixels * (3 + 3 + 1 + 1 + 2)),
     }
+    # the operation counts fetch absorption at the emission's corners
+    assert all(b.scene.absorption.data.shape == b.scene.emission.data.shape for b in split.bricks)
     brick_cells = {}
     for form in K7_FORMS:
         flops = samples[form] * brick_flops_per_sample(form, ab_aliased=False)

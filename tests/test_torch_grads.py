@@ -41,6 +41,12 @@ CASES = {
     "lit_two_lights": (dict(lighting=True, rotate=(125.0, 25.0, 0.0), n_lights=2),
                        (32, 32), 7, 0.0),
     "lit_tilted": (dict(lighting=True, rotate=(200.0, 160.0, 80.0)), (32, 32), 7, 0.0),
+    # the two scenes chip_smoke.py holds the lit kernels on (test_torch_march.py)
+    "lit_anisotropic_36x24x64": (dict(lighting=True, vol_shape=(36, 24, 64),
+                                      element_size_um=(1.0, 1.0, 1.6), rotate=(70.0, 20.0, 5.0)),
+                                 (32, 24), 7, 0.0),
+    "lit_faces_and_edges_48": (dict(lighting=True, vol_shape=(48, 48, 48), rotate=(3.0, 2.0, 0.0)),
+                               (32, 32), 7, 0.0),
 }
 
 # Share of each gradient's largest magnitude. Unlit, both sides compute one

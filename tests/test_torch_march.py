@@ -33,6 +33,12 @@ CASES = {
     "lit_lookup": dict(lighting=True, gradient_volumes=True, factors=(1.2, 0.5, 0.7)),
     "non_cubic_scaled": dict(vol_shape=(12, 26, 18), element_size_um=(1.0, 0.8, 1.7),
                              lighting=True),
+    # the two scenes chip_smoke.py holds the lit kernels on: y taps 1.33 voxels
+    # out (a far axis of the shared tap fetch), z taps 0.56 (near); and a
+    # camera near the z axis, whose rays run along faces and edges
+    "lit_anisotropic_36x24x64": dict(vol_shape=(36, 24, 64), element_size_um=(1.0, 1.0, 1.6),
+                                     lighting=True, rotate=(70.0, 20.0, 5.0)),
+    "lit_faces_and_edges_48": dict(vol_shape=(48, 48, 48), lighting=True, rotate=(3.0, 2.0, 0.0)),
 }
 
 

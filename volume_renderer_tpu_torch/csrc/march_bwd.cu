@@ -29,23 +29,36 @@
 // angle_floor is set (the fast entry points' convention) and is zero
 // beyond |r| >= 1 - 1e-6 otherwise (what autograd of the angle gives).
 //
-// What bounds it on this card. Per sample the scatter issues 8 float
-// atomic adds per tap: 8 or 16 unlit, up to 72 lit, into grids of the
-// volume's size, and the rays of neighbouring pixels hit the same voxels.
-// The roofline counts float32 operations against the volumes read and the
-// grids written once and calls it operation-bound; what it waits on is the
-// latency of the gathers, as the forward does, and the throughput of the
-// atomic units in L2.
+// What bounds it on this card. Per sample the replay repeats the forward's
+// gathers, and the scatter issues float atomic adds into grids of the
+// volume's size, where the rays of neighbouring pixels hit the same voxels:
+// 8 or 16 a sample unlit (K3); lit (K6), with absorption and reflection in
+// volumes of their own, 8 each for those and, for the emission centre and
+// its six taps, 56 as seven separate scatters before this design and now 20
+// where the taps lie half a voxel out (at most 32). The roofline counts
+// float32 operations against the volumes read and the grids written once and
+// calls it operation-bound (chip_smoke.py counts the work of a step, not
+// this implementation's instructions); what it waits on is the latency of
+// the gathers, as the forward does, and the atomic units in L2.
 //
 // What the design does about it. A thread per ray in 16x16 blocks like the
-// forward, so the atomics of a warp fall into few cache lines. atomicAdd
-// whose result is unused compiles to a reduction (RED) that does not wait
-// for the old value. Nothing of the TPU design is carried over: the one-hot
-// matmul scatter, the read-modify-write windows, the overflow ladder and
-// the sweep axis stood in for atomics. The per-light sums live in shared
-// memory, one private column per thread, so the number of lights is not a
-// compile-time constant. A ray whose cotangent is zero is skipped: all it
-// could add is zero.
+// forward (16x8 for K6, see march_bwd_lit_scatter_kernel), so the atomics of
+// a warp fall into few cache lines. atomicAdd whose result is unused compiles
+// to a reduction (RED) that does not wait for the old value. Lit, the replay
+// fetches the centre and the six taps through the shared window of
+// march_common.cuh (20 loads instead of 56), and the scatter of their
+// cotangents is the window's adjoint (scatter_em_taps): each window voxel's
+// share of the centre and the taps is summed first and goes out as one atomic
+// add, 36 a sample instead of 72 with absorption and reflection in volumes of
+// their own. The window is rebuilt from the position after the lights instead
+// of being kept in registers through them: K6 took 251-255 registers a thread
+// and spilled with seven separate fetches and scatters, and takes at most 168
+// without spilling now (ptxas -v), three 16x8 blocks an SM. Nothing of the
+// TPU design is carried over: the one-hot matmul scatter, the read-modify-
+// write windows, the overflow ladder and the sweep axis stood in for atomics.
+// The per-light sums live in shared memory, one private column per thread, so
+// the number of lights is not a compile-time constant. A ray whose cotangent
+// is zero is skipped: all it could add is zero.
 //
 // Atomic adds land in no fixed order, so the grids differ from run to run
 // in the last bits. Build flags as for march_fwd.cu (-fmad=false, no fast
@@ -72,6 +85,15 @@ constexpr float kAnglePoleEps = 1e-6f;
 constexpr float kAngleFloor = 1e-6f;
 
 __device__ __forceinline__ V3 scale(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
+
+// v itself, as a value the compiler cannot prove equal to v: what is
+// computed from it is computed again instead of kept live in registers.
+__device__ __forceinline__ V3 opaque(V3 v) {
+#ifdef __CUDA_ARCH__
+  asm volatile("" : "+f"(v.x), "+f"(v.y), "+f"(v.z));
+#endif
+  return v;
+}
 
 // Trilinear fetch with its derivatives by the normalized coordinates: the
 // lerp differences times the axis length (u = c * n - 0.5). A clamped
@@ -129,6 +151,97 @@ __device__ __forceinline__ void scatter(float* grid, const Vol& v, V3 c, float d
   atomicAdd(grid + x1 + r11, fx * fy * fz * d);
 }
 
+// The centre's weights c and the taps' t = (plus - minus) by window slot
+// along one near axis (march_common.cuh: the plus tap's pair is at slots
+// 1 + dp, 2 + dp, the minus tap's at 1 + dm, 2 + dm).
+__device__ __forceinline__ void slot_weights(const TapAxis& w, float (&c)[4], float (&t)[4]) {
+  c[0] = 0.0f;
+  c[1] = 1.0f - w.f;
+  c[2] = w.f;
+  c[3] = 0.0f;
+  const bool m0 = w.dm < 0, p0 = w.dp == 0;
+  t[0] = m0 ? -(1.0f - w.fm) : 0.0f;
+  t[1] = (p0 ? 1.0f - w.fp : 0.0f) - (m0 ? w.fm : 1.0f - w.fm);
+  t[2] = (p0 ? w.fp : 1.0f - w.fp) - (m0 ? 0.0f : w.fm);
+  t[3] = p0 ? 0.0f : w.fp;
+}
+
+// Adjoint of fetch_em_taps for the cotangent d_c of the centre and
+// h = (d xp, d yp, d zp) of the taps (d xm = -h.x, ...): per window voxel
+// (kx, ky, kz) the total
+//   d_c cx cy cz + h.x tx cy cz + h.y cx ty cz + h.z cx cy tz
+// goes into one atomic add, instead of one per tap and corner: one for each
+// voxel fetch_em_taps loads (20 at half-voxel offsets), against 56. The taps
+// of a far axis scatter on their own, as the adjoint of their own sample().
+__device__ __forceinline__ void scatter_em_taps(float* grid, const MarchArgs& a, V3 p,
+                                                const TapGeom& g, float d_c, V3 h) {
+  const Vol& v = a.em;
+  const TapAxis &X = g.x, &Y = g.y, &Z = g.z;
+  float cx[4], cy[4], cz[4], tx[4], ty[4], tz[4];
+  slot_weights(X, cx, tx);
+  slot_weights(Y, cy, ty);
+  slot_weights(Z, cz, tz);
+  const float hx = X.near ? h.x : 0.0f, hy = Y.near ? h.y : 0.0f, hz = Z.near ? h.z : 0.0f;
+  const int xs[4] = {clamp_index(X.i - 1, v.w), clamp_index(X.i, v.w), clamp_index(X.i + 1, v.w),
+                     clamp_index(X.i + 2, v.w)};
+  const bool need_x[4] = {X.slot0(), true, true, X.slot3()};
+  // the centre's rows (y, z slots 1, 2): every term
+#pragma unroll
+  for (int ky = 1; ky < 3; ++ky) {
+#pragma unroll
+    for (int kz = 1; kz < 3; ++kz) {
+      float* row = grid + row_offset(v, Y.i - 1 + ky, Z.i - 1 + kz);
+      const float rc = cy[ky] * cz[kz];
+      const float ryz = hy * ty[ky] * cz[kz] + hz * cy[ky] * tz[kz];
+#pragma unroll
+      for (int kx = 0; kx < 4; ++kx) {
+        const float total = rc * (d_c * cx[kx] + hx * tx[kx]) + cx[kx] * ryz;
+        if (need_x[kx] && total != 0.0f) atomicAdd(row + xs[kx], total);
+      }
+    }
+  }
+  // y slots 0 and 3 (the y taps alone), z slots 0 and 3 (the z taps alone),
+  // at x slots 1, 2
+  const bool need_y[2] = {Y.slot0(), Y.slot3()}, need_z[2] = {Z.slot0(), Z.slot3()};
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int k = 3 * e;
+#pragma unroll
+    for (int j = 1; j < 3; ++j) {
+      if (need_y[e]) {
+        float* row = grid + row_offset(v, Y.i - 1 + k, Z.i - 1 + j);
+        const float w = hy * ty[k] * cz[j];
+#pragma unroll
+        for (int kx = 1; kx < 3; ++kx) {
+          const float total = cx[kx] * w;
+          if (total != 0.0f) atomicAdd(row + xs[kx], total);
+        }
+      }
+      if (need_z[e]) {
+        float* row = grid + row_offset(v, Y.i - 1 + j, Z.i - 1 + k);
+        const float w = cy[j] * (hz * tz[k]);
+#pragma unroll
+        for (int kx = 1; kx < 3; ++kx) {
+          const float total = cx[kx] * w;
+          if (total != 0.0f) atomicAdd(row + xs[kx], total);
+        }
+      }
+    }
+  }
+  if (!X.near) {
+    scatter(grid, v, to_sample(a, {p.x + a.gstep[0], p.y, p.z}), h.x);
+    scatter(grid, v, to_sample(a, {p.x - a.gstep[0], p.y, p.z}), -h.x);
+  }
+  if (!Y.near) {
+    scatter(grid, v, to_sample(a, {p.x, p.y + a.gstep[1], p.z}), h.y);
+    scatter(grid, v, to_sample(a, {p.x, p.y - a.gstep[1], p.z}), -h.y);
+  }
+  if (!Z.near) {
+    scatter(grid, v, to_sample(a, {p.x, p.y, p.z + a.gstep[2]}), h.z);
+    scatter(grid, v, to_sample(a, {p.x, p.y, p.z - a.gstep[2]}), -h.z);
+  }
+}
+
 // Adjoint of angle() (ops/vjp.py:angle_backward): the cotangents of a and b
 // for the cotangent d_ang of the angle.
 __device__ __forceinline__ void angle_bwd(V3 a, V3 b, float d_ang, bool floor_, V3& da, V3& db) {
@@ -151,16 +264,19 @@ __device__ __forceinline__ void angle_bwd(V3 a, V3 b, float d_ang, bool floor_, 
   db = {d_r * (a.x * inv - rb * b.x), d_r * (a.y * inv - rb * b.y), d_r * (a.z * inv - rb * b.z)};
 }
 
-template <bool LIT, bool SCATTER, bool AB_ALIASED, bool RE_ALIASED>
-__global__ void __launch_bounds__(kThreads) march_bwd_kernel(const GradArgs ga) {
-  extern __shared__ float light_sums[];  // [3 n_lights][kThreads], a column per thread
+// The backward march of one ray: the pixel of this thread of a COLS x ROWS
+// block.
+template <bool LIT, bool SCATTER, bool AB_ALIASED, bool RE_ALIASED, int COLS, int ROWS>
+__device__ __forceinline__ void march_bwd_ray(const GradArgs& ga) {
+  constexpr int kT = COLS * ROWS;
+  extern __shared__ float light_sums[];  // [3 n_lights][kT], a column per thread
   const MarchArgs& a = ga.m;
-  const int px = blockIdx.x * kBlock + threadIdx.x;
-  const int py = blockIdx.y * kBlock + threadIdx.y;
+  const int px = blockIdx.x * COLS + threadIdx.x;
+  const int py = blockIdx.y * ROWS + threadIdx.y;
   if (px >= a.width || py >= a.height) return;
-  const int tid = threadIdx.y * kBlock + threadIdx.x;
+  const int tid = threadIdx.y * COLS + threadIdx.x;
   const int n_lights = LIT ? a.n_lights : 0;
-  for (int k = 0; k < 3 * n_lights; ++k) light_sums[k * kThreads + tid] = 0.0f;
+  for (int k = 0; k < 3 * n_lights; ++k) light_sums[k * kT + tid] = 0.0f;
 
   V3 origin, dir;
   float tnear, tfar;
@@ -188,7 +304,15 @@ __global__ void __launch_bounds__(kThreads) march_bwd_kernel(const GradArgs ga) 
     for (int i = 0; i < a.n_steps; ++i) {
       // ---- the step's forward values, as march_fwd.cu has them ----
       const V3 s = to_sample(a, p);
-      const float em = sample(a.em, s);
+      float em;
+      V3 grad = {0.0f, 0.0f, 0.0f};
+      if (LIT) {
+        const EmTaps e = fetch_em_taps(a, p, tap_geom(a, p, s));
+        em = e.c;
+        grad = {(e.xp - e.xm) * 0.5f, (e.yp - e.ym) * 0.5f, (e.zp - e.zm) * 0.5f};
+      } else {
+        em = sample(a.em, s);
+      }
       const float ab = AB_ALIASED ? em : sample(a.ab, s);
       const float emission = fe * em;
       const float absorption = fa * ab;
@@ -202,16 +326,8 @@ __global__ void __launch_bounds__(kThreads) march_bwd_kernel(const GradArgs ga) 
 
       float re = 0.0f, d_refl = 0.0f;
       V3 d_grad = {0.0f, 0.0f, 0.0f};
-      const float gs0 = a.gstep[0], gs1 = a.gstep[1], gs2 = a.gstep[2];
       if (LIT) {
         re = RE_ALIASED ? em : sample(a.re, s);
-        const float xp = sample(a.em, to_sample(a, {p.x + gs0, p.y, p.z}));
-        const float xm = sample(a.em, to_sample(a, {p.x - gs0, p.y, p.z}));
-        const float yp = sample(a.em, to_sample(a, {p.x, p.y + gs1, p.z}));
-        const float ym = sample(a.em, to_sample(a, {p.x, p.y - gs1, p.z}));
-        const float zp = sample(a.em, to_sample(a, {p.x, p.y, p.z + gs2}));
-        const float zm = sample(a.em, to_sample(a, {p.x, p.y, p.z - gs2}));
-        const V3 grad = {(xp - xm) * 0.5f, (yp - ym) * 0.5f, (zp - zm) * 0.5f};
         const float g2 = dot(grad, grad);
         const float inv = g2 > kGradEps2 ? rsqrtf(g2) : 0.0f;
         const V3 n = {grad.x * -inv, grad.y * -inv, grad.z * -inv};
@@ -241,10 +357,10 @@ __global__ void __launch_bounds__(kThreads) march_bwd_kernel(const GradArgs ga) 
           illum.y = illum.y + contrib * lc.y * color.y;
           illum.z = illum.z + contrib * lc.z * color.z;
 
-          float* sums = light_sums + 3 * l * kThreads + tid;
+          float* sums = light_sums + 3 * l * kT + tid;
           sums[0] += d_illum.x * contrib;
-          sums[kThreads] += d_illum.y * contrib;
-          sums[2 * kThreads] += d_illum.z * contrib;
+          sums[kT] += d_illum.y * contrib;
+          sums[2 * kT] += d_illum.z * contrib;
           const float d_contrib = d_illum.x * lc.x * color.x + d_illum.y * lc.y * color.y +
                                   d_illum.z * lc.z * color.z;
           d_refl = d_refl + d_contrib * lut;
@@ -287,28 +403,29 @@ __global__ void __launch_bounds__(kThreads) march_bwd_kernel(const GradArgs ga) 
       acc_f = acc_f + d_absorption * ab;
       acc_e = acc_e + tw * alpha * em;
       if (SCATTER) {
+        // lit, the sample's coordinates and window are rebuilt from p here,
+        // not kept live through the lights
+        const V3 q = LIT ? opaque(p) : p;
+        const V3 sq = LIT ? to_sample(a, q) : s;
         float d_at_em = dot(d_illum, color) * tstep * fe;
         const float d_ab = d_absorption * fa;
         if (AB_ALIASED) {
           d_at_em = d_at_em + d_ab;
         } else {
-          scatter(ga.d_ab, a.ab, s, d_ab);
+          scatter(ga.d_ab, a.ab, sq, d_ab);
         }
         if (LIT) {
           const float d_re = d_refl * fr;
           if (RE_ALIASED) {
             d_at_em = d_at_em + d_re;
           } else {
-            scatter(ga.d_re, a.re, s, d_re);
+            scatter(ga.d_re, a.re, sq, d_re);
           }
-          scatter(ga.d_em, a.em, to_sample(a, {p.x + gs0, p.y, p.z}), d_grad.x * 0.5f);
-          scatter(ga.d_em, a.em, to_sample(a, {p.x - gs0, p.y, p.z}), d_grad.x * -0.5f);
-          scatter(ga.d_em, a.em, to_sample(a, {p.x, p.y + gs1, p.z}), d_grad.y * 0.5f);
-          scatter(ga.d_em, a.em, to_sample(a, {p.x, p.y - gs1, p.z}), d_grad.y * -0.5f);
-          scatter(ga.d_em, a.em, to_sample(a, {p.x, p.y, p.z + gs2}), d_grad.z * 0.5f);
-          scatter(ga.d_em, a.em, to_sample(a, {p.x, p.y, p.z - gs2}), d_grad.z * -0.5f);
+          scatter_em_taps(ga.d_em, a, q, tap_geom(a, q, sq), d_at_em,
+                          {d_grad.x * 0.5f, d_grad.y * 0.5f, d_grad.z * 0.5f});
+        } else {
+          scatter(ga.d_em, a.em, s, d_at_em);
         }
-        scatter(ga.d_em, a.em, s, d_at_em);
       }
 
       // ---- advance exactly like the forward march ----
@@ -324,17 +441,41 @@ __global__ void __launch_bounds__(kThreads) march_bwd_kernel(const GradArgs ga) 
   ga.planes[plane + pix] = acc_f;
   ga.planes[2 * plane + pix] = acc_rac;
   for (int k = 0; k < 3 * n_lights; ++k) {
-    ga.planes[(3 + k) * plane + pix] = light_sums[k * kThreads + tid];
+    ga.planes[(3 + k) * plane + pix] = light_sums[k * kT + tid];
   }
+}
+
+template <bool LIT, bool SCATTER, bool AB_ALIASED, bool RE_ALIASED>
+__global__ void __launch_bounds__(kThreads) march_bwd_kernel(const GradArgs ga) {
+  march_bwd_ray<LIT, SCATTER, AB_ALIASED, RE_ALIASED, kBlock, kBlock>(ga);
+}
+
+// K6 in a kernel of its own, in 16x8 blocks (a warp is two rows of 16
+// neighbouring rays, as in a 16x16 block). It needs up to 174 registers
+// without spilling; left to itself, ptxas held one variant (every role
+// aliased) at 128 and spilled. Capped at 168 none spills, and an SM holds
+// three of these blocks: 12 warps, where one 16x16 block gave 8. Capped at
+// 128 (16 warps) every K6 variant spilled and ran slower in trial builds.
+constexpr int kMaxRegisters = 168;
+constexpr int kK6Cols = 16, kK6Rows = 8;
+
+template <bool AB_ALIASED, bool RE_ALIASED>
+__global__ void __maxnreg__(kMaxRegisters) march_bwd_lit_scatter_kernel(const GradArgs ga) {
+  march_bwd_ray<true, true, AB_ALIASED, RE_ALIASED, kK6Cols, kK6Rows>(ga);
 }
 
 template <bool LIT, bool SCATTER, bool AB, bool RE>
 cudaError_t launch(const GradArgs& ga, cudaStream_t stream) {
   const MarchArgs& a = ga.m;
-  const dim3 block(kBlock, kBlock);
-  const dim3 grid((a.width + kBlock - 1) / kBlock, (a.height + kBlock - 1) / kBlock);
-  const size_t shared = LIT ? sizeof(float) * 3 * a.n_lights * kThreads : 0;
-  march_bwd_kernel<LIT, SCATTER, AB, RE><<<grid, block, shared, stream>>>(ga);
+  constexpr int cols = LIT && SCATTER ? kK6Cols : kBlock, rows = LIT && SCATTER ? kK6Rows : kBlock;
+  const dim3 block(cols, rows);
+  const dim3 grid((a.width + cols - 1) / cols, (a.height + rows - 1) / rows);
+  const size_t shared = LIT ? sizeof(float) * 3 * a.n_lights * cols * rows : 0;
+  if constexpr (LIT && SCATTER) {
+    march_bwd_lit_scatter_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
+  } else {
+    march_bwd_kernel<LIT, SCATTER, AB, RE><<<grid, block, shared, stream>>>(ga);
+  }
   return cudaGetLastError();
 }
 

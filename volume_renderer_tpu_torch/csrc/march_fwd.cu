@@ -12,23 +12,35 @@
 // trilinear fetches blend x, then y, then z with float32 weights, and the
 // march stops when sum.w > opacity_threshold, t > tfar or after n_steps.
 //
-// What bounds it on this card. Every march step does one trilinear fetch
-// (8 dependent loads) per role: emission, absorption unless aliased, and
-// when lit the reflection, six emission taps (or three gradient volumes)
-// and one illumination-LUT fetch per light. The roofline counts the
-// float32 operations of those steps against the volumes read once, so it
-// calls the march operation-bound; what it really waits on is the latency
-// of the gathers through L1 and L2 (a 256^3 volume is 64 MiB, more than
-// the 50 MB L2) and the spread of trip counts between the rays of a warp.
+// What bounds it on this card. Every march step fetches trilinearly: the
+// emission, the absorption unless aliased, and when lit the reflection,
+// the emission gradient (six taps, or three gradient volumes) and one
+// illumination-LUT value per light. The roofline counts the float32
+// operations of those steps against the volumes read once, so it calls
+// the march operation-bound (chip_smoke.py counts the work of a step, not
+// this implementation's instructions); what it waits on is its gathers.
+// Before the tap fetch was shared, the time per step of K1, K5 and K4 grew
+// with the loads a step (16, 56, 80 with absorption and reflection in
+// volumes of their own) to within 5 % (PERF.md), and a 256^3 volume is
+// 64 MiB, more than the 50 MB L2.
 //
-// What the design does about it. One thread per pixel in 16x16 blocks:
-// the rays of a warp are neighbours, so their samples are neighbours too
-// and share L1 lines. Loads use the read-only path (__ldg). Each thread
-// stops on its own. Nothing of the TPU design is carried over: the
-// slice-pair sweep, the window DMA, the lane gathers and the 8x128 tile
-// layout stood in for texture units and are not needed here. The texture
-// units are not used either: their filtering quantizes the weights to 8
-// bits and would break the agreement with the plain version.
+// What the design does about it. One thread per pixel in 16x16 blocks: the
+// rays of a warp are neighbours, so their samples are neighbours too and
+// share L1 lines. Loads use the read-only path (__ldg). Each thread stops on
+// its own. Lit with on-the-fly gradients (K4), the centre fetch and the six
+// central-difference taps share their corners (march_common.cuh,
+// fetch_em_taps): each voxel of their union is loaded once: 20 loads instead
+// of 56 where the taps lie half a voxel out (an isotropic axis), at most 32
+// where they lie up to a voxel out, so a step loads 44 instead of 80; an
+// axis whose taps lie further out (an anisotropic volume) fetches those two
+// taps on their own. Every blend is the one sample() would do, so the image
+// stays the plain version's to the bit. The window's loads raise K4 from 80
+// to 128 registers (2 blocks of 256 threads an SM instead of 3); capped at
+// 80 it spilled and ran slower in a trial build. Nothing of the TPU design
+// is carried over: the slice-pair sweep, the window DMA, the lane gathers
+// and the 8x128 tile layout stood in for texture units and are not needed
+// here. The texture units are not used either: their filtering quantizes the
+// weights to 8 bits and would break the agreement with the plain version.
 //
 // Build: nvcc -O3 -gencode arch=compute_90a,code=sm_90a -std=c++17
 // -fmad=false -shared -Xcompiler -fPIC, without --use_fast_math (expf,
@@ -42,23 +54,10 @@
 
 namespace {
 
-// Illumination summed over the lights (ops/raymarch_core.py:shade_from_taps).
-template <bool LOOKUP>
-__device__ __forceinline__ V3 shade(const MarchArgs& a, V3 p, V3 s, V3 origin, float re,
-                                    float fr, V3 color) {
-  V3 g;
-  if (LOOKUP) {
-    g = {sample(a.gx, s), sample(a.gy, s), sample(a.gz, s)};
-  } else {
-    const float gs0 = a.gstep[0], gs1 = a.gstep[1], gs2 = a.gstep[2];
-    const float xp = sample(a.em, to_sample(a, {p.x + gs0, p.y, p.z}));
-    const float xm = sample(a.em, to_sample(a, {p.x - gs0, p.y, p.z}));
-    const float yp = sample(a.em, to_sample(a, {p.x, p.y + gs1, p.z}));
-    const float ym = sample(a.em, to_sample(a, {p.x, p.y - gs1, p.z}));
-    const float zp = sample(a.em, to_sample(a, {p.x, p.y, p.z + gs2}));
-    const float zm = sample(a.em, to_sample(a, {p.x, p.y, p.z - gs2}));
-    g = {(xp - xm) * 0.5f, (yp - ym) * 0.5f, (zp - zm) * 0.5f};
-  }
+// Illumination summed over the lights (ops/raymarch_core.py:shade_from_taps)
+// for the emission gradient g at p.
+__device__ __forceinline__ V3 shade(const MarchArgs& a, V3 p, V3 g, V3 origin, float re, float fr,
+                                    V3 color) {
   const float g2 = dot(g, g);
   const float inv = g2 > kGradEps2 ? rsqrtf(g2) : 0.0f;
   const V3 n = {g.x * -inv, g.y * -inv, g.z * -inv};
@@ -110,7 +109,16 @@ __global__ void __launch_bounds__(kBlock * kBlock) march_kernel(const MarchArgs 
     const V3 step = {dir.x * tstep, dir.y * tstep, dir.z * tstep};
     for (int i = 0; i < a.n_steps; ++i) {
       const V3 s = to_sample(a, p);
-      const float em = sample(a.em, s);
+      float em;
+      V3 grad = {0.0f, 0.0f, 0.0f};
+      if (LIT && !LOOKUP) {
+        const EmTaps e = fetch_em_taps(a, p, tap_geom(a, p, s));
+        em = e.c;
+        grad = {(e.xp - e.xm) * 0.5f, (e.yp - e.ym) * 0.5f, (e.zp - e.zm) * 0.5f};
+      } else {
+        em = sample(a.em, s);
+        if (LIT) grad = {sample(a.gx, s), sample(a.gy, s), sample(a.gz, s)};
+      }
       const float ab = AB_ALIASED ? em : sample(a.ab, s);
       const float emission = fe * em;
       const float absorption = fa * ab;
@@ -120,7 +128,7 @@ __global__ void __launch_bounds__(kBlock * kBlock) march_kernel(const MarchArgs 
       float ib = emission * tstep * color.z;
       if (LIT) {
         const float re = RE_ALIASED ? em : sample(a.re, s);
-        const V3 light = shade<LOOKUP>(a, p, s, origin, re, fr, color);
+        const V3 light = shade(a, p, grad, origin, re, fr, color);
         ir = ir + light.x;
         ig = ig + light.y;
         ib = ib + light.z;
