@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Drives the PyTorch port (volume_renderer_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--out FILE]
+    python3 chip_smoke.py [--out FILE] [--parent DIR]
 
 Phases, one JSON line each; any failure raises and exits nonzero:
 
 1. device:  the card, its power limit, and the build of every kernel
             source (one nvcc each, started together), with the registers,
             spills and resulting blocks an SM that ptxas reports for each
-            kernel instantiation. K4 and K6 must not spill.
+            kernel instantiation. K4, K6, K7 phase 2 and the K7 gradient
+            segment must not spill.
 2. goldens: the five tests/goldens scenes through VolumeRenderer on the
             card, held against the committed images.
 3. kernel_vs_plain: the forward march kernel against its plain PyTorch
@@ -40,21 +41,17 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             alone and the whole training step for K3, K6 and K2 at
             256^3 / 512^2 and K3 at 512^3 / 1024^2, with the bound.
 
-7b. parent_vs_new, only with --parent DIR: DIR holds another version of
-            the port's package (e.g. the parent commit's, unpacked with git
-            archive). K4 (256^3 / 512^2, 512^3 / 1024^2; the images must be
-            equal) and K6 (the backward alone, forward + backward, the
-            training step, 256^3 / 512^2) are timed in turns, each turn a
-            process of its own that builds and imports one version: DIR's,
-            the checkout's, the checkout's, DIR's, a median of 5 each.
 8. bricks_vs_plain: the z-brick kernels (K7) at 128^3 / 256x192, 4 bricks:
-            each launch form on every brick (phase 1 opacity, phase 2
-            contribution and exit opacity, the gradient segment's padded
-            grids and parameter sums) against its plain pass
-            (ops/brick_march.py) on the same inputs, for cameras whose rays
-            rise in z, fall in z and do both; the bricked image against the
-            single-device kernel's; a lit scene, which the fast entry points
-            must refuse and the plain bricked render must get right.
+            each launch form on every brick (phase 1 opacity and entry
+            record, phase 2 contribution and exit opacity, the gradient
+            segment's padded grids and parameter sums) against its plain
+            pass (ops/brick_march.py) on the same inputs, for cameras whose
+            rays rise in z, fall in z and do both, and for an absorption
+            volume of another shape than emission's; the records and the
+            forward phases must equal their plain versions to the bit; the
+            bricked image against the single-device kernel's; a lit scene,
+            which the fast entry points must refuse and the plain bricked
+            render must get right.
 9. bricks_main_path: at 256^3 / 512^2 on the noisy K3 scene, the launch
             forms against their plain passes on a 64-row band; then, counted
             like phase 5, render_forward_bricked_fast with 4 and 8 bricks,
@@ -67,7 +64,24 @@ Phases, one JSON line each; any failure raises and exits nonzero:
 10. bricks_timing: with 4 bricks, each launch form over all bricks, the
             bricked forward, forward + backward and training step (CUDA
             events, warm, median of 5) beside the single-device kernels on
-            the same scene, with the samples each phase took and the bound.
+            the same scene, with the samples each phase took and the bound;
+            the atomic adds a sample of the gradient segment's corner carry,
+            counted from the plain walk (corner_flushes); the launch forms
+            and the bricked
+            forward on the dense scene too, where the walk to a brick was a
+            larger share of a ray's work.
+11. parent_vs_new, only with --parent DIR: DIR holds another version of
+            the port's package (e.g. the parent commit's, unpacked with git
+            archive). Timed in turns, each turn a process of its own that
+            builds and imports one version: DIR's, the checkout's, the
+            checkout's, DIR's, a median of 5 each: K4 (256^3 / 512^2,
+            512^3 / 1024^2; the images must be equal), K6 (the backward
+            alone, forward + backward, the training step, 256^3 / 512^2) and
+            K7 with 4 bricks at 256^3 / 512^2 (each launch form over all
+            bricks, phase 2 alone from phase 1's outputs; the bricked
+            forward, forward + backward and training step; the host's time
+            in phase 2's calls and in the bricked forward; the bricked
+            images and every brick's exit opacity must be equal).
 
 Then the kernels line and, last, {"ok": true, "device": {...}}. It needs
 the repository around it and a CUDA card; it imports nothing of JAX.
@@ -187,6 +201,49 @@ def brick_flops_per_sample(form: str, ab_aliased: bool) -> int:
     return bwd_flops_per_step(False, True, ab_aliased, True, 0) + 5
 
 
+def corner_flushes(brick, opts, w_in, entry):
+    """``(samples, flushes)``: the samples of a brick's gradient segment from
+    the entry opacity ``w_in`` and phase 1's ``entry`` record, and the atomic
+    adds into one carried grid that the kernel's corner carry
+    (``csrc/brick_bwd.cu``, ``CornerCarry``) makes for them when every
+    sample's cotangent is nonzero; 8 a sample without the carry. Counted
+    from the plain walk's positions: a ray's first sample flushes nothing, a
+    later one in another cell the 8 corners minus those both cells share,
+    and the ray's last cell its 8 corners. The cells are emission's; a grid
+    of another shape is carried on cells of its own, which this does not
+    count."""
+    import torch
+    from volume_renderer_tpu_torch.ops import brick_march
+    from volume_renderer_tpu_torch.ops import raymarch_core as core
+
+    with torch.no_grad():
+        rays = brick_march.BrickRays(brick, opts, 0.0)
+        consts = rays.consts
+        em = brick.scene.emission.data
+        dims = (em.shape[2], em.shape[1], brick.slab_geometry(em)[1])  # x, y, global z
+        sample_ab = brick_march.brick_samplers(brick).ab
+        n = rays.tnear.numel()
+        cell = torch.zeros((n, 3), dtype=torch.int64, device=em.device)
+        seen = torch.zeros(n, dtype=torch.bool, device=em.device)
+        flushes = torch.zeros(n, dtype=torch.int64, device=em.device)
+
+        def composite(pos, act, sw):
+            s = core.to_sample_coords(pos, consts)
+            new = torch.stack([torch.clamp(torch.floor(c * float(d) - 0.5), -1.0, float(d))
+                               for c, d in zip(s, dims)], dim=-1).to(torch.int64)
+            step = (new - cell).abs()
+            shared = torch.where((step <= 1).all(dim=-1), (2 - step).prod(dim=-1), 0)
+            flushes.add_(torch.where(act & seen, 8 - shared, 0))
+            cell.copy_(torch.where(act[:, None], new, cell))
+            seen.logical_or_(act)
+            ab = sample_ab(s)
+            return 1.0 - torch.exp(-(consts.factor_absorption * ab) * consts.tstep)
+
+        steps = torch.zeros((rays.n_rows, opts.width), dtype=torch.int32, device=em.device)
+        rays.walk(w_in, composite, steps, entry)
+        return int(steps.sum()), int(flushes.sum()) + 8 * int(seen.sum())
+
+
 # Template parameters of each kernel of csrc/, in order, and the mode that a
 # set of their values makes.
 KERNEL_PARAMS = {
@@ -194,10 +251,13 @@ KERNEL_PARAMS = {
     "march_bwd_kernel": ("LIT", "SCATTER", "AB_ALIASED", "RE_ALIASED"),
     "march_bwd_lit_scatter_kernel": ("AB_ALIASED", "RE_ALIASED"),
     "brick_fwd_kernel": ("SHADE", "AB_ALIASED"),
-    "brick_bwd_kernel": ("AB_ALIASED",),
+    "brick_bwd_kernel": ("AB_ALIASED", "AB_OWN_CELL"),
 }
-# Threads a block, where it is not 16x16 (csrc/march_bwd.cu: K6's 16x8)
-KERNEL_THREADS = {"march_bwd_lit_scatter_kernel": 128}
+# Threads a block, where it is not 16x16 (K6 and the K7 gradient segment
+# run in 16x8 blocks: csrc/march_bwd.cu, csrc/brick_bwd.cu)
+KERNEL_THREADS = {"march_bwd_lit_scatter_kernel": 128, "brick_bwd_kernel": 128}
+# 4 bricks, all on the one card
+BRICKS = 4
 
 
 def kernel_mode_of(kernel: str, args) -> str:
@@ -220,18 +280,23 @@ def blocks_per_sm(registers: int, threads: int) -> int:
     return min(min(65536 // per_warp, 64) // (threads // 32), 32)
 
 
-def ptxas_by_kernel(log: str) -> dict:
+def ptxas_by_kernel(log: str, strict: bool = True) -> dict:
     """What ``nvcc -Xptxas -v`` reports for each kernel instantiation, keyed
-    "<mode> <kernel><template arguments>", e.g. "K6 march_bwd_kernel<1,1,0,0>"."""
+    "<mode> <kernel><template arguments>", e.g. "K6 march_bwd_kernel<1,1,0,0>".
+    With ``strict`` a kernel must have the template arguments that
+    KERNEL_PARAMS lists. Without it (another version of the sources) a
+    kernel whose arguments differ is reported without its blocks an SM,
+    since its block shape is not known here."""
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?(%s)I((?:Lb[01]E)+)E" % "|".join(KERNEL_PARAMS),
                       line)
         if m:
             args = [int(b) for b in re.findall(r"Lb([01])E", m.group(2))]
-            assert len(args) == len(KERNEL_PARAMS[m.group(1)]), line
+            known = len(args) == len(KERNEL_PARAMS[m.group(1)])
+            assert known or not strict, line
             key = f"{kernel_mode_of(m.group(1), args)} {m.group(1)}<{','.join(map(str, args))}>"
-            out[key] = {"threads": KERNEL_THREADS.get(m.group(1), 256)}
+            out[key] = {"threads": KERNEL_THREADS.get(m.group(1), 256) if known else None}
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -240,9 +305,11 @@ def ptxas_by_kernel(log: str) -> dict:
                             spill_load_bytes=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if m and key:
-            blocks = blocks_per_sm(int(m.group(1)), out[key]["threads"])
-            out[key].update(registers=int(m.group(1)), blocks_per_sm=blocks,
-                            warps_per_sm=blocks * out[key]["threads"] // 32)
+            out[key]["registers"] = int(m.group(1))
+            if out[key]["threads"]:
+                blocks = blocks_per_sm(int(m.group(1)), out[key]["threads"])
+                out[key].update(blocks_per_sm=blocks,
+                                warps_per_sm=blocks * out[key]["threads"] // 32)
     return out
 
 
@@ -255,10 +322,10 @@ def main() -> None:
     parser.add_argument("--out", help="also write every JSON line to this file")
     parser.add_argument("--parent", metavar="DIR",
                         help="a directory holding another version of volume_renderer_tpu_torch/ "
-                             "(e.g. the parent commit's): its K4 and K6 are timed in turns with "
-                             "the checkout's (phase 7b)")
-    parser.add_argument("--lit-turn", action="store_true",
-                        help="one turn of phase 7b: build, time K4 and K6, print one JSON line")
+                             "(e.g. the parent commit's): its K4, K6 and K7 are timed in turns "
+                             "with the checkout's (phase 11)")
+    parser.add_argument("--turn", action="store_true",
+                        help="one turn of phase 11: build, time K4, K6 and K7, print one JSON line")
     parser.add_argument("--repo", metavar="DIR", default=REPO,
                         help="import the port from DIR instead of the checkout around this script")
     args = parser.parse_args()
@@ -300,12 +367,14 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build()
     build_s = time.perf_counter() - t0
-    ptxas = {name: ptxas_by_kernel(_build.build_log(name)) for name in _build.SOURCES}
-    # the redesigned lit march keeps every value in registers
-    spilled = {k: v for name in ("march_fwd", "march_bwd") for k, v in ptxas[name].items()
-               if k.split()[0] in ("K4", "K6") and v["spill_store_bytes"]}
-    if spilled and not args.lit_turn:  # a turn may time an older version
-        raise RuntimeError(f"ptxas spills in the lit march: {spilled}")
+    ptxas = {name: ptxas_by_kernel(_build.build_log(name), strict=not args.turn)
+             for name in _build.SOURCES}
+    # the redesigned kernels keep every value in registers
+    spilled = {k: v for name in _build.SOURCES for k, v in ptxas[name].items()
+               if k.split()[0] in ("K4", "K6", "K7_segment", "K7_scatter")
+               and v["spill_store_bytes"]}
+    if spilled and not args.turn:  # a turn may time an older version
+        raise RuntimeError(f"ptxas spills in a redesigned kernel: {spilled}")
     record({"phase": "device", "kind": kind, "nvidia_smi": smi_line,
             "count": torch.cuda.device_count(), "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s,
@@ -409,13 +478,41 @@ def main() -> None:
         times = [timed(fn)[1] for _ in range(reps)]
         return float(np.median(times)), times
 
+    def host_ms(fn, reps=5):
+        """The host's time in ``fn`` from an idle card, waits for the card
+        inside it included (perf_counter, warm, median of ``reps``)."""
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return float(np.median(times))
+
+    def brick_scene(n, rot, ab_aliased=False, factor_absorption=0.6, opacity_threshold=0.95,
+                    ab_other_shape=False):
+        """The noisy unlit flagship scene under another camera and settings;
+        ``ab_other_shape``: absorption at half the emission's height and width
+        (the gradient segment's fetch and scatter of its own)."""
+        scene = flagship(n, "K1", ab_aliased=ab_aliased, noise=0.05)
+        if ab_other_shape:
+            ab = scene.emission.data[:, ::2, ::2] * 0.9
+            scene = scene.replace(absorption=Volume.create(ab.contiguous()))
+        return scene.replace(
+            camera=Camera.create(focal_length=3.0, distance_to_object=6.0).rotate(*rot),
+            settings=RenderSettings.create(factor_emission=1.0, factor_reflection=0.4,
+                                           factor_absorption=factor_absorption,
+                                           color=(1.0, 0.9, 0.8),
+                                           opacity_threshold=opacity_threshold))
+
     def lit_turn():
         """K4 at 256^3 / 512^2 and 512^3 / 1024^2 and K6 at 256^3 / 512^2 (the
         backward alone, the forward + backward pair, the training step from
         the first step's state), timed as phase 7 times them, with a digest
         of each K4 image."""
-        out = {"phase": "lit_turn", "repo": os.path.abspath(args.repo),
-               "ptxas": {name: ptxas[name] for name in ("march_fwd", "march_bwd")}}
+        out = {"ptxas": {name: ptxas[name] for name in ("march_fwd", "march_bwd")}}
         for cfg in (MAIN, BIG):
             scene = flagship(cfg["volume"], "K4", ab_aliased=False)
             opts = scene.options(cfg["image"], cfg["image"])
@@ -447,8 +544,70 @@ def main() -> None:
         out["K6_256_512"] = k6
         return out
 
-    if args.lit_turn:
-        emit(lit_turn())
+    def digest(tensors):
+        h = hashlib.sha1()
+        for t in tensors:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def brick_turn():
+        """K7 with 4 bricks at 256^3 / 512^2 on the first bricked training
+        step's state, timed as phase 10 times it: each launch form over all
+        bricks (phase 2 and the gradient segment from phase 1's outputs,
+        computed outside the timed calls), the bricked forward, forward +
+        backward and training step; the host's time in phase 2's four calls
+        and in the bricked forward; with digests of the bricked image and of
+        the bricks' exit opacities. Takes a port whose phase 1 returns the
+        entry record and one whose phase 1 does not."""
+        size = MAIN["image"]
+        scene = brick_scene(MAIN["volume"], (125, 25, 0))
+        opts = scene.options(size, size)
+        out = {"ptxas": {name: ptxas[name] for name in ("brick_fwd", "brick_bwd")}}
+        with torch.no_grad():
+            target = render_forward_fast(scene, opts)
+            bparams, bstatic = bricks.split_params_bricked(scene, make_mesh(BRICKS))
+            for p in bparams["emission"]:
+                p.mul_(1.3).add_(0.05)
+            split = bricks.merge_params_bricked(bparams, bstatic)
+            fwd = bricks._forward(split, opts, 0.0, fast=True)
+            g = 2.0 * (fwd.image - target)
+            up_dots = [u.contiguous() for u in bricks._upstream(
+                [brick_march.own_dot(g, own) for own in fwd.own], fwd.ascending, torch.cumsum,
+                0.0)]
+            w_ins = [w.contiguous() for w in fwd.w_in]
+            phase1 = [cuda_bricks.brick_transmittance(b, opts) for b in split.bricks]
+            records = [p[1:] if isinstance(p, tuple) else () for p in phase1]  # () for an older port
+            w_outs = [cuda_bricks.brick_segment(b, opts, 0.0, w, *r)[1]
+                      for b, w, r in zip(split.bricks, w_ins, records)]
+            out["image_sha1"], out["w_out_sha1"] = digest([fwd.image]), digest(w_outs)
+            ms = {
+                "transmittance": median_ms(lambda: [cuda_bricks.brick_transmittance(b, opts)
+                                                    for b in split.bricks])[0],
+                "segment": median_ms(lambda: [
+                    cuda_bricks.brick_segment(b, opts, 0.0, w, *r)
+                    for b, w, r in zip(split.bricks, w_ins, records)])[0],
+                "segment_host": host_ms(lambda: [
+                    cuda_bricks.brick_segment(b, opts, 0.0, w, *r)
+                    for b, w, r in zip(split.bricks, w_ins, records)]),
+                "scatter": median_ms(lambda: [
+                    cuda_bricks.brick_gradients(b, opts, 0.0, g, fwd.image, w, u, *r)
+                    for b, w, u, r in zip(split.bricks, w_ins, up_dots, records)])[0],
+                "bricked_forward": median_ms(
+                    lambda: bricks.render_forward_bricked_fast(split, opts))[0],
+                "bricked_forward_host": host_ms(
+                    lambda: bricks.render_forward_bricked_fast(split, opts)),
+                "bricked_fwd_bwd": median_ms(
+                    lambda: bricks.voxel_grads_bricked_fast(split, opts, g))[0],
+            }
+        optimizer = torch.optim.Adam(bricks.param_leaves(bparams), lr=TRAIN_LR["K3"])
+        ms["bricked_train_step"] = median_ms(lambda: bricks.train_step_fast_bricked(
+            bparams, optimizer, bstatic, opts, target))[0]
+        out["ms"] = ms
+        return out
+
+    if args.turn:
+        emit({"phase": "turn", "repo": os.path.abspath(args.repo), "lit": lit_turn(),
+              "bricks": brick_turn()})
         return
 
     # ---- 2. goldens through the facade ----------------------------------
@@ -534,6 +693,12 @@ def main() -> None:
     # scalar whose per-ray terms cancel under a cotangent of mixed sign);
     # typically 3e-7.
     GRAD_TOL = 1e-4
+    # The K7 gradient segment against its plain pass, and the bricked first
+    # step against the single-device kernels, march unlit scenes, where no
+    # such scalar arises; held tighter, so that an atomic add that the
+    # corner carry loses or misplaces shows. Measured on an H100 at most
+    # 1.9e-6.
+    BRICK_GRAD_TOL = 1e-5
     grad_err = {"K2": 0.0, "K3": 0.0, "K6": 0.0}       # share of the scale
     grad_abs_err = {"K2": 0.0, "K3": 0.0, "K6": 0.0}
 
@@ -873,53 +1038,10 @@ def main() -> None:
             torch.cuda.empty_cache()
 
 
-    # ---- 7b. another version's K4 and K6 against the checkout's ----------
-    if args.parent:
-        t_phase = time.perf_counter()
-        turns = {"parent": [], "new": []}
-        for who in ("parent", "new", "new", "parent"):
-            repo = os.path.abspath(args.parent if who == "parent" else args.repo)
-            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--lit-turn",
-                                   "--repo", repo], capture_output=True, text=True, timeout=900)
-            if proc.returncode != 0:
-                raise RuntimeError(f"the {who} turn failed:\n{proc.stdout[-4000:]}"
-                                   f"{proc.stderr[-4000:]}")
-            turns[who].append(json.loads(proc.stdout.strip().splitlines()[-1]))
-        compared = {}
-        for key, metrics in (("K4_256_512", ("ms",)), ("K4_512_1024", ("ms",)),
-                             ("K6_256_512", ("backward_ms", "fwd_bwd_ms", "train_step_ms"))):
-            cell = {"bound_ms": cells[key]["bound_ms"]}
-            for metric in metrics:
-                parent_ms = [t[key][metric] for t in turns["parent"]]
-                new_ms = [t[key][metric] for t in turns["new"]]
-                cell[metric] = {"parent_ms": parent_ms, "ms": new_ms,
-                                "parent_mean_ms": float(np.mean(parent_ms)),
-                                "mean_ms": float(np.mean(new_ms))}
-            if key.startswith("K4"):
-                # K4 equals its plain version in both versions: one image
-                if len({t[key]["image_sha1"] for t in turns["parent"] + turns["new"]}) != 1:
-                    raise RuntimeError(f"{key}: the parent's K4 image differs from the checkout's")
-                cell["images_equal"] = True
-            compared[key] = cell
-        record({"phase": "parent_vs_new", "parent": args.parent, "order": "parent, new, new, parent",
-                "reps": 5, "parent_ptxas": turns["parent"][0]["ptxas"], "cells": compared,
-                "seconds": time.perf_counter() - t_phase})
-
     # ---- 8. the z-brick kernels vs their plain passes at 128^3 / 256x192 --
-    BRICKS = 4
     K7_FORMS = ("transmittance", "segment", "scatter")
     brick_err = {form: 0.0 for form in K7_FORMS}  # max abs error against the plain pass
     brick_grad_err = [0.0]                        # share of the gradient's scale
-
-    def brick_scene(n, rot, ab_aliased=False, factor_absorption=0.6, opacity_threshold=0.95):
-        """The noisy unlit flagship scene under another camera and settings."""
-        scene = flagship(n, "K1", ab_aliased=ab_aliased, noise=0.05)
-        return scene.replace(
-            camera=Camera.create(focal_length=3.0, distance_to_object=6.0).rotate(*rot),
-            settings=RenderSettings.create(factor_emission=1.0, factor_reflection=0.4,
-                                           factor_absorption=factor_absorption,
-                                           color=(1.0, 0.9, 0.8),
-                                           opacity_threshold=opacity_threshold))
 
     def image_tolerance(name, got, want):
         """A bricked image against the single-device kernel's. The entry
@@ -961,28 +1083,38 @@ def main() -> None:
         got_grads, want_grads = [], []
         for brick, w_in, up in zip(split.bricks, fwd.w_in, up_dots):
             w_in, up = w_in.contiguous(), up.contiguous()
-            w_own = cuda_bricks.brick_transmittance(brick, opts)
-            own, w_out = cuda_bricks.brick_segment(brick, opts, 0.0, w_in)
-            got_grads.append(cuda_bricks.brick_gradients(brick, opts, 0.0, g, fwd.image, w_in, up))
+            w_own, entry = cuda_bricks.brick_transmittance(brick, opts)
+            own, w_out = cuda_bricks.brick_segment(brick, opts, 0.0, w_in, entry)
+            got_grads.append(cuda_bricks.brick_gradients(brick, opts, 0.0, g, fwd.image, w_in, up,
+                                                         entry))
             torch.cuda.synchronize()
             band_kw = dict(y_offset=y0, n_rows=rows)
-            p_own, ms = timed(lambda: brick_march.transmittance_pass(brick, opts, 0.0, **band_kw))
+            (p_own, p_entry), ms = timed(lambda: brick_march.transmittance_pass(
+                brick, opts, 0.0, **band_kw))
             plain_ms["transmittance"] += ms
+            tag = f"{name} brick {brick.index}"
+            # positions are stored, not recomputed: the records must be the bit
+            band_entry = entry.rows(y0, rows)
+            if not (torch.equal(band_entry.step, p_entry.step)
+                    and torch.equal(band_entry.state, p_entry.state)):
+                raise RuntimeError(f"{tag}: the kernel's entry record differs from the plain one")
             (p_contrib, p_out), ms = timed(lambda: brick_march.shaded_pass(
-                brick, opts, 0.0, cut(w_in), **band_kw))
+                brick, opts, 0.0, cut(w_in), entry=band_entry, **band_kw))
             plain_ms["segment"] += ms
             want, ms = timed(lambda: brick_march.replay_pass(
                 brick, opts, 0.0, cut(g), cut(fwd.image), cut(w_in), cut(up), angle_floor=True,
-                **band_kw))
+                entry=band_entry, **band_kw))
             plain_ms["scatter"] += ms
             want_grads.append(want)
-            tag = f"{name} brick {brick.index}"
             errs["transmittance"] = max(errs["transmittance"], check(
                 f"{tag} phase 1 opacity", cut(w_own), p_own, *tol["K1"], None))
             errs["segment"] = max(
                 errs["segment"],
                 check(f"{tag} phase 2 contribution", cut(own), p_contrib, *tol["K1"], None),
                 check(f"{tag} phase 2 exit opacity", cut(w_out), p_out, *tol["K1"], None))
+            # phases 1 and 2 repeat their plain passes' arithmetic in the same order
+            if errs["transmittance"] or errs["segment"]:
+                raise RuntimeError(f"{tag}: a brick forward phase is off its plain pass: {errs}")
         # the gradient segment: each key as a share of its largest magnitude
         # over the bricks (kernel and plain pass differ in the order of sums)
         grad_errs = {}
@@ -995,7 +1127,7 @@ def main() -> None:
                 abs_err = float((got[key].double() - want[key].double()).abs().max())
                 grad_errs[key] = max(grad_errs.get(key, 0.0), abs_err / scale)
                 errs["scatter"] = max(errs["scatter"], abs_err)
-            if grad_errs[key] > GRAD_TOL:
+            if grad_errs[key] > BRICK_GRAD_TOL:
                 raise RuntimeError(f"{name} {key}: brick kernel and plain pass differ by "
                                    f"{grad_errs[key]:.3e} of the gradient's scale {scale:.3e}")
         assert set(got_grads[0]) == set(want_grads[0]), (name, sorted(got_grads[0]))
@@ -1003,14 +1135,16 @@ def main() -> None:
             brick_err[form] = max(brick_err[form], errs[form])
         brick_grad_err[0] = max(brick_grad_err[0], max(grad_errs.values()))
         return {"ascending_share": float(fwd.ascending.float().mean()),
-                "max_abs_err": errs, "grad_err_of_scale": grad_errs, "plain_ms": plain_ms,
-                "plain_rows": rows, "image": fwd.image}
+                "max_abs_err": errs, "entry_records_equal": True, "grad_err_of_scale": grad_errs,
+                "plain_ms": plain_ms, "plain_rows": rows, "image": fwd.image}
 
     bricks_cases = {}
-    for i, (name, rot, ab_aliased) in enumerate((
-            ("dz_positive", (10, 5, 0), False), ("dz_negative_aliased", (180, 20, 0), True),
-            ("dz_mixed", (88, 0, 0), False))):
-        scene = brick_scene(COMPARE["volume"], rot, ab_aliased)
+    for i, (name, rot, kw) in enumerate((
+            ("dz_positive", (10, 5, 0), {}),
+            ("dz_negative_aliased", (180, 20, 0), dict(ab_aliased=True)),
+            ("dz_mixed", (88, 0, 0), {}),
+            ("dz_positive_absorption_other_shape", (10, 5, 0), dict(ab_other_shape=True)))):
+        scene = brick_scene(COMPARE["volume"], rot, **kw)
         opts = scene.options(COMPARE["width"], COMPARE["height"])
         entry = bricks_compare(name, scene, opts,
                                cotangent(COMPARE["height"], COMPARE["width"], seed=10 + i))
@@ -1020,7 +1154,7 @@ def main() -> None:
         entry["nonzero_frac"] = float((image.amax(-1) > 0).float().mean())
         bricks_cases[name] = entry
         del scene
-    signs = [c["ascending_share"] for c in bricks_cases.values()]
+    signs = [c["ascending_share"] for c in bricks_cases.values()][:3]
     if not (signs[0] == 1.0 and signs[1] == 0.0 and 0.05 < signs[2] < 0.95):
         raise RuntimeError(f"the cameras do not cover rising, falling and mixed rays: {signs}")
 
@@ -1045,7 +1179,7 @@ def main() -> None:
     record({"phase": "bricks_vs_plain", "volume": COMPARE["volume"],
             "image": [COMPARE["width"], COMPARE["height"]], "bricks": BRICKS, "volume_noise": 0.05,
             "tolerance": {"atol": tol["K1"][0], "rtol": tol["K1"][1],
-                          "gradients_of_scale": GRAD_TOL},
+                          "gradients_of_scale": BRICK_GRAD_TOL},
             "cases": bricks_cases,
             "lit": {"refused_by_fast_entry_points": True,
                     "plain_bricked_vs_K4_kernel_max_abs_err": lit_err, "volume": 64,
@@ -1119,7 +1253,7 @@ def main() -> None:
         "bricked first step", {k: bricks.assemble(v) if isinstance(v, list) else v
                                for k, v in got_grads.items()}, want_grads, None,
         keys=want_grads.keys())
-    if max(first_step_errs.values()) > GRAD_TOL:
+    if max(first_step_errs.values()) > BRICK_GRAD_TOL:
         raise RuntimeError(f"bricked and single-device gradients differ: {first_step_errs}")
     record({"phase": "bricks_main_path",
             "entry": ["render_forward_bricked_fast", "voxel_grads_bricked_fast",
@@ -1128,7 +1262,7 @@ def main() -> None:
             "volume_noise": 0.05, "launches": brick_launches, "expected_launches": expected,
             "vs_single_device_kernel": main_images,
             "first_step_grads_vs_voxel_grads_fast_of_scale": first_step_errs,
-            "tolerance_of_scale": GRAD_TOL, "steps": TRAIN_STEPS, "optimizer": "Adam",
+            "tolerance_of_scale": BRICK_GRAD_TOL, "steps": TRAIN_STEPS, "optimizer": "Adam",
             "lr": TRAIN_LR["K3"], "losses": brick_losses,
             "kernels_vs_plain_band": main_compare})
     del splits, dense_splits, dense, brick_images, dense_images, single_dense, bmerged, got_grads
@@ -1136,35 +1270,91 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 10. timing the z-brick path with 4 bricks at 256^3 / 512^2 -------
+    def brick_state(split, g):
+        """The inputs of every brick's launch forms: phase 1's forward, and
+        per brick w_in, up_dot and the entry record, made once outside the
+        timed calls."""
+        fwd = bricks._forward(split, opts, 0.0, fast=True)
+        up_dots = [u.contiguous() for u in bricks._upstream(
+            [brick_march.own_dot(g, own) for own in fwd.own], fwd.ascending, torch.cumsum, 0.0)]
+        return fwd, [w.contiguous() for w in fwd.w_in], up_dots
+
+    def time_forms(split, g, fwd, w_ins, up_dots):
+        """Each launch form over all bricks (CUDA events, warm, median of 5),
+        and the samples each form took."""
+        samples = {"transmittance": 0, "segment": 0}
+        for brick, w_in, entry in zip(split.bricks, w_ins, fwd.entry):
+            steps = torch.zeros((size, size), dtype=torch.int32, device=dev)
+            cuda_bricks.brick_transmittance(brick, opts, steps=steps)
+            samples["transmittance"] += int(steps.sum())
+            cuda_bricks.brick_segment(brick, opts, 0.0, w_in, entry, steps=steps)
+            samples["segment"] += int(steps.sum())
+        samples["scatter"] = samples["segment"]  # g is nonzero on every ray that marches
+        form_ms = {
+            "transmittance": median_ms(lambda: [cuda_bricks.brick_transmittance(b, opts)
+                                                for b in split.bricks]),
+            "segment": median_ms(lambda: [cuda_bricks.brick_segment(b, opts, 0.0, w, e)
+                                          for b, w, e in zip(split.bricks, w_ins, fwd.entry)]),
+            "scatter": median_ms(lambda: [
+                cuda_bricks.brick_gradients(b, opts, 0.0, g, fwd.image, w, u, e)
+                for b, w, u, e in zip(split.bricks, w_ins, up_dots, fwd.entry)]),
+        }
+        return samples, form_ms
+
+    def carried_adds(split, w_ins, fwd):
+        """The gradient segment's atomic adds a sample over all bricks, from
+        the plain walk's positions (corner_flushes): both grids are carried
+        where absorption has emission's shape."""
+        samples = flushes = 0
+        for brick, w_in, entry in zip(split.bricks, w_ins, fwd.entry):
+            n, f = corner_flushes(brick, opts, w_in, entry)
+            samples, flushes = samples + n, flushes + f
+        grids = 1 + (not split.bricks[0].scene.absorption_aliased)
+        return {"samples": samples, "flushes_per_grid": flushes,
+                "atomic_adds_per_sample": grids * flushes / samples,
+                "atomic_adds_per_sample_uncarried": 8 * grids}
+
+    pixels = size * size * 4
+
+    def form_cells(split, samples, form_ms, plain):
+        grid_bytes = {"em": sum(b.scene.emission.data.numel() * 4 for b in split.bricks),
+                      "ab": sum(b.scene.absorption.data.numel() * 4 for b in split.bricks)}
+        # each brick reads its padded grids once and its per-ray planes (the
+        # entry record 5 floats) once, and writes its own outputs once
+        form_bytes = {
+            "transmittance": grid_bytes["ab"] + BRICKS * pixels * (1 + 5),
+            "segment": grid_bytes["em"] + grid_bytes["ab"] + BRICKS * pixels * (5 + 1 + 3 + 1),
+            "scatter": (2 * (grid_bytes["em"] + grid_bytes["ab"])
+                        + BRICKS * pixels * (5 + 3 + 3 + 1 + 1 + 2)),
+        }
+        # the operation counts fetch absorption at the emission's corners
+        assert all(b.scene.absorption.data.shape == b.scene.emission.data.shape
+                   for b in split.bricks)
+        out = {}
+        for form in K7_FORMS:
+            flops = samples[form] * brick_flops_per_sample(form, ab_aliased=False)
+            bound = {"bytes": form_bytes[form] / PEAK_BYTES_PER_S * 1e3,
+                     "operations": flops / PEAK_FP32_FLOPS * 1e3}
+            bound_by = max(bound, key=bound.get)
+            out[form] = {
+                "ms": form_ms[form][0], "ms_all": form_ms[form][1], "launches_timed": BRICKS,
+                "samples": samples[form], "flops": flops, "bytes": form_bytes[form],
+                "bound_ms": bound[bound_by], "bound_by": bound_by}
+            if plain is not None:
+                out[form].update(plain_ms=plain["plain_ms"][form], plain_rows=plain["plain_rows"])
+        return out
+
     with torch.no_grad():
         for key, value in bparams.items():  # both sides time the same state
             params[key].copy_(bricks.assemble(value) if isinstance(value, list) else value)
         split = bricks.merge_params_bricked(bparams, bstatic)
         merged = train.merge_params(params, static_scene)
-        fwd = bricks._forward(split, opts, 0.0, fast=True)
-        g = 2.0 * (fwd.image - single)
-        up_dots = [u.contiguous() for u in bricks._upstream(
-            [brick_march.own_dot(g, own) for own in fwd.own], fwd.ascending, torch.cumsum, 0.0)]
-        w_ins = [w.contiguous() for w in fwd.w_in]
-        samples = {"transmittance": 0, "segment": 0}
-        for brick, w_in in zip(split.bricks, w_ins):
-            steps = torch.zeros((size, size), dtype=torch.int32, device=dev)
-            cuda_bricks.brick_transmittance(brick, opts, steps=steps)
-            samples["transmittance"] += int(steps.sum())
-            cuda_bricks.brick_segment(brick, opts, 0.0, w_in, steps=steps)
-            samples["segment"] += int(steps.sum())
-        samples["scatter"] = samples["segment"]  # g is nonzero on every ray that marches
+        g = 2.0 * (bricks._forward(split, opts, 0.0, fast=True).image - single)
+        fwd, w_ins, up_dots = brick_state(split, g)
+        samples, form_ms = time_forms(split, g, fwd, w_ins, up_dots)
+        adds = carried_adds(split, w_ins, fwd)
         single_steps = torch.zeros((size, size), dtype=torch.int32, device=dev)
         render_forward_fast(merged, opts, steps=single_steps)
-        form_ms = {
-            "transmittance": median_ms(lambda: [cuda_bricks.brick_transmittance(b, opts)
-                                                for b in split.bricks]),
-            "segment": median_ms(lambda: [cuda_bricks.brick_segment(b, opts, 0.0, w)
-                                          for b, w in zip(split.bricks, w_ins)]),
-            "scatter": median_ms(lambda: [
-                cuda_bricks.brick_gradients(b, opts, 0.0, g, fwd.image, w, u)
-                for b, w, u in zip(split.bricks, w_ins, up_dots)]),
-        }
         path_ms = {
             "bricked_forward": median_ms(lambda: bricks.render_forward_bricked_fast(split, opts)),
             "bricked_fwd_bwd": median_ms(lambda: bricks.voxel_grads_bricked_fast(split, opts, g)),
@@ -1176,37 +1366,82 @@ def main() -> None:
     optimizer = torch.optim.Adam(list(params.values()), lr=TRAIN_LR["K3"])
     path_ms["single_train_step"] = median_ms(lambda: train.train_step_fast(
         params, optimizer, static_scene, opts, single))
-    pixels = size * size * 4
-    grid_bytes = {"em": sum(b.scene.emission.data.numel() * 4 for b in split.bricks),
-                  "ab": sum(b.scene.absorption.data.numel() * 4 for b in split.bricks)}
-    # each brick reads its padded grids once and its per-ray planes once, and
-    # writes its own outputs once
-    form_bytes = {
-        "transmittance": grid_bytes["ab"] + BRICKS * pixels,
-        "segment": grid_bytes["em"] + grid_bytes["ab"] + BRICKS * pixels * (1 + 3 + 1),
-        "scatter": (2 * (grid_bytes["em"] + grid_bytes["ab"])
-                    + BRICKS * pixels * (3 + 3 + 1 + 1 + 2)),
-    }
-    # the operation counts fetch absorption at the emission's corners
-    assert all(b.scene.absorption.data.shape == b.scene.emission.data.shape for b in split.bricks)
-    brick_cells = {}
-    for form in K7_FORMS:
-        flops = samples[form] * brick_flops_per_sample(form, ab_aliased=False)
-        bound = {"bytes": form_bytes[form] / PEAK_BYTES_PER_S * 1e3,
-                 "operations": flops / PEAK_FP32_FLOPS * 1e3}
-        bound_by = max(bound, key=bound.get)
-        brick_cells[form] = {
-            "ms": form_ms[form][0], "ms_all": form_ms[form][1], "launches_timed": BRICKS,
-            "samples": samples[form], "flops": flops, "bytes": form_bytes[form],
-            "bound_ms": bound[bound_by], "bound_by": bound_by,
-            "plain_ms": main_compare["plain_ms"][form], "plain_rows": main_compare["plain_rows"]}
+    brick_cells = form_cells(split, samples, form_ms, main_compare)
+    brick_cells["scatter"]["atomic_adds"] = adds
+
+    # the dense scene: rays die mid-volume, so the walk to a brick is a
+    # larger share of a ray's work
+    dense = brick_scene(MAIN["volume"], (125, 25, 0), factor_absorption=4.0,
+                        opacity_threshold=0.3)
+    with torch.no_grad():
+        dense_split = bricks.split_bricks(dense, make_mesh(BRICKS))
+        g_dense = cotangent(size, size, seed=30)
+        dense_fwd, dense_w_ins, dense_up = brick_state(dense_split, g_dense)
+        dense_samples, dense_ms = time_forms(dense_split, g_dense, dense_fwd, dense_w_ins,
+                                             dense_up)
+        dense_cells = form_cells(dense_split, dense_samples, dense_ms, None)
+        dense_forward = median_ms(lambda: bricks.render_forward_bricked_fast(dense_split, opts))
+        dense_single = median_ms(lambda: render_forward_fast(dense, opts))
     record({"phase": "bricks_timing", "volume": MAIN["volume"], "image": size, "bricks": BRICKS,
             "single_device_samples": int(single_steps.sum()),
             "forms": brick_cells,
             "paths_ms": {k: v[0] for k, v in path_ms.items()},
-            "paths_ms_all": {k: v[1] for k, v in path_ms.items()}})
+            "paths_ms_all": {k: v[1] for k, v in path_ms.items()},
+            "dense_threshold_0.3": {"forms": dense_cells,
+                                    "paths_ms": {"bricked_forward": dense_forward[0],
+                                                 "single_forward_K1": dense_single[0]},
+                                    "paths_ms_all": {"bricked_forward": dense_forward[1],
+                                                     "single_forward_K1": dense_single[1]}}})
     del split, merged, fwd, params, bparams, bstatic, static_scene, optimizer, boptimizer
+    del dense, dense_split, dense_fwd
     torch.cuda.empty_cache()
+
+    # ---- 11. another version's K4, K6 and K7 against the checkout's --------
+    if args.parent:
+        t_phase = time.perf_counter()
+        turns = {"parent": [], "new": []}
+        for who in ("parent", "new", "new", "parent"):
+            repo = os.path.abspath(args.parent if who == "parent" else args.repo)
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn",
+                                   "--repo", repo], capture_output=True, text=True, timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"the {who} turn failed:\n{proc.stdout[-4000:]}"
+                                   f"{proc.stderr[-4000:]}")
+            turns[who].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+
+        def compare_turns(get, bound_ms):
+            parent_ms = [get(t) for t in turns["parent"]]
+            new_ms = [get(t) for t in turns["new"]]
+            return {"parent_ms": parent_ms, "ms": new_ms, "parent_mean_ms": float(np.mean(parent_ms)),
+                    "mean_ms": float(np.mean(new_ms)), "bound_ms": bound_ms}
+
+        every = turns["parent"] + turns["new"]
+        compared = {}
+        for key, metrics in (("K4_256_512", ("ms",)), ("K4_512_1024", ("ms",)),
+                             ("K6_256_512", ("backward_ms", "fwd_bwd_ms", "train_step_ms"))):
+            compared[key] = {metric: compare_turns(lambda t: t["lit"][key][metric],
+                                                   cells[key]["bound_ms"])
+                             for metric in metrics}
+            if key.startswith("K4"):
+                # K4 equals its plain version in both versions: one image
+                if len({t["lit"][key]["image_sha1"] for t in every}) != 1:
+                    raise RuntimeError(f"{key}: the parent's K4 image differs from the checkout's")
+                compared[key]["images_equal"] = True
+        # phase 2 keeps its arithmetic: one bricked image, one exit opacity
+        for name in ("image_sha1", "w_out_sha1"):
+            if len({t["bricks"][name] for t in every}) != 1:
+                raise RuntimeError(f"K7: the parent's {name[:-5]} differs from the checkout's")
+        compared[f"K7_{MAIN['volume']}_{MAIN['image']}_{BRICKS}_bricks"] = {
+            "images_and_exit_opacities_equal": True,
+            **{metric: compare_turns(lambda t: t["bricks"]["ms"][metric],
+                                     brick_cells[metric]["bound_ms"] if metric in brick_cells
+                                     else None)
+               for metric in turns["new"][0]["bricks"]["ms"]}}
+        record({"phase": "parent_vs_new", "parent": args.parent, "order": "parent, new, new, parent",
+                "reps": 5,
+                "parent_ptxas": {**turns["parent"][0]["lit"]["ptxas"],
+                                 **turns["parent"][0]["bricks"]["ptxas"]},
+                "cells": compared, "seconds": time.perf_counter() - t_phase})
 
     # ---- kernels line and the result ------------------------------------
     kernels = []

@@ -25,10 +25,13 @@ from volume_renderer_tpu.parallel.bricks import render_forward_bricked as jax_br
 from volume_renderer_tpu.parallel.bricks import render_forward_bricked_fast as jax_bricked_fast
 from volume_renderer_tpu.parallel.sharding import make_mesh as jax_make_mesh
 
+import chip_smoke
 from test_torch_helpers import make_scenes
 from volume_renderer_tpu_torch import train
 from volume_renderer_tpu_torch.convert import params_from_arrays
+from volume_renderer_tpu_torch.models.scene import RenderOptions
 from volume_renderer_tpu_torch.ops import brick_march, cuda_bricks, cuda_march
+from volume_renderer_tpu_torch.ops import raymarch_core as core
 from volume_renderer_tpu_torch.ops.cuda_march import render_forward_fast
 from volume_renderer_tpu_torch.ops.float3 import F3
 from volume_renderer_tpu_torch.ops.forward import render_forward
@@ -178,7 +181,7 @@ def test_every_sample_has_one_owner(n):
     touched = torch.zeros_like(single)
     for brick in split.bricks:
         steps = torch.zeros_like(single)
-        w = cuda_bricks.brick_transmittance(brick, opts, steps=steps)
+        w, _ = cuda_bricks.brick_transmittance(brick, opts, steps=steps)
         assert not w.any()  # no absorption: no opacity
         total += steps
         touched += (steps > 0).to(torch.int32)
@@ -276,8 +279,180 @@ def test_exit_opacity_of_one_brick_feeds_the_next():
     fwd = bricks._forward(split, opts, 0.0, fast=True)
     assert bool(fwd.ascending.all())
     for b in range(3):
-        _, w_out = cuda_bricks.brick_segment(split.bricks[b], opts, 0.0, fwd.w_in[b])
+        _, w_out = cuda_bricks.brick_segment(split.bricks[b], opts, 0.0, fwd.w_in[b],
+                                             fwd.entry[b])
         np.testing.assert_allclose(w_out.numpy(), fwd.w_in[b + 1].numpy(), atol=3e-7, rtol=0)
+
+
+# ---- the entry record ------------------------------------------------------
+
+RESUME_CASES = [(name, n) for name in ("unlit", "dz_negative", "low_threshold", "grazing_mixed")
+                for n in (4, 8)]
+
+
+@functools.lru_cache(maxsize=None)
+def split_forward(name, n):
+    """(scene, options, bricked scene, plain bricked forward) of a case."""
+    _, tscene = make_scenes(vol_shape=VOL, **CASES[name][0])
+    opts = tscene.options(W, H)
+    split = bricks.split_bricks(tscene, make_mesh(n, "cpu"))
+    return tscene, opts, split, bricks._forward(split, opts, 0.0, fast=False)
+
+
+def ray_kinds(brick, opts, w_in, entry, threshold):
+    """Masks (H, W) of the rays of a brick that the record must handle."""
+    hit = brick_march.BrickRays(brick, opts, 0.0).hit.reshape(entry.step.shape)
+    return {"misses the box": ~hit, "never reaches the brick": hit & (entry.step < 0),
+            "first sample at step 0": entry.step == 0,
+            "enters above the threshold": (entry.step > 0) & (w_in > threshold)}
+
+
+@pytest.mark.parametrize("name,n", RESUME_CASES)
+def test_shaded_pass_resumed_from_the_record_is_the_walk_from_step_zero(name, n):
+    """Phase 2 from phase 1's record takes the same samples at the same
+    positions as phase 2 walked from step 0: image, exit opacity and sample
+    counts equal to the bit, for every kind of ray."""
+    tscene, opts, split, fwd = split_forward(name, n)
+    threshold = float(tscene.settings.opacity_threshold)
+    seen = dict.fromkeys(ray_kinds(split.bricks[0], opts, fwd.w_in[0], fwd.entry[0], threshold), 0)
+    for brick, w_in, entry in zip(split.bricks, fwd.w_in, fwd.entry):
+        walked_steps = torch.zeros((H, W), dtype=torch.int32)
+        resumed_steps = torch.zeros((H, W), dtype=torch.int32)
+        walked = brick_march.shaded_pass(brick, opts, 0.0, w_in, walked_steps)
+        resumed = brick_march.shaded_pass(brick, opts, 0.0, w_in, resumed_steps, entry=entry)
+        assert torch.equal(resumed[0], walked[0]) and torch.equal(resumed[1], walked[1])
+        assert torch.equal(resumed_steps, walked_steps)
+        for kind, mask in ray_kinds(brick, opts, w_in, entry, threshold).items():
+            seen[kind] += int(mask.sum())
+            if kind != "first sample at step 0":  # these rays take no sample
+                assert not resumed_steps[mask].any() and not resumed[0][mask].any()
+                assert torch.equal(resumed[1][mask], w_in[mask])
+    assert all(seen[k] > 0 for k in seen if k != "enters above the threshold"), seen
+    assert (seen["enters above the threshold"] > 0) == (threshold < 0.5), seen
+
+
+@pytest.mark.parametrize("name,n", RESUME_CASES[::2])
+def test_entry_record_is_the_first_step_the_brick_owns(name, n):
+    """Every record points into its brick, and the records of one ray over
+    all bricks are in the ray's own order of the bricks."""
+    tscene, opts, split, fwd = split_forward(name, n)
+    rays = brick_march.BrickRays(split.bricks[0], opts, 0.0)
+    boxmin, boxscale = rays.consts.boxmin[2], rays.consts.boxscale[2]
+    rising = (rays.step.z > 0).reshape(H, W)
+    for b, entry in enumerate(fwd.entry):
+        ok = entry.step >= 0
+        assert entry.step.dtype == torch.int32 and entry.state.shape == (H, W, 4)
+        owner = torch.clamp(torch.floor((entry.state[..., 3] - boxmin) * boxscale * float(n)),
+                            0.0, n - 1.0)
+        assert bool((owner[ok] == b).all())
+        assert not entry.state[~ok].any()
+        if b > 0:  # a rising ray reaches brick b after brick b - 1
+            before = fwd.entry[b - 1].step
+            both = ok & (before >= 0)
+            assert bool(torch.where(rising, entry.step > before, entry.step < before)[both].all())
+
+
+def test_resumed_passes_require_the_record():
+    tscene, opts, split, fwd = split_forward("unlit", 4)
+    brick, w_in = split.bricks[1], fwd.w_in[1]
+    with pytest.raises(TypeError, match="brick_transmittance"):
+        cuda_bricks.brick_segment(brick, opts, 0.0, w_in, None)
+    g = torch.zeros((H, W, 3))
+    with pytest.raises(TypeError, match="brick_transmittance"):
+        cuda_bricks.brick_gradients(brick, opts, 0.0, g, fwd.image, w_in, torch.zeros((H, W)),
+                                    None)
+
+
+def other_record(kind, opts, split, fwd):
+    """(options, camera_x_offset, y_offset, n_rows, record) where brick 1
+    resumes from a record made for something else; the pass keeps the shapes
+    of its planes."""
+    entry = fwd.entry[1]
+    if kind == "another brick":
+        return opts, 0.0, 0, None, fwd.entry[2]
+    if kind == "another camera_x_offset":
+        return opts, 0.1, 0, None, entry
+    if kind == "other options":
+        return RenderOptions(W, H, opts.boxmin, opts.boxmax, opts.tstep, opts.gradient_step,
+                             opts.n_steps - 1), 0.0, 0, None, entry
+    return opts, 0.0, 0, H - 4, entry.rows(2, H - 4)  # another band of rows
+
+
+@pytest.mark.parametrize("kind", ["another brick", "another camera_x_offset", "other options",
+                                  "another band"])
+def test_resumed_passes_refuse_a_record_made_for_something_else(kind):
+    """A record fits only the brick, options, camera offset and rows of the
+    phase 1 that made it: the wrappers and the plain passes raise for any
+    other, where resuming from it would take wrong samples without a word."""
+    _, opts, split, fwd = split_forward("unlit", 4)
+    brick = split.bricks[1]
+    other_opts, cam, y0, rows, entry = other_record(kind, opts, split, fwd)
+    cut = slice(y0, y0 + (H if rows is None else rows))
+    w_in, image, up = fwd.w_in[1][cut], fwd.image[cut], torch.zeros((H, W))[cut]
+    g = torch.ones_like(image)
+    band = dict(y_offset=y0, n_rows=rows)
+    calls = [lambda: brick_march.shaded_pass(brick, other_opts, cam, w_in, entry=entry, **band),
+             lambda: brick_march.replay_pass(brick, other_opts, cam, g, image, w_in, up,
+                                             entry=entry, **band)]
+    if rows is None:  # the wrappers march the whole image
+        calls += [lambda: cuda_bricks.brick_segment(brick, other_opts, cam, w_in, entry),
+                  lambda: cuda_bricks.brick_gradients(brick, other_opts, cam, g, image, w_in, up,
+                                                      entry)]
+    for call in calls:
+        with pytest.raises(ValueError, match="entry record was made for"):
+            call()
+
+
+def brute_force_flushes(brick, opts, w_in, entry):
+    """The corner carry's atomic adds into one grid, ray by ray in plain
+    Python: the cells of each ray's samples from the walk (from ``entry``,
+    or from step 0 without it), then 8 minus the corners two consecutive
+    cells share, and 8 for the last cell."""
+    rays = brick_march.BrickRays(brick, opts, 0.0)
+    consts, sample_ab = rays.consts, brick_march.brick_samplers(brick).ab
+    em = brick.scene.emission.data
+    dims = (em.shape[2], em.shape[1], brick.slab_geometry(em)[1])
+    samples = []
+
+    def composite(pos, act, sw):
+        s = core.to_sample_coords(pos, consts)
+        samples.append((act.clone(), [torch.clamp(torch.floor(c * float(d) - 0.5), -1.0, float(d))
+                                      for c, d in zip(s, dims)]))
+        ab = sample_ab(s)
+        return 1.0 - torch.exp(-(consts.factor_absorption * ab) * consts.tstep)
+
+    rays.walk(w_in, composite, entry=entry)
+    total, flushes = 0, 0
+    for r in range(H * W):
+        cells = [tuple(int(c[r]) for c in corner) for act, corner in samples if act[r]]
+        total += len(cells)
+        for a, b in zip(cells, cells[1:]):
+            d = [abs(i - j) for i, j in zip(a, b)]
+            flushes += 8 - (int(np.prod([2 - k for k in d])) if max(d) <= 1 else 0)
+        flushes += 8 if cells else 0
+    return total, flushes
+
+
+# (samples, flushes) of brick 1 of each case: the step is under half a voxel,
+# so a ray's samples share a cell or four corners most of the time
+STATED_FLUSHES = {"unlit": (2173, 3340), "low_threshold": (395, 732),
+                  "grazing_mixed": (3812, 3144)}
+
+
+@pytest.mark.parametrize("name", list(STATED_FLUSHES))
+def test_corner_flush_count(name):
+    """``chip_smoke.corner_flushes`` counts the atomic adds of the gradient
+    segment's corner carry from the plain walk: the stated number, equal to
+    a count ray by ray, also walked from step 0, and far under the 8 a
+    sample of a scatter without the carry."""
+    n = CASES[name][1]
+    _, opts, split, fwd = split_forward(name, n)
+    brick, w_in, entry = split.bricks[1], fwd.w_in[1], fwd.entry[1]
+    counted = chip_smoke.corner_flushes(brick, opts, w_in, entry)
+    assert counted == brute_force_flushes(brick, opts, w_in, entry) == STATED_FLUSHES[name]
+    assert counted == chip_smoke.corner_flushes(brick, opts, w_in, None)  # walked from step 0
+    samples, flushes = counted
+    assert 0 < flushes < 2 * samples
 
 
 # ---- training ----------------------------------------------------------------

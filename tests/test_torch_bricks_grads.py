@@ -25,6 +25,7 @@ from volume_renderer_tpu.parallel.bricks import voxel_grads_bricked_fast as jax_
 from volume_renderer_tpu.parallel.sharding import make_mesh as jax_make_mesh
 
 from test_torch_helpers import make_scenes
+from volume_renderer_tpu_torch.ops import brick_march
 from volume_renderer_tpu_torch.ops.cuda_grads import voxel_grads_fast
 from volume_renderer_tpu_torch.ops.vjp import merge_scene, render_fused, split_scene
 from volume_renderer_tpu_torch.parallel import bricks
@@ -170,6 +171,32 @@ def test_halo_rows_return_to_their_owners():
         folded[1][:2].numpy(), (padded[1][2:4] + padded[0][-2:]).numpy(), rtol=1e-6)
     np.testing.assert_allclose(
         folded[0][:2].numpy(), padded[0][2:4].numpy(), rtol=0)  # nothing folds into the edge
+
+
+# ---- the entry record ------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,n", [(name, n) for name in ("unlit", "dz_negative",
+                                                           "low_threshold", "grazing_mixed")
+                                    for n in (4, 8)])
+def test_replay_pass_resumed_from_the_record_is_the_walk_from_step_zero(name, n):
+    """The gradient segment from phase 1's record replays the same samples
+    at the same positions in the same order as the segment walked from step
+    0: every key equal to the bit, on every brick."""
+    _, tscene = make_scenes(vol_shape=VOL, **CASES[name][0])
+    opts = tscene.options(W, H)
+    split = bricks.split_bricks(tscene, make_mesh(n, "cpu"))
+    fwd = bricks._forward(split, opts, 0.0, fast=False)
+    g = torch.from_numpy(cotangent())
+    up_dots = bricks._upstream([brick_march.own_dot(g, own) for own in fwd.own],
+                               fwd.ascending, torch.cumsum, 0.0)
+    for brick, w_in, up, entry in zip(split.bricks, fwd.w_in, up_dots, fwd.entry):
+        args = (brick, opts, 0.0, g, fwd.image, w_in, up)
+        walked = brick_march.replay_pass(*args, angle_floor=True)
+        resumed = brick_march.replay_pass(*args, angle_floor=True, entry=entry)
+        assert set(resumed) == set(walked)
+        for key, value in walked.items():
+            assert torch.equal(resumed[key], value), (brick.index, key)
 
 
 # ---- the fast entry point's CPU path -----------------------------------------

@@ -19,12 +19,32 @@
 // Halo rows of the padded grids collect what belongs to the neighbouring
 // bricks; parallel/bricks.py folds them back.
 //
-// What bounds it on this card, and what the design does about it: as
-// march_bwd.cu (gathers and 8 or 16 atomic adds a sample, a thread per ray
-// in 16x16 blocks, atomicAdd without a return value), plus the walk to the
-// brick described in brick_fwd.cu. A ray whose cotangent is zero is
-// skipped. Atomic adds land in no fixed order, so the grids differ from
-// run to run in the last bits.
+// What bounds it on this card: as march_bwd.cu, the gathers and the atomic
+// adds into L2 (8 a sample and grid if each sample adds its shares alone).
+//
+// What the design does about it. A thread per ray, in 16x8 blocks (a warp
+// is two rows of 16 neighbouring rays, as in K6; 16x16 blocks ran slower on
+// an H100, PERF.md).
+// - The ray resumes from the entry record that phase 1 stored
+//   (brick_common.cuh) and never walks to its brick.
+// - The corners and trilinear weights of a sample are computed once for
+//   both grids when absorption has the emission's shape and place (checked
+//   on the host below); an absorption of another shape keeps its own cell,
+//   fetch and carry.
+// - The step is under half a voxel, so consecutive samples of a ray mostly
+//   share their cell, or 4 of its corners after crossing one face. The ray
+//   carries the pending sums of its current cell's 8 corners (16 with
+//   absorption) in registers (CornerCarry), the adjoint of the fetch's
+//   clamp and shift included: a sample in the same cell adds
+//   into them, a sample that crosses a face keeps the corners both cells
+//   share and flushes the rest, and the ray flushes all when it ends. A
+//   flush is one atomicAdd without a return value (red.global.add.f32),
+//   skipped for a sum that is still zero. This is the exact adjoint of the
+//   same fetches; only the order of the float additions changes, and atomic
+//   adds land in no fixed order anyway, so the grids differ from run to run
+//   in the last bits.
+// - A ray whose cotangent is zero, that has no record or that enters above
+//   the opacity threshold writes zero planes at once.
 //
 // Build flags as for march_fwd.cu (-fmad=false, no fast math). Plain C
 // interface, loaded with ctypes (ops/cuda_bricks.py).
@@ -33,7 +53,7 @@
 
 // Mirrored field for field by _BrickGradArgs in ops/cuda_bricks.py.
 struct BrickGradArgs {
-  BrickArgs b;          // m.out, m.steps and w_out are unused
+  BrickArgs b;          // m.out, m.steps and w_out are unused; the entry record is read
   const float* g;       // (height, width, 3) pixel cotangent
   const float* image;   // (height, width, 3) the GLOBAL image
   const float* up_dot;  // (height, width) g . contribution of the bricks in front
@@ -44,60 +64,162 @@ struct BrickGradArgs {
 
 namespace {
 
+constexpr int kScatterCols = kBlock, kScatterRows = 8;
+constexpr int kScatterThreads = kScatterCols * kScatterRows;
+
 __device__ __forceinline__ V3 scale(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
 
-// Adjoint of sample_slab(): adds d times the 8 trilinear weights at the 8
-// corners, clamped and shifted as the fetch clamps and shifts them.
-__device__ __forceinline__ void scatter_slab(float* grid, const Vol& v, ZSlab z, V3 c, float d) {
-  int x0, x1, y0, y1, z0, z1;
-  const float fx = corner(c.x, v.w, x0, x1);
-  const float fy = corner(c.y, v.h, y0, y1);
-  const float fz = corner_z(c.z, v, z, z0, z1);
-  const size_t sy = (size_t)v.w;
-  const size_t sz = (size_t)v.w * (size_t)v.h;
+// The 8 trilinear weights of cell k by slot a + 2 b + 4 c (corner
+// (x + a, y + b, z + c)): the x weight times the y weight times the z weight.
+__device__ __forceinline__ void corner_weights(const Cell& k, float (&w)[8]) {
+  const float fx = k.fx, fy = k.fy, fz = k.fz;
   const float gx0 = 1.0f - fx, gy0 = 1.0f - fy, gz0 = 1.0f - fz;
-  const size_t r00 = y0 * sy + z0 * sz, r10 = y1 * sy + z0 * sz;
-  const size_t r01 = y0 * sy + z1 * sz, r11 = y1 * sy + z1 * sz;
-  atomicAdd(grid + x0 + r00, gx0 * gy0 * gz0 * d);
-  atomicAdd(grid + x1 + r00, fx * gy0 * gz0 * d);
-  atomicAdd(grid + x0 + r10, gx0 * fy * gz0 * d);
-  atomicAdd(grid + x1 + r10, fx * fy * gz0 * d);
-  atomicAdd(grid + x0 + r01, gx0 * gy0 * fz * d);
-  atomicAdd(grid + x1 + r01, fx * gy0 * fz * d);
-  atomicAdd(grid + x0 + r11, gx0 * fy * fz * d);
-  atomicAdd(grid + x1 + r11, fx * fy * fz * d);
+  w[0] = gx0 * gy0 * gz0;
+  w[1] = fx * gy0 * gz0;
+  w[2] = gx0 * fy * gz0;
+  w[3] = fx * fy * gz0;
+  w[4] = gx0 * gy0 * fz;
+  w[5] = fx * gy0 * fz;
+  w[6] = gx0 * fy * fz;
+  w[7] = fx * fy * fz;
 }
 
-template <bool AB_ALIASED>
-__global__ void __launch_bounds__(kBlock * kBlock) brick_bwd_kernel(const BrickGradArgs ga) {
+// The pending corner sums of one ray's current cell in N grids of one shape
+// and place: s[n][a + 2 b + 4 c] is what the ray's samples in this cell, and
+// in earlier cells sharing the corner, added to corner (x + a, y + b, z + c)
+// of grid n. Every index into s is a constant after unrolling, so the sums
+// stay in registers.
+template <int N>
+struct CornerCarry {
+  float* grid[N];
+  Vol v;
+  ZSlab zs;
+  int x, y, z;  // the cell; far from any real one until the first sample
+  float s[N][8];
+
+  // g1: the second grid, with N = 2
+  __device__ __forceinline__ CornerCarry(const Vol& vol, ZSlab slab, float* g0, float* g1)
+      : v(vol), zs(slab), x(-(1 << 29)), y(-(1 << 29)), z(-(1 << 29)) {
+    grid[0] = g0;
+    if constexpr (N == 2) grid[1] = g1;
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s[n][k] = 0.0f;
+    }
+  }
+
+  // Adds slot k into the grids, clamped and shifted as the fetch clamps and
+  // shifts its corner, and clears it.
+  __device__ __forceinline__ void flush(int k) {
+    const size_t off = (size_t)clamp_index(x + (k & 1), v.w) +
+                       (size_t)clamp_index(y + ((k >> 1) & 1), v.h) * (size_t)v.w +
+                       (size_t)slab_row(z + (k >> 2), v, zs) * ((size_t)v.w * (size_t)v.h);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      if (s[n][k] != 0.0f) atomicAdd(grid[n] + off, s[n][k]);
+      s[n][k] = 0.0f;
+    }
+  }
+
+  __device__ __forceinline__ void flush_all() {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) flush(k);
+  }
+
+  // One step of d (-1, 0 or 1) along the axis of slot bit `bit`: the 4
+  // corners left behind are flushed, the 4 kept move to the other side.
+  __device__ __forceinline__ void shift(int bit, int d) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (k & bit) continue;
+      const int lo = k, hi = k | bit;
+      if (d > 0) {
+        flush(lo);
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          s[n][lo] = s[n][hi];
+          s[n][hi] = 0.0f;
+        }
+      } else if (d < 0) {
+        flush(hi);
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          s[n][hi] = s[n][lo];
+          s[n][lo] = 0.0f;
+        }
+      }
+    }
+  }
+
+  // Makes cell c the current one, flushing the corners it does not share.
+  __device__ __forceinline__ void move_to(const Cell& c) {
+    const int dx = c.x - x, dy = c.y - y, dz = c.z - z;
+    if (dx == 0 && dy == 0 && dz == 0) return;
+    if (abs(dx) > 1 || abs(dy) > 1 || abs(dz) > 1) {
+      flush_all();
+    } else {  // axis by axis: each flush addresses the cell as moved so far
+      shift(1, dx);
+      x = c.x;
+      shift(2, dy);
+      y = c.y;
+      shift(4, dz);
+    }
+    x = c.x;
+    y = c.y;
+    z = c.z;
+  }
+
+  // d0 into grid 0 and, with N = 2, d1 into grid 1, spread by the weights w
+  __device__ __forceinline__ void add(const float (&w)[8], float d0, float d1) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      s[0][k] = s[0][k] + w[k] * d0;
+      if constexpr (N == 2) s[1][k] = s[1][k] + w[k] * d1;
+    }
+  }
+};
+
+// AB_OWN_CELL: absorption has another shape or place than emission, so it
+// keeps its own cell and carry; otherwise it shares emission's.
+template <bool AB_ALIASED, bool AB_OWN_CELL>
+__global__ void __launch_bounds__(kScatterThreads) brick_bwd_kernel(const BrickGradArgs ga) {
+  constexpr int kCarried = AB_ALIASED || AB_OWN_CELL ? 1 : 2;
   const BrickArgs& a = ga.b;
   const MarchArgs& m = a.m;
-  const int px = blockIdx.x * kBlock + threadIdx.x;
-  const int py = blockIdx.y * kBlock + threadIdx.y;
+  const int px = blockIdx.x * blockDim.x + threadIdx.x;
+  const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= m.width || py >= m.height) return;
 
   const float* st = m.settings;
-  const float fe = __ldg(st + 0), fa = __ldg(st + 1);
-  const V3 color = {__ldg(st + 3), __ldg(st + 4), __ldg(st + 5)};
   const float threshold = __ldg(st + 6);
-  const float tstep = m.tstep;
-  const ZSlab em_slab = {a.em_d_global, a.em_z_off};
-  const ZSlab ab_slab = {a.ab_d_global, a.ab_z_off};
-
   const size_t pix = (size_t)py * m.width + px;
   const V3 g = {__ldg(ga.g + 3 * pix), __ldg(ga.g + 3 * pix + 1), __ldg(ga.g + 3 * pix + 2)};
-  const V3 out = {__ldg(ga.image + 3 * pix), __ldg(ga.image + 3 * pix + 1),
-                  __ldg(ga.image + 3 * pix + 2)};
-  const float total_dot = dot(g, out);
+  float sw = __ldg(a.w_in + pix);
+  const Entry e = load_entry(a, pix);
 
   float acc_e = 0.0f, acc_f = 0.0f;
-  if (!(g.x == 0.0f && g.y == 0.0f && g.z == 0.0f)) {
-    float sw = __ldg(a.w_in + pix);
+  if (!(g.x == 0.0f && g.y == 0.0f && g.z == 0.0f) && enters(e, sw, threshold)) {
+    const float fe = __ldg(st + 0), fa = __ldg(st + 1);
+    const V3 color = {__ldg(st + 3), __ldg(st + 4), __ldg(st + 5)};
+    const float tstep = m.tstep;
+    const ZSlab em_slab = {a.em_d_global, a.em_z_off};
+    const ZSlab ab_slab = {a.ab_d_global, a.ab_z_off};
+    const V3 out = {__ldg(ga.image + 3 * pix), __ldg(ga.image + 3 * pix + 1),
+                    __ldg(ga.image + 3 * pix + 2)};
+    const float total_dot = dot(g, out);
     float prefix = __ldg(ga.up_dot + pix);
-    walk_brick(a, px, py, threshold, sw, [&](V3 p, V3 s, float& w) {
+    V3 step;
+    float tfar;
+    ray_step(m, px, py, step, tfar);
+    CornerCarry<kCarried> carry(m.em, em_slab, ga.d_em, ga.d_ab);
+    CornerCarry<1> ab_carry(m.ab, ab_slab, ga.d_ab, nullptr);  // with AB_OWN_CELL
+    march_brick(a, e, step, tfar, threshold, sw, [&](V3 s, float& w) {
       // ---- the sample's forward values, as brick_fwd.cu has them ----
-      const float em = sample_slab(m.em, em_slab, s);
-      const float ab = AB_ALIASED ? em : sample_slab(m.ab, ab_slab, s);
+      const Cell k = cell_of(m.em, em_slab, s);
+      const Cell ka = AB_OWN_CELL ? cell_of(m.ab, ab_slab, s) : k;
+      const float em = fetch_cell(m.em, em_slab, k);
+      const float ab = AB_ALIASED ? em : fetch_cell(m.ab, ab_slab, ka);
       const float emission = fe * em;
       const float absorption = fa * ab;
       const float transmit = expf(-absorption * tstep);
@@ -120,15 +242,23 @@ __global__ void __launch_bounds__(kBlock * kBlock) brick_bwd_kernel(const BrickG
       acc_e = acc_e + tw * alpha * em;
       float d_at_em = dot(d_illum, color) * tstep * fe;
       const float d_ab = d_absorption * fa;
-      if (AB_ALIASED) {
-        d_at_em = d_at_em + d_ab;
-      } else {
-        scatter_slab(ga.d_ab, m.ab, ab_slab, s, d_ab);
+      if (AB_ALIASED) d_at_em = d_at_em + d_ab;
+
+      // ---- the shares of the cells' corners, carried ----
+      float wk[8];
+      carry.move_to(k);
+      corner_weights(k, wk);
+      carry.add(wk, d_at_em, d_ab);
+      if (AB_OWN_CELL) {
+        ab_carry.move_to(ka);
+        corner_weights(ka, wk);
+        ab_carry.add(wk, d_ab, 0.0f);
       }
-      scatter_slab(ga.d_em, m.em, em_slab, s, d_at_em);
 
       w = tw * alpha + w;
     });
+    carry.flush_all();
+    if (AB_OWN_CELL) ab_carry.flush_all();
   }
 
   const size_t plane = (size_t)m.width * m.height;
@@ -136,12 +266,13 @@ __global__ void __launch_bounds__(kBlock * kBlock) brick_bwd_kernel(const BrickG
   ga.planes[plane + pix] = acc_f;
 }
 
-template <bool AB>
+template <bool AB, bool OWN>
 cudaError_t launch(const BrickGradArgs& ga, cudaStream_t stream) {
   const MarchArgs& m = ga.b.m;
-  const dim3 block(kBlock, kBlock);
-  const dim3 grid((m.width + kBlock - 1) / kBlock, (m.height + kBlock - 1) / kBlock);
-  brick_bwd_kernel<AB><<<grid, block, 0, stream>>>(ga);
+  const dim3 block(kScatterCols, kScatterRows);
+  const dim3 grid((m.width + kScatterCols - 1) / kScatterCols,
+                  (m.height + kScatterRows - 1) / kScatterRows);
+  brick_bwd_kernel<AB, OWN><<<grid, block, 0, stream>>>(ga);
   return cudaGetLastError();
 }
 
@@ -159,8 +290,15 @@ int vr_brick_bwd(const BrickGradArgs* args, int ab_aliased, void* stream) {
   const BrickArgs& a = ga.b;
   if (a.m.width <= 0 || a.m.height <= 0) return (int)cudaSuccess;
   if (a.n_bricks < 1 || a.brick < 0 || a.brick >= a.n_bricks) return (int)cudaErrorInvalidValue;
+  if (a.entry_step == nullptr || a.entry_state == nullptr || a.w_in == nullptr)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(ab_aliased ? launch<true>(ga, s) : launch<false>(ga, s));
+  if (ab_aliased) return (int)launch<true, false>(ga, s);
+  // absorption shares emission's corners where it has its shape and place
+  const Vol &em = a.m.em, &ab = a.m.ab;
+  const bool same = ab.d == em.d && ab.h == em.h && ab.w == em.w &&
+                    a.ab_z_off == a.em_z_off && a.ab_d_global == a.em_d_global;
+  return (int)(same ? launch<false, false>(ga, s) : launch<false, true>(ga, s));
 }
 
 const char* vr_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

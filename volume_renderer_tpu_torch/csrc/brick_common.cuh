@@ -3,10 +3,15 @@
 // A brick holds rows [b * bd, (b + 1) * bd) of a volume plus two halo rows
 // on each side, and marches the part of every ray that it owns. The ray is
 // that of the whole box: positions advance from step 0 by accumulation, as
-// march_fwd.cu advances them, and nothing is fetched until the brick is
-// reached, so a sample has the same position in every brick and in the
-// single-device march. ops/brick_march.py (BrickRays.walk) is the plain
-// version of walk_brick below, step for step.
+// march_fwd.cu advances them, so a sample has the same position in every
+// brick and in the single-device march.
+//
+// Phase 1 walks each ray from step 0 to the first step that its brick owns
+// (walk_to_brick) and stores there the ray's entry record: the step index,
+// t and the accumulated position. Phase 2 and the gradient segment resume
+// from that record (load_entry) and never walk: the positions are stored,
+// not recomputed, so they stay bit-equal. ops/brick_march.py
+// (BrickRays.walk, Entry) is the plain version of both, step for step.
 
 #pragma once
 
@@ -20,33 +25,55 @@ struct BrickArgs {
   int ab_d_global, ab_z_off;  // grid's first padded row (0 for a depth-1 volume)
   const float* w_in;    // (height, width) entry opacity; null means zero
   float* w_out;         // (height, width) exit opacity
+  int* entry_step;      // (height, width) the entry record: phase 1 writes it,
+  float* entry_state;   // (height, width, 4) phase 2 and the gradient segment read it
 };
 
 namespace {
+
+// The entry record of a ray in a brick: the first step i that the brick
+// owns, with t and the position p there. i = -1: the ray misses the box or
+// never reaches the brick.
+struct Entry {
+  int i;
+  float t;
+  V3 p;
+};
 
 // Where a padded grid lies in its volume.
 struct ZSlab {
   int d_global, z_off;
 };
 
-// corner() along z for a brick: the indices are clamped against the whole
-// depth, as the single-device fetch clamps them, then shifted into the
-// brick. The second clamp only keeps a stray index inside the allocation:
-// with two halo rows no owned sample reaches it.
-__device__ __forceinline__ float corner_z(float c, const Vol& v, ZSlab z, int& i0, int& i1) {
-  int g0, g1;
-  const float f = corner(c, z.d_global, g0, g1);
-  i0 = min(max(g0 - z.z_off, 0), v.d - 1);
-  i1 = min(max(g1 - z.z_off, 0), v.d - 1);
-  return f;
+// A brick row for global row g: clamped against the whole depth, as the
+// single-device fetch clamps, then shifted into the brick. The second clamp
+// only keeps a stray index inside the allocation: with two halo rows no
+// owned sample reaches it.
+__device__ __forceinline__ int slab_row(int g, const Vol& v, ZSlab z) {
+  return min(max(clamp_index(g, z.d_global) - z.z_off, 0), v.d - 1);
 }
 
-// sample() of march_common.cuh on a brick, at global coordinates.
-__device__ __forceinline__ float sample_slab(const Vol& v, ZSlab z, V3 c) {
-  int x0, x1, y0, y1, z0, z1;
-  const float fx = corner(c.x, v.w, x0, x1);
-  const float fy = corner(c.y, v.h, y0, y1);
-  const float fz = corner_z(c.z, v, z, z0, z1);
+// The lower corner of a sample in a brick's grid before any clamp (z in
+// global rows), and its weights.
+struct Cell {
+  int x, y, z;
+  float fx, fy, fz;
+};
+
+__device__ __forceinline__ Cell cell_of(const Vol& v, ZSlab z, V3 c) {
+  Cell k;
+  k.x = floor_index(c.x, v.w, k.fx);
+  k.y = floor_index(c.y, v.h, k.fy);
+  k.z = floor_index(c.z, z.d_global, k.fz);
+  return k;
+}
+
+// sample() of march_common.cuh on a brick, at the corners of cell k.
+__device__ __forceinline__ float fetch_cell(const Vol& v, ZSlab z, const Cell& k) {
+  const int x0 = clamp_index(k.x, v.w), x1 = clamp_index(k.x + 1, v.w);
+  const int y0 = clamp_index(k.y, v.h), y1 = clamp_index(k.y + 1, v.h);
+  const int z0 = slab_row(k.z, v, z), z1 = slab_row(k.z + 1, v, z);
+  const float fx = k.fx, fy = k.fy, fz = k.fz;
   const size_t sy = (size_t)v.w;
   const size_t sz = (size_t)v.w * (size_t)v.h;
   const float* p = v.data;
@@ -65,37 +92,96 @@ __device__ __forceinline__ float sample_slab(const Vol& v, ZSlab z, V3 c) {
   return c0 + fz * (c1 - c0);
 }
 
-// Walks the ray of pixel (px, py) through brick a.brick. body(p, s, sw) is
-// called for every sample the brick composites, with its world position p,
-// its normalized position s and the opacity sw carried into it, which body
-// updates. Returns the number of samples composited.
-//
-// Sample n belongs to brick clamp(floor(s.z * B), 0, B - 1): one expression
-// that does not know b, so every sample has exactly one owner. Along a ray
-// the owner is monotone, so a ray that has left the brick, or moves away
-// from it, ends. The first sample of a ray composites unconditionally, a
-// later one only while sw <= threshold and t <= tfar: the single-device
-// march's stop test, taken before the sample instead of after its
-// predecessor.
-template <typename Body>
-__device__ __forceinline__ int walk_brick(const BrickArgs& a, int px, int py, float threshold,
-                                          float& sw, Body body) {
+// sample() on a brick, at global coordinates.
+__device__ __forceinline__ float sample_slab(const Vol& v, ZSlab z, V3 c) {
+  return fetch_cell(v, z, cell_of(v, z, c));
+}
+
+// The owner of a sample at normalized z: clamp(floor(s.z * B), 0, B - 1),
+// one expression that does not know b, so every sample has exactly one
+// owner. Along a ray the owner is monotone.
+__device__ __forceinline__ float owner_of(float sz, float nb) {
+  return fminf(fmaxf(floorf(sz * nb), 0.0f), nb - 1.0f);
+}
+
+// Walks the ray of pixel (px, py) from step 0, without fetching, to the
+// first step that brick a.brick owns. Returns its entry record (i = -1
+// where the ray misses the box, moves away from the brick, passes tfar or
+// runs out of steps first) and the ray's step and far end.
+__device__ __forceinline__ Entry walk_to_brick(const BrickArgs& a, int px, int py, V3& step,
+                                               float& tfar) {
   const MarchArgs& m = a.m;
+  Entry e = {-1, 0.0f, {0.0f, 0.0f, 0.0f}};
   V3 origin, dir;
-  float tnear, tfar;
-  if (!make_ray(m, px, py, origin, dir, tnear, tfar)) return 0;
+  float tnear;
+  if (!make_ray(m, px, py, origin, dir, tnear, tfar)) return e;
   const float tstep = m.tstep;
   const float nb = (float)a.n_bricks, bf = (float)a.brick;
   float t = tnear;
   V3 p = {origin.x + dir.x * tnear, origin.y + dir.y * tnear, origin.z + dir.z * tnear};
-  const V3 step = {dir.x * tstep, dir.y * tstep, dir.z * tstep};
-  int count = 0;
+  step = {dir.x * tstep, dir.y * tstep, dir.z * tstep};
   for (int i = 0; i < m.n_steps; ++i) {
+    const float owner = owner_of(to_sample(m, p).z, nb);
+    if (owner == bf) return {i, t, p};
+    if (!((step.z > 0.0f && owner < bf) || (step.z < 0.0f && owner > bf))) return e;
+    t = t + tstep;
+    if (!(t <= tfar)) return e;
+    p = {p.x + step.x, p.y + step.y, p.z + step.z};
+  }
+  return e;
+}
+
+// Phase 1 stores the record of pixel pix; phase 2 and the gradient segment
+// read it back.
+__device__ __forceinline__ void store_entry(const BrickArgs& a, size_t pix, const Entry& e) {
+  a.entry_step[pix] = e.i;
+  reinterpret_cast<float4*>(a.entry_state)[pix] = make_float4(e.t, e.p.x, e.p.y, e.p.z);
+}
+
+__device__ __forceinline__ Entry load_entry(const BrickArgs& a, size_t pix) {
+  const float4 s = __ldg(reinterpret_cast<const float4*>(a.entry_state) + pix);
+  return {__ldg(a.entry_step + pix), s.x, {s.y, s.z, s.w}};
+}
+
+// Whether a ray that enters the brick with opacity sw composites anything:
+// the first sample of a ray composites unconditionally, a later one only
+// while sw <= threshold (the march's stop test, taken before the sample).
+__device__ __forceinline__ bool enters(const Entry& e, float sw, float threshold) {
+  return e.i == 0 || (e.i > 0 && sw <= threshold);
+}
+
+// The ray's step and far end, for a resume from its record: the set-up of
+// walk_to_brick, float for float.
+__device__ __forceinline__ void ray_step(const MarchArgs& m, int px, int py, V3& step,
+                                         float& tfar) {
+  V3 origin, dir;
+  float tnear;
+  make_ray(m, px, py, origin, dir, tnear, tfar);
+  step = {dir.x * m.tstep, dir.y * m.tstep, dir.z * m.tstep};
+}
+
+// Marches the brick's part of a ray from its entry record e (e.i >= 0).
+// body(s, sw) is called for every sample the brick composites, with its
+// normalized position s and the opacity sw carried into it, which body
+// updates. Returns the number of samples composited. A ray that leaves the
+// brick, or moves away from it, ends; a later sample composites only while
+// sw <= threshold and t <= tfar, the single-device march's stop test taken
+// before the sample instead of after its predecessor.
+template <typename Body>
+__device__ __forceinline__ int march_brick(const BrickArgs& a, const Entry& e, V3 step,
+                                           float tfar, float threshold, float& sw, Body body) {
+  const MarchArgs& m = a.m;
+  const float tstep = m.tstep;
+  const float nb = (float)a.n_bricks, bf = (float)a.brick;
+  float t = e.t;
+  V3 p = e.p;
+  int count = 0;
+  for (int i = e.i; i < m.n_steps; ++i) {
     const V3 s = to_sample(m, p);
-    const float owner = fminf(fmaxf(floorf(s.z * nb), 0.0f), nb - 1.0f);
+    const float owner = owner_of(s.z, nb);
     if (owner == bf) {
       if (i > 0 && !(sw <= threshold)) break;
-      body(p, s, sw);
+      body(s, sw);
       ++count;
     } else if (!((step.z > 0.0f && owner < bf) || (step.z < 0.0f && owner > bf))) {
       break;

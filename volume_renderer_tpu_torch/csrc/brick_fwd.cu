@@ -14,17 +14,19 @@
 //
 // What bounds it on this card. As march_fwd.cu: the roofline counts the
 // float32 operations of the composited samples against the grids read once
-// and calls it operation-bound; it really waits on the gathers. On top, a
-// ray walks from its first step to the brick without fetching (about 20
-// operations a step), so B bricks together walk each ray up to B times.
+// and calls it operation-bound; it really waits on the gathers.
 //
 // What the design does about it. A thread per ray in 16x16 blocks, as the
 // single-device kernels. Nothing of the TPU mode is carried over: no sweep
 // axis, no dir_ok, no window plans, no overflow flag; the ownership bounds
 // own_lo / own_hi in local rows became one owner expression in global
-// coordinates. A closed-form skip to the brick would save the walk but
-// round positions differently from the single-device march; the walk keeps
-// them bit-equal.
+// coordinates. A ray reaches its brick by walking from its first step
+// without fetching (about 20 operations a step): a closed-form skip would
+// round positions differently from the single-device march. Phase 1 walks
+// and stores the ray's entry record (brick_common.cuh); phase 2 resumes
+// from it, so the walk is paid once per brick and render, not twice. A ray
+// without a record, or entering above the opacity threshold, writes its
+// zeros at once: a block whose rays all do so ends without marching.
 //
 // Build flags as for march_fwd.cu (-fmad=false, no fast math). Plain C
 // interface, loaded with ctypes (ops/cuda_bricks.py).
@@ -41,34 +43,48 @@ __global__ void __launch_bounds__(kBlock * kBlock) brick_fwd_kernel(const BrickA
   if (px >= m.width || py >= m.height) return;
 
   const float* st = m.settings;
-  const float fe = __ldg(st + 0), fa = __ldg(st + 1);
-  const V3 color = {__ldg(st + 3), __ldg(st + 4), __ldg(st + 5)};
   const float threshold = __ldg(st + 6);
-  const float tstep = m.tstep;
-  const ZSlab em_slab = {a.em_d_global, a.em_z_off};
-  const ZSlab ab_slab = {a.ab_d_global, a.ab_z_off};
-
   const size_t pix = (size_t)py * m.width + px;
-  float sw = a.w_in != nullptr ? __ldg(a.w_in + pix) : 0.0f;
+  float sw = 0.0f;
   float sr = 0.0f, sg = 0.0f, sb = 0.0f;
-  const int count = walk_brick(a, px, py, threshold, sw, [&](V3 p, V3 s, float& w) {
-    float em = 0.0f;
-    if (SHADE || AB_ALIASED) em = sample_slab(m.em, em_slab, s);
-    const float ab = AB_ALIASED ? em : sample_slab(m.ab, ab_slab, s);
-    const float absorption = fa * ab;
-    const float alpha = 1.0f - expf(-absorption * tstep);
-    const float tw = 1.0f - w;
-    if (SHADE) {
-      const float emission = fe * em;
-      const float ir = emission * tstep * color.x;
-      const float ig = emission * tstep * color.y;
-      const float ib = emission * tstep * color.z;
-      sr = tw * (ir * alpha) + sr;
-      sg = tw * (ig * alpha) + sg;
-      sb = tw * (ib * alpha) + sb;
-    }
-    w = tw * alpha + w;
-  });
+  int count = 0;
+  Entry e;
+  V3 step = {0.0f, 0.0f, 0.0f};
+  float tfar = 0.0f;
+  if (SHADE) {
+    sw = __ldg(a.w_in + pix);
+    e = load_entry(a, pix);
+    if (enters(e, sw, threshold)) ray_step(m, px, py, step, tfar);
+    else e.i = -1;
+  } else {
+    e = walk_to_brick(a, px, py, step, tfar);
+    store_entry(a, pix, e);
+  }
+  if (e.i >= 0) {
+    const float fe = __ldg(st + 0), fa = __ldg(st + 1);
+    const V3 color = {__ldg(st + 3), __ldg(st + 4), __ldg(st + 5)};
+    const float tstep = m.tstep;
+    const ZSlab em_slab = {a.em_d_global, a.em_z_off};
+    const ZSlab ab_slab = {a.ab_d_global, a.ab_z_off};
+    count = march_brick(a, e, step, tfar, threshold, sw, [&](V3 s, float& w) {
+      float em = 0.0f;
+      if (SHADE || AB_ALIASED) em = sample_slab(m.em, em_slab, s);
+      const float ab = AB_ALIASED ? em : sample_slab(m.ab, ab_slab, s);
+      const float absorption = fa * ab;
+      const float alpha = 1.0f - expf(-absorption * tstep);
+      const float tw = 1.0f - w;
+      if (SHADE) {
+        const float emission = fe * em;
+        const float ir = emission * tstep * color.x;
+        const float ig = emission * tstep * color.y;
+        const float ib = emission * tstep * color.z;
+        sr = tw * (ir * alpha) + sr;
+        sg = tw * (ig * alpha) + sg;
+        sb = tw * (ib * alpha) + sb;
+      }
+      w = tw * alpha + w;
+    });
+  }
   if (SHADE) {
     m.out[3 * pix + 0] = sr;
     m.out[3 * pix + 1] = sg;
@@ -94,11 +110,14 @@ extern "C" {
 size_t vr_brick_args_size() { return sizeof(BrickArgs); }
 
 // Launches the brick march on ``stream``; returns the launch's cudaError_t.
-// shade: 0 phase 1 (opacity only, args->m.out unused), 1 phase 2.
+// shade: 0 phase 1 (opacity only, args->m.out and w_in unused; writes the
+// entry record), 1 phase 2 (reads the entry record).
 int vr_brick_fwd(const BrickArgs* args, int shade, int ab_aliased, void* stream) {
   const BrickArgs& a = *args;
   if (a.m.width <= 0 || a.m.height <= 0) return (int)cudaSuccess;
   if (a.n_bricks < 1 || a.brick < 0 || a.brick >= a.n_bricks) return (int)cudaErrorInvalidValue;
+  if (a.entry_step == nullptr || a.entry_state == nullptr) return (int)cudaErrorInvalidValue;
+  if (shade && (a.w_in == nullptr || a.m.out == nullptr)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (shade) {
     return (int)(ab_aliased ? launch<true, true>(a, s) : launch<true, false>(a, s));

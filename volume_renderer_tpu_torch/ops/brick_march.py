@@ -25,7 +25,12 @@ What every pass shares, and the kernels repeat:
 - the first sample of a ray composites unconditionally; every later one only
   while the opacity carried into it is at most the threshold and
   ``t <= tfar``, as in the single-device march. The opacity starts at the
-  brick's entry opacity ``w_in``.
+  brick's entry opacity ``w_in``;
+- phase 1 (``transmittance_pass``) also returns each ray's ``Entry``: the
+  first step the brick owns, with ``t`` and the accumulated position there.
+  The walk before that step does not depend on the opacity, so the other
+  two passes resume from the record (``entry=``) instead of walking from
+  step 0, and take the same samples at the same positions, bit for bit.
 """
 
 from __future__ import annotations
@@ -42,6 +47,39 @@ from volume_renderer_tpu_torch.ops.sampling import sample_trilinear, sample_tril
 from volume_renderer_tpu_torch.ops.vjp import Diff, StepReplay
 
 HALO = 2  # rows each side: a trilinear fetch needs +-1, the on-the-fly gradient taps +-2
+
+
+class Entry(NamedTuple):
+    """Where each ray enters a brick: its first step that the brick owns.
+    ``step`` and ``state`` are the kernels' record (``csrc/brick_common.cuh``),
+    field for field; ``made_for`` is ``Entry.key`` of the march that found
+    it, and a pass that resumes from the record refuses it for another."""
+
+    step: torch.Tensor   # (H, W) int32; -1 where the ray misses the box or never reaches the brick
+    state: torch.Tensor  # (H, W, 4) float32: t and the position x, y, z at that step
+    made_for: tuple
+
+    @staticmethod
+    def key(brick: "Brick", opts: RenderOptions, camera_x_offset: float, y_offset: int = 0,
+            n_rows: Optional[int] = None) -> tuple:
+        """What a record depends on: the brick and the number of bricks,
+        the options, the camera offset and the band of image rows."""
+        rows = opts.height if n_rows is None else int(n_rows)
+        return brick.index, brick.n, opts, float(camera_x_offset), int(y_offset), rows
+
+    def check(self, want: tuple) -> None:
+        """Raises ``ValueError`` unless the record was made for ``want``, an
+        ``Entry.key``."""
+        if self.made_for != want:
+            raise ValueError("the entry record was made for (brick, bricks, options, "
+                             f"camera_x_offset, first row, rows) {self.made_for}, not {want}")
+
+    def rows(self, y_offset: int, n_rows: int) -> "Entry":
+        """The record of a band of image rows."""
+        index, n, opts, camera_x_offset, y0, _ = self.made_for
+        cut = slice(y_offset, y_offset + n_rows)
+        return Entry(self.step[cut].contiguous(), self.state[cut].contiguous(),
+                     (index, n, opts, camera_x_offset, y0 + y_offset, n_rows))
 
 
 class Brick(NamedTuple):
@@ -94,54 +132,87 @@ class BrickRays:
                  y_offset: int = 0, n_rows: Optional[int] = None):
         self.brick, self.opts = brick, opts
         self.n_rows = opts.height if n_rows is None else int(n_rows)
+        self.key = Entry.key(brick, opts, camera_x_offset, y_offset, self.n_rows)
         (self.consts, self.origin, self.pos0, self.step, self.tnear, self.tfar,
          self.hit) = _init_rays(brick.scene, opts, camera_x_offset, int(y_offset), self.n_rows)
 
     def walk(self, w_in: Optional[torch.Tensor],
              composite: Callable[[F3, torch.Tensor, torch.Tensor], torch.Tensor],
-             steps: Optional[torch.Tensor] = None) -> torch.Tensor:
+             steps: Optional[torch.Tensor] = None, entry: Optional[Entry] = None
+             ) -> Tuple[torch.Tensor, Entry]:
         """Walks every ray through the brick. ``composite(pos, act, sw)`` is
         called at each step where some ray composites a sample (``act``) with
         the opacity ``sw`` carried into it, and returns the samples' alpha.
-        Returns the exit opacity (R,); ``steps`` (int32, (n_rows, W))
-        receives each ray's number of composited samples."""
+        With ``entry`` (the record of this brick and these rows) each ray
+        starts at its record instead of at step 0, and a ray without one
+        takes no sample. Returns the exit opacity (R,) and the entry record:
+        the one the walk found, or ``entry``; ``steps`` (int32,
+        (n_rows, W)) receives each ray's number of composited samples."""
         consts, opts, step = self.consts, self.opts, self.step
         thr = consts.opacity_threshold
         nb, bf = float(self.brick.n), float(self.brick.index)
-        pos, t, alive = self.pos0, self.tnear, self.hit
-        sw = (torch.zeros_like(t) if w_in is None
+        shape = (self.n_rows, opts.width)
+        sw = (torch.zeros_like(self.tnear) if w_in is None
               else w_in.reshape(-1).to(torch.float32).clone())
-        count = torch.zeros_like(t, dtype=torch.int32)
+        count = torch.zeros_like(self.tnear, dtype=torch.int32)
         rising, falling = step.z > 0, step.z < 0
+        if entry is None:  # every ray that hits the box starts at step 0
+            start = torch.where(self.hit, 0, -1).to(torch.int32)
+            pos, t = self.pos0, self.tnear
+            found = torch.full_like(count, -1)
+            found_state = torch.zeros(count.shape + (4,), dtype=torch.float32, device=sw.device)
+        else:
+            entry.check(self.key)
+            start = entry.step.reshape(-1)
+            state = entry.state.reshape(-1, 4)
+            t, pos = state[:, 0], F3(state[:, 1], state[:, 2], state[:, 3])
+        alive = start >= 0
 
-        i = 0
-        while i < opts.n_steps and bool(alive.any()):
+        # a ray holds its starting position and t until its starting step
+        i = int(start[alive].min()) if bool(alive.any()) else opts.n_steps
+        while i < opts.n_steps:
+            started = start <= i
             z_norm = (pos.z - consts.boxmin[2]) * consts.boxscale[2]
             owner = torch.clamp(torch.floor(z_norm * nb), 0.0, nb - 1.0)
             own = owner == bf
             # a ray goes on while it is in the brick or still moving towards it
-            alive = alive & (own | (rising & (owner < bf)) | (falling & (owner > bf)))
+            going = alive & (own | (rising & (owner < bf)) | (falling & (owner > bf)))
+            if entry is None:
+                first = going & own & (found < 0)
+                found = torch.where(first, torch.full_like(found, i), found)
+                found_state = torch.where(first[:, None],
+                                          torch.stack([t, pos.x, pos.y, pos.z], dim=-1),
+                                          found_state)
             if i > 0:
-                alive = alive & ~(own & ~(sw <= thr))
-            act = alive & own
-            if bool(act.any()):
+                going = going & ~(own & ~(sw <= thr))
+            alive = torch.where(started, going, alive)
+            act = alive & own & started
+            # one wait for the device a step: whether any ray goes on or composites
+            any_alive, any_act = torch.stack([alive.any(), act.any()]).tolist()
+            if not any_alive:
+                break
+            if any_act:
                 alpha = composite(pos, act, sw)
                 sw = torch.where(act, (1.0 - sw) * alpha + sw, sw)
                 count += act.to(torch.int32)
-            t = t + consts.tstep
-            alive = alive & (t <= self.tfar)
-            pos = pos + step
+            t_next = t + consts.tstep
+            alive = alive & (~started | (t_next <= self.tfar))
+            t = torch.where(started, t_next, t)
+            pos = F3(*(torch.where(started, n, o) for n, o in zip(pos + step, pos)))
             i += 1
         if steps is not None:
-            steps.copy_(count.reshape(self.n_rows, opts.width))
-        return sw
+            steps.copy_(count.reshape(shape))
+        if entry is None:
+            entry = Entry(found.reshape(shape), found_state.reshape(shape + (4,)), self.key)
+        return sw, entry
 
 
 def transmittance_pass(brick: Brick, opts: RenderOptions, camera_x_offset: float = 0.0,
                        steps: Optional[torch.Tensor] = None, y_offset: int = 0,
-                       n_rows: Optional[int] = None) -> torch.Tensor:
+                       n_rows: Optional[int] = None) -> Tuple[torch.Tensor, Entry]:
     """Phase 1: the opacity (H, W) that the brick's own samples build up from
-    zero, ``1 - prod (1 - alpha)``. Fetches absorption alone. It stops
+    zero, ``1 - prod (1 - alpha)``, and the rays' entry record, which the
+    other two passes resume from. Fetches absorption alone. It stops
     where the opacity passes the threshold: with alpha >= 0 the ray then
     dies inside this brick whatever it carried in, and no brick behind it
     uses the value.
@@ -156,14 +227,17 @@ def transmittance_pass(brick: Brick, opts: RenderOptions, camera_x_offset: float
         ab = sample_ab(core.to_sample_coords(pos, consts))
         return 1.0 - torch.exp(-(consts.factor_absorption * ab) * consts.tstep)
 
-    return rays.walk(None, composite, steps).reshape(rays.n_rows, opts.width)
+    w, entry = rays.walk(None, composite, steps)
+    return w.reshape(rays.n_rows, opts.width), entry
 
 
 def shaded_pass(brick: Brick, opts: RenderOptions, camera_x_offset: float,
                 w_in: torch.Tensor, steps: Optional[torch.Tensor] = None, y_offset: int = 0,
-                n_rows: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                n_rows: Optional[int] = None, entry: Optional[Entry] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Phase 2: the brick's shaded segment from its entry opacity ``w_in``
-    (H, W). Returns its contribution to the image (H, W, 3), already
+    (H, W), resumed from phase 1's ``entry`` record if given (else walked
+    from step 0). Returns its contribution to the image (H, W, 3), already
     weighted by the transmittance of everything in front of it, and the
     opacity (H, W) the rays leave with."""
     rays = BrickRays(brick, opts, camera_x_offset, y_offset, n_rows)
@@ -177,7 +251,7 @@ def shaded_pass(brick: Brick, opts: RenderOptions, camera_x_offset: float,
         rgb[0] = F3(*(torch.where(act, n, o) for n, o in zip(new_rgb, rgb[0])))
         return alpha
 
-    w_out = rays.walk(w_in, composite, steps)
+    w_out, _ = rays.walk(w_in, composite, steps, entry)
     shape = (rays.n_rows, opts.width)
     return torch.stack([c.reshape(shape) for c in rgb[0]], dim=-1), w_out.reshape(shape)
 
@@ -185,9 +259,11 @@ def shaded_pass(brick: Brick, opts: RenderOptions, camera_x_offset: float,
 def replay_pass(brick: Brick, opts: RenderOptions, camera_x_offset: float, g: torch.Tensor,
                 image: torch.Tensor, w_in: torch.Tensor, up_dot: torch.Tensor,
                 angle_floor: bool = False, accum_dtype: torch.dtype = torch.float32,
-                y_offset: int = 0, n_rows: Optional[int] = None) -> Diff:
+                y_offset: int = 0, n_rows: Optional[int] = None,
+                entry: Optional[Entry] = None) -> Diff:
     """The gradient segment: replays the brick's own samples for the pixel
-    cotangent ``g`` (H, W, 3), with the adjoint of ``ops.vjp.StepReplay``.
+    cotangent ``g`` (H, W, 3), with the adjoint of ``ops.vjp.StepReplay``,
+    resumed from phase 1's ``entry`` record if given (else walked from step 0).
 
     ``image`` is the GLOBAL image, ``w_in`` the entry opacity and ``up_dot``
     (H, W) the sum of ``g . contribution`` over the bricks in front, which
@@ -206,7 +282,7 @@ def replay_pass(brick: Brick, opts: RenderOptions, camera_x_offset: float, g: to
             alpha, prefix[0] = replay.step(pos, act, sw, prefix[0])
             return alpha
 
-        rays.walk(w_in, composite)
+        rays.walk(w_in, composite, entry=entry)
         return replay.result()
 
 

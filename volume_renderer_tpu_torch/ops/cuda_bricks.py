@@ -4,11 +4,16 @@
 One brick's three passes, each a function of that brick's tensors:
 
 - ``brick_transmittance``: phase 1, the opacity the brick's own samples
-  build up from zero (``csrc/brick_fwd.cu``, counted as ``K7_transmittance``);
+  build up from zero, and every ray's entry record (``brick_march.Entry``:
+  the first step the brick owns) (``csrc/brick_fwd.cu``, counted as
+  ``K7_transmittance``);
 - ``brick_segment``: phase 2, the brick's contribution to the image from its
   entry opacity, and its exit opacity (same source, ``K7_segment``);
 - ``brick_gradients``: the gradient segment with the scatter into the
   brick's halo-padded grids (``csrc/brick_bwd.cu``, ``K7_scatter``).
+
+Phase 2 and the gradient segment resume every ray from phase 1's record and
+require it: nothing walks a ray from step 0 but phase 1.
 
 For a brick on a CUDA device each is one kernel launch; for a brick on the
 CPU the plain pass of ``ops/brick_march.py``. There is no fallback: on a
@@ -28,7 +33,7 @@ import torch
 
 from volume_renderer_tpu_torch.models.scene import RenderOptions
 from volume_renderer_tpu_torch.ops import _build, brick_march, cuda_march
-from volume_renderer_tpu_torch.ops.brick_march import Brick
+from volume_renderer_tpu_torch.ops.brick_march import Brick, Entry
 from volume_renderer_tpu_torch.ops.cuda_grads import parameter_grads
 from volume_renderer_tpu_torch.ops.cuda_march import _MarchArgs, _checked
 
@@ -46,6 +51,8 @@ class _BrickArgs(ctypes.Structure):
         ("ab_z_off", ctypes.c_int),
         ("w_in", ctypes.c_void_p),
         ("w_out", ctypes.c_void_p),
+        ("entry_step", ctypes.c_void_p),
+        ("entry_state", ctypes.c_void_p),
     ]
 
 
@@ -126,17 +133,35 @@ def _brick_args(brick: Brick, opts: RenderOptions, camera_x_offset: float
     return args, settings
 
 
-def _steps_ptr(steps: Optional[torch.Tensor], dev: torch.device, opts: RenderOptions):
-    if steps is None:
+def _int_plane(t: Optional[torch.Tensor], name: str, dev: torch.device, opts: RenderOptions):
+    """The pointer of an int32 (H, W) tensor on the brick's device, or None."""
+    if t is None:
         return None
-    if (steps.dtype != torch.int32 or steps.device != dev or not steps.is_contiguous()
-            or tuple(steps.shape) != (opts.height, opts.width)):
-        raise ValueError("steps must be a contiguous int32 (H, W) tensor on the brick's device")
-    return steps.data_ptr()
+    if (t.dtype != torch.int32 or t.device != dev or not t.is_contiguous()
+            or tuple(t.shape) != (opts.height, opts.width)):
+        raise ValueError(f"{name} must be a contiguous int32 (H, W) tensor on the brick's device")
+    return t.data_ptr()
+
+
+def _require_entry(entry: Entry, brick: Brick, opts: RenderOptions,
+                   camera_x_offset: float) -> None:
+    if not isinstance(entry, Entry):
+        raise TypeError("entry must be the brick_march.Entry that brick_transmittance returned "
+                        f"for this brick, got {type(entry).__name__}")
+    entry.check(Entry.key(brick, opts, camera_x_offset))
+
+
+def _set_entry(args: _BrickArgs, entry: Entry, dev: torch.device, opts: RenderOptions) -> None:
+    state = _plane(entry.state, "entry.state", dev, opts, 4)
+    if state.data_ptr() % 16:
+        raise ValueError("entry.state must be 16-byte aligned (it is read as float4)")
+    args.entry_step = _int_plane(entry.step, "entry.step", dev, opts)
+    args.entry_state = state.data_ptr()
 
 
 def _launch_fwd(brick: Brick, opts: RenderOptions, camera_x_offset: float,
-                w_in: Optional[torch.Tensor], steps: Optional[torch.Tensor]):
+                w_in: Optional[torch.Tensor], entry: Optional[Entry],
+                steps: Optional[torch.Tensor]):
     dev = _cuda_device(brick, "the brick march")
     shade = w_in is not None
     args, settings = _brick_args(brick, opts, camera_x_offset)  # settings: alive until enqueued
@@ -146,8 +171,13 @@ def _launch_fwd(brick: Brick, opts: RenderOptions, camera_x_offset: float,
         args.w_in = _plane(w_in, "w_in", dev, opts).data_ptr()
         out = torch.empty((opts.height, opts.width, 3), dtype=torch.float32, device=dev)
         args.m.out = out.data_ptr()
+    else:  # phase 1 writes the record
+        entry = Entry(torch.empty((opts.height, opts.width), dtype=torch.int32, device=dev),
+                      torch.empty((opts.height, opts.width, 4), dtype=torch.float32, device=dev),
+                      Entry.key(brick, opts, camera_x_offset))
+    _set_entry(args, entry, dev, opts)
     args.w_out = w_out.data_ptr()
-    args.m.steps = _steps_ptr(steps, dev, opts)
+    args.m.steps = _int_plane(steps, "steps", dev, opts)
 
     lib = _fwd_library()
     with torch.cuda.device(dev):
@@ -157,51 +187,58 @@ def _launch_fwd(brick: Brick, opts: RenderOptions, camera_x_offset: float,
     if err != 0:
         raise RuntimeError(f"brick_fwd launch failed: {lib.vr_cuda_error_string(err).decode()}")
     cuda_march.count_launch("K7_segment" if shade else "K7_transmittance")
-    return out, w_out
+    return out, w_out, entry
 
 
 def brick_transmittance(brick: Brick, opts: RenderOptions, camera_x_offset: float = 0.0,
-                        steps: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        steps: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Entry]:
     """Phase 1: the opacity (H, W) that the brick's own samples build up
-    from zero, on the brick's device; its transmittance is one minus that.
-    ``steps`` (int32, (H, W)) receives each ray's number of samples."""
+    from zero, on the brick's device (its transmittance is one minus that),
+    and every ray's entry record, which phase 2 and the gradient segment
+    take. ``steps`` (int32, (H, W)) receives each ray's number of samples."""
     _refuse_lit(brick)
     if brick.device.type == "cpu":
         return brick_march.transmittance_pass(brick, opts, camera_x_offset, steps)
-    return _launch_fwd(brick, opts, camera_x_offset, None, steps)[1]
+    _, w, entry = _launch_fwd(brick, opts, camera_x_offset, None, None, steps)
+    return w, entry
 
 
 def brick_segment(brick: Brick, opts: RenderOptions, camera_x_offset: float,
-                  w_in: torch.Tensor, steps: Optional[torch.Tensor] = None
+                  w_in: torch.Tensor, entry: Entry, steps: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Phase 2: the brick's contribution to the image (H, W, 3) from its
-    entry opacity ``w_in`` (H, W), and its exit opacity (H, W)."""
+    entry opacity ``w_in`` (H, W), every ray resumed from phase 1's
+    ``entry`` record, and its exit opacity (H, W)."""
     _refuse_lit(brick)
+    _require_entry(entry, brick, opts, camera_x_offset)
     if brick.device.type == "cpu":
-        return brick_march.shaded_pass(brick, opts, camera_x_offset, w_in, steps)
-    return _launch_fwd(brick, opts, camera_x_offset, w_in, steps)
+        return brick_march.shaded_pass(brick, opts, camera_x_offset, w_in, steps, entry=entry)
+    return _launch_fwd(brick, opts, camera_x_offset, w_in, entry, steps)[:2]
 
 
 def brick_gradients(brick: Brick, opts: RenderOptions, camera_x_offset: float,
                     g: torch.Tensor, image: torch.Tensor, w_in: torch.Tensor,
-                    up_dot: torch.Tensor) -> Dict[str, torch.Tensor]:
+                    up_dot: torch.Tensor, entry: Entry) -> Dict[str, torch.Tensor]:
     """The gradient segment: the brick's share of every gradient for the
     pixel cotangent ``g`` (H, W, 3), given the GLOBAL ``image``, the brick's
-    entry opacity ``w_in`` and ``up_dot``, the sum of ``g . contribution``
-    over the bricks in front (both (H, W)). The grids come back halo-padded
+    entry opacity ``w_in``, ``up_dot``, the sum of ``g . contribution``
+    over the bricks in front (both (H, W)), and phase 1's ``entry`` record,
+    from which every ray resumes. The grids come back halo-padded
     like the brick's own (``reflection`` zeros), the parameters
     (``factor_emission``, ``factor_absorption``, ``factor_reflection``,
     ``color``) as this brick's term of the sum over bricks."""
     _refuse_lit(brick)
+    _require_entry(entry, brick, opts, camera_x_offset)
     scene = brick.scene
     if brick.device.type == "cpu":
         grads = brick_march.replay_pass(brick, opts, camera_x_offset, g, image, w_in, up_dot,
-                                        angle_floor=True)
+                                        angle_floor=True, entry=entry)
         return {k: v for k, v in grads.items() if not k.startswith("gradient_")}
     dev = _cuda_device(brick, "the brick gradient segment")
     args = _BrickGradArgs()
     args.b, settings = _brick_args(brick, opts, camera_x_offset)  # settings: alive until enqueued
     args.b.w_in = _plane(w_in, "w_in", dev, opts).data_ptr()
+    _set_entry(args.b, entry, dev, opts)
     args.g = _plane(g, "g", dev, opts, 3).data_ptr()
     args.image = _plane(image, "image", dev, opts, 3).data_ptr()
     args.up_dot = _plane(up_dot, "up_dot", dev, opts).data_ptr()

@@ -28,6 +28,11 @@ transmittance algebra makes it two parallel phases:
    break. Its contribution is already weighted by the transmittance of
    everything in front, so the image is the plain sum of the contributions.
 
+Phase 1 also leaves every ray's entry record in every brick (the first step
+the brick owns, with its t and position; ``brick_march.Entry``), on the
+brick's device beside ``w_in``. Phase 2 and the gradient segment resume
+from it, so only phase 1 walks a ray from its first step to the brick.
+
 Exactness caveat: phase 1's stop and the skip of rays with
 ``w_in > threshold`` assume alpha >= 0 (opacity monotone along the ray),
 true for any non-negative absorption volume. Negative absorption renders
@@ -64,7 +69,7 @@ import torch
 
 from volume_renderer_tpu_torch.models.scene import RenderOptions, Scene
 from volume_renderer_tpu_torch.ops import brick_march, cuda_bricks
-from volume_renderer_tpu_torch.ops.brick_march import HALO, Brick
+from volume_renderer_tpu_torch.ops.brick_march import HALO, Brick, Entry
 from volume_renderer_tpu_torch.ops.forward import _init_rays
 from volume_renderer_tpu_torch.ops.vjp import GRID_KEYS, merge_scene, split_scene
 
@@ -249,6 +254,7 @@ class _Forward(NamedTuple):
     ascending: torch.Tensor
     w_in: PerBrick        # (H, W) each, on the bricks' devices
     own: PerBrick         # (H, W, 3) each: the bricks' contributions
+    entry: List[Entry]    # phase 1's entry records, on the bricks' devices
 
 
 def _forward(bricked: BrickedScene, opts: RenderOptions, camera_x_offset: float,
@@ -258,13 +264,14 @@ def _forward(bricked: BrickedScene, opts: RenderOptions, camera_x_offset: float,
     with torch.no_grad():
         ascending = _ascending(bricked, opts, camera_x_offset)
         # every brick's pass is enqueued before the first copy between devices
-        w_local = [transmittance(brick, opts, camera_x_offset) for brick in bricked.bricks]
+        w_local, entry = zip(*(transmittance(brick, opts, camera_x_offset)
+                               for brick in bricked.bricks))
         up_t = _upstream([1.0 - w for w in w_local], ascending, torch.cumprod, 1.0)
         w_in = [1.0 - t for t in up_t]
-        own = [segment(brick, opts, camera_x_offset, w)[0]
-               for brick, w in zip(bricked.bricks, w_in)]
+        own = [segment(brick, opts, camera_x_offset, w, entry=e)[0]
+               for brick, w, e in zip(bricked.bricks, w_in, entry)]
         image = torch.stack([o.to(ascending.device) for o in own]).sum(dim=0)
-    return _Forward(image, ascending, w_in, own)
+    return _Forward(image, ascending, w_in, own, list(entry))
 
 
 def _backward(bricked: BrickedScene, opts: RenderOptions, camera_x_offset: float,
@@ -280,9 +287,9 @@ def _backward(bricked: BrickedScene, opts: RenderOptions, camera_x_offset: float
         dots = [brick_march.own_dot(gb, own) for gb, own in zip(g_on, fwd.own)]
         up_dot = _upstream(dots, fwd.ascending, torch.cumsum, 0.0)
         segment_grads = cuda_bricks.brick_gradients if fast else brick_march.replay_pass
-        per_brick = [segment_grads(brick, opts, camera_x_offset, gb, image, w, up)
-                     for brick, gb, image, w, up in zip(bricked.bricks, g_on, image_on,
-                                                        fwd.w_in, up_dot)]
+        per_brick = [segment_grads(brick, opts, camera_x_offset, gb, image, w, up, entry=e)
+                     for brick, gb, image, w, up, e in zip(bricked.bricks, g_on, image_on,
+                                                           fwd.w_in, up_dot, fwd.entry)]
         grads: Dict = {}
         for key in per_brick[0]:
             parts = [p[key] for p in per_brick]
