@@ -8,21 +8,23 @@ Phases, one JSON line each; any failure raises and exits nonzero:
 1. device:  the card, its power limit, and the build of every kernel
             source (one nvcc each, started together), with the registers,
             spills and resulting blocks an SM that ptxas reports for each
-            kernel instantiation. K4, K6, K7 phase 2 and the K7 gradient
-            segment must not spill.
+            kernel instantiation. K1, K3, K4, K6, K7 phase 2 and the K7
+            gradient segment must not spill.
 2. goldens: the five tests/goldens scenes through VolumeRenderer on the
             card, held against the committed images.
 3. kernel_vs_plain: the forward march kernel against its plain PyTorch
             version (ops/forward.py) on the card at 128^3 / 256x192, per
-            mode, and lit (K4) on an anisotropic (36, 24, 64) volume and
-            on a 48^3 one seen near an axis (taps on faces and edges). K4
-            must equal its plain version exactly, here and wherever else
-            it is compared.
+            mode, unlit (K1) also with absorption of another shape, and
+            lit (K4) on an anisotropic (36, 24, 64) volume and on a 48^3
+            one seen near an axis (taps on faces and edges). K1 and K4
+            must equal their plain versions exactly, here and wherever
+            else they are compared.
 4. grads_vs_plain: the backward march kernel through voxel_grads_fast (K3
             unlit, K6 lit) and transfer_grads_fast (K2) against its plain
-            version (ops/vjp.py:replay_backward) at 128^3 / 256x192 and on
-            the two scenes of phase 3, every gradient key, and both
-            against the replay summed in float64.
+            version (ops/vjp.py:replay_backward) at 128^3 / 256x192, K3
+            also with absorption of another shape, K6 on the two lit
+            scenes of phase 3, every gradient key (K3's grids within 1e-5
+            of scale, every other key within 1e-4).
 5. main_path: VolumeRenderer.render() at 256^3 / 512^2 for the unlit (K1),
             lit on-the-fly (K4) and lit lookup (K5) flagship scenes, with
             the launch counts set to 0 just before and read just after;
@@ -39,7 +41,11 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             middle), with rays/s, the march samples the rays took and the
             bound; then the forward + backward pair, the backward kernel
             alone and the whole training step for K3, K6 and K2 at
-            256^3 / 512^2 and K3 at 512^3 / 1024^2, with the bound.
+            256^3 / 512^2 and K3 at 512^3 / 1024^2, with the bound, and
+            K3's atomic adds a sample at 256^3 / 512^2, counted from the
+            plain march's positions (march_flushes). gather_footprint, the
+            model of the sectors and lines K1's warp loads touch, is not
+            run here: call it on a scene and a band of rows.
 
 8. bricks_vs_plain: the z-brick kernels (K7) at 128^3 / 256x192, 4 bricks:
             each launch form on every brick (phase 1 opacity and entry
@@ -72,16 +78,18 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             larger share of a ray's work.
 11. parent_vs_new, only with --parent DIR: DIR holds another version of
             the port's package (e.g. the parent commit's, unpacked with git
-            archive). Timed in turns, each turn a process of its own that
-            builds and imports one version: DIR's, the checkout's, the
-            checkout's, DIR's, a median of 5 each: K4 (256^3 / 512^2,
-            512^3 / 1024^2; the images must be equal), K6 (the backward
-            alone, forward + backward, the training step, 256^3 / 512^2) and
-            K7 with 4 bricks at 256^3 / 512^2 (each launch form over all
-            bricks, phase 2 alone from phase 1's outputs; the bricked
-            forward, forward + backward and training step; the host's time
-            in phase 2's calls and in the bricked forward; the bricked
-            images and every brick's exit opacity must be equal).
+            archive). Timed in turns, DIR's, the checkout's, the checkout's,
+            DIR's, each version in a process of its own that builds and
+            imports it and runs its turns when asked (the other waits), a
+            median of 5 each: K1 and K4 (256^3 / 512^2,
+            512^3 / 1024^2; the images must be equal), K3 and K6 (the
+            backward alone, forward + backward, the training step,
+            256^3 / 512^2) and K7 with 4 bricks at 256^3 / 512^2 (each launch
+            form over all bricks, phase 2 alone from phase 1's outputs; the
+            bricked forward, forward + backward and training step; the
+            host's time in phase 2's calls, in their record checks and in
+            the bricked forward; the bricked images and every brick's exit
+            opacity must be equal).
 
 Then the kernels line and, last, {"ok": true, "device": {...}}. It needs
 the repository around it and a CUDA card; it imports nothing of JAX.
@@ -201,17 +209,44 @@ def brick_flops_per_sample(form: str, ab_aliased: bool) -> int:
     return bwd_flops_per_step(False, True, ab_aliased, True, 0) + 5
 
 
+class CarryCount:
+    """The atomic adds that the corner carry (``csrc/corner_carry.cuh``,
+    ``CornerCarry``) makes into one carried grid of ``dims`` (x, y, global
+    z) for ``n`` rays, when every sample's cotangent is nonzero; 8 a sample
+    without the carry. ``visit`` takes each step's normalized positions and
+    the rays that composite there: a ray's first sample flushes nothing, a
+    later one in another cell the 8 corners minus those both cells share, and
+    the ray's last cell its 8 corners (an upper bound: the kernel skips a
+    flush of an exact zero)."""
+
+    def __init__(self, n, dims, device):
+        import torch
+        self.dims = dims
+        self.cell = torch.zeros((n, 3), dtype=torch.int64, device=device)
+        self.seen = torch.zeros(n, dtype=torch.bool, device=device)
+        self.flushes = torch.zeros(n, dtype=torch.int64, device=device)
+
+    def visit(self, s, act):
+        import torch
+        new = torch.stack([torch.clamp(torch.floor(c * float(d) - 0.5), -1.0, float(d))
+                           for c, d in zip(s, self.dims)], dim=-1).to(torch.int64)
+        step = (new - self.cell).abs()
+        shared = torch.where((step <= 1).all(dim=-1), (2 - step).prod(dim=-1), 0)
+        self.flushes.add_(torch.where(act & self.seen, 8 - shared, 0))
+        self.cell.copy_(torch.where(act[:, None], new, self.cell))
+        self.seen.logical_or_(act)
+
+    def total(self):
+        return int(self.flushes.sum()) + 8 * int(self.seen.sum())
+
+
 def corner_flushes(brick, opts, w_in, entry):
     """``(samples, flushes)``: the samples of a brick's gradient segment from
     the entry opacity ``w_in`` and phase 1's ``entry`` record, and the atomic
-    adds into one carried grid that the kernel's corner carry
-    (``csrc/brick_bwd.cu``, ``CornerCarry``) makes for them when every
-    sample's cotangent is nonzero; 8 a sample without the carry. Counted
-    from the plain walk's positions: a ray's first sample flushes nothing, a
-    later one in another cell the 8 corners minus those both cells share,
-    and the ray's last cell its 8 corners. The cells are emission's; a grid
-    of another shape is carried on cells of its own, which this does not
-    count."""
+    adds into one carried grid that the kernel's corner carry makes for them
+    (CarryCount), counted from the plain walk's positions. The cells are
+    emission's; a grid of another shape is carried on cells of its own,
+    which this does not count."""
     import torch
     from volume_renderer_tpu_torch.ops import brick_march
     from volume_renderer_tpu_torch.ops import raymarch_core as core
@@ -222,26 +257,155 @@ def corner_flushes(brick, opts, w_in, entry):
         em = brick.scene.emission.data
         dims = (em.shape[2], em.shape[1], brick.slab_geometry(em)[1])  # x, y, global z
         sample_ab = brick_march.brick_samplers(brick).ab
-        n = rays.tnear.numel()
-        cell = torch.zeros((n, 3), dtype=torch.int64, device=em.device)
-        seen = torch.zeros(n, dtype=torch.bool, device=em.device)
-        flushes = torch.zeros(n, dtype=torch.int64, device=em.device)
+        carry = CarryCount(rays.tnear.numel(), dims, em.device)
 
         def composite(pos, act, sw):
             s = core.to_sample_coords(pos, consts)
-            new = torch.stack([torch.clamp(torch.floor(c * float(d) - 0.5), -1.0, float(d))
-                               for c, d in zip(s, dims)], dim=-1).to(torch.int64)
-            step = (new - cell).abs()
-            shared = torch.where((step <= 1).all(dim=-1), (2 - step).prod(dim=-1), 0)
-            flushes.add_(torch.where(act & seen, 8 - shared, 0))
-            cell.copy_(torch.where(act[:, None], new, cell))
-            seen.logical_or_(act)
+            carry.visit(s, act)
             ab = sample_ab(s)
             return 1.0 - torch.exp(-(consts.factor_absorption * ab) * consts.tstep)
 
         steps = torch.zeros((rays.n_rows, opts.width), dtype=torch.int32, device=em.device)
         rays.walk(w_in, composite, steps, entry)
-        return int(steps.sum()), int(flushes.sum()) + 8 * int(seen.sum())
+        return int(steps.sum()), carry.total()
+
+
+def march_samples(scene, opts, y0=0, rows=None):
+    """The plain march of ``rows`` image rows from ``y0``: its constants, each
+    ray's first position and step (flat, r = y * W + x), and its number of
+    samples; sample k of a ray lies at its first position plus k
+    accumulated steps."""
+    import torch
+    from volume_renderer_tpu_torch.ops.forward import _init_rays, render_rows
+
+    rows = opts.height if rows is None else rows
+    steps = torch.zeros((rows, opts.width), dtype=torch.int32, device=scene.device)
+    render_rows(scene, opts, 0.0, y0, rows, steps=steps)
+    consts, _, pos, step, _, _, _ = _init_rays(scene, opts, 0.0, y0, rows)
+    return consts, pos, step, steps.reshape(-1)
+
+
+def march_flushes(scene, opts):
+    """``(samples, {grid: flushes})``: the samples of K3 (``csrc/march_bwd.cu``,
+    march_bwd_scatter_kernel) on the whole image and the atomic adds of its
+    corner carry into each gradient grid (CarryCount), counted from the
+    plain march's positions. Absorption of emission's shape shares its cells;
+    one of another shape is carried on cells of its own."""
+    import torch
+    from volume_renderer_tpu_torch.ops import raymarch_core as core
+
+    with torch.no_grad():
+        consts, pos, step, steps = march_samples(scene, opts)
+
+        def dims(v):
+            return (v.shape[2], v.shape[1], v.shape[0])
+
+        em = scene.emission.data
+        carries = {"emission": CarryCount(steps.numel(), dims(em), em.device)}
+        if not scene.absorption_aliased:
+            ab = scene.absorption.data
+            carries["absorption"] = (carries["emission"] if ab.shape == em.shape
+                                     else CarryCount(steps.numel(), dims(ab), em.device))
+        distinct = list({id(c): c for c in carries.values()}.values())
+        for k in range(int(steps.max())):
+            s = core.to_sample_coords(pos, consts)
+            for carry in distinct:
+                carry.visit(s, steps > k)
+            pos = pos + step
+        return int(steps.sum()), {grid: carry.total() for grid, carry in carries.items()}
+
+
+# A 128-byte line of the tiled layout that K1's gather model compares: 4 x 4 x 2 voxels.
+TILE = (4, 4, 2)
+
+
+def sector_counts(ix, iy, iz, act, dims, tile=TILE, by=None):
+    """The 32-byte sectors and 128-byte lines of a float32 volume of ``dims``
+    (x, y, z) that warp load instructions touch: ``ix``, ``iy``, ``iz``
+    (..., 32) are each lane's voxel, ``act`` (..., 32) whether the lane
+    loads. Summed over the instructions, for the x-linear layout (x fastest,
+    as the volumes are) and for a tiled one (``tile`` voxels a line, x
+    fastest inside it, the lines in x-fastest order). Returns
+    {layout: (sectors, lines)}; with ``by``, a tensor (n, 4) of the linear
+    sectors and lines, then the tiled ones, for each index n of dimension
+    ``by`` of the inputs."""
+    import torch
+
+    w, h, _ = dims
+    tx, ty, tz = tile
+    linear = ix + w * (iy + h * iz)
+    lines = ix // tx + (-(-w // tx)) * (iy // ty + (-(-h // ty)) * (iz // tz))
+    inside = ix % tx + tx * (iy % ty + ty * (iz % tz))
+    ids = torch.stack([linear // 8, linear // 32, lines * (tx * ty * tz // 8) + inside // 8, lines])
+    ids = torch.where(act, ids, -1).sort(dim=-1).values
+    distinct = (ids[..., 1:] != ids[..., :-1]).sum(-1) + 1 - (ids[..., 0] == -1).long()
+    if by is not None:  # dimension by of the inputs is dimension by + 1 of distinct
+        return distinct.movedim(by + 1, 1).reshape(4, distinct.shape[by + 1], -1).sum(-1).T
+    sums = [int(v) for v in distinct.reshape(4, -1).sum(-1)]
+    return {"linear": (sums[0], sums[1]), "tiled": (sums[2], sums[3])}
+
+
+def warp_lanes(width, rows, warp_cols):
+    """(warps, 32) the flat band pixel (r = y * width + x) of each lane of
+    the warps of 16x16 blocks whose warps cover warp_cols x 32 / warp_cols
+    pixels, the warps of a block side by side, then row by row. 16 columns
+    is threadIdx order, K1's (csrc/march_fwd.cu)."""
+    import torch
+
+    assert width % 16 == 0 and rows % 16 == 0 and 16 % warp_cols == 0
+    t = torch.arange(256)
+    lane, warp = t % 32, t // 32
+    across = 16 // warp_cols
+    lx = (warp % across) * warp_cols + lane % warp_cols
+    ly = (warp // across) * (32 // warp_cols) + lane // warp_cols
+    bx = torch.arange(width // 16)[None, :, None] * 16
+    by = torch.arange(rows // 16)[:, None, None] * 16
+    return ((by + ly) * width + bx + lx).reshape(-1, 32)
+
+
+def gather_footprint(scene, opts, y0, rows, warp_cols=(16, 8, 4)):
+    """K1's gather model on ``rows`` image rows from ``y0``: from the plain
+    march's positions, for each warp shape and layout (sector_counts), the
+    sectors and lines that the 8 corner loads of one volume of emission's
+    shape touch, by warp load instruction and by sample."""
+    import torch
+    from volume_renderer_tpu_torch.ops import raymarch_core as core
+
+    with torch.no_grad():
+        consts, pos, step, steps = march_samples(scene, opts, y0, rows)
+        d, h, w = scene.emission.data.shape
+        dev = steps.device
+        # every warp shape's lanes, one after the other: one count a step
+        idx = torch.stack([warp_lanes(opts.width, rows, c) for c in warp_cols]).to(dev)
+        counts = torch.zeros((len(warp_cols), 5), dtype=torch.int64, device=dev)
+        for k in range(int(steps.max())):
+            s = core.to_sample_coords(pos, consts)
+            lo = [torch.clamp(torch.floor(c * float(n) - 0.5), -1.0, float(n)).to(torch.int64)
+                  for c, n in zip(s, (w, h, d))]
+            corners = [[torch.clamp(i + j, 0, n - 1) for j in (0, 1)] for i, n in zip(lo, (w, h, d))]
+            # corner a + 2 b + 4 c: (x + a, y + b, z + c), by shape, warp and lane
+            xyz = [torch.stack([corners[axis][(k8 >> axis) & 1] for k8 in range(8)])[:, idx]
+                   for axis in range(3)]
+            act = (steps > k)[idx]
+            counts[:, :4] += sector_counts(*xyz, act[None].expand(8, -1, -1, -1), (w, h, d),
+                                           by=1)
+            counts[:, 4] += 8 * act.any(-1).sum(-1)
+            pos = pos + step
+        totals = {c: {"linear": [int(v) for v in row[:2]], "tiled": [int(v) for v in row[2:4]],
+                      "instructions": int(row[4])} for c, row in zip(warp_cols, counts.cpu())}
+        samples = int(steps.sum())
+        out = {"rows": [y0, rows], "samples": samples, "tile": list(TILE)}
+        for c, t in totals.items():
+            n = t["instructions"]
+            out[f"warp_{c}x{32 // c}"] = {
+                "instructions": n,
+                **{layout: {"sectors": t[layout][0], "lines": t[layout][1],
+                            "sectors_per_instruction": t[layout][0] / n,
+                            "lines_per_instruction": t[layout][1] / n,
+                            "sectors_per_sample": t[layout][0] / samples,
+                            "lines_per_sample": t[layout][1] / samples}
+                   for layout in ("linear", "tiled")}}
+        return out
 
 
 # Template parameters of each kernel of csrc/, in order, and the mode that a
@@ -249,13 +413,15 @@ def corner_flushes(brick, opts, w_in, entry):
 KERNEL_PARAMS = {
     "march_kernel": ("LIT", "LOOKUP", "AB_ALIASED", "RE_ALIASED"),
     "march_bwd_kernel": ("LIT", "SCATTER", "AB_ALIASED", "RE_ALIASED"),
+    "march_bwd_scatter_kernel": ("AB_ALIASED", "AB_OWN_CELL"),
     "march_bwd_lit_scatter_kernel": ("AB_ALIASED", "RE_ALIASED"),
     "brick_fwd_kernel": ("SHADE", "AB_ALIASED"),
     "brick_bwd_kernel": ("AB_ALIASED", "AB_OWN_CELL"),
 }
-# Threads a block, where it is not 16x16 (K6 and the K7 gradient segment
-# run in 16x8 blocks: csrc/march_bwd.cu, csrc/brick_bwd.cu)
-KERNEL_THREADS = {"march_bwd_lit_scatter_kernel": 128, "brick_bwd_kernel": 128}
+# Threads a block, where it is not 16x16 (K3, K6 and the K7 gradient
+# segment run in 16x8 blocks: csrc/march_bwd.cu, csrc/brick_bwd.cu)
+KERNEL_THREADS = {"march_bwd_scatter_kernel": 128, "march_bwd_lit_scatter_kernel": 128,
+                  "brick_bwd_kernel": 128}
 # 4 bricks, all on the one card
 BRICKS = 4
 
@@ -265,6 +431,8 @@ def kernel_mode_of(kernel: str, args) -> str:
         return "K1" if not args[0] else ("K5" if args[1] else "K4")
     if kernel == "march_bwd_kernel":
         return "K2" if not args[1] else ("K6" if args[0] else "K3")
+    if kernel == "march_bwd_scatter_kernel":
+        return "K3"
     if kernel == "march_bwd_lit_scatter_kernel":
         return "K6"
     if kernel == "brick_fwd_kernel":
@@ -322,10 +490,11 @@ def main() -> None:
     parser.add_argument("--out", help="also write every JSON line to this file")
     parser.add_argument("--parent", metavar="DIR",
                         help="a directory holding another version of volume_renderer_tpu_torch/ "
-                             "(e.g. the parent commit's): its K4, K6 and K7 are timed in turns "
-                             "with the checkout's (phase 11)")
+                             "(e.g. the parent commit's): its K1, K3, K4, K6 and K7 are timed in "
+                             "turns with the checkout's (phase 11)")
     parser.add_argument("--turn", action="store_true",
-                        help="one turn of phase 11: build, time K4, K6 and K7, print one JSON line")
+                        help="phase 11's turns: build, then for each line read on stdin time K1, "
+                             "K3, K4, K6 and K7 and print one JSON line")
     parser.add_argument("--repo", metavar="DIR", default=REPO,
                         help="import the port from DIR instead of the checkout around this script")
     args = parser.parse_args()
@@ -350,8 +519,11 @@ def main() -> None:
     from volume_renderer_tpu_torch.parallel.mesh import make_mesh
 
     lines = []
+    t_start = time.perf_counter()
 
     def record(obj):
+        if "phase" in obj:
+            obj["elapsed_s"] = time.perf_counter() - t_start
         lines.append(obj)
         emit(obj)
 
@@ -371,7 +543,7 @@ def main() -> None:
              for name in _build.SOURCES}
     # the redesigned kernels keep every value in registers
     spilled = {k: v for name in _build.SOURCES for k, v in ptxas[name].items()
-               if k.split()[0] in ("K4", "K6", "K7_segment", "K7_scatter")
+               if k.split()[0] in ("K1", "K3", "K4", "K6", "K7_segment", "K7_scatter")
                and v["spill_store_bytes"]}
     if spilled and not args.turn:  # a turn may time an older version
         raise RuntimeError(f"ptxas spills in a redesigned kernel: {spilled}")
@@ -390,10 +562,11 @@ def main() -> None:
         if mode is not None:
             max_err[mode] = max(max_err[mode], err)
         np.testing.assert_allclose(got, want, atol=atol, rtol=rtol, err_msg=name)
-        # K4's tap fetch reads the voxels of seven sample() calls once each
-        # and blends them as those do: its image is its plain version's
-        if mode == "K4" and err != 0.0:
-            raise RuntimeError(f"{name}: the K4 kernel is {err:.3e} off its plain version")
+        # K1 blends as sample() does, and K4's tap fetch reads the voxels of
+        # seven sample() calls once each and blends them as those do: their
+        # images are their plain versions'
+        if mode in ("K1", "K4") and err != 0.0:
+            raise RuntimeError(f"{name}: the {mode} kernel is {err:.3e} off its plain version")
         return err
 
     # ---- scenes: the flagship gaussian shell (__graft_entry__.py) -------
@@ -424,10 +597,14 @@ def main() -> None:
         return vol.contiguous()
 
     def flagship(n, mode, n_lights=1, ab_aliased=True, re_aliased=False, noise=0.0, shape=None,
-                 element_size=(1.0, 1.0, 1.0), rotate=(125, 25, 0)):
+                 element_size=(1.0, 1.0, 1.0), rotate=(125, 25, 0), ab_other_shape=False):
+        """``ab_other_shape``: absorption at half the emission's height and
+        width (a fetch, and with gradients a carry, of its own)."""
         em = shell(n, noise, shape)
         ramp = torch.linspace(0.5, 1.0, em.shape[2], device=dev)[None, None, :]
         ab = None if ab_aliased else Volume.create((em * ramp).contiguous(), element_size)
+        if ab_other_shape:
+            ab = Volume.create((em[:, ::2, ::2] * 0.9).contiguous(), element_size)
         lit = {}
         if mode != "K1":
             lit = dict(illumination=henyey_greenstein_lut(32),
@@ -493,13 +670,8 @@ def main() -> None:
 
     def brick_scene(n, rot, ab_aliased=False, factor_absorption=0.6, opacity_threshold=0.95,
                     ab_other_shape=False):
-        """The noisy unlit flagship scene under another camera and settings;
-        ``ab_other_shape``: absorption at half the emission's height and width
-        (the gradient segment's fetch and scatter of its own)."""
-        scene = flagship(n, "K1", ab_aliased=ab_aliased, noise=0.05)
-        if ab_other_shape:
-            ab = scene.emission.data[:, ::2, ::2] * 0.9
-            scene = scene.replace(absorption=Volume.create(ab.contiguous()))
+        """The noisy unlit flagship scene under another camera and settings."""
+        scene = flagship(n, "K1", ab_aliased=ab_aliased, noise=0.05, ab_other_shape=ab_other_shape)
         return scene.replace(
             camera=Camera.create(focal_length=3.0, distance_to_object=6.0).rotate(*rot),
             settings=RenderSettings.create(factor_emission=1.0, factor_reflection=0.4,
@@ -507,22 +679,34 @@ def main() -> None:
                                            color=(1.0, 0.9, 0.8),
                                            opacity_threshold=opacity_threshold))
 
-    def lit_turn():
-        """K4 at 256^3 / 512^2 and 512^3 / 1024^2 and K6 at 256^3 / 512^2 (the
-        backward alone, the forward + backward pair, the training step from
-        the first step's state), timed as phase 7 times them, with a digest
-        of each K4 image."""
-        out = {"ptxas": {name: ptxas[name] for name in ("march_fwd", "march_bwd")}}
+    def digest(tensors):
+        h = hashlib.sha1()
+        for t in tensors:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def forward_turn(mode):
+        """The forward kernel of ``mode`` (K1 or K4) at 256^3 / 512^2 and
+        512^3 / 1024^2, timed as phase 7 times it, with a digest of each
+        image."""
+        out = {}
         for cfg in (MAIN, BIG):
-            scene = flagship(cfg["volume"], "K4", ab_aliased=False)
+            scene = flagship(cfg["volume"], mode, ab_aliased=False)
             opts = scene.options(cfg["image"], cfg["image"])
             img = render_forward_fast(scene, opts)
-            out[f"K4_{cfg['volume']}_{cfg['image']}"] = {
+            out[f"{mode}_{cfg['volume']}_{cfg['image']}"] = {
                 "ms": median_ms(lambda: render_forward_fast(scene, opts))[0],
-                "image_sha1": hashlib.sha1(img.cpu().numpy().tobytes()).hexdigest()}
+                "image_sha1": digest([img])}
             del scene, img
             torch.cuda.empty_cache()
-        scene = flagship(MAIN["volume"], "K4", ab_aliased=False, noise=0.05)
+        return out
+
+    def grads_turn(mode):
+        """The scatter kernel of ``mode`` (K3 or K6) at 256^3 / 512^2 from the
+        first training step's state: the backward alone, the forward +
+        backward pair and the training step, timed as phase 7 times them."""
+        scene = flagship(MAIN["volume"], "K4" if mode == "K6" else "K1", ab_aliased=False,
+                         noise=0.05)
         opts = scene.options(MAIN["image"], MAIN["image"])
         with torch.no_grad():
             target = render_forward_fast(scene, opts)
@@ -536,19 +720,18 @@ def main() -> None:
                 image = render_forward_fast(merged, opts)
                 return voxel_grads_fast(merged, opts, 2.0 * (image - target), image=image)
 
-            k6 = {"backward_ms": median_ms(lambda: march_backward(merged, opts, g, img))[0],
+            ms = {"backward_ms": median_ms(lambda: march_backward(merged, opts, g, img))[0],
                   "fwd_bwd_ms": median_ms(fwd_bwd)[0]}
-        optimizer = torch.optim.Adam(list(params.values()), lr=TRAIN_LR["K6"])
-        k6["train_step_ms"] = median_ms(
+        optimizer = torch.optim.Adam(list(params.values()), lr=TRAIN_LR[mode])
+        ms["train_step_ms"] = median_ms(
             lambda: train.train_step_fast(params, optimizer, static_scene, opts, target))[0]
-        out["K6_256_512"] = k6
-        return out
+        return {f"{mode}_{MAIN['volume']}_{MAIN['image']}": ms}
 
-    def digest(tensors):
-        h = hashlib.sha1()
-        for t in tensors:
-            h.update(t.cpu().numpy().tobytes())
-        return h.hexdigest()
+    def march_turn():
+        """K1 and K4 (forward_turn), K3 and K6 (grads_turn)."""
+        return {"ptxas": {name: ptxas[name] for name in ("march_fwd", "march_bwd")},
+                **forward_turn("K1"), **forward_turn("K4"), **grads_turn("K3"),
+                **grads_turn("K6")}
 
     def brick_turn():
         """K7 with 4 bricks at 256^3 / 512^2 on the first bricked training
@@ -589,6 +772,10 @@ def main() -> None:
                 "segment_host": host_ms(lambda: [
                     cuda_bricks.brick_segment(b, opts, 0.0, w, *r)
                     for b, w, r in zip(split.bricks, w_ins, records)]),
+                # the part of it that checks the four records' keys
+                "record_check_host": host_ms(lambda: [
+                    r[0].check(brick_march.Entry.key(b, opts, 0.0))
+                    for b, r in zip(split.bricks, records) if r]),
                 "scatter": median_ms(lambda: [
                     cuda_bricks.brick_gradients(b, opts, 0.0, g, fwd.image, w, u, *r)
                     for b, w, u, r in zip(split.bricks, w_ins, up_dots, records)])[0],
@@ -605,9 +792,13 @@ def main() -> None:
         out["ms"] = ms
         return out
 
-    if args.turn:
-        emit({"phase": "turn", "repo": os.path.abspath(args.repo), "lit": lit_turn(),
-              "bricks": brick_turn()})
+    if args.turn:  # a turn for each line on stdin, until it closes
+        emit({"phase": "ready"})
+        for _ in sys.stdin:
+            t_turn = time.perf_counter()
+            out = {"march": march_turn(), "bricks": brick_turn()}
+            emit({"phase": "turn", "repo": os.path.abspath(args.repo), **out,
+                  "seconds": time.perf_counter() - t_turn})
         return
 
     # ---- 2. goldens through the facade ----------------------------------
@@ -667,6 +858,7 @@ def main() -> None:
     for name, mode, kw, offset in (
             ("K1_absorption_aliased", "K1", dict(ab_aliased=True), 0.0),
             ("K1_absorption_separate", "K1", dict(ab_aliased=False), 0.0),
+            ("K1_absorption_other_shape", "K1", dict(ab_aliased=False, ab_other_shape=True), 0.0),
             ("K4_two_lights", "K4", dict(n_lights=2, ab_aliased=False), 0.0),
             ("K5_lookup", "K5", dict(), 0.0),
             ("K4_stereo_offset_0.25", "K4", dict(re_aliased=True), 0.25),
@@ -682,7 +874,7 @@ def main() -> None:
     record({"phase": "kernel_vs_plain", "volume": COMPARE["volume"],
             "image": [COMPARE["width"], COMPARE["height"]],
             "tolerance": {k: {"atol": a, "rtol": r} for k, (a, r) in tol.items()},
-            "K4_exact": True, "max_abs_err": compare})
+            "K1_K4_exact": True, "max_abs_err": compare})
 
     # ---- 4. backward kernel vs plain replay at 128^3 / 256x192 ----------
     # Kernel and plain replay compute each sample's terms with the same
@@ -693,12 +885,16 @@ def main() -> None:
     # scalar whose per-ray terms cancel under a cotangent of mixed sign);
     # typically 3e-7.
     GRAD_TOL = 1e-4
-    # The K7 gradient segment against its plain pass, and the bricked first
-    # step against the single-device kernels, march unlit scenes, where no
-    # such scalar arises; held tighter, so that an atomic add that the
-    # corner carry loses or misplaces shows. Measured on an H100 at most
-    # 1.9e-6.
+    # The grids that the corner carry scatters (K3's, the K7 gradient
+    # segment's against its plain pass, the bricked first step's against the
+    # single-device kernels) are held tighter, so that an atomic add that
+    # the carry loses or misplaces shows. Measured on an H100 at most
+    # 1.9e-6. K3's parameter keys are sums of its per-ray planes, not of the
+    # carry, and cancel under a cotangent of mixed sign as the lit scalar
+    # does (1.2e-5 of factor_emission's scale with absorption of another
+    # shape): they keep GRAD_TOL.
     BRICK_GRAD_TOL = 1e-5
+    GRAD_TOLS = {"K3 grids": BRICK_GRAD_TOL, "others": GRAD_TOL}
     grad_err = {"K2": 0.0, "K3": 0.0, "K6": 0.0}       # share of the scale
     grad_abs_err = {"K2": 0.0, "K3": 0.0, "K6": 0.0}
 
@@ -718,7 +914,8 @@ def main() -> None:
             if mode is not None:
                 grad_err[mode] = max(grad_err[mode], errs[key])
                 grad_abs_err[mode] = max(grad_abs_err[mode], abs_err)
-                if errs[key] > GRAD_TOL:
+                carried = mode == "K3" and key in ("emission", "absorption")
+                if errs[key] > (BRICK_GRAD_TOL if carried else GRAD_TOL):
                     raise RuntimeError(f"{name} {key}: kernel and plain replay differ by "
                                        f"{errs[key]:.3e} of the gradient's scale {scale:.3e}")
         return errs
@@ -731,15 +928,17 @@ def main() -> None:
     transfer_keys = ("factor_emission", "factor_absorption", "factor_reflection", "color",
                      "light_colors")
     grads_compare = {}
-    for name, mode, kw, offset, reuse, with_f64 in (
-            ("K3_absorption_aliased", "K1", dict(ab_aliased=True), 0.0, False, True),
+    for name, mode, kw, offset, reuse in (
+            ("K3_absorption_aliased", "K1", dict(ab_aliased=True), 0.0, False),
             ("K3_absorption_separate_stereo_0.25_image_reuse", "K1", dict(ab_aliased=False),
-             0.25, True, False),
-            ("K6_one_light_reflection_separate", "K4", dict(ab_aliased=False), 0.0, False, True),
+             0.25, True),
+            ("K3_absorption_other_shape", "K1", dict(ab_aliased=False, ab_other_shape=True), 0.0,
+             False),
+            ("K6_one_light_reflection_separate", "K4", dict(ab_aliased=False), 0.0, False),
             ("K6_two_lights_reflection_aliased_image_reuse", "K4",
-             dict(n_lights=2, re_aliased=True), 0.0, True, False),
-            ("K6_anisotropic_36x24x64", "K4", ANISOTROPIC, 0.0, False, False),
-            ("K6_faces_and_edges_48", "K4", FACES, 0.0, False, False)):
+             dict(n_lights=2, re_aliased=True), 0.0, True),
+            ("K6_anisotropic_36x24x64", "K4", ANISOTROPIC, 0.0, False),
+            ("K6_faces_and_edges_48", "K4", FACES, 0.0, False)):
         scene = flagship(48 if kw is FACES else COMPARE["volume"], mode,
                          **{"noise": 0.05, **kw})
         opts = scene.options(COMPARE["width"], COMPARE["height"])
@@ -751,22 +950,15 @@ def main() -> None:
         assert img0 is None or img is img0
         want = replay_backward(scene, opts, g, img, offset, angle_floor=True)
         bmode = grad_mode(scene, scatter=True)
-        entry = {"mode": bmode,
-                 "err_of_scale": check_grads(name, got, want, bmode, keys=want.keys()),
-                 "K2_err_of_scale": check_grads(
-                     name + " K2", got_transfer, want, "K2",
-                     keys=[k for k in want if k in transfer_keys])}
-        if with_f64:
-            # which side of the comparison the order-free sums are closer to
-            ref64 = replay_backward(scene, opts, g, img, offset, angle_floor=True,
-                                    accum_dtype=torch.float64)
-            entry["kernel_vs_float64_sums"] = check_grads(name, got, ref64, None)
-            entry["plain_vs_float64_sums"] = check_grads(name, want, ref64, None)
-        grads_compare[name] = entry
+        grads_compare[name] = {
+            "mode": bmode,
+            "err_of_scale": check_grads(name, got, want, bmode, keys=want.keys()),
+            "K2_err_of_scale": check_grads(name + " K2", got_transfer, want, "K2",
+                                           keys=[k for k in want if k in transfer_keys])}
         del scene, got, want
     record({"phase": "grads_vs_plain", "volume": COMPARE["volume"],
             "image": [COMPARE["width"], COMPARE["height"]], "volume_noise": 0.05,
-            "tolerance_of_scale": GRAD_TOL, "max_err_of_scale": dict(grad_err),
+            "tolerance_of_scale": GRAD_TOLS, "max_err_of_scale": dict(grad_err),
             "cases": grads_compare})
 
     # ---- 5. the main path: VolumeRenderer.render() at 256^3 / 512^2 -----
@@ -901,7 +1093,7 @@ def main() -> None:
             "volume": MAIN["volume"], "image": size, "steps": TRAIN_STEPS, "optimizer": "Adam",
             "lr": TRAIN_LR, "volume_noise": 0.05,
             "launches": train_launches, "losses": losses, "first_step_vs_plain_band": first_step,
-            "tolerance_of_scale": GRAD_TOL})
+            "tolerance_of_scale": GRAD_TOLS})
     del runs, train_scenes, params, optimizer, static_scene, target, tparams, toptimizer
     torch.cuda.empty_cache()
 
@@ -988,6 +1180,13 @@ def main() -> None:
             g = 2.0 * (img - target)
             if plain is None:
                 plain = band_check(f"timing cell {mode} {size}", merged, opts, g, img, scatter)
+            adds = None
+            if mode == "K3" and size == MAIN["image"]:
+                # the corner carry's atomic adds, from the plain march (march_flushes)
+                n, flushes = march_flushes(merged, opts)
+                adds = {"samples": n, "flushes": flushes,
+                        "atomic_adds_per_sample": sum(flushes.values()) / n,
+                        "atomic_adds_per_sample_uncarried": 8 * len(flushes)}
             bwd_ms, bwd_all = median_ms(
                 lambda: march_backward(merged, opts, g, img, scatter=scatter))
 
@@ -998,6 +1197,8 @@ def main() -> None:
             pair_ms, pair_all = median_ms(fwd_bwd)
         out = {"mode": mode, "forward_mode": fmode, "image": size, "ms": bwd_ms,
                "ms_all": bwd_all, "fwd_bwd_ms": pair_ms, "fwd_bwd_ms_all": pair_all}
+        if adds is not None:
+            out["atomic_adds"] = adds
         if scatter:
             optimizer = torch.optim.Adam(list(params.values()), lr=TRAIN_LR[mode])
             out["train_step_ms"], out["train_step_ms_all"] = median_ms(
@@ -1396,18 +1597,41 @@ def main() -> None:
     del dense, dense_split, dense_fwd
     torch.cuda.empty_cache()
 
-    # ---- 11. another version's K4, K6 and K7 against the checkout's --------
+    # ---- 11. another version's K1-K4, K6 and K7 against the checkout's -----
     if args.parent:
         t_phase = time.perf_counter()
         turns = {"parent": [], "new": []}
-        for who in ("parent", "new", "new", "parent"):
-            repo = os.path.abspath(args.parent if who == "parent" else args.repo)
-            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn",
-                                   "--repo", repo], capture_output=True, text=True, timeout=900)
-            if proc.returncode != 0:
-                raise RuntimeError(f"the {who} turn failed:\n{proc.stdout[-4000:]}"
-                                   f"{proc.stderr[-4000:]}")
-            turns[who].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        # one process a version, started once; each runs a turn when asked,
+        # so only one of them uses the card at a time
+        procs = {who: subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--turn", "--repo",
+             os.path.abspath(args.parent if who == "parent" else args.repo)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for who in turns}
+
+        def read_until(who, phase):
+            seen = []
+            for line in procs[who].stdout:
+                seen.append(line)
+                if line.startswith('{"phase": "%s"' % phase):
+                    return json.loads(line)
+            raise RuntimeError(f"the {who} turn failed:\n{''.join(seen)[-8000:]}")
+
+        try:
+            for who in procs:  # both built and idle before the first turn
+                read_until(who, "ready")
+            for who in ("parent", "new", "new", "parent"):
+                procs[who].stdin.write("turn\n")
+                procs[who].stdin.flush()
+                turns[who].append(read_until(who, "turn"))
+            for proc in procs.values():
+                proc.stdin.close()
+                proc.wait(timeout=120)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
 
         def compare_turns(get, bound_ms):
             parent_ms = [get(t) for t in turns["parent"]]
@@ -1417,15 +1641,18 @@ def main() -> None:
 
         every = turns["parent"] + turns["new"]
         compared = {}
-        for key, metrics in (("K4_256_512", ("ms",)), ("K4_512_1024", ("ms",)),
-                             ("K6_256_512", ("backward_ms", "fwd_bwd_ms", "train_step_ms"))):
-            compared[key] = {metric: compare_turns(lambda t: t["lit"][key][metric],
+        grads = ("backward_ms", "fwd_bwd_ms", "train_step_ms")
+        for key, metrics in (("K1_256_512", ("ms",)), ("K1_512_1024", ("ms",)),
+                             ("K4_256_512", ("ms",)), ("K4_512_1024", ("ms",)),
+                             ("K3_256_512", grads), ("K6_256_512", grads)):
+            compared[key] = {metric: compare_turns(lambda t: t["march"][key][metric],
                                                    cells[key]["bound_ms"])
                              for metric in metrics}
-            if key.startswith("K4"):
-                # K4 equals its plain version in both versions: one image
-                if len({t["lit"][key]["image_sha1"] for t in every}) != 1:
-                    raise RuntimeError(f"{key}: the parent's K4 image differs from the checkout's")
+            if metrics == ("ms",):
+                # K1 and K4 change only the order of their loads, never the
+                # arithmetic: one image in both versions
+                if len({t["march"][key]["image_sha1"] for t in every}) != 1:
+                    raise RuntimeError(f"{key}: the parent's image differs from the checkout's")
                 compared[key]["images_equal"] = True
         # phase 2 keeps its arithmetic: one bricked image, one exit opacity
         for name in ("image_sha1", "w_out_sha1"):
@@ -1439,8 +1666,9 @@ def main() -> None:
                for metric in turns["new"][0]["bricks"]["ms"]}}
         record({"phase": "parent_vs_new", "parent": args.parent, "order": "parent, new, new, parent",
                 "reps": 5,
-                "parent_ptxas": {**turns["parent"][0]["lit"]["ptxas"],
+                "parent_ptxas": {**turns["parent"][0]["march"]["ptxas"],
                                  **turns["parent"][0]["bricks"]["ptxas"]},
+                "turn_seconds": {who: [t["seconds"] for t in ts] for who, ts in turns.items()},
                 "cells": compared, "seconds": time.perf_counter() - t_phase})
 
     # ---- kernels line and the result ------------------------------------
@@ -1470,6 +1698,8 @@ def main() -> None:
             "ms": cell["ms"], "plain_ms": cell["plain_ms"], "plain_rows": cell["plain_rows"],
             "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"], "library_ms": None,
             "fwd_bwd_ms": cell["fwd_bwd_ms"], "mode": what,
+            **({"atomic_adds_per_sample": cell["atomic_adds"]["atomic_adds_per_sample"]}
+               if "atomic_adds" in cell else {}),
             "cell": f"{MAIN['volume']}^3 volume, {MAIN['image']}^2 image",
             "ms_big": cells.get(f"{mode}_{BIG['volume']}_{BIG['image']}", {}).get("ms"),
         })

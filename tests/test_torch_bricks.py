@@ -363,30 +363,38 @@ def test_resumed_passes_require_the_record():
                                     None)
 
 
+def other_camera_brick(n, index):
+    """Brick ``index`` of the "unlit" scene seen from another camera."""
+    _, tscene = make_scenes(vol_shape=VOL, rotate=(120.0, 40.0, 0.0))
+    return bricks.split_bricks(tscene, make_mesh(n, "cpu")).bricks[index]
+
+
 def other_record(kind, opts, split, fwd):
-    """(options, camera_x_offset, y_offset, n_rows, record) where brick 1
-    resumes from a record made for something else; the pass keeps the shapes
-    of its planes."""
-    entry = fwd.entry[1]
+    """(brick, options, camera_x_offset, y_offset, n_rows, record) where a
+    brick resumes from a record of brick 1 made for something else; the pass
+    keeps the shapes of its planes."""
+    brick, entry = split.bricks[1], fwd.entry[1]
     if kind == "another brick":
-        return opts, 0.0, 0, None, fwd.entry[2]
+        return brick, opts, 0.0, 0, None, fwd.entry[2]
     if kind == "another camera_x_offset":
-        return opts, 0.1, 0, None, entry
+        return brick, opts, 0.1, 0, None, entry
+    if kind == "another camera":
+        return other_camera_brick(len(split.bricks), 1), opts, 0.0, 0, None, entry
     if kind == "other options":
-        return RenderOptions(W, H, opts.boxmin, opts.boxmax, opts.tstep, opts.gradient_step,
-                             opts.n_steps - 1), 0.0, 0, None, entry
-    return opts, 0.0, 0, H - 4, entry.rows(2, H - 4)  # another band of rows
+        return brick, RenderOptions(W, H, opts.boxmin, opts.boxmax, opts.tstep,
+                                    opts.gradient_step, opts.n_steps - 1), 0.0, 0, None, entry
+    return brick, opts, 0.0, 0, H - 4, entry.rows(2, H - 4)  # another band of rows
 
 
-@pytest.mark.parametrize("kind", ["another brick", "another camera_x_offset", "other options",
-                                  "another band"])
+@pytest.mark.parametrize("kind", ["another brick", "another camera_x_offset", "another camera",
+                                  "other options", "another band"])
 def test_resumed_passes_refuse_a_record_made_for_something_else(kind):
-    """A record fits only the brick, options, camera offset and rows of the
-    phase 1 that made it: the wrappers and the plain passes raise for any
-    other, where resuming from it would take wrong samples without a word."""
+    """A record fits only the brick, options, camera, camera offset and rows
+    of the phase 1 that made it: the wrappers and the plain passes raise for
+    any other, where resuming from it would take wrong samples without a
+    word."""
     _, opts, split, fwd = split_forward("unlit", 4)
-    brick = split.bricks[1]
-    other_opts, cam, y0, rows, entry = other_record(kind, opts, split, fwd)
+    brick, other_opts, cam, y0, rows, entry = other_record(kind, opts, split, fwd)
     cut = slice(y0, y0 + (H if rows is None else rows))
     w_in, image, up = fwd.w_in[1][cut], fwd.image[cut], torch.zeros((H, W))[cut]
     g = torch.ones_like(image)
@@ -401,6 +409,24 @@ def test_resumed_passes_refuse_a_record_made_for_something_else(kind):
     for call in calls:
         with pytest.raises(ValueError, match="entry record was made for"):
             call()
+
+
+def test_record_of_a_band_keeps_the_camera():
+    """``Entry.rows`` cuts the record to a band and keeps the rest of its key:
+    the band's record is refused under another camera too, and taken under
+    its own."""
+    _, opts, split, fwd = split_forward("unlit", 4)
+    brick, entry = split.bricks[1], fwd.entry[1]
+    band = entry.rows(2, H - 4)
+    assert band.made_for.camera == entry.made_for.camera == brick.scene.camera.key()
+    assert band.made_for._replace(first_row=0, rows=H) == entry.made_for
+    w_in = fwd.w_in[1][2:H - 2]
+    rows = dict(y_offset=2, n_rows=H - 4)
+    with pytest.raises(ValueError, match="entry record was made for another march: camera"):
+        brick_march.shaded_pass(other_camera_brick(4, 1), opts, 0.0, w_in, entry=band, **rows)
+    got = brick_march.shaded_pass(brick, opts, 0.0, w_in, entry=band, **rows)
+    want = brick_march.shaded_pass(brick, opts, 0.0, w_in, **rows)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def brute_force_flushes(brick, opts, w_in, entry):

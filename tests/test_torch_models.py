@@ -113,3 +113,31 @@ def test_pack_lights_and_settings():
     s = RenderSettings.create(color=(1.0, 0.5, 0.25), device="cpu")
     assert s.color.dtype == torch.float32 and s.color.tolist() == [1.0, 0.5, 0.25]
     assert float(s.opacity_threshold) == float(jnp.float32(0.95))
+
+
+def test_camera_key_needs_no_device_read():
+    """``Camera.key`` comes from the host values where the camera was built on
+    the host (``create`` from an array, ``rotate``, ``to``); a camera built
+    from a rotation alone reads it back, and both give the same key."""
+    rot = np.asarray(JCamera.create().rotate(12.0, -5.0, 3.0).rotation)
+    made = Camera.create(rotation=rot, focal_length=3.0, distance_to_object=6.0, device="cpu")
+    rotated = made.rotate(120.0, 40.0, 0.0)
+    for cam in (made, rotated, rotated.to(torch.device("cpu"))):
+        assert cam.rotation_host == tuple(float(v) for v in cam.rotation.numpy().reshape(-1))
+        bare = Camera(cam.rotation, cam.focal_length, cam.distance_to_object)
+        assert bare.rotation_host is None and bare.key() == cam.key()
+    assert len(made.key()) == 11 and made.key()[9:] == (3.0, 6.0)
+    assert made.key() != rotated.key()
+    assert made.replace(rotation=rotated.rotation).rotation_host is None
+    assert made.replace(focal_length=2.0).rotation_host == made.rotation_host
+
+
+def test_camera_from_a_host_tensor_keeps_its_own_copy():
+    """A camera made from a CPU tensor holds a copy of it: a later in-place
+    change of the caller's tensor moves neither the rotation nor the key."""
+    rot = torch.tensor(np.asarray(JCamera.create().rotate(12.0, -5.0, 3.0).rotation))
+    cam = Camera.create(rotation=rot, focal_length=3.0, distance_to_object=6.0, device="cpu")
+    key = cam.key()
+    rot.mul_(-1.0)
+    assert cam.key() == key
+    assert Camera(cam.rotation, cam.focal_length, cam.distance_to_object).key() == key

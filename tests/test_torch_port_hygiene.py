@@ -136,3 +136,27 @@ def test_ctypes_mirrors_list_the_structs_fields(source, struct, mirror):
     want = struct_fields(_build.CSRC_DIR / source, struct)
     assert len(want) >= 4
     assert [name for name, _ in mirror._fields_] == want
+
+
+def test_corner_carry_has_one_copy():
+    """The cell of a sample, its fetch and the corner carry are defined once,
+    in corner_carry.cuh, which the two carried scatters reach: K3
+    (march_bwd.cu) and the K7 gradient segment (brick_bwd.cu, through
+    brick_common.cuh)."""
+    pattern = re.compile(r"^(?:template <[^>]*>\s*)?struct (CornerCarry|Cell|ZSlab)\b|"
+                         r"^__device__ __forceinline__ [\w&]+ (cell_of|fetch_cell|fetch_cell_pair|"
+                         r"corner_weights|slab_row)\(", re.M)
+    found = {}
+    for path in sorted(_build.CSRC_DIR.glob("*.cu*")):
+        for m in pattern.finditer(path.read_text()):
+            found.setdefault(m.group(1) or m.group(2), []).append(path.name)
+    assert found == {name: ["corner_carry.cuh"] for name in (
+        "CornerCarry", "Cell", "ZSlab", "cell_of", "fetch_cell", "fetch_cell_pair",
+        "corner_weights", "slab_row")}
+
+    def includes(name):
+        return re.findall(r'#include "(\w+\.cuh)"', (_build.CSRC_DIR / name).read_text())
+
+    assert "corner_carry.cuh" in includes("march_bwd.cu")
+    assert includes("brick_bwd.cu") == ["brick_common.cuh"]
+    assert includes("brick_common.cuh") == ["corner_carry.cuh"]

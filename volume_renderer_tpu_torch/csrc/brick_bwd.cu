@@ -31,18 +31,12 @@
 //   both grids when absorption has the emission's shape and place (checked
 //   on the host below); an absorption of another shape keeps its own cell,
 //   fetch and carry.
-// - The step is under half a voxel, so consecutive samples of a ray mostly
-//   share their cell, or 4 of its corners after crossing one face. The ray
-//   carries the pending sums of its current cell's 8 corners (16 with
-//   absorption) in registers (CornerCarry), the adjoint of the fetch's
-//   clamp and shift included: a sample in the same cell adds
-//   into them, a sample that crosses a face keeps the corners both cells
-//   share and flushes the rest, and the ray flushes all when it ends. A
-//   flush is one atomicAdd without a return value (red.global.add.f32),
-//   skipped for a sum that is still zero. This is the exact adjoint of the
-//   same fetches; only the order of the float additions changes, and atomic
-//   adds land in no fixed order anyway, so the grids differ from run to run
-//   in the last bits.
+// - The ray carries the pending sums of its current cell's 8 corners (16
+//   with absorption) in registers (CornerCarry of corner_carry.cuh, shared
+//   with K3 in march_bwd.cu), the adjoint of the fetch's clamp and brick
+//   shift included, and flushes a corner as one atomic add when it leaves
+//   it: 2.08 atomic adds a sample for both grids instead of 16 (PERF.md).
+//   The grids differ from run to run in the last bits.
 // - A ray whose cotangent is zero, that has no record or that enters above
 //   the opacity threshold writes zero planes at once.
 //
@@ -68,117 +62,6 @@ constexpr int kScatterCols = kBlock, kScatterRows = 8;
 constexpr int kScatterThreads = kScatterCols * kScatterRows;
 
 __device__ __forceinline__ V3 scale(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
-
-// The 8 trilinear weights of cell k by slot a + 2 b + 4 c (corner
-// (x + a, y + b, z + c)): the x weight times the y weight times the z weight.
-__device__ __forceinline__ void corner_weights(const Cell& k, float (&w)[8]) {
-  const float fx = k.fx, fy = k.fy, fz = k.fz;
-  const float gx0 = 1.0f - fx, gy0 = 1.0f - fy, gz0 = 1.0f - fz;
-  w[0] = gx0 * gy0 * gz0;
-  w[1] = fx * gy0 * gz0;
-  w[2] = gx0 * fy * gz0;
-  w[3] = fx * fy * gz0;
-  w[4] = gx0 * gy0 * fz;
-  w[5] = fx * gy0 * fz;
-  w[6] = gx0 * fy * fz;
-  w[7] = fx * fy * fz;
-}
-
-// The pending corner sums of one ray's current cell in N grids of one shape
-// and place: s[n][a + 2 b + 4 c] is what the ray's samples in this cell, and
-// in earlier cells sharing the corner, added to corner (x + a, y + b, z + c)
-// of grid n. Every index into s is a constant after unrolling, so the sums
-// stay in registers.
-template <int N>
-struct CornerCarry {
-  float* grid[N];
-  Vol v;
-  ZSlab zs;
-  int x, y, z;  // the cell; far from any real one until the first sample
-  float s[N][8];
-
-  // g1: the second grid, with N = 2
-  __device__ __forceinline__ CornerCarry(const Vol& vol, ZSlab slab, float* g0, float* g1)
-      : v(vol), zs(slab), x(-(1 << 29)), y(-(1 << 29)), z(-(1 << 29)) {
-    grid[0] = g0;
-    if constexpr (N == 2) grid[1] = g1;
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) s[n][k] = 0.0f;
-    }
-  }
-
-  // Adds slot k into the grids, clamped and shifted as the fetch clamps and
-  // shifts its corner, and clears it.
-  __device__ __forceinline__ void flush(int k) {
-    const size_t off = (size_t)clamp_index(x + (k & 1), v.w) +
-                       (size_t)clamp_index(y + ((k >> 1) & 1), v.h) * (size_t)v.w +
-                       (size_t)slab_row(z + (k >> 2), v, zs) * ((size_t)v.w * (size_t)v.h);
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      if (s[n][k] != 0.0f) atomicAdd(grid[n] + off, s[n][k]);
-      s[n][k] = 0.0f;
-    }
-  }
-
-  __device__ __forceinline__ void flush_all() {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) flush(k);
-  }
-
-  // One step of d (-1, 0 or 1) along the axis of slot bit `bit`: the 4
-  // corners left behind are flushed, the 4 kept move to the other side.
-  __device__ __forceinline__ void shift(int bit, int d) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      if (k & bit) continue;
-      const int lo = k, hi = k | bit;
-      if (d > 0) {
-        flush(lo);
-#pragma unroll
-        for (int n = 0; n < N; ++n) {
-          s[n][lo] = s[n][hi];
-          s[n][hi] = 0.0f;
-        }
-      } else if (d < 0) {
-        flush(hi);
-#pragma unroll
-        for (int n = 0; n < N; ++n) {
-          s[n][hi] = s[n][lo];
-          s[n][lo] = 0.0f;
-        }
-      }
-    }
-  }
-
-  // Makes cell c the current one, flushing the corners it does not share.
-  __device__ __forceinline__ void move_to(const Cell& c) {
-    const int dx = c.x - x, dy = c.y - y, dz = c.z - z;
-    if (dx == 0 && dy == 0 && dz == 0) return;
-    if (abs(dx) > 1 || abs(dy) > 1 || abs(dz) > 1) {
-      flush_all();
-    } else {  // axis by axis: each flush addresses the cell as moved so far
-      shift(1, dx);
-      x = c.x;
-      shift(2, dy);
-      y = c.y;
-      shift(4, dz);
-    }
-    x = c.x;
-    y = c.y;
-    z = c.z;
-  }
-
-  // d0 into grid 0 and, with N = 2, d1 into grid 1, spread by the weights w
-  __device__ __forceinline__ void add(const float (&w)[8], float d0, float d1) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      s[0][k] = s[0][k] + w[k] * d0;
-      if constexpr (N == 2) s[1][k] = s[1][k] + w[k] * d1;
-    }
-  }
-};
 
 // AB_OWN_CELL: absorption has another shape or place than emission, so it
 // keeps its own cell and carry; otherwise it shares emission's.

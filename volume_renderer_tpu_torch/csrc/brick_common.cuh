@@ -15,7 +15,7 @@
 
 #pragma once
 
-#include "march_common.cuh"
+#include "corner_carry.cuh"
 
 // Mirrored field for field by _BrickArgs in ops/cuda_bricks.py.
 struct BrickArgs {
@@ -39,58 +39,6 @@ struct Entry {
   float t;
   V3 p;
 };
-
-// Where a padded grid lies in its volume.
-struct ZSlab {
-  int d_global, z_off;
-};
-
-// A brick row for global row g: clamped against the whole depth, as the
-// single-device fetch clamps, then shifted into the brick. The second clamp
-// only keeps a stray index inside the allocation: with two halo rows no
-// owned sample reaches it.
-__device__ __forceinline__ int slab_row(int g, const Vol& v, ZSlab z) {
-  return min(max(clamp_index(g, z.d_global) - z.z_off, 0), v.d - 1);
-}
-
-// The lower corner of a sample in a brick's grid before any clamp (z in
-// global rows), and its weights.
-struct Cell {
-  int x, y, z;
-  float fx, fy, fz;
-};
-
-__device__ __forceinline__ Cell cell_of(const Vol& v, ZSlab z, V3 c) {
-  Cell k;
-  k.x = floor_index(c.x, v.w, k.fx);
-  k.y = floor_index(c.y, v.h, k.fy);
-  k.z = floor_index(c.z, z.d_global, k.fz);
-  return k;
-}
-
-// sample() of march_common.cuh on a brick, at the corners of cell k.
-__device__ __forceinline__ float fetch_cell(const Vol& v, ZSlab z, const Cell& k) {
-  const int x0 = clamp_index(k.x, v.w), x1 = clamp_index(k.x + 1, v.w);
-  const int y0 = clamp_index(k.y, v.h), y1 = clamp_index(k.y + 1, v.h);
-  const int z0 = slab_row(k.z, v, z), z1 = slab_row(k.z + 1, v, z);
-  const float fx = k.fx, fy = k.fy, fz = k.fz;
-  const size_t sy = (size_t)v.w;
-  const size_t sz = (size_t)v.w * (size_t)v.h;
-  const float* p = v.data;
-  const size_t r00 = y0 * sy + z0 * sz, r10 = y1 * sy + z0 * sz;
-  const size_t r01 = y0 * sy + z1 * sz, r11 = y1 * sy + z1 * sz;
-  const float c000 = __ldg(p + x0 + r00), c100 = __ldg(p + x1 + r00);
-  const float c010 = __ldg(p + x0 + r10), c110 = __ldg(p + x1 + r10);
-  const float c001 = __ldg(p + x0 + r01), c101 = __ldg(p + x1 + r01);
-  const float c011 = __ldg(p + x0 + r11), c111 = __ldg(p + x1 + r11);
-  const float c00 = c000 + fx * (c100 - c000);
-  const float c10 = c010 + fx * (c110 - c010);
-  const float c01 = c001 + fx * (c101 - c001);
-  const float c11 = c011 + fx * (c111 - c011);
-  const float c0 = c00 + fy * (c10 - c00);
-  const float c1 = c01 + fy * (c11 - c01);
-  return c0 + fz * (c1 - c0);
-}
 
 // sample() on a brick, at global coordinates.
 __device__ __forceinline__ float sample_slab(const Vol& v, ZSlab z, V3 c) {

@@ -4,9 +4,9 @@
 // volume_renderer_tpu/ops/pallas_march.py:_march_kernel (:688), launched by
 // the pl.pallas_call at :1935 through _replay_grads_tiled (:2020) and
 // _voxel_grads_tiled (:2031):
-//   K2  grad_mode            march_bwd<LIT, SCATTER=false>
-//   K3  scatter              march_bwd<LIT=false, SCATTER=true>
-//   K6  scatter + lighting   march_bwd<LIT=true, SCATTER=true>
+//   K2  grad_mode            march_bwd_kernel<LIT, SCATTER=false>
+//   K3  scatter              march_bwd_scatter_kernel (unlit)
+//   K6  scatter + lighting   march_bwd_lit_scatter_kernel
 // It computes what ops/vjp.py:replay_backward (the plain PyTorch version)
 // defines: given the pixel cotangent g and the saved image, each ray is
 // replayed front to back exactly as march_fwd.cu marched it (the shared
@@ -32,39 +32,48 @@
 // What bounds it on this card. Per sample the replay repeats the forward's
 // gathers, and the scatter issues float atomic adds into grids of the
 // volume's size, where the rays of neighbouring pixels hit the same voxels:
-// 8 or 16 a sample unlit (K3); lit (K6), with absorption and reflection in
-// volumes of their own, 8 each for those and, for the emission centre and
-// its six taps, 56 as seven separate scatters before this design and now 20
-// where the taps lie half a voxel out (at most 32). The roofline counts
-// float32 operations against the volumes read and the grids written once and
-// calls it operation-bound (chip_smoke.py counts the work of a step, not
-// this implementation's instructions); what it waits on is the latency of
-// the gathers, as the forward does, and the atomic units in L2.
+// 8 a sample and grid unlit (K3) if each sample adds its shares alone; lit
+// (K6), with absorption and reflection in volumes of their own, 8 each for
+// those and, for the emission centre and its six taps, 56 as seven separate
+// scatters before this design and now 20 where the taps lie half a voxel out
+// (at most 32). The roofline counts float32 operations against the volumes
+// read and the grids written once and calls it operation-bound
+// (chip_smoke.py counts the work of a step, not this implementation's
+// instructions); what it waits on is the gathers, as the forward does, and
+// the atomic units in L2.
 //
-// What the design does about it. A thread per ray in 16x16 blocks like the
-// forward (16x8 for K6, see march_bwd_lit_scatter_kernel), so the atomics of
-// a warp fall into few cache lines. atomicAdd whose result is unused compiles
-// to a reduction (RED) that does not wait for the old value. Lit, the replay
-// fetches the centre and the six taps through the shared window of
-// march_common.cuh (20 loads instead of 56), and the scatter of their
-// cotangents is the window's adjoint (scatter_em_taps): each window voxel's
-// share of the centre and the taps is summed first and goes out as one atomic
-// add, 36 a sample instead of 72 with absorption and reflection in volumes of
-// their own. The window is rebuilt from the position after the lights instead
-// of being kept in registers through them: K6 took 251-255 registers a thread
-// and spilled with seven separate fetches and scatters, and takes at most 168
-// without spilling now (ptxas -v), three 16x8 blocks an SM. Nothing of the
-// TPU design is carried over: the one-hot matmul scatter, the read-modify-
-// write windows, the overflow ladder and the sweep axis stood in for atomics.
-// The per-light sums live in shared memory, one private column per thread, so
-// the number of lights is not a compile-time constant. A ray whose cotangent
-// is zero is skipped: all it could add is zero.
+// What the design does about it. A thread per ray; K2 in 16x16 blocks like
+// the forward, K3 and K6 in 16x8 (a warp is two rows of 16 neighbouring
+// rays, as in a 16x16 block; see their kernels), so the atomics of a warp
+// fall into few cache lines. atomicAdd whose result is unused compiles to a
+// reduction (RED) that does not wait for the old value.
+// - K3 (march_bwd_scatter_kernel) computes a sample's cell once for both
+//   grids where absorption has emission's shape, fetches both at its
+//   corners, and carries the ray's pending corner sums in registers
+//   (corner_carry.cuh, CornerCarry, as the K7 gradient segment does): a
+//   corner goes out as one atomic add when the ray leaves it, about 2 a
+//   sample for both grids instead of 16 (chip_smoke.py, march_flushes).
+// - Lit, the replay fetches the centre and the six taps through the shared
+//   window of march_common.cuh (20 loads instead of 56), and the scatter of
+//   their cotangents is the window's adjoint (scatter_em_taps): each window
+//   voxel's share of the centre and the taps is summed first and goes out as
+//   one atomic add, 36 a sample instead of 72 with absorption and reflection
+//   in volumes of their own. The window is rebuilt from the position after
+//   the lights instead of being kept in registers through them: K6 took
+//   251-255 registers a thread and spilled with seven separate fetches and
+//   scatters, and takes at most 168 without spilling now (ptxas -v), three
+//   16x8 blocks an SM.
+// Nothing of the TPU design is carried over: the one-hot matmul scatter, the
+// read-modify-write windows, the overflow ladder and the sweep axis stood in
+// for atomics. The per-light sums live in shared memory, one private column
+// per thread, so the number of lights is not a compile-time constant. A ray
+// whose cotangent is zero is skipped: all it could add is zero.
 //
 // Atomic adds land in no fixed order, so the grids differ from run to run
 // in the last bits. Build flags as for march_fwd.cu (-fmad=false, no fast
 // math). Plain C interface, loaded with ctypes (ops/cuda_grads.py).
 
-#include "march_common.cuh"
+#include "corner_carry.cuh"
 
 // Mirrored field for field by GradArgs in ops/cuda_grads.py.
 struct GradArgs {
@@ -464,6 +473,109 @@ __global__ void __maxnreg__(kMaxRegisters) march_bwd_lit_scatter_kernel(const Gr
   march_bwd_ray<true, true, AB_ALIASED, RE_ALIASED, kK6Cols, kK6Rows>(ga);
 }
 
+// K3 in a kernel of its own: the unlit replay with the carried scatter.
+// Each sample computes its cell once (corner_carry.cuh); emission and, of
+// its shape, absorption are fetched at its corners with sample()'s blend, so
+// the forward values, the stop test and the samples are the forward's.
+// Their cotangents go into CornerCarry, one carry of both grids where
+// absorption has emission's shape (AB_OWN_CELL false), its own cell and
+// carry where it has another; aliased absorption adds into emission's.
+// 16x8 blocks ran 0.85 ms faster than 16x16 on an H100 (PERF.md, PR 6).
+constexpr int kK3Cols = 16, kK3Rows = 8;
+
+template <bool AB_ALIASED, bool AB_OWN_CELL>
+__global__ void __launch_bounds__(kK3Cols * kK3Rows) march_bwd_scatter_kernel(const GradArgs ga) {
+  constexpr int kCarried = AB_ALIASED || AB_OWN_CELL ? 1 : 2;
+  const MarchArgs& a = ga.m;
+  const int px = blockIdx.x * kK3Cols + threadIdx.x;
+  const int py = blockIdx.y * kK3Rows + threadIdx.y;
+  if (px >= a.width || py >= a.height) return;
+
+  V3 origin, dir;
+  float tnear, tfar;
+  const bool hit = make_ray(a, px, py, origin, dir, tnear, tfar);
+
+  const float* st = a.settings;
+  const size_t pix = (size_t)py * a.width + px;
+  const V3 g = {__ldg(ga.g + 3 * pix), __ldg(ga.g + 3 * pix + 1), __ldg(ga.g + 3 * pix + 2)};
+
+  float acc_e = 0.0f, acc_f = 0.0f;
+  if (hit && !(g.x == 0.0f && g.y == 0.0f && g.z == 0.0f)) {
+    const float fe = __ldg(st + 0), fa = __ldg(st + 1);
+    const V3 color = {__ldg(st + 3), __ldg(st + 4), __ldg(st + 5)};
+    const float threshold = __ldg(st + 6);
+    const float tstep = a.tstep;
+    const V3 out = {__ldg(ga.image + 3 * pix), __ldg(ga.image + 3 * pix + 1),
+                    __ldg(ga.image + 3 * pix + 2)};
+    const float total_dot = dot(g, out);
+    const ZSlab em_z = whole(a.em), ab_z = whole(a.ab);
+    CornerCarry<kCarried> carry(a.em, em_z, ga.d_em, ga.d_ab);
+    CornerCarry<1> ab_carry(a.ab, ab_z, ga.d_ab, nullptr);  // with AB_OWN_CELL
+    float sw = 0.0f, prefix = 0.0f;
+    float t = tnear;
+    V3 p = {origin.x + dir.x * tnear, origin.y + dir.y * tnear, origin.z + dir.z * tnear};
+    const V3 step = {dir.x * tstep, dir.y * tstep, dir.z * tstep};
+    for (int i = 0; i < a.n_steps; ++i) {
+      // ---- the step's forward values, as march_fwd.cu has them ----
+      const V3 s = to_sample(a, p);
+      const Cell k = cell_of(a.em, em_z, s);
+      const Cell ka = AB_OWN_CELL ? cell_of(a.ab, ab_z, s) : k;
+      float em, ab;
+      if (AB_ALIASED || AB_OWN_CELL) {
+        em = fetch_cell(a.em, em_z, k);
+        ab = AB_ALIASED ? em : fetch_cell(a.ab, ab_z, ka);
+      } else {
+        fetch_cell_pair(a.em, a.ab, em_z, k, em, ab);
+      }
+      const float emission = fe * em;
+      const float absorption = fa * ab;
+      const float transmit = expf(-absorption * tstep);
+      const float alpha = 1.0f - transmit;
+      const V3 illum = {emission * tstep * color.x, emission * tstep * color.y,
+                        emission * tstep * color.z};
+      const float tw = 1.0f - sw;
+      const V3 d_s = scale(g, tw);
+      const V3 d_illum = scale(d_s, alpha);
+
+      // ---- cotangents of (s, alpha) from the under operator ----
+      prefix = prefix + tw * (g.x * (illum.x * alpha) + g.y * (illum.y * alpha) +
+                              g.z * (illum.z * alpha));
+      const float one_m_a = 1.0f - alpha;
+      const float d_alpha = one_m_a > 0.0f ? -(total_dot - prefix) / one_m_a : 0.0f;
+
+      // ---- adjoint of the step, its shares carried ----
+      const float d_absorption = (d_alpha + dot(d_s, illum)) * (transmit * tstep);
+      acc_f = acc_f + d_absorption * ab;
+      acc_e = acc_e + tw * alpha * em;
+      float d_at_em = dot(d_illum, color) * tstep * fe;
+      const float d_ab = d_absorption * fa;
+      if (AB_ALIASED) d_at_em = d_at_em + d_ab;
+      float wk[8];
+      carry.move_to(k);
+      corner_weights(k, wk);
+      carry.add(wk, d_at_em, d_ab);
+      if (AB_OWN_CELL) {
+        ab_carry.move_to(ka);
+        corner_weights(ka, wk);
+        ab_carry.add(wk, d_ab, 0.0f);
+      }
+
+      // ---- advance exactly like the forward march ----
+      sw = tw * alpha + sw;
+      t = t + tstep;
+      if (!(sw <= threshold) || !(t <= tfar)) break;
+      p = {p.x + step.x, p.y + step.y, p.z + step.z};
+    }
+    carry.flush_all();
+    if (AB_OWN_CELL) ab_carry.flush_all();
+  }
+
+  const size_t plane = (size_t)a.width * a.height;
+  ga.planes[pix] = acc_e;
+  ga.planes[plane + pix] = acc_f;
+  ga.planes[2 * plane + pix] = 0.0f;
+}
+
 template <bool LIT, bool SCATTER, bool AB, bool RE>
 cudaError_t launch(const GradArgs& ga, cudaStream_t stream) {
   const MarchArgs& a = ga.m;
@@ -475,6 +587,22 @@ cudaError_t launch(const GradArgs& ga, cudaStream_t stream) {
     march_bwd_lit_scatter_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
   } else {
     march_bwd_kernel<LIT, SCATTER, AB, RE><<<grid, block, shared, stream>>>(ga);
+  }
+  return cudaGetLastError();
+}
+
+// K3: absorption shares emission's cell where it has its shape.
+cudaError_t launch_unlit_scatter(const GradArgs& ga, bool ab_aliased, cudaStream_t stream) {
+  const MarchArgs& a = ga.m;
+  const dim3 block(kK3Cols, kK3Rows);
+  const dim3 grid((a.width + kK3Cols - 1) / kK3Cols, (a.height + kK3Rows - 1) / kK3Rows);
+  const bool same = a.ab.d == a.em.d && a.ab.h == a.em.h && a.ab.w == a.em.w;
+  if (ab_aliased) {
+    march_bwd_scatter_kernel<true, false><<<grid, block, 0, stream>>>(ga);
+  } else if (same) {
+    march_bwd_scatter_kernel<false, false><<<grid, block, 0, stream>>>(ga);
+  } else {
+    march_bwd_scatter_kernel<false, true><<<grid, block, 0, stream>>>(ga);
   }
   return cudaGetLastError();
 }
@@ -514,7 +642,7 @@ int vr_march_bwd(const GradArgs* args, int lit, int scatter, int ab_aliased, int
     return (int)(scatter ? launch_aliasing<true, true>(ga, ab_aliased, re_aliased, s)
                          : launch_aliasing<true, false>(ga, ab_aliased, re_aliased, s));
   }
-  return (int)(scatter ? launch_aliasing<false, true>(ga, ab_aliased, re_aliased, s)
+  return (int)(scatter ? launch_unlit_scatter(ga, ab_aliased, s)
                        : launch_aliasing<false, false>(ga, ab_aliased, re_aliased, s));
 }
 

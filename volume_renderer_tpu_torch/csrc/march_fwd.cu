@@ -22,12 +22,26 @@
 // Before the tap fetch was shared, the time per step of K1, K5 and K4 grew
 // with the loads a step (16, 56, 80 with absorption and reflection in
 // volumes of their own) to within 5 % (PERF.md), and a 256^3 volume is
-// 64 MiB, more than the 50 MB L2.
+// 64 MiB, more than the 50 MB L2. Unlit (K1), what the gathers cost is the
+// sectors and lines each warp load instruction touches: counted from the
+// plain march's positions (chip_smoke.py, gather_footprint), a corner load
+// of a warp of 16x2 neighbouring rays touches about 13 sectors and 11
+// lines at 256^3 / 512^2, its 32 lanes about a voxel apart.
 //
 // What the design does about it. One thread per pixel in 16x16 blocks: the
 // rays of a warp are neighbours, so their samples are neighbours too and
 // share L1 lines. Loads use the read-only path (__ldg). Each thread stops on
-// its own. Lit with on-the-fly gradients (K4), the centre fetch and the six
+// its own. Three changes to K1 were measured on an H100 and dropped
+// (PERF.md): warps of 8x4 or 4x8 pixels touch more sectors and lines a load
+// than the 16x2 strips of threadIdx order (the image x axis runs mostly
+// along the volume's x in the timed scene) and ran 11-42 % slower; a
+// 4x4x2-tiled volume layout would touch more sectors, not fewer, so it was
+// not built; and one cell for emission and absorption of one shape, both
+// fetched at its corners (corner_carry.cuh, fetch_cell_pair, which K3
+// keeps), gained nothing beyond the spread between runs, so K1 fetches
+// each volume with sample().
+//
+// Lit with on-the-fly gradients (K4), the centre fetch and the six
 // central-difference taps share their corners (march_common.cuh,
 // fetch_em_taps): each voxel of their union is loaded once: 20 loads instead
 // of 56 where the taps lie half a voxel out (an isotropic axis), at most 32

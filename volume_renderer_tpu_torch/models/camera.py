@@ -2,13 +2,19 @@
 
 The kernel's xVector/yVector/zVector are the COLUMNS of the user's
 rotation matrix; ``basis()`` returns them.
+
+``key()`` says which camera a render was made for (the z-brick path's entry
+record carries it). The rotation lives on the render's device; where it
+was built on the host (``create`` from an array, ``rotate``) the camera
+keeps its nine values as Python floats too, so that the key needs no
+device-to-host copy, which would stall the stream.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +28,8 @@ class Camera:
     rotation: torch.Tensor  # (3, 3) float32; columns are xVec, yVec, zVec
     focal_length: float = 0.0
     distance_to_object: float = 0.0
+    # the rotation's values, row-major, where the host had them; else None
+    rotation_host: Optional[Tuple[float, ...]] = dataclasses.field(default=None, repr=False)
 
     @classmethod
     def create(cls, rotation=None, focal_length: float = 0.0,
@@ -29,14 +37,39 @@ class Camera:
         dev = resolve_device(device)
         if rotation is None:
             rotation = np.eye(3, dtype=np.float32)
+        if isinstance(rotation, torch.Tensor):
+            on_host = rotation.device.type == "cpu"
+            if on_host:  # a copy: the caller's tensor may change, the key must not
+                rotation = rotation.clone()
+            host = _host_values(rotation.detach().numpy()) if on_host else None
+        else:
+            host = _host_values(np.asarray(rotation, np.float32))
         return cls(
             rotation=as_float32(rotation, dev),
             focal_length=float(focal_length),
             distance_to_object=float(distance_to_object),
+            rotation_host=host,
         )
 
     def replace(self, **changes) -> "Camera":
+        """A copy with ``changes``; a new rotation drops the host values
+        unless ``rotation_host`` comes with it."""
+        if "rotation" in changes and "rotation_host" not in changes:
+            changes["rotation_host"] = None
         return dataclasses.replace(self, **changes)
+
+    def to(self, device: torch.device) -> "Camera":
+        """The same camera with its rotation on ``device``."""
+        return dataclasses.replace(self, rotation=self.rotation.to(device))
+
+    def key(self) -> Tuple[float, ...]:
+        """The camera as eleven floats: the rotation row-major, the focal
+        length and the distance to the object. From the host values where
+        the camera has them, else read from the device."""
+        rotation = self.rotation_host
+        if rotation is None:
+            rotation = _host_values(self.rotation.detach().cpu().numpy())
+        return rotation + (float(self.focal_length), float(self.distance_to_object))
 
     def basis(self) -> Tuple[F3, F3, F3]:
         """(x_vec, y_vec, z_vec) as 0-d F3s — columns of the rotation."""
@@ -58,7 +91,12 @@ class Camera:
         """
         m = self.rotation.detach().to("cpu", torch.float32).numpy()
         rotated = rotate_matrix(m, alpha_deg, beta_deg, gamma_deg)
-        return self.replace(rotation=torch.tensor(rotated, device=self.rotation.device))
+        return self.replace(rotation=torch.tensor(rotated, device=self.rotation.device),
+                            rotation_host=_host_values(rotated))
+
+
+def _host_values(rotation: np.ndarray) -> Tuple[float, ...]:
+    return tuple(float(v) for v in np.asarray(rotation, np.float32).reshape(-1))
 
 
 def _matmul_fma(a: np.ndarray, b: np.ndarray) -> np.ndarray:

@@ -49,6 +49,18 @@ from volume_renderer_tpu_torch.ops.vjp import Diff, StepReplay
 HALO = 2  # rows each side: a trilinear fetch needs +-1, the on-the-fly gradient taps +-2
 
 
+class RecordKey(NamedTuple):
+    """What an entry record depends on: the march that made it."""
+
+    brick: int
+    bricks: int
+    options: RenderOptions
+    camera: Tuple[float, ...]  # Camera.key(): rotation row-major, focal length, distance
+    camera_x_offset: float
+    first_row: int
+    rows: int
+
+
 class Entry(NamedTuple):
     """Where each ray enters a brick: its first step that the brick owns.
     ``step`` and ``state`` are the kernels' record (``csrc/brick_common.cuh``),
@@ -57,29 +69,31 @@ class Entry(NamedTuple):
 
     step: torch.Tensor   # (H, W) int32; -1 where the ray misses the box or never reaches the brick
     state: torch.Tensor  # (H, W, 4) float32: t and the position x, y, z at that step
-    made_for: tuple
+    made_for: RecordKey
 
     @staticmethod
     def key(brick: "Brick", opts: RenderOptions, camera_x_offset: float, y_offset: int = 0,
-            n_rows: Optional[int] = None) -> tuple:
+            n_rows: Optional[int] = None) -> RecordKey:
         """What a record depends on: the brick and the number of bricks,
-        the options, the camera offset and the band of image rows."""
+        the options, the camera and its offset, and the band of image rows."""
         rows = opts.height if n_rows is None else int(n_rows)
-        return brick.index, brick.n, opts, float(camera_x_offset), int(y_offset), rows
+        return RecordKey(brick.index, brick.n, opts, brick.scene.camera.key(),
+                         float(camera_x_offset), int(y_offset), rows)
 
-    def check(self, want: tuple) -> None:
+    def check(self, want: RecordKey) -> None:
         """Raises ``ValueError`` unless the record was made for ``want``, an
         ``Entry.key``."""
         if self.made_for != want:
-            raise ValueError("the entry record was made for (brick, bricks, options, "
-                             f"camera_x_offset, first row, rows) {self.made_for}, not {want}")
+            differ = ", ".join(f"{name} {got} (not {wanted})" for name, got, wanted
+                               in zip(RecordKey._fields, self.made_for, want) if got != wanted)
+            raise ValueError(f"the entry record was made for another march: {differ}")
 
     def rows(self, y_offset: int, n_rows: int) -> "Entry":
         """The record of a band of image rows."""
-        index, n, opts, camera_x_offset, y0, _ = self.made_for
         cut = slice(y_offset, y_offset + n_rows)
         return Entry(self.step[cut].contiguous(), self.state[cut].contiguous(),
-                     (index, n, opts, camera_x_offset, y0 + y_offset, n_rows))
+                     self.made_for._replace(first_row=self.made_for.first_row + y_offset,
+                                            rows=n_rows))
 
 
 class Brick(NamedTuple):

@@ -205,8 +205,8 @@ def split_bricks(scene: Scene, mesh: Mesh, grids: Optional[Dict[str, PerBrick]] 
                    for key, parts in padded.items()}
         tensors = {key: None if getattr(scene, key) is None else getattr(scene, key).to(dev)
                    for key in ("illumination", "light_positions", "light_colors")}
-        camera = scene.camera.replace(rotation=scene.camera.rotation.to(dev))
-        bricks.append(Brick(scene.replace(camera=camera, settings=settings, **volumes, **tensors),
+        bricks.append(Brick(scene.replace(camera=scene.camera.to(dev), settings=settings,
+                                          **volumes, **tensors),
                             b, n))
     return BrickedScene(tuple(bricks))
 
