@@ -8,17 +8,19 @@ Phases, one JSON line each; any failure raises and exits nonzero:
 1. device:  the card, its power limit, and the build of every kernel
             source (one nvcc each, started together), with the registers,
             spills and resulting blocks an SM that ptxas reports for each
-            kernel instantiation. K1, K3, K4, K6, K7 phase 2 and the K7
-            gradient segment must not spill.
+            kernel instantiation. Every kernel but K2 (K1, K3-K6 and the
+            three K7 forms) must not spill.
 2. goldens: the five tests/goldens scenes through VolumeRenderer on the
             card, held against the committed images.
 3. kernel_vs_plain: the forward march kernel against its plain PyTorch
             version (ops/forward.py) on the card at 128^3 / 256x192, per
-            mode, unlit (K1) also with absorption of another shape, and
-            lit (K4) on an anisotropic (36, 24, 64) volume and on a 48^3
-            one seen near an axis (taps on faces and edges). K1 and K4
-            must equal their plain versions exactly, here and wherever
-            else they are compared.
+            mode, unlit (K1) also with absorption of another shape, lit
+            (K4) on an anisotropic (36, 24, 64) volume and on a 48^3 one
+            seen near an axis (taps on faces and edges), and lookup (K5)
+            packed with absorption aliased, separate with reflection
+            aliased, and of another shape, and unpacked with gradient
+            volumes of another shape. K1 and K4 must equal their plain
+            versions exactly, here and wherever else they are compared.
 4. grads_vs_plain: the backward march kernel through voxel_grads_fast (K3
             unlit, K6 lit) and transfer_grads_fast (K2) against its plain
             version (ops/vjp.py:replay_backward) at 128^3 / 256x192, K3
@@ -36,16 +38,17 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             The loss must fall. Before the counted steps, the first step's
             gradients are held against the plain replay on a 64-row band.
 7. timing:  the forward kernel (CUDA events, warm, median of 5) and the
-            plain version at 256^3 / 512^2 (K1, K4, K5) and 512^3 / 1024^2
-            (K1, K4; the plain version on a 64-row band through the
+            plain version at 256^3 / 512^2 and 512^3 / 1024^2 (K1, K4, K5;
+            at 512^3 the plain version on a 64-row band through the
             middle), with rays/s, the march samples the rays took and the
-            bound; then the forward + backward pair, the backward kernel
+            bound, K5's pack alone (its forward includes it) and, at
+            256^3 / 512^2, the gather model (gather_footprint) of its
+            float4 corner loads against float32 ones on a 64-row band;
+            then the forward + backward pair, the backward kernel
             alone and the whole training step for K3, K6 and K2 at
             256^3 / 512^2 and K3 at 512^3 / 1024^2, with the bound, and
             K3's atomic adds a sample at 256^3 / 512^2, counted from the
-            plain march's positions (march_flushes). gather_footprint, the
-            model of the sectors and lines K1's warp loads touch, is not
-            run here: call it on a scene and a band of rows.
+            plain march's positions (march_flushes).
 
 8. bricks_vs_plain: the z-brick kernels (K7) at 128^3 / 256x192, 4 bricks:
             each launch form on every brick (phase 1 opacity and entry
@@ -71,25 +74,28 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             bricked forward, forward + backward and training step (CUDA
             events, warm, median of 5) beside the single-device kernels on
             the same scene, with the samples each phase took and the bound;
-            the atomic adds a sample of the gradient segment's corner carry,
-            counted from the plain walk (corner_flushes); the launch forms
-            and the bricked
-            forward on the dense scene too, where the walk to a brick was a
-            larger share of a ray's work.
+            the atomic adds a sample of the gradient segment's corner carry
+            (corner_flushes) and the corner loads a sample that a per-ray
+            corner cache would make for phase 1 (corner_loads), counted from
+            the plain walk; the launch
+            forms, phase 1's loads and the bricked forward on the dense
+            scene too, where the walk to a brick was a larger share of a
+            ray's work.
 11. parent_vs_new, only with --parent DIR: DIR holds another version of
             the port's package (e.g. the parent commit's, unpacked with git
             archive). Timed in turns, DIR's, the checkout's, the checkout's,
             DIR's, each version in a process of its own that builds and
             imports it and runs its turns when asked (the other waits), a
-            median of 5 each: K1 and K4 (256^3 / 512^2,
-            512^3 / 1024^2; the images must be equal), K3 and K6 (the
-            backward alone, forward + backward, the training step,
-            256^3 / 512^2) and K7 with 4 bricks at 256^3 / 512^2 (each launch
-            form over all bricks, phase 2 alone from phase 1's outputs; the
-            bricked forward, forward + backward and training step; the
-            host's time in phase 2's calls, in their record checks and in
-            the bricked forward; the bricked images and every brick's exit
-            opacity must be equal).
+            median of 5 each: K1, K4 and K5 (256^3 / 512^2,
+            512^3 / 1024^2; the images must be equal; K5's pack alone), K3
+            and K6 (the backward alone, forward + backward, the training
+            step, 256^3 / 512^2) and K7 with 4 bricks at 256^3 / 512^2 (each
+            launch form over all bricks, phase 2 alone from phase 1's
+            outputs, phase 1 also on the dense scene; the bricked forward,
+            forward + backward and training step; the host's time in phase
+            2's calls, in their record checks and in the bricked forward;
+            the bricked images, every brick's exit opacity, and phase 1's
+            opacities and entry records on both scenes must be equal).
 
 Then the kernels line and, last, {"ok": true, "device": {...}}. It needs
 the repository around it and a CUDA card; it imports nothing of JAX.
@@ -217,7 +223,10 @@ class CarryCount:
     the rays that composite there: a ray's first sample flushes nothing, a
     later one in another cell the 8 corners minus those both cells share, and
     the ray's last cell its 8 corners (an upper bound: the kernel skips a
-    flush of an exact zero)."""
+    flush of an exact zero). The same total is, exactly, the loads of a
+    cache that keeps a ray's corner values in registers (corner_loads): 8 at
+    a ray's first sample, then 8 minus the corners shared at each move, 8
+    after a jump."""
 
     def __init__(self, n, dims, device):
         import torch
@@ -240,13 +249,12 @@ class CarryCount:
         return int(self.flushes.sum()) + 8 * int(self.seen.sum())
 
 
-def corner_flushes(brick, opts, w_in, entry):
-    """``(samples, flushes)``: the samples of a brick's gradient segment from
-    the entry opacity ``w_in`` and phase 1's ``entry`` record, and the atomic
-    adds into one carried grid that the kernel's corner carry makes for them
-    (CarryCount), counted from the plain walk's positions. The cells are
-    emission's; a grid of another shape is carried on cells of its own,
-    which this does not count."""
+def carried_corners(brick, opts, w_in, entry, grid):
+    """``(samples, count)``: the samples of a brick's walk from the entry
+    opacity ``w_in`` (None: from zero, as phase 1) and phase 1's ``entry``
+    record (None: from step 0), and CarryCount's total over the cells of
+    ``grid``, one of the brick's padded grids, counted from the plain walk's
+    positions."""
     import torch
     from volume_renderer_tpu_torch.ops import brick_march
     from volume_renderer_tpu_torch.ops import raymarch_core as core
@@ -254,10 +262,9 @@ def corner_flushes(brick, opts, w_in, entry):
     with torch.no_grad():
         rays = brick_march.BrickRays(brick, opts, 0.0)
         consts = rays.consts
-        em = brick.scene.emission.data
-        dims = (em.shape[2], em.shape[1], brick.slab_geometry(em)[1])  # x, y, global z
+        dims = (grid.shape[2], grid.shape[1], brick.slab_geometry(grid)[1])  # x, y, global z
         sample_ab = brick_march.brick_samplers(brick).ab
-        carry = CarryCount(rays.tnear.numel(), dims, em.device)
+        carry = CarryCount(rays.tnear.numel(), dims, grid.device)
 
         def composite(pos, act, sw):
             s = core.to_sample_coords(pos, consts)
@@ -265,9 +272,33 @@ def corner_flushes(brick, opts, w_in, entry):
             ab = sample_ab(s)
             return 1.0 - torch.exp(-(consts.factor_absorption * ab) * consts.tstep)
 
-        steps = torch.zeros((rays.n_rows, opts.width), dtype=torch.int32, device=em.device)
+        steps = torch.zeros((rays.n_rows, opts.width), dtype=torch.int32, device=grid.device)
         rays.walk(w_in, composite, steps, entry)
         return int(steps.sum()), carry.total()
+
+
+def corner_flushes(brick, opts, w_in, entry):
+    """``(samples, flushes)``: the samples of a brick's gradient segment from
+    the entry opacity ``w_in`` and phase 1's ``entry`` record, and the atomic
+    adds into one carried grid that the kernel's corner carry makes for them
+    (CarryCount), counted from the plain walk's positions. The cells are
+    emission's; a grid of another shape is carried on cells of its own,
+    which this does not count."""
+    return carried_corners(brick, opts, w_in, entry, brick.scene.emission.data)
+
+
+def corner_loads(brick, opts, w_in, entry):
+    """``(samples, loads)``: the samples of a brick's walk from the entry
+    opacity ``w_in`` (None for phase 1, which starts from zero) and the
+    ``entry`` record (None: from step 0), and the corner loads that a cache
+    of each ray's 8 corner values in registers would make for them (the
+    gather side of the corner carry; tried for phase 1 and dropped,
+    PERF.md), counted from the plain walk's positions: 8 at a ray's first
+    sample and after a jump, else the corners a move brings in, with no
+    skip. 8 a sample without the cache. The cells are those of the one
+    volume phase 1 fetches: absorption, or emission where absorption is
+    aliased."""
+    return carried_corners(brick, opts, w_in, entry, brick.scene.absorption_volume.data)
 
 
 def march_samples(scene, opts, y0=0, rows=None):
@@ -319,24 +350,25 @@ def march_flushes(scene, opts):
 TILE = (4, 4, 2)
 
 
-def sector_counts(ix, iy, iz, act, dims, tile=TILE, by=None):
-    """The 32-byte sectors and 128-byte lines of a float32 volume of ``dims``
-    (x, y, z) that warp load instructions touch: ``ix``, ``iy``, ``iz``
-    (..., 32) are each lane's voxel, ``act`` (..., 32) whether the lane
-    loads. Summed over the instructions, for the x-linear layout (x fastest,
-    as the volumes are) and for a tiled one (``tile`` voxels a line, x
-    fastest inside it, the lines in x-fastest order). Returns
-    {layout: (sectors, lines)}; with ``by``, a tensor (n, 4) of the linear
-    sectors and lines, then the tiled ones, for each index n of dimension
-    ``by`` of the inputs."""
+def sector_counts(ix, iy, iz, act, dims, tile=TILE, by=None, elem=4):
+    """The 32-byte sectors and 128-byte lines of a volume of ``dims`` (x, y,
+    z) and ``elem`` bytes a voxel (4: float32; 16: four float32 volumes
+    packed, one float4 a voxel) that warp load instructions touch: ``ix``,
+    ``iy``, ``iz`` (..., 32) are each lane's voxel, ``act`` (..., 32)
+    whether the lane loads. Summed over the instructions, for the x-linear
+    layout (x fastest, as the volumes are) and for a tiled one (``tile``
+    voxels together, x fastest inside, the tiles in x-fastest order; 4x4x2
+    float32 is one line). Returns {layout: (sectors, lines)}; with ``by``, a
+    tensor (n, 4) of the linear sectors and lines, then the tiled ones, for
+    each index n of dimension ``by`` of the inputs."""
     import torch
 
     w, h, _ = dims
     tx, ty, tz = tile
-    linear = ix + w * (iy + h * iz)
-    lines = ix // tx + (-(-w // tx)) * (iy // ty + (-(-h // ty)) * (iz // tz))
-    inside = ix % tx + tx * (iy % ty + ty * (iz % tz))
-    ids = torch.stack([linear // 8, linear // 32, lines * (tx * ty * tz // 8) + inside // 8, lines])
+    linear = (ix + w * (iy + h * iz)) * elem
+    tiles = ix // tx + (-(-w // tx)) * (iy // ty + (-(-h // ty)) * (iz // tz))
+    tiled = (tiles * (tx * ty * tz) + ix % tx + tx * (iy % ty + ty * (iz % tz))) * elem
+    ids = torch.stack([linear // 32, linear // 128, tiled // 32, tiled // 128])
     ids = torch.where(act, ids, -1).sort(dim=-1).values
     distinct = (ids[..., 1:] != ids[..., :-1]).sum(-1) + 1 - (ids[..., 0] == -1).long()
     if by is not None:  # dimension by of the inputs is dimension by + 1 of distinct
@@ -363,11 +395,15 @@ def warp_lanes(width, rows, warp_cols):
     return ((by + ly) * width + bx + lx).reshape(-1, 32)
 
 
-def gather_footprint(scene, opts, y0, rows, warp_cols=(16, 8, 4)):
-    """K1's gather model on ``rows`` image rows from ``y0``: from the plain
-    march's positions, for each warp shape and layout (sector_counts), the
-    sectors and lines that the 8 corner loads of one volume of emission's
-    shape touch, by warp load instruction and by sample."""
+def gather_footprint(scene, opts, y0, rows, warp_cols=(16, 8, 4), elems=(4,)):
+    """The gather model of the forward kernels on ``rows`` image rows from
+    ``y0``: from the plain march's positions, for each warp shape, element
+    size and layout (sector_counts), the sectors and lines that the 8 corner
+    loads of a grid of emission's shape touch, by warp load instruction and
+    by sample. An element of 4 bytes is one float32 volume (K1's loads), of
+    16 the K5 pack (emission and the three gradient volumes, one float4 a
+    corner); keyed "warp_<cols>x<rows>", then "_<elem>B" for elements other
+    than 4 bytes."""
     import torch
     from volume_renderer_tpu_torch.ops import raymarch_core as core
 
@@ -377,7 +413,7 @@ def gather_footprint(scene, opts, y0, rows, warp_cols=(16, 8, 4)):
         dev = steps.device
         # every warp shape's lanes, one after the other: one count a step
         idx = torch.stack([warp_lanes(opts.width, rows, c) for c in warp_cols]).to(dev)
-        counts = torch.zeros((len(warp_cols), 5), dtype=torch.int64, device=dev)
+        counts = torch.zeros((len(elems), len(warp_cols), 5), dtype=torch.int64, device=dev)
         for k in range(int(steps.max())):
             s = core.to_sample_coords(pos, consts)
             lo = [torch.clamp(torch.floor(c * float(n) - 0.5), -1.0, float(n)).to(torch.int64)
@@ -387,41 +423,51 @@ def gather_footprint(scene, opts, y0, rows, warp_cols=(16, 8, 4)):
             xyz = [torch.stack([corners[axis][(k8 >> axis) & 1] for k8 in range(8)])[:, idx]
                    for axis in range(3)]
             act = (steps > k)[idx]
-            counts[:, :4] += sector_counts(*xyz, act[None].expand(8, -1, -1, -1), (w, h, d),
-                                           by=1)
-            counts[:, 4] += 8 * act.any(-1).sum(-1)
+            for e, elem in enumerate(elems):
+                counts[e, :, :4] += sector_counts(*xyz, act[None].expand(8, -1, -1, -1),
+                                                  (w, h, d), by=1, elem=elem)
+            counts[:, :, 4] += 8 * act.any(-1).sum(-1)
             pos = pos + step
-        totals = {c: {"linear": [int(v) for v in row[:2]], "tiled": [int(v) for v in row[2:4]],
-                      "instructions": int(row[4])} for c, row in zip(warp_cols, counts.cpu())}
         samples = int(steps.sum())
         out = {"rows": [y0, rows], "samples": samples, "tile": list(TILE)}
-        for c, t in totals.items():
-            n = t["instructions"]
-            out[f"warp_{c}x{32 // c}"] = {
-                "instructions": n,
-                **{layout: {"sectors": t[layout][0], "lines": t[layout][1],
-                            "sectors_per_instruction": t[layout][0] / n,
-                            "lines_per_instruction": t[layout][1] / n,
-                            "sectors_per_sample": t[layout][0] / samples,
-                            "lines_per_sample": t[layout][1] / samples}
-                   for layout in ("linear", "tiled")}}
+        for elem, by_shape in zip(elems, counts.cpu()):
+            for c, row in zip(warp_cols, by_shape):
+                n = int(row[4])
+                t = {"linear": [int(v) for v in row[:2]], "tiled": [int(v) for v in row[2:4]]}
+                suffix = "" if elem == 4 else f"_{elem}B"
+                out[f"warp_{c}x{32 // c}{suffix}"] = {
+                    "instructions": n,
+                    **{layout: {"sectors": t[layout][0], "lines": t[layout][1],
+                                "sectors_per_instruction": t[layout][0] / n,
+                                "lines_per_instruction": t[layout][1] / n,
+                                "sectors_per_sample": t[layout][0] / samples,
+                                "lines_per_sample": t[layout][1] / samples}
+                       for layout in ("linear", "tiled")}}
         return out
 
 
 # Template parameters of each kernel of csrc/, in order, and the mode that a
 # set of their values makes.
 KERNEL_PARAMS = {
-    "march_kernel": ("LIT", "LOOKUP", "AB_ALIASED", "RE_ALIASED"),
+    "march_kernel": ("LIT", "LOOKUP", "AB_ALIASED", "RE_ALIASED", "PACKED"),
     "march_bwd_kernel": ("LIT", "SCATTER", "AB_ALIASED", "RE_ALIASED"),
     "march_bwd_scatter_kernel": ("AB_ALIASED", "AB_OWN_CELL"),
     "march_bwd_lit_scatter_kernel": ("AB_ALIASED", "RE_ALIASED"),
     "brick_fwd_kernel": ("SHADE", "AB_ALIASED"),
     "brick_bwd_kernel": ("AB_ALIASED", "AB_OWN_CELL"),
 }
-# Threads a block, where it is not 16x16 (K3, K6 and the K7 gradient
-# segment run in 16x8 blocks: csrc/march_bwd.cu, csrc/brick_bwd.cu)
-KERNEL_THREADS = {"march_bwd_scatter_kernel": 128, "march_bwd_lit_scatter_kernel": 128,
-                  "brick_bwd_kernel": 128}
+# Threads a block by mode, where it is not 16x16 (K3, K6 and the K7
+# gradient segment run in 16x8 blocks: csrc/march_bwd.cu, csrc/brick_bwd.cu;
+# K7 phase 1 in 16 x kPhase1Rows, csrc/brick_fwd.cu: kernel_threads)
+KERNEL_THREADS = {"K3": 128, "K6": 128, "K7_scatter": 128}
+
+
+def kernel_threads(repo):
+    """KERNEL_THREADS with K7 phase 1's block as the sources under ``repo``
+    set it."""
+    with open(os.path.join(repo, "volume_renderer_tpu_torch", "csrc", "brick_fwd.cu")) as f:
+        m = re.search(r"constexpr int kPhase1Rows = (\d+);", f.read())
+    return {**KERNEL_THREADS, "K7_transmittance": 16 * int(m.group(1)) if m else 256}
 # 4 bricks, all on the one card
 BRICKS = 4
 
@@ -448,13 +494,14 @@ def blocks_per_sm(registers: int, threads: int) -> int:
     return min(min(65536 // per_warp, 64) // (threads // 32), 32)
 
 
-def ptxas_by_kernel(log: str, strict: bool = True) -> dict:
+def ptxas_by_kernel(log: str, strict: bool = True, threads=KERNEL_THREADS) -> dict:
     """What ``nvcc -Xptxas -v`` reports for each kernel instantiation, keyed
     "<mode> <kernel><template arguments>", e.g. "K6 march_bwd_kernel<1,1,0,0>".
     With ``strict`` a kernel must have the template arguments that
     KERNEL_PARAMS lists. Without it (another version of the sources) a
     kernel whose arguments differ is reported without its blocks an SM,
-    since its block shape is not known here."""
+    since its block shape is not known here. ``threads``: a block's threads
+    by mode, where not 256."""
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?(%s)I((?:Lb[01]E)+)E" % "|".join(KERNEL_PARAMS),
@@ -463,8 +510,9 @@ def ptxas_by_kernel(log: str, strict: bool = True) -> dict:
             args = [int(b) for b in re.findall(r"Lb([01])E", m.group(2))]
             known = len(args) == len(KERNEL_PARAMS[m.group(1)])
             assert known or not strict, line
-            key = f"{kernel_mode_of(m.group(1), args)} {m.group(1)}<{','.join(map(str, args))}>"
-            out[key] = {"threads": KERNEL_THREADS.get(m.group(1), 256) if known else None}
+            mode = kernel_mode_of(m.group(1), args)
+            key = f"{mode} {m.group(1)}<{','.join(map(str, args))}>"
+            out[key] = {"threads": threads.get(mode, 256) if known else None}
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -539,11 +587,14 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build()
     build_s = time.perf_counter() - t0
-    ptxas = {name: ptxas_by_kernel(_build.build_log(name), strict=not args.turn)
+    threads = kernel_threads(args.repo)
+    ptxas = {name: ptxas_by_kernel(_build.build_log(name), strict=not args.turn,
+                                   threads=threads)
              for name in _build.SOURCES}
     # the redesigned kernels keep every value in registers
     spilled = {k: v for name in _build.SOURCES for k, v in ptxas[name].items()
-               if k.split()[0] in ("K1", "K3", "K4", "K6", "K7_segment", "K7_scatter")
+               if k.split()[0] in ("K1", "K3", "K4", "K5", "K6", "K7_transmittance",
+                                   "K7_segment", "K7_scatter")
                and v["spill_store_bytes"]}
     if spilled and not args.turn:  # a turn may time an older version
         raise RuntimeError(f"ptxas spills in a redesigned kernel: {spilled}")
@@ -597,9 +648,12 @@ def main() -> None:
         return vol.contiguous()
 
     def flagship(n, mode, n_lights=1, ab_aliased=True, re_aliased=False, noise=0.0, shape=None,
-                 element_size=(1.0, 1.0, 1.0), rotate=(125, 25, 0), ab_other_shape=False):
+                 element_size=(1.0, 1.0, 1.0), rotate=(125, 25, 0), ab_other_shape=False,
+                 grad_other_shape=False):
         """``ab_other_shape``: absorption at half the emission's height and
-        width (a fetch, and with gradients a carry, of its own)."""
+        width (a fetch, and with gradients a carry, of its own).
+        ``grad_other_shape`` (K5): the gradient volumes of a volume at half
+        the emission's height and width, so that K5 is not packed."""
         em = shell(n, noise, shape)
         ramp = torch.linspace(0.5, 1.0, em.shape[2], device=dev)[None, None, :]
         ab = None if ab_aliased else Volume.create((em * ramp).contiguous(), element_size)
@@ -615,8 +669,9 @@ def main() -> None:
             if not re_aliased:
                 lit["reflection"] = Volume.create(em.clone(), element_size)
             if mode == "K5":
+                src = em[:, ::2, ::2].contiguous() if grad_other_shape else em
                 lit.update(zip(("gradient_x", "gradient_y", "gradient_z"),
-                               Volume.create(em).gradient_volumes()))
+                               Volume.create(src).gradient_volumes()))
         return Scene(
             emission=Volume.create(em, element_size), absorption=ab,
             camera=Camera.create(focal_length=3.0, distance_to_object=6.0).rotate(*rotate),
@@ -686,17 +741,20 @@ def main() -> None:
         return h.hexdigest()
 
     def forward_turn(mode):
-        """The forward kernel of ``mode`` (K1 or K4) at 256^3 / 512^2 and
+        """The forward kernel of ``mode`` (K1, K4 or K5) at 256^3 / 512^2 and
         512^3 / 1024^2, timed as phase 7 times it, with a digest of each
-        image."""
+        image; K5's pack also alone, where the port packs."""
         out = {}
+        pack = getattr(cuda_march, "pack_lookup", None) if mode == "K5" else None
         for cfg in (MAIN, BIG):
             scene = flagship(cfg["volume"], mode, ab_aliased=False)
             opts = scene.options(cfg["image"], cfg["image"])
             img = render_forward_fast(scene, opts)
-            out[f"{mode}_{cfg['volume']}_{cfg['image']}"] = {
+            cell = out[f"{mode}_{cfg['volume']}_{cfg['image']}"] = {
                 "ms": median_ms(lambda: render_forward_fast(scene, opts))[0],
                 "image_sha1": digest([img])}
+            if pack is not None:
+                cell["pack_ms"] = median_ms(lambda: pack(scene))[0]
             del scene, img
             torch.cuda.empty_cache()
         return out
@@ -728,20 +786,22 @@ def main() -> None:
         return {f"{mode}_{MAIN['volume']}_{MAIN['image']}": ms}
 
     def march_turn():
-        """K1 and K4 (forward_turn), K3 and K6 (grads_turn)."""
+        """K1, K4 and K5 (forward_turn), K3 and K6 (grads_turn)."""
         return {"ptxas": {name: ptxas[name] for name in ("march_fwd", "march_bwd")},
-                **forward_turn("K1"), **forward_turn("K4"), **grads_turn("K3"),
-                **grads_turn("K6")}
+                **forward_turn("K1"), **forward_turn("K4"), **forward_turn("K5"),
+                **grads_turn("K3"), **grads_turn("K6")}
 
     def brick_turn():
         """K7 with 4 bricks at 256^3 / 512^2 on the first bricked training
         step's state, timed as phase 10 times it: each launch form over all
         bricks (phase 2 and the gradient segment from phase 1's outputs,
-        computed outside the timed calls), the bricked forward, forward +
+        computed outside the timed calls), phase 1 also on the dense scene
+        (factor_absorption 4, threshold 0.3), the bricked forward, forward +
         backward and training step; the host's time in phase 2's four calls
-        and in the bricked forward; with digests of the bricked image and of
-        the bricks' exit opacities. Takes a port whose phase 1 returns the
-        entry record and one whose phase 1 does not."""
+        and in the bricked forward; with digests of the bricked image, of the
+        bricks' exit opacities, and of phase 1's opacities and entry records
+        on both scenes. Takes a port whose phase 1 returns the entry record
+        and one whose phase 1 does not."""
         size = MAIN["image"]
         scene = brick_scene(MAIN["volume"], (125, 25, 0))
         opts = scene.options(size, size)
@@ -763,9 +823,20 @@ def main() -> None:
             w_outs = [cuda_bricks.brick_segment(b, opts, 0.0, w, *r)[1]
                       for b, w, r in zip(split.bricks, w_ins, records)]
             out["image_sha1"], out["w_out_sha1"] = digest([fwd.image]), digest(w_outs)
+            dense = bricks.split_bricks(
+                brick_scene(MAIN["volume"], (125, 25, 0), factor_absorption=4.0,
+                            opacity_threshold=0.3), make_mesh(BRICKS))
+            for name, p1 in (("phase1", phase1), ("dense_phase1", [
+                    cuda_bricks.brick_transmittance(b, opts) for b in dense.bricks])):
+                ws = [p[0] if isinstance(p, tuple) else p for p in p1]
+                out[f"{name}_w_sha1"] = digest(ws)
+                out[f"{name}_entry_sha1"] = digest(
+                    [t for p in p1 if isinstance(p, tuple) for t in (p[1].step, p[1].state)])
             ms = {
                 "transmittance": median_ms(lambda: [cuda_bricks.brick_transmittance(b, opts)
                                                     for b in split.bricks])[0],
+                "transmittance_dense": median_ms(lambda: [
+                    cuda_bricks.brick_transmittance(b, opts) for b in dense.bricks])[0],
                 "segment": median_ms(lambda: [
                     cuda_bricks.brick_segment(b, opts, 0.0, w, *r)
                     for b, w, r in zip(split.bricks, w_ins, records)])[0],
@@ -861,11 +932,18 @@ def main() -> None:
             ("K1_absorption_other_shape", "K1", dict(ab_aliased=False, ab_other_shape=True), 0.0),
             ("K4_two_lights", "K4", dict(n_lights=2, ab_aliased=False), 0.0),
             ("K5_lookup", "K5", dict(), 0.0),
+            ("K5_absorption_separate_reflection_aliased", "K5",
+             dict(ab_aliased=False, re_aliased=True), 0.0),
+            ("K5_absorption_other_shape", "K5", dict(ab_aliased=False, ab_other_shape=True), 0.0),
+            ("K5_gradients_other_shape", "K5", dict(ab_aliased=False, grad_other_shape=True),
+             0.0),
             ("K4_stereo_offset_0.25", "K4", dict(re_aliased=True), 0.25),
             ("K4_anisotropic_36x24x64", "K4", ANISOTROPIC, 0.0),
             ("K4_faces_and_edges_48", "K4", FACES, 0.0)):
         scene = flagship(48 if kw is FACES else COMPARE["volume"], mode, **kw)
         assert kernel_mode(scene) == mode
+        if mode == "K5":  # packed unless the gradient volumes have another shape
+            assert (cuda_march.pack_lookup(scene) is None) == ("grad_other_shape" in kw), name
         opts = scene.options(COMPARE["width"], COMPARE["height"])
         got = render_forward_fast(scene, opts, offset)
         torch.cuda.synchronize()
@@ -874,7 +952,8 @@ def main() -> None:
     record({"phase": "kernel_vs_plain", "volume": COMPARE["volume"],
             "image": [COMPARE["width"], COMPARE["height"]],
             "tolerance": {k: {"atol": a, "rtol": r} for k, (a, r) in tol.items()},
-            "K1_K4_exact": True, "max_abs_err": compare})
+            "K1_K4_exact": True, "K5_packed_except": ["K5_gradients_other_shape"],
+            "max_abs_err": compare})
 
     # ---- 4. backward kernel vs plain replay at 128^3 / 256x192 ----------
     # Kernel and plain replay compute each sample's terms with the same
@@ -1142,7 +1221,24 @@ def main() -> None:
         nbytes = volume_bytes(scene, mode) + size * size * 3 * 4
         bound = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3, "operations": flops / PEAK_FP32_FLOPS * 1e3}
         bound_by = max(bound, key=bound.get)
-        return {"mode": mode, "image": size, "ms": ms, "ms_all": times,
+        extra = {}
+        if mode == "K5":
+            # the pack alone (the forward's ms includes it), beside the same
+            # copy as one torch.stack(..., dim=-1); and the gather model of
+            # its float4 corner loads against float32 ones on a band of 64
+            # rows through the middle, 16x2 warps
+            packed = cuda_march.pack_lookup(scene)
+            vols = [v.data for v in (scene.emission, scene.gradient_x, scene.gradient_y,
+                                     scene.gradient_z)]
+            if not torch.equal(packed, torch.stack(vols, dim=-1)):
+                raise RuntimeError("the K5 pack is not its four volumes side by side")
+            del packed
+            extra["pack_ms"] = median_ms(lambda: cuda_march.pack_lookup(scene))[0]
+            extra["pack_stack_last_ms"] = median_ms(lambda: torch.stack(vols, dim=-1))[0]
+            if size == MAIN["image"]:
+                extra["gather_model"] = gather_footprint(scene, opts, (size - 64) // 2, 64,
+                                                         warp_cols=(16,), elems=(4, 16))
+        return {**extra, "mode": mode, "image": size, "ms": ms, "ms_all": times,
                 "rays_per_s": size * size / (ms * 1e-3), "samples": samples,
                 "samples_per_ray": samples / (size * size), "flops": flops, "bytes": nbytes,
                 "bound_ms": bound[bound_by], "bound_by": bound_by,
@@ -1152,7 +1248,7 @@ def main() -> None:
 
     cells = {}
     for cfg, modes, band in ((MAIN, ("K1", "K4", "K5"), None),
-                             (BIG, ("K1", "K4"), BIG["band"])):
+                             (BIG, ("K1", "K4", "K5"), BIG["band"])):
         for mode in modes:
             key = f"{mode}_{cfg['volume']}_{cfg['image']}"
             scene = flagship(cfg["volume"], mode, ab_aliased=False)
@@ -1515,6 +1611,19 @@ def main() -> None:
                 "atomic_adds_per_sample": grids * flushes / samples,
                 "atomic_adds_per_sample_uncarried": 8 * grids}
 
+    def cached_loads(split, fwd, kernel_samples):
+        """The corner loads a sample over all bricks that a per-ray corner
+        cache would make for phase 1, from the plain walk's positions
+        (corner_loads); the walk must take the samples the kernel took."""
+        samples = loads = 0
+        for brick, entry in zip(split.bricks, fwd.entry):
+            n, f = corner_loads(brick, opts, None, entry)
+            samples, loads = samples + n, loads + f
+        if samples != kernel_samples:
+            raise RuntimeError(f"phase 1 took {kernel_samples} samples, its plain walk {samples}")
+        return {"samples": samples, "loads": loads, "loads_per_sample": loads / samples,
+                "loads_per_sample_uncached": 8}
+
     pixels = size * size * 4
 
     def form_cells(split, samples, form_ms, plain):
@@ -1554,6 +1663,7 @@ def main() -> None:
         fwd, w_ins, up_dots = brick_state(split, g)
         samples, form_ms = time_forms(split, g, fwd, w_ins, up_dots)
         adds = carried_adds(split, w_ins, fwd)
+        loads = cached_loads(split, fwd, samples["transmittance"])
         single_steps = torch.zeros((size, size), dtype=torch.int32, device=dev)
         render_forward_fast(merged, opts, steps=single_steps)
         path_ms = {
@@ -1569,6 +1679,7 @@ def main() -> None:
         params, optimizer, static_scene, opts, single))
     brick_cells = form_cells(split, samples, form_ms, main_compare)
     brick_cells["scatter"]["atomic_adds"] = adds
+    brick_cells["transmittance"]["corner_loads"] = loads
 
     # the dense scene: rays die mid-volume, so the walk to a brick is a
     # larger share of a ray's work
@@ -1581,6 +1692,8 @@ def main() -> None:
         dense_samples, dense_ms = time_forms(dense_split, g_dense, dense_fwd, dense_w_ins,
                                              dense_up)
         dense_cells = form_cells(dense_split, dense_samples, dense_ms, None)
+        dense_cells["transmittance"]["corner_loads"] = cached_loads(
+            dense_split, dense_fwd, dense_samples["transmittance"])
         dense_forward = median_ms(lambda: bricks.render_forward_bricked_fast(dense_split, opts))
         dense_single = median_ms(lambda: render_forward_fast(dense, opts))
     record({"phase": "bricks_timing", "volume": MAIN["volume"], "image": size, "bricks": BRICKS,
@@ -1642,27 +1755,36 @@ def main() -> None:
         every = turns["parent"] + turns["new"]
         compared = {}
         grads = ("backward_ms", "fwd_bwd_ms", "train_step_ms")
-        for key, metrics in (("K1_256_512", ("ms",)), ("K1_512_1024", ("ms",)),
-                             ("K4_256_512", ("ms",)), ("K4_512_1024", ("ms",)),
-                             ("K3_256_512", grads), ("K6_256_512", grads)):
+        forwards = [f"{m}_{c['volume']}_{c['image']}" for m in ("K1", "K4", "K5")
+                    for c in (MAIN, BIG)]
+        for key, metrics in [*((k, ("ms",)) for k in forwards),
+                             ("K3_256_512", grads), ("K6_256_512", grads)]:
             compared[key] = {metric: compare_turns(lambda t: t["march"][key][metric],
                                                    cells[key]["bound_ms"])
                              for metric in metrics}
             if metrics == ("ms",):
-                # K1 and K4 change only the order of their loads, never the
+                # K1, K4 and K5 change only how they load, never the
                 # arithmetic: one image in both versions
                 if len({t["march"][key]["image_sha1"] for t in every}) != 1:
                     raise RuntimeError(f"{key}: the parent's image differs from the checkout's")
                 compared[key]["images_equal"] = True
-        # phase 2 keeps its arithmetic: one bricked image, one exit opacity
-        for name in ("image_sha1", "w_out_sha1"):
+                packs = [t["march"][key]["pack_ms"] for t in turns["new"]
+                         if "pack_ms" in t["march"][key]]
+                if packs:
+                    compared[key]["pack_ms"] = packs
+        # the forward phases keep their arithmetic: one bricked image, one
+        # exit opacity, one phase 1 opacity and entry record on both scenes
+        names = ("image_sha1", "w_out_sha1", "phase1_w_sha1", "phase1_entry_sha1",
+                 "dense_phase1_w_sha1", "dense_phase1_entry_sha1")
+        for name in names:
             if len({t["bricks"][name] for t in every}) != 1:
                 raise RuntimeError(f"K7: the parent's {name[:-5]} differs from the checkout's")
+        form_bounds = {**{form: c["bound_ms"] for form, c in brick_cells.items()},
+                       "transmittance_dense": dense_cells["transmittance"]["bound_ms"]}
         compared[f"K7_{MAIN['volume']}_{MAIN['image']}_{BRICKS}_bricks"] = {
-            "images_and_exit_opacities_equal": True,
+            "equal": [name[:-5] for name in names],
             **{metric: compare_turns(lambda t: t["bricks"]["ms"][metric],
-                                     brick_cells[metric]["bound_ms"] if metric in brick_cells
-                                     else None)
+                                     form_bounds.get(metric))
                for metric in turns["new"][0]["bricks"]["ms"]}}
         record({"phase": "parent_vs_new", "parent": args.parent, "order": "parent, new, new, parent",
                 "reps": 5,
@@ -1685,6 +1807,7 @@ def main() -> None:
             "bound_by": cell["bound_by"], "library_ms": None,
             "mode": what, "cell": f"{MAIN['volume']}^3 volume, {MAIN['image']}^2 image",
             "ms_big": cells.get(f"{mode}_{BIG['volume']}_{BIG['image']}", {}).get("ms"),
+            **({"pack_ms": cell["pack_ms"]} if "pack_ms" in cell else {}),
         })
     for mode, what in (("K2", "transfer-parameter replay"), ("K3", "voxel-gradient scatter"),
                        ("K6", "lit voxel-gradient scatter")):
@@ -1714,6 +1837,8 @@ def main() -> None:
             "replaces": "volume_renderer_tpu/ops/pallas_march.py:688",
             "launches": brick_launches[form], "max_abs_err": brick_err[form],
             **({"max_err_of_scale": brick_grad_err[0]} if form == "scatter" else {}),
+            **({"corner_loads_per_sample": cell["corner_loads"]["loads_per_sample"]}
+               if "corner_loads" in cell else {}),
             "ms": cell["ms"], "plain_ms": cell["plain_ms"], "plain_rows": cell["plain_rows"],
             "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"], "library_ms": None,
             "mode": what,

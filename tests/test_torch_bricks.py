@@ -429,14 +429,16 @@ def test_record_of_a_band_keeps_the_camera():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def brute_force_flushes(brick, opts, w_in, entry):
-    """The corner carry's atomic adds into one grid, ray by ray in plain
-    Python: the cells of each ray's samples from the walk (from ``entry``,
-    or from step 0 without it), then 8 minus the corners two consecutive
-    cells share, and 8 for the last cell."""
+def brute_force_flushes(brick, opts, w_in, entry, grid=None):
+    """The corner carry's atomic adds into one grid (emission's cells, or
+    those of ``grid``), ray by ray in plain Python: the cells of each ray's
+    samples from the walk (from ``entry``, or from step 0 without it), then
+    8 minus the corners two consecutive cells share, and 8 for the last
+    cell. The same sum counts the gather cache's loads: 8 for the first
+    cell, then 8 minus the corners shared at each move."""
     rays = brick_march.BrickRays(brick, opts, 0.0)
     consts, sample_ab = rays.consts, brick_march.brick_samplers(brick).ab
-    em = brick.scene.emission.data
+    em = brick.scene.emission.data if grid is None else grid
     dims = (em.shape[2], em.shape[1], brick.slab_geometry(em)[1])
     samples = []
 
@@ -479,6 +481,43 @@ def test_corner_flush_count(name):
     assert counted == chip_smoke.corner_flushes(brick, opts, w_in, None)  # walked from step 0
     samples, flushes = counted
     assert 0 < flushes < 2 * samples
+
+
+# scene arguments, bricks, and the samples and corner loads of phase 1's
+# gather cache in brick 1; absorption of another shape is cut from the
+# scene's (16, 16, 16) to (16, 8, 5) (the cache then runs on its cells)
+LOAD_CASES = {
+    "absorption_separate": (dict(), 8, (2173, 3340)),
+    "absorption_aliased": (dict(alias_absorption=True), 4, (3942, 5128)),
+    "absorption_other_shape": (dict(), 4, (3942, 4062)),
+    "low_threshold": (dict(factors=(3.0, 0.4, 4.0), opacity_threshold=0.3), 4, (1443, 2692)),
+    "grazing_mixed": (dict(rotate=(88.0, 0.0, 0.0)), 4, (3812, 3144)),
+}
+
+
+@pytest.mark.parametrize("name", list(LOAD_CASES))
+def test_corner_load_count(name):
+    """``chip_smoke.corner_loads`` counts the loads of phase 1's corner
+    cache from the plain walk, on the cells of the volume phase 1 fetches:
+    the stated number, equal to a count ray by ray, the same walked from
+    step 0, taken on phase 1's samples, and far under the 8 a sample of a
+    fetch without the cache."""
+    scene_kw, n, stated = LOAD_CASES[name]
+    _, tscene = make_scenes(vol_shape=VOL, **scene_kw)
+    if name == "absorption_other_shape":
+        ab = tscene.absorption.data[:, ::2, 1::3].contiguous()
+        tscene = tscene.replace(absorption=tscene.absorption.replace(data=ab))
+    opts = tscene.options(W, H)
+    brick = bricks.split_bricks(tscene, make_mesh(n, "cpu")).bricks[1]
+    steps = torch.zeros((H, W), dtype=torch.int32)
+    _, entry = brick_march.transmittance_pass(brick, opts, 0.0, steps)
+    grid = brick.scene.absorption_volume.data
+    counted = chip_smoke.corner_loads(brick, opts, None, entry)
+    assert counted == brute_force_flushes(brick, opts, None, entry, grid) == stated
+    assert counted == chip_smoke.corner_loads(brick, opts, None, None)  # walked from step 0
+    samples, loads = counted
+    assert samples == int(steps.sum())
+    assert 0 < loads < 2 * samples
 
 
 # ---- training ----------------------------------------------------------------

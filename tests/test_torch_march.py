@@ -4,6 +4,8 @@ hold its Pallas kernel against), and the kernel wrapper's CPU behaviour."""
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -12,7 +14,7 @@ from volume_renderer_tpu.ops.forward import render_forward as jax_render_forward
 
 import chip_smoke
 from test_torch_helpers import make_scenes
-from volume_renderer_tpu_torch.ops import cuda_march
+from volume_renderer_tpu_torch.ops import _build, cuda_march
 from volume_renderer_tpu_torch.ops.forward import render_forward, render_rows
 
 torch.set_num_threads(1)
@@ -193,6 +195,34 @@ def test_sector_counts_of_one_warp():
         "linear": (0, 0), "tiled": (0, 0)}
 
 
+def test_sector_counts_of_wider_elements():
+    """The gather model with 8- and 16-byte voxels (a float2 or a float4 of
+    packed volumes), counted by hand on the blocks of the test above. A
+    16-byte row of 8 voxels from x = 0 is 128 bytes: 4 sectors, 1 line."""
+    def lanes(bx, by, bz, origin=(0, 0, 0)):
+        z, y, x = torch.meshgrid(torch.arange(bz), torch.arange(by), torch.arange(bx),
+                                 indexing="ij")
+        return [(t.reshape(1, -1) + o) for t, o in zip((x, y, z), origin)]
+
+    dims = (16, 16, 16)
+    everyone = torch.ones((1, 32), dtype=torch.bool)
+    # 8 x 4 x 1 of float4: four rows of 128 bytes; tiled, the two 4x4x2
+    # tiles (512 bytes each) give their z = 0 halves, 256 bytes: 8 sectors,
+    # 2 lines each. Four float32 loads of it touch 16 sectors and 8 lines.
+    assert chip_smoke.sector_counts(*lanes(8, 4, 1), everyone, dims, elem=16) == {
+        "linear": (16, 4), "tiled": (16, 4)}
+    # float2: rows of 64 bytes, a 16-voxel row of the volume is one line
+    assert chip_smoke.sector_counts(*lanes(8, 4, 1), everyone, dims, elem=8) == {
+        "linear": (8, 4), "tiled": (8, 2)}
+    # 32 x 1 x 1 of float4 from x = 4: bytes 64-575, sectors 2-17, lines
+    # 0-4; tiled, 8 tiles of one 64-byte row each
+    assert chip_smoke.sector_counts(*lanes(32, 1, 1, (4, 0, 0)), everyone, (64, 16, 16),
+                                    elem=16) == {"linear": (16, 5), "tiled": (16, 8)}
+    # elem=4 is the float32 count
+    assert chip_smoke.sector_counts(*lanes(8, 4, 1), everyone, dims, elem=4) == \
+        chip_smoke.sector_counts(*lanes(8, 4, 1), everyone, dims)
+
+
 @pytest.mark.parametrize("warp_cols", [16, 8, 4])
 def test_warp_lanes_tile_the_block(warp_cols):
     """Each warp of K1's 16x16 block covers warp_cols x 32 / warp_cols pixels,
@@ -222,3 +252,67 @@ def test_gather_footprint_counts_every_load():
         for layout in ("linear", "tiled"):
             sectors, lines = shape[layout]["sectors"], shape[layout]["lines"]
             assert n <= lines <= sectors <= 4 * lines and sectors <= 32 * n
+
+
+def test_gather_footprint_of_packed_corners():
+    """The gather model of K5's float4 corner loads beside the float32 ones
+    of the same positions: the same instructions, each touching at least
+    the sectors and lines of a float32 load and at most four times its
+    sectors (four float32 loads of the packed volumes)."""
+    _, scene = make_scenes(vol_shape=(16, 16, 16), lighting=True, gradient_volumes=True)
+    opts = scene.options(32, 32)
+    out = chip_smoke.gather_footprint(scene, opts, 8, 16, warp_cols=(16,), elems=(4, 16))
+    one, packed = out["warp_16x2"], out["warp_16x2_16B"]
+    assert one["instructions"] == packed["instructions"] > 0
+    for layout in ("linear", "tiled"):
+        s1, l1 = one[layout]["sectors"], one[layout]["lines"]
+        s4, l4 = packed[layout]["sectors"], packed[layout]["lines"]
+        assert s1 <= s4 <= 4 * s1 and l1 <= l4 <= 4 * l1 and l4 <= s4 <= 4 * l4
+
+
+def test_pack_lookup_holds_the_four_volumes():
+    """K5's packed grid: channels emission, gradient_x, gradient_y,
+    gradient_z, bit for bit, one contiguous (D, H, W, 4) float32 tensor;
+    none where a gradient volume has another shape."""
+    _, scene = make_scenes(vol_shape=(12, 10, 14), lighting=True, gradient_volumes=True)
+    packed = cuda_march.pack_lookup(scene)
+    assert packed.shape == (12, 10, 14, 4) and packed.dtype == torch.float32
+    assert packed.is_contiguous()
+    for c, vol in enumerate((scene.emission, scene.gradient_x, scene.gradient_y,
+                             scene.gradient_z)):
+        assert torch.equal(packed[..., c], vol.data)
+    # the three gradient volumes differ from each other and from emission
+    assert len({packed[..., c].numpy().tobytes() for c in range(4)}) == 4
+    small = scene.gradient_y.replace(data=scene.gradient_y.data[:, ::2].contiguous())
+    assert cuda_march.pack_lookup(scene.replace(gradient_y=small)) is None
+
+
+def test_ptxas_report_by_mode():
+    """chip_smoke's reading of ptxas: a kernel instantiation is keyed by its
+    mode and template arguments (K5 packed has five), and its blocks an SM
+    follow from its registers and its block, K7 phase 1's as
+    csrc/brick_fwd.cu sets it."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_112march_kernelILb1ELb1ELb0ELb0ELb1EEEv9MarchArgs' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_112march_kernel",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 80 registers, used 0 barriers, 560 bytes cmem[0]",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_116brick_fwd_kernelILb0ELb0EEEv9BrickArgs' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_116brick_fwd_kernel",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 56 registers, used 0 barriers, 640 bytes cmem[0]",
+    ])
+    threads = chip_smoke.kernel_threads(chip_smoke.REPO)
+    got = chip_smoke.ptxas_by_kernel(log, threads=threads)
+    assert set(got) == {"K5 march_kernel<1,1,0,0,1>", "K7_transmittance brick_fwd_kernel<0,0>"}
+    k5 = got["K5 march_kernel<1,1,0,0,1>"]
+    assert (k5["registers"], k5["threads"], k5["blocks_per_sm"], k5["warps_per_sm"]) == (
+        80, 256, 3, 24)
+    k7 = got["K7_transmittance brick_fwd_kernel<0,0>"]
+    rows = int(re.search(r"constexpr int kPhase1Rows = (\d+);",
+                         (_build.CSRC_DIR / "brick_fwd.cu").read_text()).group(1))
+    assert k7["threads"] == threads["K7_transmittance"] == 16 * rows
+    assert k7["warps_per_sm"] == chip_smoke.blocks_per_sm(56, k7["threads"]) * k7["threads"] // 32
+    assert k7["spill_store_bytes"] == 0

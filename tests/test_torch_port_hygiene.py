@@ -124,6 +124,7 @@ def struct_fields(source: Path, struct: str):
 
 @pytest.mark.parametrize("source,struct,mirror", [
     ("march_common.cuh", "Vol", cuda_march._Vol),
+    ("march_common.cuh", "Vol4", cuda_march._Vol4),
     ("march_common.cuh", "MarchArgs", cuda_march._MarchArgs),
     ("march_bwd.cu", "GradArgs", cuda_grads._GradArgs),
     ("brick_common.cuh", "BrickArgs", cuda_bricks._BrickArgs),
@@ -140,9 +141,10 @@ def test_ctypes_mirrors_list_the_structs_fields(source, struct, mirror):
 
 def test_corner_carry_has_one_copy():
     """The cell of a sample, its fetch and the corner carry are defined once,
-    in corner_carry.cuh, which the two carried scatters reach: K3
+    in corner_carry.cuh, which the two carried scatters reach, K3
     (march_bwd.cu) and the K7 gradient segment (brick_bwd.cu, through
-    brick_common.cuh)."""
+    brick_common.cuh), and K5 (march_fwd.cu), which fetches its packed grid
+    at the cell."""
     pattern = re.compile(r"^(?:template <[^>]*>\s*)?struct (CornerCarry|Cell|ZSlab)\b|"
                          r"^__device__ __forceinline__ [\w&]+ (cell_of|fetch_cell|fetch_cell_pair|"
                          r"corner_weights|slab_row)\(", re.M)
@@ -158,5 +160,6 @@ def test_corner_carry_has_one_copy():
         return re.findall(r'#include "(\w+\.cuh)"', (_build.CSRC_DIR / name).read_text())
 
     assert "corner_carry.cuh" in includes("march_bwd.cu")
-    assert includes("brick_bwd.cu") == ["brick_common.cuh"]
+    assert includes("march_fwd.cu") == ["corner_carry.cuh"]
+    assert includes("brick_fwd.cu") == includes("brick_bwd.cu") == ["brick_common.cuh"]
     assert includes("brick_common.cuh") == ["corner_carry.cuh"]

@@ -16,17 +16,28 @@
 // float32 operations of the composited samples against the grids read once
 // and calls it operation-bound; it really waits on the gathers.
 //
-// What the design does about it. A thread per ray in 16x16 blocks, as the
-// single-device kernels. Nothing of the TPU mode is carried over: no sweep
-// axis, no dir_ok, no window plans, no overflow flag; the ownership bounds
-// own_lo / own_hi in local rows became one owner expression in global
-// coordinates. A ray reaches its brick by walking from its first step
-// without fetching (about 20 operations a step): a closed-form skip would
-// round positions differently from the single-device march. Phase 1 walks
-// and stores the ray's entry record (brick_common.cuh); phase 2 resumes
-// from it, so the walk is paid once per brick and render, not twice. A ray
-// without a record, or entering above the opacity threshold, writes its
-// zeros at once: a block whose rays all do so ends without marching.
+// What the design does about it. A thread per ray, phase 2 in 16x16 blocks as
+// the single-device kernels, phase 1 in 16 x kPhase1Rows: rays of very
+// different lengths (a walk to the brick, then its own samples) share a
+// block, which holds its place on the SM until its longest ray ends, and 16x4
+// blocks (36 warps an SM at 56 registers, against 32 in 16x16) ran phase 1
+// about a fifth faster than 16x16 and 5 % faster than 16x8 on an H100
+// (PERF.md). A corner cache for phase 1, which fetches one volume, was
+// measured on an H100 and dropped (PERF.md): it kept a ray's 8 corner values
+// in registers and loaded only the corners a move to the next cell brings in,
+// 1.04 a sample instead of 8 (chip_smoke.py, corner_loads), and ran 30-60 %
+// slower on the flagship scene: its shifts, masks and predicates add
+// instructions to every sample, and phase 1's time did not follow its loads.
+// Nothing of the TPU mode is carried over: no sweep axis, no dir_ok, no
+// window plans, no overflow flag; the ownership bounds own_lo / own_hi in
+// local rows became one owner expression in global coordinates. A ray reaches
+// its brick by walking from its first step without fetching (about 20
+// operations a step): a closed-form skip would round positions differently
+// from the single-device march. Phase 1 walks and stores the ray's entry
+// record (brick_common.cuh); phase 2 resumes from it, so the walk is paid
+// once per brick and render, not twice. A ray without a record, or entering
+// above the opacity threshold, writes its zeros at once: a block whose rays
+// all do so ends without marching.
 //
 // Build flags as for march_fwd.cu (-fmad=false, no fast math). Plain C
 // interface, loaded with ctypes (ops/cuda_bricks.py).
@@ -35,11 +46,17 @@
 
 namespace {
 
+// Phase 1's block: 16 x kPhase1Rows pixels (phase 2's is 16 x 16), chosen
+// by timing 16, 8 and 4 rows.
+constexpr int kPhase1Rows = 4;
+
+__host__ __device__ constexpr int block_rows(bool shade) { return shade ? kBlock : kPhase1Rows; }
+
 template <bool SHADE, bool AB_ALIASED>
-__global__ void __launch_bounds__(kBlock * kBlock) brick_fwd_kernel(const BrickArgs a) {
+__global__ void __launch_bounds__(kBlock * block_rows(SHADE)) brick_fwd_kernel(const BrickArgs a) {
   const MarchArgs& m = a.m;
   const int px = blockIdx.x * kBlock + threadIdx.x;
-  const int py = blockIdx.y * kBlock + threadIdx.y;
+  const int py = blockIdx.y * block_rows(SHADE) + threadIdx.y;
   if (px >= m.width || py >= m.height) return;
 
   const float* st = m.settings;
@@ -96,8 +113,9 @@ __global__ void __launch_bounds__(kBlock * kBlock) brick_fwd_kernel(const BrickA
 
 template <bool SHADE, bool AB>
 cudaError_t launch(const BrickArgs& a, cudaStream_t stream) {
-  const dim3 block(kBlock, kBlock);
-  const dim3 grid((a.m.width + kBlock - 1) / kBlock, (a.m.height + kBlock - 1) / kBlock);
+  constexpr int rows = block_rows(SHADE);
+  const dim3 block(kBlock, rows);
+  const dim3 grid((a.m.width + kBlock - 1) / kBlock, (a.m.height + rows - 1) / rows);
   brick_fwd_kernel<SHADE, AB><<<grid, block, 0, stream>>>(a);
   return cudaGetLastError();
 }

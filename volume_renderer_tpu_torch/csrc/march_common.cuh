@@ -26,9 +26,17 @@ struct Vol {
   int d, h, w;
 };
 
+// Four float32 (D, H, W) volumes packed as one (D, H, W, 4) grid, x fastest:
+// a voxel's four values are one 16-byte load.
+struct Vol4 {
+  const float4* data;
+  int d, h, w;
+};
+
 // Mirrored field for field by MarchArgs in ops/cuda_march.py.
 struct MarchArgs {
   Vol em, ab, re, gx, gy, gz, lut;
+  Vol4 packed;             // K5: emission, gx, gy, gz of one shape, or null
   const float* rotation;   // (3, 3) row-major; its columns are xVec, yVec, zVec
   const float* settings;   // factor_emission, factor_absorption,
                            // factor_reflection, color rgb, opacity_threshold

@@ -56,6 +56,20 @@
 // here. The texture units are not used either: their filtering quantizes the
 // weights to 8 bits and would break the agreement with the plain version.
 //
+// Lit with lookup gradients (K5), a step fetched six volumes with sample()
+// and the LUT: 56 scalar loads. Emission and the three gradient volumes
+// have one shape wherever Volume.gradient_volumes() made them, so the
+// wrapper packs them for each call into one (D, H, W, 4) grid
+// (ops/cuda_march.py, pack_lookup) and a corner of the four is one 16-byte
+// load: 8 load instructions for the four instead of 32, and 32 a step
+// instead of 56 with absorption, reflection and the LUT. One cell
+// (corner_carry.cuh, cell_of) serves the pack, and absorption and
+// reflection where they have its shape (fetch_cell). Each channel is
+// blended as sample() blends its volume, so the image stays the plain
+// version's float for float. Gradient volumes of another shape take the
+// per-volume path, an instantiation of its own (PACKED=false). The pack is
+// a copy of four volumes a render, timed with the kernel (PERF.md).
+//
 // Build: nvcc -O3 -gencode arch=compute_90a,code=sm_90a -std=c++17
 // -fmad=false -shared -Xcompiler -fPIC, without --use_fast_math (expf,
 // acosf and rsqrtf keep their full accuracy). -fmad=false keeps every
@@ -64,9 +78,47 @@
 // moved lit pixels visibly. Plain C interface, loaded with ctypes
 // (ops/_build.py, ops/cuda_march.py).
 
-#include "march_common.cuh"
+#include "corner_carry.cuh"
 
 namespace {
+
+// fetch_cell's blends of the 8 corner values q[a + 2 b + 4 c]
+__device__ __forceinline__ float blend_cell(float q0, float q1, float q2, float q3, float q4,
+                                            float q5, float q6, float q7, const Cell& k) {
+  const float c00 = q0 + k.fx * (q1 - q0);
+  const float c10 = q2 + k.fx * (q3 - q2);
+  const float c01 = q4 + k.fx * (q5 - q4);
+  const float c11 = q6 + k.fx * (q7 - q6);
+  const float c0 = c00 + k.fy * (c10 - c00);
+  const float c1 = c01 + k.fy * (c11 - c01);
+  return c0 + k.fz * (c1 - c0);
+}
+
+// The four packed volumes at the corners of cell k: one 16-byte load a
+// corner, each channel blended as sample() blends its volume, so each is
+// the float that sample() gives.
+__device__ __forceinline__ float4 fetch_packed(const Vol4& v, const Cell& k) {
+  const int x0 = clamp_index(k.x, v.w), x1 = clamp_index(k.x + 1, v.w);
+  const int y0 = clamp_index(k.y, v.h), y1 = clamp_index(k.y + 1, v.h);
+  const int z0 = clamp_index(k.z, v.d), z1 = clamp_index(k.z + 1, v.d);
+  const size_t sy = (size_t)v.w;
+  const size_t sz = (size_t)v.w * (size_t)v.h;
+  const size_t r00 = y0 * sy + z0 * sz, r10 = y1 * sy + z0 * sz;
+  const size_t r01 = y0 * sy + z1 * sz, r11 = y1 * sy + z1 * sz;
+  const float4* p = v.data;
+  const float4 c0 = __ldg(p + x0 + r00), c1 = __ldg(p + x1 + r00);
+  const float4 c2 = __ldg(p + x0 + r10), c3 = __ldg(p + x1 + r10);
+  const float4 c4 = __ldg(p + x0 + r01), c5 = __ldg(p + x1 + r01);
+  const float4 c6 = __ldg(p + x0 + r11), c7 = __ldg(p + x1 + r11);
+  return {blend_cell(c0.x, c1.x, c2.x, c3.x, c4.x, c5.x, c6.x, c7.x, k),
+          blend_cell(c0.y, c1.y, c2.y, c3.y, c4.y, c5.y, c6.y, c7.y, k),
+          blend_cell(c0.z, c1.z, c2.z, c3.z, c4.z, c5.z, c6.z, c7.z, k),
+          blend_cell(c0.w, c1.w, c2.w, c3.w, c4.w, c5.w, c6.w, c7.w, k)};
+}
+
+__device__ __forceinline__ bool same_shape(const Vol& a, const Vol& b) {
+  return a.d == b.d && a.h == b.h && a.w == b.w;
+}
 
 // Illumination summed over the lights (ops/raymarch_core.py:shade_from_taps)
 // for the emission gradient g at p.
@@ -99,7 +151,7 @@ __device__ __forceinline__ V3 shade(const MarchArgs& a, V3 p, V3 g, V3 origin, f
   return result;
 }
 
-template <bool LIT, bool LOOKUP, bool AB_ALIASED, bool RE_ALIASED>
+template <bool LIT, bool LOOKUP, bool AB_ALIASED, bool RE_ALIASED, bool PACKED>
 __global__ void __launch_bounds__(kBlock * kBlock) march_kernel(const MarchArgs a) {
   const int px = blockIdx.x * kBlock + threadIdx.x;
   const int py = blockIdx.y * kBlock + threadIdx.y;
@@ -115,6 +167,12 @@ __global__ void __launch_bounds__(kBlock * kBlock) march_kernel(const MarchArgs 
   const float threshold = __ldg(st + 6);
   const float tstep = a.tstep;
 
+  // K5 packed: absorption and reflection of the pack's shape are fetched
+  // at its cell (the same corners and weights as their own), others at
+  // their own
+  const bool ab_cell = PACKED && !AB_ALIASED && same_shape(a.ab, a.em);
+  const bool re_cell = PACKED && !RE_ALIASED && same_shape(a.re, a.em);
+
   float sr = 0.0f, sg = 0.0f, sb = 0.0f, sw = 0.0f;
   int count = 0;
   if (hit) {
@@ -125,15 +183,24 @@ __global__ void __launch_bounds__(kBlock * kBlock) march_kernel(const MarchArgs 
       const V3 s = to_sample(a, p);
       float em;
       V3 grad = {0.0f, 0.0f, 0.0f};
+      Cell k = {0, 0, 0, 0.0f, 0.0f, 0.0f};  // the pack's cell (PACKED)
       if (LIT && !LOOKUP) {
         const EmTaps e = fetch_em_taps(a, p, tap_geom(a, p, s));
         em = e.c;
         grad = {(e.xp - e.xm) * 0.5f, (e.yp - e.ym) * 0.5f, (e.zp - e.zm) * 0.5f};
+      } else if (PACKED) {
+        k = cell_of(a.em, whole(a.em), s);
+        const float4 q = fetch_packed(a.packed, k);
+        em = q.x;
+        grad = {q.y, q.z, q.w};
       } else {
         em = sample(a.em, s);
         if (LIT) grad = {sample(a.gx, s), sample(a.gy, s), sample(a.gz, s)};
       }
-      const float ab = AB_ALIASED ? em : sample(a.ab, s);
+      const float ab = AB_ALIASED ? em
+                       : PACKED   ? fetch_cell(a.ab, whole(a.ab),
+                                               ab_cell ? k : cell_of(a.ab, whole(a.ab), s))
+                                  : sample(a.ab, s);
       const float emission = fe * em;
       const float absorption = fa * ab;
       const float alpha = 1.0f - expf(-absorption * tstep);
@@ -141,7 +208,10 @@ __global__ void __launch_bounds__(kBlock * kBlock) march_kernel(const MarchArgs 
       float ig = emission * tstep * color.y;
       float ib = emission * tstep * color.z;
       if (LIT) {
-        const float re = RE_ALIASED ? em : sample(a.re, s);
+        const float re = RE_ALIASED ? em
+                         : PACKED   ? fetch_cell(a.re, whole(a.re),
+                                                 re_cell ? k : cell_of(a.re, whole(a.re), s))
+                                    : sample(a.re, s);
         const V3 light = shade(a, p, grad, origin, re, fr, color);
         ir = ir + light.x;
         ig = ig + light.y;
@@ -165,23 +235,23 @@ __global__ void __launch_bounds__(kBlock * kBlock) march_kernel(const MarchArgs 
   if (a.steps != nullptr) a.steps[pix] = count;
 }
 
-template <bool LIT, bool LOOKUP, bool AB, bool RE>
+template <bool LIT, bool LOOKUP, bool AB, bool RE, bool PACKED = false>
 cudaError_t launch(const MarchArgs& a, cudaStream_t stream) {
   const dim3 block(kBlock, kBlock);
   const dim3 grid((a.width + kBlock - 1) / kBlock, (a.height + kBlock - 1) / kBlock);
-  march_kernel<LIT, LOOKUP, AB, RE><<<grid, block, 0, stream>>>(a);
+  march_kernel<LIT, LOOKUP, AB, RE, PACKED><<<grid, block, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool LIT, bool LOOKUP>
+template <bool LIT, bool LOOKUP, bool PACKED = false>
 cudaError_t launch_aliasing(const MarchArgs& a, bool ab_aliased, bool re_aliased,
                             cudaStream_t stream) {
   if (ab_aliased) {
-    return re_aliased ? launch<LIT, LOOKUP, true, true>(a, stream)
-                      : launch<LIT, LOOKUP, true, false>(a, stream);
+    return re_aliased ? launch<LIT, LOOKUP, true, true, PACKED>(a, stream)
+                      : launch<LIT, LOOKUP, true, false, PACKED>(a, stream);
   }
-  return re_aliased ? launch<LIT, LOOKUP, false, true>(a, stream)
-                    : launch<LIT, LOOKUP, false, false>(a, stream);
+  return re_aliased ? launch<LIT, LOOKUP, false, true, PACKED>(a, stream)
+                    : launch<LIT, LOOKUP, false, false, PACKED>(a, stream);
 }
 
 }  // namespace
@@ -193,7 +263,8 @@ size_t vr_march_args_size() { return sizeof(MarchArgs); }
 
 // Launches the march on ``stream``; returns the launch's cudaError_t.
 // mode: 0 unlit (K1), 1 lit with on-the-fly gradients (K4), 2 lit with
-// lookup gradients (K5).
+// lookup gradients (K5): from args->packed where the host packed emission
+// and the gradient volumes (they have one shape), else from the four volumes.
 int vr_march_fwd(const MarchArgs* args, int mode, int ab_aliased, int re_aliased,
                  void* stream) {
   const MarchArgs& a = *args;
@@ -206,7 +277,9 @@ int vr_march_fwd(const MarchArgs* args, int mode, int ab_aliased, int re_aliased
     case 1:
       return (int)launch_aliasing<true, false>(a, ab_aliased, re_aliased, s);
     case 2:
-      return (int)launch_aliasing<true, true>(a, ab_aliased, re_aliased, s);
+      return (int)(a.packed.data != nullptr
+                       ? launch_aliasing<true, true, true>(a, ab_aliased, re_aliased, s)
+                       : launch_aliasing<true, true, false>(a, ab_aliased, re_aliased, s));
     default:
       return (int)cudaErrorInvalidValue;
   }
