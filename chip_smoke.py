@@ -8,8 +8,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
 1. device:  the card, its power limit, and the build of every kernel
             source (one nvcc each, started together), with the registers,
             spills and resulting blocks an SM that ptxas reports for each
-            kernel instantiation. Every kernel but K2 (K1, K3-K6 and the
-            three K7 forms) must not spill.
+            kernel instantiation. No kernel may spill.
 2. goldens: the five tests/goldens scenes through VolumeRenderer on the
             card, held against the committed images.
 3. kernel_vs_plain: the forward march kernel against its plain PyTorch
@@ -25,8 +24,10 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             unlit, K6 lit) and transfer_grads_fast (K2) against its plain
             version (ops/vjp.py:replay_backward) at 128^3 / 256x192, K3
             also with absorption of another shape, K6 on the two lit
-            scenes of phase 3, every gradient key (K3's grids within 1e-5
-            of scale, every other key within 1e-4).
+            scenes of phase 3, unlit K2 packed (absorption separate and of
+            emission's shape) and not (aliased, of another shape), every
+            gradient key (K3's grids within 1e-5 of scale, every other key
+            within 1e-4).
 5. main_path: VolumeRenderer.render() at 256^3 / 512^2 for the unlit (K1),
             lit on-the-fly (K4) and lit lookup (K5) flagship scenes, with
             the launch counts set to 0 just before and read just after;
@@ -36,7 +37,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             the lit one (K4 + K6), and a three-step transfer-parameter fit
             through transfer_grads_fast (K1 + K2), counted like phase 5.
             The loss must fall. Before the counted steps, the first step's
-            gradients are held against the plain replay on a 64-row band.
+            gradients are held against the plain replay on a 64-row band,
+            and lit K2 against the lit step's replay.
 7. timing:  the forward kernel (CUDA events, warm, median of 5) and the
             plain version at 256^3 / 512^2 and 512^3 / 1024^2 (K1, K4, K5;
             at 512^3 the plain version on a 64-row band through the
@@ -45,10 +47,12 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             256^3 / 512^2, the gather model (gather_footprint) of its
             float4 corner loads against float32 ones on a 64-row band;
             then the forward + backward pair, the backward kernel
-            alone and the whole training step for K3, K6 and K2 at
-            256^3 / 512^2 and K3 at 512^3 / 1024^2, with the bound, and
-            K3's atomic adds a sample at 256^3 / 512^2, counted from the
-            plain march's positions (march_flushes).
+            alone and the whole training step (a transfer-fit step for K2)
+            for K3, K6, K2 and lit K2 at 256^3 / 512^2 and K3 and K2 at
+            512^3 / 1024^2 (K2 without a plain band), with the bound, K3's
+            atomic adds a sample at 256^3 / 512^2, counted from the plain
+            march's positions (march_flushes), and K2's pack alone and, at
+            256^3 / 512^2, the gather model of its float2 corner loads.
 
 8. bricks_vs_plain: the z-brick kernels (K7) at 128^3 / 256x192, 4 bricks:
             each launch form on every brick (phase 1 opacity and entry
@@ -89,7 +93,10 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             median of 5 each: K1, K4 and K5 (256^3 / 512^2,
             512^3 / 1024^2; the images must be equal; K5's pack alone), K3
             and K6 (the backward alone, forward + backward, the training
-            step, 256^3 / 512^2) and K7 with 4 bricks at 256^3 / 512^2 (each
+            step, 256^3 / 512^2), K2 (the same and its pack, unlit at
+            256^3 / 512^2 and 512^3 / 1024^2, lit at 256^3 / 512^2; the
+            per-ray planes and gradients must be equal) and K7 with 4
+            bricks at 256^3 / 512^2 (each
             launch form over all bricks, phase 2 alone from phase 1's
             outputs, phase 1 also on the dense scene; the bricked forward,
             forward + backward and training step; the host's time in phase
@@ -450,24 +457,33 @@ def gather_footprint(scene, opts, y0, rows, warp_cols=(16, 8, 4), elems=(4,)):
 # set of their values makes.
 KERNEL_PARAMS = {
     "march_kernel": ("LIT", "LOOKUP", "AB_ALIASED", "RE_ALIASED", "PACKED"),
-    "march_bwd_kernel": ("LIT", "SCATTER", "AB_ALIASED", "RE_ALIASED"),
+    "march_bwd_params_kernel": ("AB_ALIASED", "PAIRED"),
+    "march_bwd_lit_params_kernel": ("AB_ALIASED", "RE_ALIASED"),
     "march_bwd_scatter_kernel": ("AB_ALIASED", "AB_OWN_CELL"),
     "march_bwd_lit_scatter_kernel": ("AB_ALIASED", "RE_ALIASED"),
     "brick_fwd_kernel": ("SHADE", "AB_ALIASED"),
     "brick_bwd_kernel": ("AB_ALIASED", "AB_OWN_CELL"),
 }
-# Threads a block by mode, where it is not 16x16 (K3, K6 and the K7
-# gradient segment run in 16x8 blocks: csrc/march_bwd.cu, csrc/brick_bwd.cu;
-# K7 phase 1 in 16 x kPhase1Rows, csrc/brick_fwd.cu: kernel_threads)
+# Threads a block by mode or kernel, where it is not 16x16 (K3, K6 and the
+# K7 gradient segment run in 16x8 blocks: csrc/march_bwd.cu,
+# csrc/brick_bwd.cu; K7 phase 1 and K2 in 16 rows of a constant of their
+# source: kernel_threads)
 KERNEL_THREADS = {"K3": 128, "K6": 128, "K7_scatter": 128}
+# the constants of 16 x ROWS blocks: kernel or mode -> (source, constant)
+BLOCK_ROWS = {"K7_transmittance": ("brick_fwd.cu", "kPhase1Rows"),
+              "march_bwd_params_kernel": ("march_bwd.cu", "kK2Rows"),
+              "march_bwd_lit_params_kernel": ("march_bwd.cu", "kK2LitRows")}
 
 
 def kernel_threads(repo):
-    """KERNEL_THREADS with K7 phase 1's block as the sources under ``repo``
-    set it."""
-    with open(os.path.join(repo, "volume_renderer_tpu_torch", "csrc", "brick_fwd.cu")) as f:
-        m = re.search(r"constexpr int kPhase1Rows = (\d+);", f.read())
-    return {**KERNEL_THREADS, "K7_transmittance": 16 * int(m.group(1)) if m else 256}
+    """KERNEL_THREADS with the blocks of K7 phase 1 and of K2 as the sources
+    under ``repo`` set them (16x16 where a source has no such constant)."""
+    out = dict(KERNEL_THREADS)
+    for key, (source, name) in BLOCK_ROWS.items():
+        with open(os.path.join(repo, "volume_renderer_tpu_torch", "csrc", source)) as f:
+            m = re.search(r"constexpr int %s = (\d+);" % name, f.read())
+        out[key] = 16 * int(m.group(1)) if m else 256
+    return out
 # 4 bricks, all on the one card
 BRICKS = 4
 
@@ -475,8 +491,8 @@ BRICKS = 4
 def kernel_mode_of(kernel: str, args) -> str:
     if kernel == "march_kernel":
         return "K1" if not args[0] else ("K5" if args[1] else "K4")
-    if kernel == "march_bwd_kernel":
-        return "K2" if not args[1] else ("K6" if args[0] else "K3")
+    if kernel in ("march_bwd_params_kernel", "march_bwd_lit_params_kernel"):
+        return "K2"
     if kernel == "march_bwd_scatter_kernel":
         return "K3"
     if kernel == "march_bwd_lit_scatter_kernel":
@@ -496,12 +512,12 @@ def blocks_per_sm(registers: int, threads: int) -> int:
 
 def ptxas_by_kernel(log: str, strict: bool = True, threads=KERNEL_THREADS) -> dict:
     """What ``nvcc -Xptxas -v`` reports for each kernel instantiation, keyed
-    "<mode> <kernel><template arguments>", e.g. "K6 march_bwd_kernel<1,1,0,0>".
+    "<mode> <kernel><template arguments>", e.g. "K2 march_bwd_params_kernel<0,1>".
     With ``strict`` a kernel must have the template arguments that
     KERNEL_PARAMS lists. Without it (another version of the sources) a
     kernel whose arguments differ is reported without its blocks an SM,
     since its block shape is not known here. ``threads``: a block's threads
-    by mode, where not 256."""
+    by mode or kernel, where not 256."""
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?(%s)I((?:Lb[01]E)+)E" % "|".join(KERNEL_PARAMS),
@@ -512,7 +528,8 @@ def ptxas_by_kernel(log: str, strict: bool = True, threads=KERNEL_THREADS) -> di
             assert known or not strict, line
             mode = kernel_mode_of(m.group(1), args)
             key = f"{mode} {m.group(1)}<{','.join(map(str, args))}>"
-            out[key] = {"threads": threads.get(mode, 256) if known else None}
+            n = threads.get(m.group(1), threads.get(mode, 256))
+            out[key] = {"threads": n if known else None}
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -538,11 +555,11 @@ def main() -> None:
     parser.add_argument("--out", help="also write every JSON line to this file")
     parser.add_argument("--parent", metavar="DIR",
                         help="a directory holding another version of volume_renderer_tpu_torch/ "
-                             "(e.g. the parent commit's): its K1, K3, K4, K6 and K7 are timed in "
-                             "turns with the checkout's (phase 11)")
+                             "(e.g. the parent commit's): its K1-K7 are timed in turns with the "
+                             "checkout's (phase 11)")
     parser.add_argument("--turn", action="store_true",
-                        help="phase 11's turns: build, then for each line read on stdin time K1, "
-                             "K3, K4, K6 and K7 and print one JSON line")
+                        help="phase 11's turns: build, then for each line read on stdin time "
+                             "K1-K7 and print one JSON line")
     parser.add_argument("--repo", metavar="DIR", default=REPO,
                         help="import the port from DIR instead of the checkout around this script")
     args = parser.parse_args()
@@ -557,7 +574,8 @@ def main() -> None:
         Camera, LightSource, RenderSettings, Scene, StereoRenderMode, Volume, VolumeRenderer,
         henyey_greenstein_lut)
     from volume_renderer_tpu_torch import train
-    from volume_renderer_tpu_torch.ops import _build, brick_march, cuda_bricks, cuda_march
+    from volume_renderer_tpu_torch.ops import (
+        _build, brick_march, cuda_bricks, cuda_grads, cuda_march)
     from volume_renderer_tpu_torch.ops.cuda_grads import (
         grad_mode, march_backward, transfer_grads_fast, voxel_grads_fast)
     from volume_renderer_tpu_torch.ops.cuda_march import kernel_mode, render_forward_fast
@@ -591,13 +609,11 @@ def main() -> None:
     ptxas = {name: ptxas_by_kernel(_build.build_log(name), strict=not args.turn,
                                    threads=threads)
              for name in _build.SOURCES}
-    # the redesigned kernels keep every value in registers
+    # every kernel keeps every value in registers
     spilled = {k: v for name in _build.SOURCES for k, v in ptxas[name].items()
-               if k.split()[0] in ("K1", "K3", "K4", "K5", "K6", "K7_transmittance",
-                                   "K7_segment", "K7_scatter")
-               and v["spill_store_bytes"]}
+               if v["spill_store_bytes"]}
     if spilled and not args.turn:  # a turn may time an older version
-        raise RuntimeError(f"ptxas spills in a redesigned kernel: {spilled}")
+        raise RuntimeError(f"ptxas spills in a kernel: {spilled}")
     record({"phase": "device", "kind": kind, "nvidia_smi": smi_line,
             "count": torch.cuda.device_count(), "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s,
@@ -740,6 +756,49 @@ def main() -> None:
             h.update(t.cpu().numpy().tobytes())
         return h.hexdigest()
 
+    def transfer_scene(scene, params):
+        return scene.replace(settings=dataclasses.replace(scene.settings, **params))
+
+    def transfer_step(params, optimizer, scene, opts, target):
+        """One step of a transfer-function fit: the grids stay fixed."""
+        with torch.no_grad():
+            merged = transfer_scene(scene, params)
+            img = render_forward_fast(merged, opts)
+            resid = img - target
+            _, grads = transfer_grads_fast(merged, opts, 2.0 * resid, image=img)
+            for key, p in params.items():
+                p.grad = grads[key]
+        optimizer.step()
+        return torch.sum(resid ** 2)
+
+    def transfer_fit(scene, opts):
+        """A transfer-function fit's first state on ``scene``: the target (its
+        own render), the factors and color off by 30 % and 20 % as leaf
+        tensors, and Adam over them; a step is
+        ``transfer_step(params, optimizer, scene, opts, target)``."""
+        target = render_forward_fast(scene, opts)
+        off = {"factor_emission": 1.3, "factor_absorption": 1.3, "color": 0.8}
+        params = {k: (getattr(scene.settings, k) * f).detach().clone().requires_grad_(True)
+                  for k, f in off.items()}
+        return params, torch.optim.Adam(list(params.values()), lr=TRAIN_LR["K2"]), target
+
+    def backward_planes(fn):
+        """``(fn(), planes)``: the per-ray planes of every backward launch in
+        ``fn``, copied where ops.cuda_grads closes them (parameter_grads,
+        wrapped for the call; a version of the port whose wrapper closes
+        them there, as every version has)."""
+        seen, close = [], cuda_grads.parameter_grads
+
+        def keep(scene, opts, g, planes):
+            seen.append(planes.clone())
+            return close(scene, opts, g, planes)
+
+        cuda_grads.parameter_grads = keep
+        try:
+            return fn(), seen
+        finally:
+            cuda_grads.parameter_grads = close
+
     def forward_turn(mode):
         """The forward kernel of ``mode`` (K1, K4 or K5) at 256^3 / 512^2 and
         512^3 / 1024^2, timed as phase 7 times it, with a digest of each
@@ -785,11 +844,51 @@ def main() -> None:
             lambda: train.train_step_fast(params, optimizer, static_scene, opts, target))[0]
         return {f"{mode}_{MAIN['volume']}_{MAIN['image']}": ms}
 
+    def params_turn(lit):
+        """K2 (unlit at 256^3 / 512^2 and 512^3 / 1024^2, lit at 256^3 /
+        512^2) from the first training step's state, as phase 7 times it: the
+        backward alone, transfer_grads_fast forward + backward and the
+        transfer-fit step with Adam; unlit the pair's pack alone, where the
+        port packs; with a digest of the per-ray planes and the gradients,
+        which have no atomics to vary."""
+        pack = None if lit else getattr(cuda_grads, "pack_pair", None)
+        out = {}
+        for cfg in (MAIN,) if lit else (MAIN, BIG):
+            scene = flagship(cfg["volume"], "K4" if lit else "K1", ab_aliased=False, noise=0.05)
+            opts = scene.options(cfg["image"], cfg["image"])
+            with torch.no_grad():
+                target = render_forward_fast(scene, opts)
+                params, static_scene = train.split_params(scene)
+                params["emission"].mul_(1.3).add_(0.05)
+                merged = train.merge_params(params, static_scene)
+                img = render_forward_fast(merged, opts)
+                g = 2.0 * (img - target)
+
+                def bwd():
+                    return march_backward(merged, opts, g, img, scatter=False)
+
+                def fwd_bwd():
+                    image = render_forward_fast(merged, opts)
+                    return transfer_grads_fast(merged, opts, 2.0 * (image - target), image=image)
+
+                grads, planes = backward_planes(bwd)
+                cell = {"backward_ms": median_ms(bwd)[0], "fwd_bwd_ms": median_ms(fwd_bwd)[0],
+                        "planes_sha1": digest(planes + [grads[k] for k in sorted(grads)])}
+                if pack is not None:
+                    cell["pack_ms"] = median_ms(lambda: pack(merged))[0]
+            tparams, optimizer, target = transfer_fit(scene, opts)
+            cell["train_step_ms"] = median_ms(
+                lambda: transfer_step(tparams, optimizer, scene, opts, target))[0]
+            out[f"K2{'_lit' if lit else ''}_{cfg['volume']}_{cfg['image']}"] = cell
+        return out
+
     def march_turn():
-        """K1, K4 and K5 (forward_turn), K3 and K6 (grads_turn)."""
+        """K1, K4 and K5 (forward_turn), K3 and K6 (grads_turn), K2
+        (params_turn)."""
         return {"ptxas": {name: ptxas[name] for name in ("march_fwd", "march_bwd")},
                 **forward_turn("K1"), **forward_turn("K4"), **forward_turn("K5"),
-                **grads_turn("K3"), **grads_turn("K6")}
+                **grads_turn("K3"), **grads_turn("K6"), **params_turn(False),
+                **params_turn(True)}
 
     def brick_turn():
         """K7 with 4 bricks at 256^3 / 512^2 on the first bricked training
@@ -1017,9 +1116,15 @@ def main() -> None:
             ("K6_two_lights_reflection_aliased_image_reuse", "K4",
              dict(n_lights=2, re_aliased=True), 0.0, True),
             ("K6_anisotropic_36x24x64", "K4", ANISOTROPIC, 0.0, False),
-            ("K6_faces_and_edges_48", "K4", FACES, 0.0, False)):
+            ("K6_faces_and_edges_48", "K4", FACES, 0.0, False),
+            ("K2_absorption_separate_paired", "K1", dict(ab_aliased=False), 0.0, False)):
         scene = flagship(48 if kw is FACES else COMPARE["volume"], mode,
                          **{"noise": 0.05, **kw})
+        # unlit K2 reads the packed pair where absorption is separate and of
+        # emission's shape
+        paired = mode == "K1" and cuda_grads.pack_pair(scene) is not None
+        if mode == "K1" and paired != (not kw["ab_aliased"] and "ab_other_shape" not in kw):
+            raise RuntimeError(f"{name}: K2's pair {'packed' if paired else 'not packed'}")
         opts = scene.options(COMPARE["width"], COMPARE["height"])
         g = cotangent(COMPARE["height"], COMPARE["width"], seed=len(grads_compare))
         img0 = render_forward_fast(scene, opts, offset) if reuse else None
@@ -1030,7 +1135,7 @@ def main() -> None:
         want = replay_backward(scene, opts, g, img, offset, angle_floor=True)
         bmode = grad_mode(scene, scatter=True)
         grads_compare[name] = {
-            "mode": bmode,
+            "mode": bmode, "K2_paired": paired,
             "err_of_scale": check_grads(name, got, want, bmode, keys=want.keys()),
             "K2_err_of_scale": check_grads(name + " K2", got_transfer, want, "K2",
                                            keys=[k for k in want if k in transfer_keys])}
@@ -1089,40 +1194,32 @@ def main() -> None:
     # ---- 6. the training main path at 256^3 / 512^2 ---------------------
     size = MAIN["image"]
 
-    def band_check(name, scene, opts, g, img, scatter):
+    def band_check(name, scene, opts, g, img, scatter, also_k2=False):
         """The kernel on the whole image, with g zero outside a 64-row band,
-        against the plain replay of that band alone."""
+        against the plain replay of that band alone. ``also_k2``: K2 too,
+        against the same replay (the plain version of every backward mode),
+        under the key "K2"."""
         band0 = (opts.height - BAND) // 2
         g_band = torch.zeros_like(g)
         g_band[band0:band0 + BAND] = g[band0:band0 + BAND]
         entry = voxel_grads_fast if scatter else transfer_grads_fast
         _, got = entry(scene, opts, g_band, image=img)
+        got_k2 = transfer_grads_fast(scene, opts, g_band, image=img)[1] if also_k2 else None
         torch.cuda.synchronize()
         want, plain_ms = timed(lambda: replay_backward(
             scene, opts, g[band0:band0 + BAND].contiguous(), img[band0:band0 + BAND].contiguous(),
             y_offset=band0, n_rows=BAND, angle_floor=True))
         mode = grad_mode(scene, scatter)
-        return {"mode": mode, "band_rows": BAND, "plain_ms": plain_ms,
-                "err_of_scale": check_grads(name, got, want, mode)}
-
-    def transfer_scene(scene, params):
-        return scene.replace(settings=dataclasses.replace(scene.settings, **params))
-
-    def transfer_step(params, optimizer, scene, opts, target):
-        """One step of a transfer-function fit: the grids stay fixed."""
-        with torch.no_grad():
-            merged = transfer_scene(scene, params)
-            img = render_forward_fast(merged, opts)
-            resid = img - target
-            _, grads = transfer_grads_fast(merged, opts, 2.0 * resid, image=img)
-            for key, p in params.items():
-                p.grad = grads[key]
-        optimizer.step()
-        return torch.sum(resid ** 2)
+        out = {"mode": mode, "band_rows": BAND, "plain_ms": plain_ms,
+               "err_of_scale": check_grads(name, got, want, mode)}
+        if also_k2:
+            out["K2"] = {"mode": "K2", "band_rows": BAND, "plain_ms": plain_ms,
+                         "err_of_scale": check_grads(name + " K2", got_k2, want, "K2")}
+        return out
 
     train_scenes = {"K3": flagship(MAIN["volume"], "K1", ab_aliased=False, noise=0.05),
                     "K6": flagship(MAIN["volume"], "K4", ab_aliased=False, noise=0.05)}
-    runs, first_step, plain_band_ms = {}, {}, {}
+    runs, first_step = {}, {}
     for mode, scene in train_scenes.items():
         opts = scene.options(size, size)
         target = render_forward_fast(scene, opts)
@@ -1133,25 +1230,20 @@ def main() -> None:
         merged = train.merge_params(params, static_scene)
         img = render_forward_fast(merged, opts)
         first_step[mode] = band_check(f"first step {mode}", merged, opts, 2.0 * (img - target),
-                                      img, scatter=True)
-        plain_band_ms[mode] = first_step[mode]["plain_ms"]
+                                      img, scatter=True, also_k2=mode == "K6")
         runs[mode] = (lambda p=params, o=optimizer, sc=static_scene, op=opts, t=target:
                       train.train_step_fast(p, o, sc, op, t))
     # the transfer fit: the unlit scene's factors and color, the grids fixed
     scene = train_scenes["K3"]
     opts = scene.options(size, size)
-    target = render_forward_fast(scene, opts)
-    tparams = {"factor_emission": scene.settings.factor_emission * 1.3,
-               "factor_absorption": scene.settings.factor_absorption * 1.3,
-               "color": scene.settings.color * 0.8}
-    tparams = {k: v.detach().clone().requires_grad_(True) for k, v in tparams.items()}
-    toptimizer = torch.optim.Adam(list(tparams.values()), lr=TRAIN_LR["K2"])
+    tparams, toptimizer, target = transfer_fit(scene, opts)
     merged = transfer_scene(scene, tparams)
     img = render_forward_fast(merged, opts)
     first_step["K2"] = band_check("first step K2", merged, opts, 2.0 * (img - target), img,
                                   scatter=False)
-    plain_band_ms["K2"] = first_step["K2"]["plain_ms"]
     runs["K2"] = lambda: transfer_step(tparams, toptimizer, scene, opts, target)
+    # lit K2 against the replay of the lit first step's band (phase 7 times it)
+    first_step["K2_lit"] = first_step["K6"].pop("K2")
     del merged, img
 
     torch.cuda.synchronize()
@@ -1259,11 +1351,17 @@ def main() -> None:
                 torch.cuda.empty_cache()
 
     # ---- forward + backward at 256^3 / 512^2 and 512^3 / 1024^2 ---------
-    def time_train_cell(scene, size, scatter, plain=None):
+    def time_train_cell(scene, size, scatter, plain=None, band=True):
         """The first training step's state (emission x 1.3 + 0.05 against a
         target of the true scene): the backward kernel alone, the forward +
-        backward pair and, with grids, the whole train_step_fast."""
+        backward pair and the whole training step: train_step_fast with
+        grids, a transfer-fit step (transfer_fit) without. ``plain``: the
+        band's check against the plain replay, made here if None and
+        ``band``. Unlit K2 also times its pack alone and, at 256^3 / 512^2,
+        counts the gather model (gather_footprint) of its float2 corner
+        loads against float32 ones on a band of 64 rows."""
         mode, fmode = grad_mode(scene, scatter), kernel_mode(scene)
+        lit = scene.has_lighting
         opts = scene.options(size, size)
         entry = voxel_grads_fast if scatter else transfer_grads_fast
         with torch.no_grad():
@@ -1274,8 +1372,19 @@ def main() -> None:
             steps = torch.zeros((size, size), dtype=torch.int32, device=dev)
             img = render_forward_fast(merged, opts, steps=steps)
             g = 2.0 * (img - target)
-            if plain is None:
+            if plain is None and band:
                 plain = band_check(f"timing cell {mode} {size}", merged, opts, g, img, scatter)
+            extra = {}
+            pair = cuda_grads.pack_pair(merged) if mode == "K2" and not lit else None
+            if pair is not None:
+                vols = [merged.emission.data, merged.absorption.data]
+                if not torch.equal(pair, torch.stack(vols, dim=-1)):
+                    raise RuntimeError("the K2 pack is not its two volumes side by side")
+                del pair
+                extra["pack_ms"] = median_ms(lambda: cuda_grads.pack_pair(merged))[0]
+                if size == MAIN["image"]:
+                    extra["gather_model"] = gather_footprint(
+                        merged, opts, (size - 64) // 2, 64, warp_cols=(16,), elems=(4, 8))
             adds = None
             if mode == "K3" and size == MAIN["image"]:
                 # the corner carry's atomic adds, from the plain march (march_flushes)
@@ -1291,7 +1400,7 @@ def main() -> None:
                 return entry(merged, opts, 2.0 * (image - target), image=image)
 
             pair_ms, pair_all = median_ms(fwd_bwd)
-        out = {"mode": mode, "forward_mode": fmode, "image": size, "ms": bwd_ms,
+        out = {**extra, "mode": mode, "forward_mode": fmode, "image": size, "ms": bwd_ms,
                "ms_all": bwd_all, "fwd_bwd_ms": pair_ms, "fwd_bwd_ms_all": pair_all}
         if adds is not None:
             out["atomic_adds"] = adds
@@ -1299,7 +1408,10 @@ def main() -> None:
             optimizer = torch.optim.Adam(list(params.values()), lr=TRAIN_LR[mode])
             out["train_step_ms"], out["train_step_ms_all"] = median_ms(
                 lambda: train.train_step_fast(params, optimizer, static_scene, opts, target))
-        lit = scene.has_lighting
+        else:
+            tparams, toptimizer, ttarget = transfer_fit(scene, opts)
+            out["train_step_ms"], out["train_step_ms_all"] = median_ms(
+                lambda: transfer_step(tparams, toptimizer, scene, opts, ttarget))
         n_lights = scene.light_positions.shape[0] if lit else 0
         samples = int(steps.sum())
         flops = samples * bwd_flops_per_step(lit, scatter, scene.absorption_aliased,
@@ -1317,19 +1429,22 @@ def main() -> None:
         bound_by = max(bound, key=bound.get)
         out.update({"samples": samples, "samples_per_ray": samples / (size * size),
                     "flops": flops, "bytes": nbytes, "bound_ms": bound[bound_by],
-                    "bound_by": bound_by, "plain_ms": plain["plain_ms"],
-                    "plain_rows": plain["band_rows"],
-                    "plain_err_of_scale": plain["err_of_scale"]})
+                    "bound_by": bound_by})
+        if plain is not None:
+            out.update({"plain_ms": plain["plain_ms"], "plain_rows": plain["band_rows"],
+                        "plain_err_of_scale": plain["err_of_scale"]})
         return out
 
-    for cfg, modes in ((MAIN, ("K3", "K6", "K2")), (BIG, ("K3",))):
+    # K2 at 512^3 / 1024^2: the kernel and its pack, no plain band (the run's time)
+    for cfg, modes in ((MAIN, ("K3", "K6", "K2", "K2_lit")), (BIG, ("K3", "K2"))):
         for mode in modes:
             key = f"{mode}_{cfg['volume']}_{cfg['image']}"
-            scene = flagship(cfg["volume"], "K4" if mode == "K6" else "K1", ab_aliased=False,
-                             noise=0.05)
+            scene = flagship(cfg["volume"], "K4" if mode in ("K6", "K2_lit") else "K1",
+                             ab_aliased=False, noise=0.05)
             # at 256^3 the band was held against the plain replay in phase 6
             plain = first_step[mode] if cfg is MAIN else None
-            cells[key] = time_train_cell(scene, cfg["image"], scatter=mode != "K2", plain=plain)
+            cells[key] = time_train_cell(scene, cfg["image"], scatter=mode in ("K3", "K6"),
+                                         plain=plain, band=mode != "K2")
             record({"phase": "timing", "cell": key, "volume": cfg["volume"], **cells[key]})
             del scene
             torch.cuda.empty_cache()
@@ -1710,7 +1825,7 @@ def main() -> None:
     del dense, dense_split, dense_fwd
     torch.cuda.empty_cache()
 
-    # ---- 11. another version's K1-K4, K6 and K7 against the checkout's -----
+    # ---- 11. another version's K1-K7 against the checkout's -----------------
     if args.parent:
         t_phase = time.perf_counter()
         turns = {"parent": [], "new": []}
@@ -1757,8 +1872,11 @@ def main() -> None:
         grads = ("backward_ms", "fwd_bwd_ms", "train_step_ms")
         forwards = [f"{m}_{c['volume']}_{c['image']}" for m in ("K1", "K4", "K5")
                     for c in (MAIN, BIG)]
+        k2 = [f"K2_{MAIN['volume']}_{MAIN['image']}", f"K2_{BIG['volume']}_{BIG['image']}",
+              f"K2_lit_{MAIN['volume']}_{MAIN['image']}"]
         for key, metrics in [*((k, ("ms",)) for k in forwards),
-                             ("K3_256_512", grads), ("K6_256_512", grads)]:
+                             ("K3_256_512", grads), ("K6_256_512", grads),
+                             *((k, grads) for k in k2)]:
             compared[key] = {metric: compare_turns(lambda t: t["march"][key][metric],
                                                    cells[key]["bound_ms"])
                              for metric in metrics}
@@ -1768,10 +1886,16 @@ def main() -> None:
                 if len({t["march"][key]["image_sha1"] for t in every}) != 1:
                     raise RuntimeError(f"{key}: the parent's image differs from the checkout's")
                 compared[key]["images_equal"] = True
-                packs = [t["march"][key]["pack_ms"] for t in turns["new"]
-                         if "pack_ms" in t["march"][key]]
-                if packs:
-                    compared[key]["pack_ms"] = packs
+            if key in k2:
+                # K2 has no atomics: its planes and gradients are the parent's
+                # to the bit, whatever its fetch or block
+                if len({t["march"][key]["planes_sha1"] for t in every}) != 1:
+                    raise RuntimeError(f"{key}: the parent's planes differ from the checkout's")
+                compared[key]["planes_equal"] = True
+            packs = [t["march"][key]["pack_ms"] for t in turns["new"]
+                     if "pack_ms" in t["march"][key]]
+            if packs:
+                compared[key]["pack_ms"] = packs
         # the forward phases keep their arithmetic: one bricked image, one
         # exit opacity, one phase 1 opacity and entry record on both scenes
         names = ("image_sha1", "w_out_sha1", "phase1_w_sha1", "phase1_entry_sha1",
@@ -1820,12 +1944,18 @@ def main() -> None:
             "max_err_of_scale": grad_err[mode],
             "ms": cell["ms"], "plain_ms": cell["plain_ms"], "plain_rows": cell["plain_rows"],
             "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"], "library_ms": None,
-            "fwd_bwd_ms": cell["fwd_bwd_ms"], "mode": what,
+            "fwd_bwd_ms": cell["fwd_bwd_ms"], "train_step_ms": cell["train_step_ms"],
+            "mode": what,
             **({"atomic_adds_per_sample": cell["atomic_adds"]["atomic_adds_per_sample"]}
                if "atomic_adds" in cell else {}),
+            **({"pack_ms": cell["pack_ms"]} if "pack_ms" in cell else {}),
             "cell": f"{MAIN['volume']}^3 volume, {MAIN['image']}^2 image",
             "ms_big": cells.get(f"{mode}_{BIG['volume']}_{BIG['image']}", {}).get("ms"),
         })
+        if mode == "K2":  # lit K2, on K4's noisy scene; not on the main path's fit
+            lit = cells[f"K2_lit_{MAIN['volume']}_{MAIN['image']}"]
+            kernels[-1].update({f"lit_{k}": lit[k] for k in ("ms", "bound_ms", "bound_by",
+                                                              "plain_ms", "fwd_bwd_ms")})
     for form, source, what in (
             ("transmittance", "brick_fwd", "z-brick phase 1: opacity of the brick's own samples"),
             ("segment", "brick_fwd", "z-brick phase 2: shaded segment from the entry opacity"),

@@ -14,7 +14,7 @@ from volume_renderer_tpu.ops.forward import render_forward as jax_render_forward
 
 import chip_smoke
 from test_torch_helpers import make_scenes
-from volume_renderer_tpu_torch.ops import _build, cuda_march
+from volume_renderer_tpu_torch.ops import _build, cuda_grads, cuda_march
 from volume_renderer_tpu_torch.ops.forward import render_forward, render_rows
 
 torch.set_num_threads(1)
@@ -287,6 +287,27 @@ def test_pack_lookup_holds_the_four_volumes():
     assert cuda_march.pack_lookup(scene.replace(gradient_y=small)) is None
 
 
+def test_pack_pair_holds_the_two_volumes():
+    """Unlit K2's packed grid: channels emission and absorption, bit for bit,
+    one contiguous (D, H, W, 2) float32 tensor, the same copy as
+    ``torch.stack(..., dim=-1)``; none where absorption is aliased to
+    emission or has another shape (the kernel then fetches each volume at its
+    own cell)."""
+    _, scene = make_scenes(vol_shape=(12, 10, 14))
+    assert not scene.absorption_aliased
+    pair = cuda_grads.pack_pair(scene)
+    assert pair.shape == (12, 10, 14, 2) and pair.dtype == torch.float32
+    assert pair.is_contiguous()
+    assert torch.equal(pair[..., 0], scene.emission.data)
+    assert torch.equal(pair[..., 1], scene.absorption.data)
+    assert not torch.equal(pair[..., 0], pair[..., 1])
+    assert torch.equal(pair, torch.stack([scene.emission.data, scene.absorption.data], dim=-1))
+    _, aliased = make_scenes(vol_shape=(12, 10, 14), alias_absorption=True)
+    assert aliased.absorption_aliased and cuda_grads.pack_pair(aliased) is None
+    small = scene.absorption.replace(data=scene.absorption.data[:, ::2].contiguous())
+    assert cuda_grads.pack_pair(scene.replace(absorption=small)) is None
+
+
 def test_ptxas_report_by_mode():
     """chip_smoke's reading of ptxas: a kernel instantiation is keyed by its
     mode and template arguments (K5 packed has five), and its blocks an SM
@@ -316,3 +337,32 @@ def test_ptxas_report_by_mode():
     assert k7["threads"] == threads["K7_transmittance"] == 16 * rows
     assert k7["warps_per_sm"] == chip_smoke.blocks_per_sm(56, k7["threads"]) * k7["threads"] // 32
     assert k7["spill_store_bytes"] == 0
+
+
+def test_ptxas_report_of_the_k2_kernels():
+    """chip_smoke's reading of ptxas for K2: the unlit kernel (absorption
+    packed with emission, or aliased) and the lit one map to K2, and each
+    block has 16 rows of the constant that csrc/march_bwd.cu sets for it."""
+    source = (_build.CSRC_DIR / "march_bwd.cu").read_text()
+    rows = {name: int(re.search(r"constexpr int %s = (\d+);" % name, source).group(1))
+            for name in ("kK2Rows", "kK2LitRows")}
+    instantiations = (("23march_bwd_params_kernel", "Lb0ELb1E", 40),
+                      ("23march_bwd_params_kernel", "Lb1ELb0E", 32),
+                      ("27march_bwd_lit_params_kernel", "Lb0ELb0E", 128))
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function "
+        f"'_ZN12_GLOBAL__N_1{kernel}I{args}EEv8GradArgs' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        f"ptxas info    : Used {registers} registers, used 0 barriers, 560 bytes cmem[0]"
+        for kernel, args, registers in instantiations)
+    threads = chip_smoke.kernel_threads(chip_smoke.REPO)
+    assert threads["march_bwd_params_kernel"] == 16 * rows["kK2Rows"]
+    assert threads["march_bwd_lit_params_kernel"] == 16 * rows["kK2LitRows"]
+    got = chip_smoke.ptxas_by_kernel(log, threads=threads)
+    assert set(got) == {"K2 march_bwd_params_kernel<0,1>", "K2 march_bwd_params_kernel<1,0>",
+                        "K2 march_bwd_lit_params_kernel<0,0>"}
+    for key, n in (("K2 march_bwd_params_kernel<0,1>", 16 * rows["kK2Rows"]),
+                   ("K2 march_bwd_lit_params_kernel<0,0>", 16 * rows["kK2LitRows"])):
+        info = got[key]
+        assert info["threads"] == n and info["spill_store_bytes"] == 0
+        assert info["warps_per_sm"] == chip_smoke.blocks_per_sm(info["registers"], n) * n // 32

@@ -129,6 +129,7 @@ def struct_fields(source: Path, struct: str):
     ("march_bwd.cu", "GradArgs", cuda_grads._GradArgs),
     ("brick_common.cuh", "BrickArgs", cuda_bricks._BrickArgs),
     ("brick_bwd.cu", "BrickGradArgs", cuda_bricks._BrickGradArgs),
+    ("march_common.cuh", "Vol2", cuda_march._Vol2),
 ])
 def test_ctypes_mirrors_list_the_structs_fields(source, struct, mirror):
     """A field added to a kernel's argument struct must appear in its ctypes
@@ -143,18 +144,20 @@ def test_corner_carry_has_one_copy():
     """The cell of a sample, its fetch and the corner carry are defined once,
     in corner_carry.cuh, which the two carried scatters reach, K3
     (march_bwd.cu) and the K7 gradient segment (brick_bwd.cu, through
-    brick_common.cuh), and K5 (march_fwd.cu), which fetches its packed grid
-    at the cell."""
+    brick_common.cuh), and K5 (march_fwd.cu) and K2 (march_bwd.cu), which
+    fetch their packed grids at the cell with one blend of the corners."""
     pattern = re.compile(r"^(?:template <[^>]*>\s*)?struct (CornerCarry|Cell|ZSlab)\b|"
                          r"^__device__ __forceinline__ [\w&]+ (cell_of|fetch_cell|fetch_cell_pair|"
-                         r"corner_weights|slab_row)\(", re.M)
+                         r"corner_weights|slab_row|blend_cell|load_corners|fetch_packed2?)\(",
+                         re.M)
     found = {}
     for path in sorted(_build.CSRC_DIR.glob("*.cu*")):
         for m in pattern.finditer(path.read_text()):
             found.setdefault(m.group(1) or m.group(2), []).append(path.name)
     assert found == {name: ["corner_carry.cuh"] for name in (
         "CornerCarry", "Cell", "ZSlab", "cell_of", "fetch_cell", "fetch_cell_pair",
-        "corner_weights", "slab_row")}
+        "corner_weights", "slab_row", "blend_cell", "load_corners", "fetch_packed",
+        "fetch_packed2")}
 
     def includes(name):
         return re.findall(r'#include "(\w+\.cuh)"', (_build.CSRC_DIR / name).read_text())

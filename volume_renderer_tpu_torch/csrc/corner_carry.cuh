@@ -2,11 +2,12 @@
 //
 // What the unlit kernels share for the corners of a trilinear sample: the
 // cell (the lower corner before any clamp, and the weights), the fetch of
-// one or two volumes at its corners, and the carry that sums a ray's
-// shares of a cell's corners in registers before they go out as atomic
-// adds. The z-brick kernels address a halo-padded grid (ZSlab: its global
-// depth and the global row of its first row); a single-device kernel
-// passes whole(v), for which slab_row is clamp_index.
+// one or two volumes or of a packed grid (K5's four volumes, K2's two) at
+// its corners, and the carry that sums a ray's shares of a cell's corners
+// in registers before they go out as atomic adds. The z-brick kernels
+// address a halo-padded grid (ZSlab: its global depth and the global row of
+// its first row); a single-device kernel passes whole(v), for which
+// slab_row is clamp_index.
 
 #pragma once
 
@@ -104,6 +105,61 @@ __device__ __forceinline__ void fetch_cell_pair(const Vol& a, const Vol& b, ZSla
   }
   va = out[0];
   vb = out[1];
+}
+
+// fetch_cell's blends of the 8 corner values q[a + 2 b + 4 c]
+__device__ __forceinline__ float blend_cell(float q0, float q1, float q2, float q3, float q4,
+                                            float q5, float q6, float q7, const Cell& k) {
+  const float c00 = q0 + k.fx * (q1 - q0);
+  const float c10 = q2 + k.fx * (q3 - q2);
+  const float c01 = q4 + k.fx * (q5 - q4);
+  const float c11 = q6 + k.fx * (q7 - q6);
+  const float c0 = c00 + k.fy * (c10 - c00);
+  const float c1 = c01 + k.fy * (c11 - c01);
+  return c0 + k.fz * (c1 - c0);
+}
+
+// The 8 corners of cell k in a packed grid v (Vol4 or Vol2, whole along
+// z), c[a + 2 b + 4 c] at corner (x + a, y + b, z + c): one load a corner.
+template <class V, class T>
+__device__ __forceinline__ void load_corners(const V& v, const Cell& k, T (&c)[8]) {
+  const int x0 = clamp_index(k.x, v.w), x1 = clamp_index(k.x + 1, v.w);
+  const int y0 = clamp_index(k.y, v.h), y1 = clamp_index(k.y + 1, v.h);
+  const int z0 = clamp_index(k.z, v.d), z1 = clamp_index(k.z + 1, v.d);
+  const size_t sy = (size_t)v.w;
+  const size_t sz = (size_t)v.w * (size_t)v.h;
+  const size_t r00 = y0 * sy + z0 * sz, r10 = y1 * sy + z0 * sz;
+  const size_t r01 = y0 * sy + z1 * sz, r11 = y1 * sy + z1 * sz;
+  const T* p = v.data;
+  c[0] = __ldg(p + x0 + r00);
+  c[1] = __ldg(p + x1 + r00);
+  c[2] = __ldg(p + x0 + r10);
+  c[3] = __ldg(p + x1 + r10);
+  c[4] = __ldg(p + x0 + r01);
+  c[5] = __ldg(p + x1 + r01);
+  c[6] = __ldg(p + x0 + r11);
+  c[7] = __ldg(p + x1 + r11);
+}
+
+// The four volumes of a Vol4 at the corners of cell k (K5): one 16-byte
+// load a corner, each channel blended as sample() blends its volume, so
+// each is the float that sample() gives.
+__device__ __forceinline__ float4 fetch_packed(const Vol4& v, const Cell& k) {
+  float4 c[8];
+  load_corners(v, k, c);
+  return {blend_cell(c[0].x, c[1].x, c[2].x, c[3].x, c[4].x, c[5].x, c[6].x, c[7].x, k),
+          blend_cell(c[0].y, c[1].y, c[2].y, c[3].y, c[4].y, c[5].y, c[6].y, c[7].y, k),
+          blend_cell(c[0].z, c[1].z, c[2].z, c[3].z, c[4].z, c[5].z, c[6].z, c[7].z, k),
+          blend_cell(c[0].w, c[1].w, c[2].w, c[3].w, c[4].w, c[5].w, c[6].w, c[7].w, k)};
+}
+
+// The two volumes of a Vol2 at the corners of cell k (K2): one 8-byte load
+// a corner, each channel the float that sample() gives.
+__device__ __forceinline__ float2 fetch_packed2(const Vol2& v, const Cell& k) {
+  float2 c[8];
+  load_corners(v, k, c);
+  return {blend_cell(c[0].x, c[1].x, c[2].x, c[3].x, c[4].x, c[5].x, c[6].x, c[7].x, k),
+          blend_cell(c[0].y, c[1].y, c[2].y, c[3].y, c[4].y, c[5].y, c[6].y, c[7].y, k)};
 }
 
 // The 8 trilinear weights of cell k by slot a + 2 b + 4 c (corner

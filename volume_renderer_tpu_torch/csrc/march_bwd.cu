@@ -4,7 +4,8 @@
 // volume_renderer_tpu/ops/pallas_march.py:_march_kernel (:688), launched by
 // the pl.pallas_call at :1935 through _replay_grads_tiled (:2020) and
 // _voxel_grads_tiled (:2031):
-//   K2  grad_mode            march_bwd_kernel<LIT, SCATTER=false>
+//   K2  grad_mode            march_bwd_params_kernel (unlit),
+//                            march_bwd_lit_params_kernel (lit)
 //   K3  scatter              march_bwd_scatter_kernel (unlit)
 //   K6  scatter + lighting   march_bwd_lit_scatter_kernel
 // It computes what ops/vjp.py:replay_backward (the plain PyTorch version)
@@ -42,11 +43,16 @@
 // instructions); what it waits on is the gathers, as the forward does, and
 // the atomic units in L2.
 //
-// What the design does about it. A thread per ray; K2 in 16x16 blocks like
-// the forward, K3 and K6 in 16x8 (a warp is two rows of 16 neighbouring
-// rays, as in a 16x16 block; see their kernels), so the atomics of a warp
-// fall into few cache lines. atomicAdd whose result is unused compiles to a
-// reduction (RED) that does not wait for the old value.
+// What the design does about it. A thread per ray, in blocks 16 rays wide
+// (a warp is two rows of 16 neighbouring rays): K3 and K6 in 16x8, so the
+// atomics of a warp fall into few cache lines, K2 in 16 x kK2Rows unlit and
+// 16 x kK2LitRows lit (see their kernels). atomicAdd whose result is unused
+// compiles to a reduction (RED) that does not wait for the old value.
+// - Unlit K2 (march_bwd_params_kernel) has no scatter: what it waits on is
+//   K1's gathers. Where absorption has emission's shape it reads both from
+//   one packed (D, H, W, 2) grid, one 8-byte load a corner instead of two
+//   4-byte ones: fewer load instructions, and fewer sectors and lines a
+//   step (chip_smoke.py, gather_footprint; PERF.md).
 // - K3 (march_bwd_scatter_kernel) computes a sample's cell once for both
 //   grids where absorption has emission's shape, fetches both at its
 //   corners, and carries the ray's pending corner sums in registers
@@ -78,6 +84,7 @@
 // Mirrored field for field by GradArgs in ops/cuda_grads.py.
 struct GradArgs {
   MarchArgs m;         // out and steps are unused
+  Vol2 pair;           // unlit K2: emission and absorption of one shape, or null
   const float* g;      // (height, width, 3) pixel cotangent
   const float* image;  // (height, width, 3) the forward kernel's output
   float* d_em;         // zero-initialised gradient grids, SCATTER only;
@@ -89,6 +96,7 @@ struct GradArgs {
 
 namespace {
 
+// at least the threads of a lit block: the lights' sums live in its shared memory
 constexpr int kThreads = kBlock * kBlock;
 constexpr float kAnglePoleEps = 1e-6f;
 constexpr float kAngleFloor = 1e-6f;
@@ -273,9 +281,9 @@ __device__ __forceinline__ void angle_bwd(V3 a, V3 b, float d_ang, bool floor_, 
   db = {d_r * (a.x * inv - rb * b.x), d_r * (a.y * inv - rb * b.y), d_r * (a.z * inv - rb * b.z)};
 }
 
-// The backward march of one ray: the pixel of this thread of a COLS x ROWS
-// block.
-template <bool LIT, bool SCATTER, bool AB_ALIASED, bool RE_ALIASED, int COLS, int ROWS>
+// The lit backward march of one ray (lit K2, and K6 with SCATTER): the pixel
+// of this thread of a COLS x ROWS block.
+template <bool SCATTER, bool AB_ALIASED, bool RE_ALIASED, int COLS, int ROWS>
 __device__ __forceinline__ void march_bwd_ray(const GradArgs& ga) {
   constexpr int kT = COLS * ROWS;
   extern __shared__ float light_sums[];  // [3 n_lights][kT], a column per thread
@@ -284,7 +292,7 @@ __device__ __forceinline__ void march_bwd_ray(const GradArgs& ga) {
   const int py = blockIdx.y * ROWS + threadIdx.y;
   if (px >= a.width || py >= a.height) return;
   const int tid = threadIdx.y * COLS + threadIdx.x;
-  const int n_lights = LIT ? a.n_lights : 0;
+  const int n_lights = a.n_lights;
   for (int k = 0; k < 3 * n_lights; ++k) light_sums[k * kT + tid] = 0.0f;
 
   V3 origin, dir;
@@ -313,15 +321,9 @@ __device__ __forceinline__ void march_bwd_ray(const GradArgs& ga) {
     for (int i = 0; i < a.n_steps; ++i) {
       // ---- the step's forward values, as march_fwd.cu has them ----
       const V3 s = to_sample(a, p);
-      float em;
-      V3 grad = {0.0f, 0.0f, 0.0f};
-      if (LIT) {
-        const EmTaps e = fetch_em_taps(a, p, tap_geom(a, p, s));
-        em = e.c;
-        grad = {(e.xp - e.xm) * 0.5f, (e.yp - e.ym) * 0.5f, (e.zp - e.zm) * 0.5f};
-      } else {
-        em = sample(a.em, s);
-      }
+      const EmTaps e = fetch_em_taps(a, p, tap_geom(a, p, s));
+      const float em = e.c;
+      const V3 grad = {(e.xp - e.xm) * 0.5f, (e.yp - e.ym) * 0.5f, (e.zp - e.zm) * 0.5f};
       const float ab = AB_ALIASED ? em : sample(a.ab, s);
       const float emission = fe * em;
       const float absorption = fa * ab;
@@ -333,10 +335,10 @@ __device__ __forceinline__ void march_bwd_ray(const GradArgs& ga) {
       const V3 d_s = scale(g, tw);
       const V3 d_illum = scale(d_s, alpha);
 
-      float re = 0.0f, d_refl = 0.0f;
+      float d_refl = 0.0f;
       V3 d_grad = {0.0f, 0.0f, 0.0f};
-      if (LIT) {
-        re = RE_ALIASED ? em : sample(a.re, s);
+      {
+        const float re = RE_ALIASED ? em : sample(a.re, s);
         const float g2 = dot(grad, grad);
         const float inv = g2 > kGradEps2 ? rsqrtf(g2) : 0.0f;
         const V3 n = {grad.x * -inv, grad.y * -inv, grad.z * -inv};
@@ -412,10 +414,10 @@ __device__ __forceinline__ void march_bwd_ray(const GradArgs& ga) {
       acc_f = acc_f + d_absorption * ab;
       acc_e = acc_e + tw * alpha * em;
       if (SCATTER) {
-        // lit, the sample's coordinates and window are rebuilt from p here,
-        // not kept live through the lights
-        const V3 q = LIT ? opaque(p) : p;
-        const V3 sq = LIT ? to_sample(a, q) : s;
+        // the sample's coordinates and window are rebuilt from p here, not
+        // kept live through the lights
+        const V3 q = opaque(p);
+        const V3 sq = to_sample(a, q);
         float d_at_em = dot(d_illum, color) * tstep * fe;
         const float d_ab = d_absorption * fa;
         if (AB_ALIASED) {
@@ -423,18 +425,14 @@ __device__ __forceinline__ void march_bwd_ray(const GradArgs& ga) {
         } else {
           scatter(ga.d_ab, a.ab, sq, d_ab);
         }
-        if (LIT) {
-          const float d_re = d_refl * fr;
-          if (RE_ALIASED) {
-            d_at_em = d_at_em + d_re;
-          } else {
-            scatter(ga.d_re, a.re, sq, d_re);
-          }
-          scatter_em_taps(ga.d_em, a, q, tap_geom(a, q, sq), d_at_em,
-                          {d_grad.x * 0.5f, d_grad.y * 0.5f, d_grad.z * 0.5f});
+        const float d_re = d_refl * fr;
+        if (RE_ALIASED) {
+          d_at_em = d_at_em + d_re;
         } else {
-          scatter(ga.d_em, a.em, s, d_at_em);
+          scatter(ga.d_re, a.re, sq, d_re);
         }
+        scatter_em_taps(ga.d_em, a, q, tap_geom(a, q, sq), d_at_em,
+                        {d_grad.x * 0.5f, d_grad.y * 0.5f, d_grad.z * 0.5f});
       }
 
       // ---- advance exactly like the forward march ----
@@ -454,9 +452,15 @@ __device__ __forceinline__ void march_bwd_ray(const GradArgs& ga) {
   }
 }
 
-template <bool LIT, bool SCATTER, bool AB_ALIASED, bool RE_ALIASED>
-__global__ void __launch_bounds__(kThreads) march_bwd_kernel(const GradArgs ga) {
-  march_bwd_ray<LIT, SCATTER, AB_ALIASED, RE_ALIASED, kBlock, kBlock>(ga);
+// Lit K2 in a kernel of its own, in 16 x kK2LitRows blocks: 16x8 ran about
+// 11.0 ms against 12.8 in 16x16 at 256^3 / 512^2 on an H100, with the same
+// 128 registers a thread (PERF.md).
+constexpr int kK2LitRows = 8;
+
+template <bool AB_ALIASED, bool RE_ALIASED>
+__global__ void __launch_bounds__(kBlock * kK2LitRows)
+    march_bwd_lit_params_kernel(const GradArgs ga) {
+  march_bwd_ray<false, AB_ALIASED, RE_ALIASED, kBlock, kK2LitRows>(ga);
 }
 
 // K6 in a kernel of its own, in 16x8 blocks (a warp is two rows of 16
@@ -470,7 +474,7 @@ constexpr int kK6Cols = 16, kK6Rows = 8;
 
 template <bool AB_ALIASED, bool RE_ALIASED>
 __global__ void __maxnreg__(kMaxRegisters) march_bwd_lit_scatter_kernel(const GradArgs ga) {
-  march_bwd_ray<true, true, AB_ALIASED, RE_ALIASED, kK6Cols, kK6Rows>(ga);
+  march_bwd_ray<true, AB_ALIASED, RE_ALIASED, kK6Cols, kK6Rows>(ga);
 }
 
 // K3 in a kernel of its own: the unlit replay with the carried scatter.
@@ -576,17 +580,111 @@ __global__ void __launch_bounds__(kK3Cols * kK3Rows) march_bwd_scatter_kernel(co
   ga.planes[2 * plane + pix] = 0.0f;
 }
 
-template <bool LIT, bool SCATTER, bool AB, bool RE>
-cudaError_t launch(const GradArgs& ga, cudaStream_t stream) {
+// Unlit K2 in a kernel of its own: the replay of K1's march that leaves
+// only the per-ray planes E and F. Each step computes emission's cell once
+// (corner_carry.cuh, cell_of). PAIRED (absorption separate and of
+// emission's shape): both volumes come from the (D, H, W, 2) grid that the
+// wrapper packs for the call (ops/cuda_grads.py, pack_pair), one 8-byte
+// load a corner, 8 load instructions a step instead of 16 (fetch_packed2).
+// Otherwise emission is fetched at its cell and absorption, unless
+// aliased, at its own. Every channel is blended as sample() blends its
+// volume, so em and ab, and the step where the replay stops, are K1's
+// float for float. 16 x kK2Rows blocks: the rays of a block end at
+// different steps, and a small block gives its SM slot back sooner; at
+// 256^3 / 512^2 on an H100, 16x4 ran 2.31 ms, 16x8 2.60, 16x16 2.84, and
+// without the pack 4.05 in 16x8 (PERF.md).
+constexpr int kK2Rows = 4;
+
+template <bool AB_ALIASED, bool PAIRED>
+__global__ void __launch_bounds__(kBlock * kK2Rows) march_bwd_params_kernel(const GradArgs ga) {
+  static_assert(!(AB_ALIASED && PAIRED), "an aliased absorption is not packed");
   const MarchArgs& a = ga.m;
-  constexpr int cols = LIT && SCATTER ? kK6Cols : kBlock, rows = LIT && SCATTER ? kK6Rows : kBlock;
-  const dim3 block(cols, rows);
-  const dim3 grid((a.width + cols - 1) / cols, (a.height + rows - 1) / rows);
-  const size_t shared = LIT ? sizeof(float) * 3 * a.n_lights * cols * rows : 0;
-  if constexpr (LIT && SCATTER) {
-    march_bwd_lit_scatter_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
+  const int px = blockIdx.x * kBlock + threadIdx.x;
+  const int py = blockIdx.y * kK2Rows + threadIdx.y;
+  if (px >= a.width || py >= a.height) return;
+
+  V3 origin, dir;
+  float tnear, tfar;
+  const bool hit = make_ray(a, px, py, origin, dir, tnear, tfar);
+
+  const float* st = a.settings;
+  const size_t pix = (size_t)py * a.width + px;
+  const V3 g = {__ldg(ga.g + 3 * pix), __ldg(ga.g + 3 * pix + 1), __ldg(ga.g + 3 * pix + 2)};
+
+  float acc_e = 0.0f, acc_f = 0.0f;
+  if (hit && !(g.x == 0.0f && g.y == 0.0f && g.z == 0.0f)) {
+    const float fe = __ldg(st + 0), fa = __ldg(st + 1);
+    const V3 color = {__ldg(st + 3), __ldg(st + 4), __ldg(st + 5)};
+    const float threshold = __ldg(st + 6);
+    const float tstep = a.tstep;
+    const V3 out = {__ldg(ga.image + 3 * pix), __ldg(ga.image + 3 * pix + 1),
+                    __ldg(ga.image + 3 * pix + 2)};
+    const float total_dot = dot(g, out);
+    float sw = 0.0f, prefix = 0.0f;
+    float t = tnear;
+    V3 p = {origin.x + dir.x * tnear, origin.y + dir.y * tnear, origin.z + dir.z * tnear};
+    const V3 step = {dir.x * tstep, dir.y * tstep, dir.z * tstep};
+    for (int i = 0; i < a.n_steps; ++i) {
+      // ---- the step's forward values, as march_fwd.cu has them ----
+      const V3 s = to_sample(a, p);
+      const Cell k = cell_of(a.em, whole(a.em), s);
+      float em, ab;
+      if (PAIRED) {
+        const float2 q = fetch_packed2(ga.pair, k);
+        em = q.x;
+        ab = q.y;
+      } else {
+        em = fetch_cell(a.em, whole(a.em), k);
+        ab = AB_ALIASED ? em : fetch_cell(a.ab, whole(a.ab), cell_of(a.ab, whole(a.ab), s));
+      }
+      const float emission = fe * em;
+      const float absorption = fa * ab;
+      const float transmit = expf(-absorption * tstep);
+      const float alpha = 1.0f - transmit;
+      const V3 illum = {emission * tstep * color.x, emission * tstep * color.y,
+                        emission * tstep * color.z};
+      const float tw = 1.0f - sw;
+      const V3 d_s = scale(g, tw);
+
+      // ---- cotangents of (s, alpha) from the under operator ----
+      prefix = prefix + tw * (g.x * (illum.x * alpha) + g.y * (illum.y * alpha) +
+                              g.z * (illum.z * alpha));
+      const float one_m_a = 1.0f - alpha;
+      const float d_alpha = one_m_a > 0.0f ? -(total_dot - prefix) / one_m_a : 0.0f;
+
+      // ---- adjoint of the step, to the per-ray sums only ----
+      const float d_absorption = (d_alpha + dot(d_s, illum)) * (transmit * tstep);
+      acc_f = acc_f + d_absorption * ab;
+      acc_e = acc_e + tw * alpha * em;
+
+      // ---- advance exactly like the forward march ----
+      sw = tw * alpha + sw;
+      t = t + tstep;
+      if (!(sw <= threshold) || !(t <= tfar)) break;
+      p = {p.x + step.x, p.y + step.y, p.z + step.z};
+    }
+  }
+
+  const size_t plane = (size_t)a.width * a.height;
+  ga.planes[pix] = acc_e;
+  ga.planes[plane + pix] = acc_f;
+  ga.planes[2 * plane + pix] = 0.0f;
+}
+
+// K2 unlit: the pair where the host packed it, else each volume at its own
+// cell (absorption aliased, or of another shape).
+cudaError_t launch_unlit_params(const GradArgs& ga, bool ab_aliased, cudaStream_t stream) {
+  const MarchArgs& a = ga.m;
+  const dim3 block(kBlock, kK2Rows);
+  const dim3 grid((a.width + kBlock - 1) / kBlock, (a.height + kK2Rows - 1) / kK2Rows);
+  if (ga.pair.data != nullptr) {
+    const Vol2& q = ga.pair;
+    if (ab_aliased || q.d != a.em.d || q.h != a.em.h || q.w != a.em.w) return cudaErrorInvalidValue;
+    march_bwd_params_kernel<false, true><<<grid, block, 0, stream>>>(ga);
+  } else if (ab_aliased) {
+    march_bwd_params_kernel<true, false><<<grid, block, 0, stream>>>(ga);
   } else {
-    march_bwd_kernel<LIT, SCATTER, AB, RE><<<grid, block, shared, stream>>>(ga);
+    march_bwd_params_kernel<false, false><<<grid, block, 0, stream>>>(ga);
   }
   return cudaGetLastError();
 }
@@ -607,15 +705,31 @@ cudaError_t launch_unlit_scatter(const GradArgs& ga, bool ab_aliased, cudaStream
   return cudaGetLastError();
 }
 
-template <bool LIT, bool SCATTER>
-cudaError_t launch_aliasing(const GradArgs& ga, bool ab_aliased, bool re_aliased,
-                            cudaStream_t stream) {
-  if (ab_aliased) {
-    return (!LIT || re_aliased) ? launch<LIT, SCATTER, true, true>(ga, stream)
-                                : launch<LIT, SCATTER, true, false>(ga, stream);
+// Lit K2 (SCATTER false) and K6, by which roles are aliased to emission.
+template <bool SCATTER, bool AB, bool RE>
+cudaError_t launch_lit(const GradArgs& ga, cudaStream_t stream) {
+  const MarchArgs& a = ga.m;
+  constexpr int cols = SCATTER ? kK6Cols : kBlock, rows = SCATTER ? kK6Rows : kK2LitRows;
+  const dim3 block(cols, rows);
+  const dim3 grid((a.width + cols - 1) / cols, (a.height + rows - 1) / rows);
+  const size_t shared = sizeof(float) * 3 * a.n_lights * cols * rows;
+  if constexpr (SCATTER) {
+    march_bwd_lit_scatter_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
+  } else {
+    march_bwd_lit_params_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
   }
-  return (!LIT || re_aliased) ? launch<LIT, SCATTER, false, true>(ga, stream)
-                              : launch<LIT, SCATTER, false, false>(ga, stream);
+  return cudaGetLastError();
+}
+
+template <bool SCATTER>
+cudaError_t launch_lit_aliasing(const GradArgs& ga, bool ab_aliased, bool re_aliased,
+                                cudaStream_t stream) {
+  if (ab_aliased) {
+    return re_aliased ? launch_lit<SCATTER, true, true>(ga, stream)
+                      : launch_lit<SCATTER, true, false>(ga, stream);
+  }
+  return re_aliased ? launch_lit<SCATTER, false, true>(ga, stream)
+                    : launch_lit<SCATTER, false, false>(ga, stream);
 }
 
 }  // namespace
@@ -639,11 +753,11 @@ int vr_march_bwd(const GradArgs* args, int lit, int scatter, int ab_aliased, int
   if (lit && ga.m.n_lights > vr_march_bwd_max_lights()) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lit) {
-    return (int)(scatter ? launch_aliasing<true, true>(ga, ab_aliased, re_aliased, s)
-                         : launch_aliasing<true, false>(ga, ab_aliased, re_aliased, s));
+    return (int)(scatter ? launch_lit_aliasing<true>(ga, ab_aliased, re_aliased, s)
+                         : launch_lit_aliasing<false>(ga, ab_aliased, re_aliased, s));
   }
   return (int)(scatter ? launch_unlit_scatter(ga, ab_aliased, s)
-                       : launch_aliasing<false, false>(ga, ab_aliased, re_aliased, s));
+                       : launch_unlit_params(ga, ab_aliased, s));
 }
 
 const char* vr_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -33,6 +33,13 @@ struct Vol4 {
   int d, h, w;
 };
 
+// Two float32 (D, H, W) volumes packed as one (D, H, W, 2) grid, x fastest:
+// a voxel's two values are one 8-byte load.
+struct Vol2 {
+  const float2* data;
+  int d, h, w;
+};
+
 // Mirrored field for field by MarchArgs in ops/cuda_march.py.
 struct MarchArgs {
   Vol em, ab, re, gx, gy, gz, lut;

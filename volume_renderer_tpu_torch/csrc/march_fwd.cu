@@ -63,7 +63,7 @@
 // (ops/cuda_march.py, pack_lookup) and a corner of the four is one 16-byte
 // load: 8 load instructions for the four instead of 32, and 32 a step
 // instead of 56 with absorption, reflection and the LUT. One cell
-// (corner_carry.cuh, cell_of) serves the pack, and absorption and
+// (corner_carry.cuh: cell_of, fetch_packed) serves the pack, and absorption and
 // reflection where they have its shape (fetch_cell). Each channel is
 // blended as sample() blends its volume, so the image stays the plain
 // version's float for float. Gradient volumes of another shape take the
@@ -81,40 +81,6 @@
 #include "corner_carry.cuh"
 
 namespace {
-
-// fetch_cell's blends of the 8 corner values q[a + 2 b + 4 c]
-__device__ __forceinline__ float blend_cell(float q0, float q1, float q2, float q3, float q4,
-                                            float q5, float q6, float q7, const Cell& k) {
-  const float c00 = q0 + k.fx * (q1 - q0);
-  const float c10 = q2 + k.fx * (q3 - q2);
-  const float c01 = q4 + k.fx * (q5 - q4);
-  const float c11 = q6 + k.fx * (q7 - q6);
-  const float c0 = c00 + k.fy * (c10 - c00);
-  const float c1 = c01 + k.fy * (c11 - c01);
-  return c0 + k.fz * (c1 - c0);
-}
-
-// The four packed volumes at the corners of cell k: one 16-byte load a
-// corner, each channel blended as sample() blends its volume, so each is
-// the float that sample() gives.
-__device__ __forceinline__ float4 fetch_packed(const Vol4& v, const Cell& k) {
-  const int x0 = clamp_index(k.x, v.w), x1 = clamp_index(k.x + 1, v.w);
-  const int y0 = clamp_index(k.y, v.h), y1 = clamp_index(k.y + 1, v.h);
-  const int z0 = clamp_index(k.z, v.d), z1 = clamp_index(k.z + 1, v.d);
-  const size_t sy = (size_t)v.w;
-  const size_t sz = (size_t)v.w * (size_t)v.h;
-  const size_t r00 = y0 * sy + z0 * sz, r10 = y1 * sy + z0 * sz;
-  const size_t r01 = y0 * sy + z1 * sz, r11 = y1 * sy + z1 * sz;
-  const float4* p = v.data;
-  const float4 c0 = __ldg(p + x0 + r00), c1 = __ldg(p + x1 + r00);
-  const float4 c2 = __ldg(p + x0 + r10), c3 = __ldg(p + x1 + r10);
-  const float4 c4 = __ldg(p + x0 + r01), c5 = __ldg(p + x1 + r01);
-  const float4 c6 = __ldg(p + x0 + r11), c7 = __ldg(p + x1 + r11);
-  return {blend_cell(c0.x, c1.x, c2.x, c3.x, c4.x, c5.x, c6.x, c7.x, k),
-          blend_cell(c0.y, c1.y, c2.y, c3.y, c4.y, c5.y, c6.y, c7.y, k),
-          blend_cell(c0.z, c1.z, c2.z, c3.z, c4.z, c5.z, c6.z, c7.z, k),
-          blend_cell(c0.w, c1.w, c2.w, c3.w, c4.w, c5.w, c6.w, c7.w, k)};
-}
 
 __device__ __forceinline__ bool same_shape(const Vol& a, const Vol& b) {
   return a.d == b.d && a.h == b.h && a.w == b.w;

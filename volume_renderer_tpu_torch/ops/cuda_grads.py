@@ -11,11 +11,13 @@ touches a grid, for transfer-function fits.
 For a scene on a CUDA device both run ``csrc/march_bwd.cu``: one launch per
 call, after one launch of the forward kernel unless ``image=`` hands its
 output in. Unlit with grids is mode K3, lit (on-the-fly gradients) with
-grids K6, parameters only K2. For a scene on the CPU they run the plain
-version, ``ops.vjp.replay_backward``. There is no fallback: on a CUDA scene
-a failed build, a tensor the kernel does not take or a refused launch
-raises. A lit scene with lookup gradient volumes has no backward kernel and
-raises on every device; ``ops.vjp.render_fused`` differentiates it.
+grids K6, parameters only K2; unlit K2 reads emission and absorption of one
+shape from one grid packed for the call (``pack_pair``). For a scene on the
+CPU they run the plain version, ``ops.vjp.replay_backward``. There is no
+fallback: on a CUDA scene a failed build, a tensor the kernel does not take
+or a refused launch raises. A lit scene with lookup gradient volumes has no
+backward kernel and raises on every device; ``ops.vjp.render_fused``
+differentiates it.
 
 Both follow the kernel's angle adjoint (``angle_floor=True``, see
 ``ops.vjp.angle_backward``), on the CPU too, so the two devices agree; the
@@ -32,7 +34,8 @@ import torch
 
 from volume_renderer_tpu_torch.models.scene import RenderOptions, Scene
 from volume_renderer_tpu_torch.ops import _build, cuda_march
-from volume_renderer_tpu_torch.ops.cuda_march import _MarchArgs, _checked, render_forward_fast
+from volume_renderer_tpu_torch.ops.cuda_march import (
+    _MarchArgs, _Vol2, _checked, interleave, render_forward_fast)
 from volume_renderer_tpu_torch.ops.vjp import replay_backward
 
 PARAM_KEYS = ("factor_emission", "factor_absorption", "factor_reflection", "color",
@@ -44,6 +47,7 @@ class _GradArgs(ctypes.Structure):
 
     _fields_ = [
         ("m", _MarchArgs),
+        ("pair", _Vol2),
         ("g", ctypes.c_void_p),
         ("image", ctypes.c_void_p),
         ("d_em", ctypes.c_void_p),
@@ -68,6 +72,17 @@ def _library() -> ctypes.CDLL:
             raise RuntimeError("GradArgs in csrc/march_bwd.cu and its ctypes mirror differ")
         lib._vr_typed = True
     return lib
+
+
+def pack_pair(scene: Scene) -> Optional[torch.Tensor]:
+    """Unlit K2's packed grid: emission and absorption as one contiguous
+    float32 (D, H, W, 2) tensor, channels (emission, absorption), so that
+    the kernel loads a corner of both at once. Made for each call; None
+    where absorption is aliased to emission or has another shape (the
+    kernel then fetches each volume on its own)."""
+    if scene.absorption_aliased:
+        return None
+    return interleave([scene.emission.data, scene.absorption.data])
 
 
 def grad_mode(scene: Scene, scatter: bool) -> str:
@@ -110,6 +125,13 @@ def march_backward(scene: Scene, opts: RenderOptions, g: torch.Tensor, image: to
             grids["reflection"] = torch.zeros_like(scene.reflection.data)
     planes = torch.empty((3 + 3 * n_lights, opts.height, opts.width), dtype=torch.float32,
                          device=dev)
+    # unlit K2: the pair stays referenced until the launch is enqueued
+    pair = pack_pair(scene) if not (lit or scatter) else None
+    if pair is not None:
+        d, h, w, _ = _checked(pair, "packed emission and absorption", dev, 4).shape
+        if pair.data_ptr() % 8:
+            raise ValueError("the packed emission and absorption must be 8-byte aligned")
+        args.pair = _Vol2(pair.data_ptr(), d, h, w)
     args.g, args.image, args.planes = g.data_ptr(), image.data_ptr(), planes.data_ptr()
     args.d_em, args.d_ab, args.d_re = (
         grids[k].data_ptr() if k in grids else None

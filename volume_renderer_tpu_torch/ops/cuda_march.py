@@ -62,6 +62,12 @@ class _Vol4(ctypes.Structure):
     _fields_ = _Vol._fields_
 
 
+class _Vol2(ctypes.Structure):
+    """Mirror of ``Vol2``: a (D, H, W, 2) float32 grid."""
+
+    _fields_ = _Vol._fields_
+
+
 class _MarchArgs(ctypes.Structure):
     """Mirror of ``MarchArgs`` in csrc/march_common.cuh."""
 
@@ -193,19 +199,25 @@ def march_args(scene: Scene, opts: RenderOptions, camera_x_offset: float,
     return args, settings
 
 
+def interleave(vols) -> Optional[torch.Tensor]:
+    """The (D, H, W) volumes ``vols`` as one contiguous (D, H, W, n) tensor,
+    channel c volume c, so that a kernel loads a voxel of all n at once; None
+    where they differ in shape. A layout copy. Stacked as (n, D, H, W), then
+    transposed: on an H100 that copy takes a quarter of the time of
+    ``torch.stack(..., dim=-1)`` (PERF.md)."""
+    if any(v.shape != vols[0].shape for v in vols):
+        return None
+    return torch.stack(vols).permute(1, 2, 3, 0).contiguous()
+
+
 def pack_lookup(scene: Scene) -> Optional[torch.Tensor]:
     """K5's packed grid: emission and the three gradient volumes as one
     contiguous float32 (D, H, W, 4) tensor, channels (emission, gradient_x,
     gradient_y, gradient_z), so that the kernel loads a corner of the four
-    at once. A layout copy, made for each render; None where the four differ
-    in shape (the kernel then fetches each volume on its own). Stacked as
-    (4, D, H, W), then transposed: on an H100 that copy takes a quarter of
-    the time of ``torch.stack(..., dim=-1)`` (PERF.md)."""
-    vols = [v.data for v in (scene.emission, scene.gradient_x, scene.gradient_y,
-                             scene.gradient_z)]
-    if any(v.shape != vols[0].shape for v in vols):
-        return None
-    return torch.stack(vols).permute(1, 2, 3, 0).contiguous()
+    at once. Made for each render; None where the four differ in shape (the
+    kernel then fetches each volume on its own)."""
+    return interleave([v.data for v in (scene.emission, scene.gradient_x, scene.gradient_y,
+                                        scene.gradient_z)])
 
 
 def render_forward_fast(scene: Scene, opts: RenderOptions, camera_x_offset: float = 0.0,
