@@ -37,13 +37,17 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             the lit one (K4 + K6), and a three-step transfer-parameter fit
             through transfer_grads_fast (K1 + K2), counted like phase 5.
             The loss must fall. Before the counted steps, the first step's
-            gradients are held against the plain replay on a 64-row band,
-            and lit K2 against the lit step's replay.
+            gradients are held against the plain replay on a 64-row band
+            (rows 224-287), and lit K2 against the lit step's replay; K3 and
+            K6 are held there twice: launched over the whole image with the
+            cotangent zero outside the band, and over the band alone.
 7. timing:  the forward kernel (CUDA events, warm, median of 5) and the
             plain version at 256^3 / 512^2 and 512^3 / 1024^2 (K1, K4, K5;
             at 512^3 the plain version on a 64-row band through the
             middle), with rays/s, the march samples the rays took and the
-            bound, K5's pack alone (its forward includes it) and, at
+            bound, the kernel over a band of 64 rows alone (rows 384-447
+            at 512^2, the plain band at 1024^2) against the same plain rows,
+            K5's pack alone (its forward includes it) and, at
             256^3 / 512^2, the gather model (gather_footprint) of its
             float4 corner loads against float32 ones on a 64-row band;
             then the forward + backward pair, the backward kernel
@@ -103,6 +107,27 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             2's calls, in their record checks and in the bricked forward;
             the bricked images, every brick's exit opacity, and phase 1's
             opacities and entry records on both scenes must be equal).
+12. dp_vs_single: rays-DP (parallel/pallas_dp.py) at 128^3 / 256x192
+            with 5 bands on the one card, the last one shorter: the K1, K4
+            and K5 band launches joined must equal the single launch's image
+            bit for bit, and the K3 and K6 gradients summed over the bands
+            its gradients (grids within 1e-5 of scale, other keys 1e-4; lit
+            factor_reflection nonzero), also for an unlit scene with a
+            reflection volume of its own, whose grid the bands share zeroed;
+            the memory each DP backward call takes at its peak must stay
+            within its grids and half a grid.
+13. dp_main_path: at 256^3 / 512^2 with make_mesh(4), counted like phase 5:
+            render_forward_fast_sharded on the K1, K4 and K5 scenes (4
+            launches a render, K5's pack made once a render), three Adam
+            steps of train_step_fast_sharded unlit (4 K1 + 4 K3 a step) and
+            lit (4 K4 + 4 K6), the loss falling and the first step's
+            gradients held against voxel_grads_fast as in phase 12; one
+            train_step_sharded step at 64^3 / 64^2 on 2 bands against
+            train.train_step; a 2 x 2 rows x bricks render_forward_bricked
+            (plain passes) at 64^3 / 64x48 against the K4 kernel. Then the
+            DP forward, backward and step beside the single-device ones
+            (CUDA events, warm, median of 5), the band launches alone on
+            one stream, the host's time and each step's peak memory.
 
 Then the kernels line and, last, {"ok": true, "device": {...}}. It needs
 the repository around it and a CUDA card; it imports nothing of JAX.
@@ -112,6 +137,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -135,6 +161,10 @@ BIG = dict(volume=512, image=1024, band=64)
 # gradient is 1e5 times the unlit one, and steps of 2e-5 per voxel already
 # scramble the normals and raise the loss.
 TRAIN_STEPS, BAND = 3, 64
+# rays-DP: bands at COMPARE's size (the last one shorter) and on the main path;
+# the plain train_step_sharded and the rows x bricks render at a small size
+DP_BANDS, DP_MAIN_BANDS = 5, 4
+DP_SMALL = dict(volume=64, image=64, brick_image=(64, 48))
 TRAIN_LR = {"K3": 2e-3, "K6": 2e-6, "K2": 1e-2}
 
 # Published peaks of one H100 SXM at its full 700 W power limit.
@@ -971,6 +1001,9 @@ def main() -> None:
                   "seconds": time.perf_counter() - t_turn})
         return
 
+    # imported here, not above: the turns may import an older port without it
+    from volume_renderer_tpu_torch.ops.cuda_march import render_rows_fast
+
     # ---- 2. goldens through the facade ----------------------------------
     # the scenes of tests/test_goldens.py, rebuilt with numpy
     def golden_vols(n=18):
@@ -1205,13 +1238,20 @@ def main() -> None:
         entry = voxel_grads_fast if scatter else transfer_grads_fast
         _, got = entry(scene, opts, g_band, image=img)
         got_k2 = transfer_grads_fast(scene, opts, g_band, image=img)[1] if also_k2 else None
+        cut = slice(band0, band0 + BAND)
+        # K3 and K6 also over the band alone, as rays-DP launches them
+        got_alone = voxel_grads_fast(scene, opts, g[cut].contiguous(), image=img[cut].contiguous(),
+                                     y_offset=band0, n_rows=BAND)[1] if scatter else None
         torch.cuda.synchronize()
         want, plain_ms = timed(lambda: replay_backward(
-            scene, opts, g[band0:band0 + BAND].contiguous(), img[band0:band0 + BAND].contiguous(),
+            scene, opts, g[cut].contiguous(), img[cut].contiguous(),
             y_offset=band0, n_rows=BAND, angle_floor=True))
         mode = grad_mode(scene, scatter)
-        out = {"mode": mode, "band_rows": BAND, "plain_ms": plain_ms,
+        out = {"mode": mode, "band_rows": BAND, "band_first_row": band0, "plain_ms": plain_ms,
                "err_of_scale": check_grads(name, got, want, mode)}
+        if scatter:
+            out["band_alone_err_of_scale"] = check_grads(name + " band alone", got_alone, want,
+                                                         mode)
         if also_k2:
             out["K2"] = {"mode": "K2", "band_rows": BAND, "plain_ms": plain_ms,
                          "err_of_scale": check_grads(name + " K2", got_k2, want, "K2")}
@@ -1306,6 +1346,11 @@ def main() -> None:
         end.record()
         end.synchronize()
         err = check(f"timing cell {mode} {size}", img[y0:y0 + rows], plain, *tol[mode], mode)
+        # the kernel over a band alone, as rays-DP launches it, against the same plain rows
+        by0, brows = (y0, rows) if band_rows else (3 * size // 4, BAND)
+        band_err = check(f"timing cell {mode} {size} band alone",
+                         render_rows_fast(scene, opts, 0.0, by0, brows),
+                         plain[by0 - y0:by0 - y0 + brows], *tol[mode], mode)
         samples = int(steps.sum())
         n_lights = 0 if mode == "K1" else scene.light_positions.shape[0]
         flops = samples * flops_per_step(mode, scene.absorption_aliased,
@@ -1335,6 +1380,7 @@ def main() -> None:
                 "samples_per_ray": samples / (size * size), "flops": flops, "bytes": nbytes,
                 "bound_ms": bound[bound_by], "bound_by": bound_by,
                 "plain_ms": start.elapsed_time(end), "plain_rows": rows, "max_abs_err": err,
+                "band_alone": {"first_row": by0, "rows": brows, "max_abs_err": band_err},
                 "finite": bool(torch.isfinite(img).all()),
                 "nonzero_frac": float((img.amax(-1) > 0).float().mean())}
 
@@ -1917,6 +1963,244 @@ def main() -> None:
                 "turn_seconds": {who: [t["seconds"] for t in ts] for who, ts in turns.items()},
                 "cells": compared, "seconds": time.perf_counter() - t_phase})
 
+    # ---- 12. rays-DP against the single-device kernels at 128^3 / 256x192 --
+    # Five bands on the one card, the last one shorter (bands(192, 5): 39
+    # rows each, 36 in the last). A band's rays are the whole image's, so
+    # K1, K4 and K5 give the single launch's image bit for bit. K3 and K6 add
+    # the same per-sample atomic adds, split over the bands, into one set of
+    # grids: within the carried grids' 1e-5 of scale, other keys GRAD_TOL.
+    def dp_grads_check(name, got, want):
+        errs = check_grads(name, got, want, None, keys=want.keys())
+        for key, err in errs.items():
+            limit = BRICK_GRAD_TOL if key in ("emission", "absorption", "reflection") else GRAD_TOL
+            if err > limit:
+                raise RuntimeError(f"{name} {key}: the bands' gradient is {err:.3e} of its scale "
+                                   f"off the single launch's")
+        return errs
+
+    # imported here, not above: phase 11's turns import older versions of the port
+    from volume_renderer_tpu_torch.parallel import pallas_dp, sharding
+    from volume_renderer_tpu_torch.parallel.mesh import make_mesh_2d
+
+    t_phase = time.perf_counter()
+    dp_mesh = make_mesh(DP_BANDS)
+    dp_compare = {"bands": sharding.bands(COMPARE["height"], DP_BANDS)}
+    for mode in ("K1", "K4", "K5"):
+        scene = flagship(COMPARE["volume"], mode, ab_aliased=False)
+        opts = scene.options(COMPARE["width"], COMPARE["height"])
+        single = render_forward_fast(scene, opts)
+        got = pallas_dp.render_forward_fast_sharded(scene, opts, mesh=dp_mesh)
+        torch.cuda.synchronize()
+        if not torch.equal(got, single):
+            raise RuntimeError(f"rays-DP {mode}: the bands' image is "
+                               f"{float((got - single).abs().max()):.3e} off the single launch's")
+        dp_compare[mode] = {"max_abs_err": 0.0, "bit_equal": True}
+    # K3 also on an unlit scene with a reflection volume of its own: its
+    # zeroed grid is one of the set the bands share, not one a band
+    for case, fwd_mode in (("K3", "K1"), ("K3_own_reflection", "K1"), ("K6", "K4")):
+        mode = case[:2]
+        scene = flagship(COMPARE["volume"], fwd_mode, ab_aliased=False, noise=0.05)
+        if case == "K3_own_reflection":
+            scene = scene.replace(reflection=Volume.create(scene.emission.data * 0.8))
+        opts = scene.options(COMPARE["width"], COMPARE["height"])
+        g = cotangent(COMPARE["height"], COMPARE["width"], seed=40 + len(dp_compare))
+        img, want = voxel_grads_fast(scene, opts, g)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dp_img, got = pallas_dp.voxel_grads_fast_sharded(scene, opts, g, mesh=dp_mesh)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        if not torch.equal(dp_img, img):
+            raise RuntimeError(f"rays-DP {case}: the bands' image differs")
+        # one set of grids however many bands; the rest (the image, the
+        # per-ray planes, the parameters' sums) is under a megabyte here
+        grid = scene.emission.data.numel() * 4
+        n_grids = len(cuda_grads.zero_grids(scene))
+        if peak > (n_grids + 0.5) * grid:
+            raise RuntimeError(f"rays-DP {case}: the backward took {peak / 2 ** 20:.1f} MiB at "
+                               f"its peak, more than its {n_grids} grids of "
+                               f"{grid / 2 ** 20:.1f} MiB and half a grid")
+        cell = {"err_of_scale": dp_grads_check(f"rays-DP {case}", got, want),
+                "peak_mib": peak / 2 ** 20, "grids": n_grids, "grid_mib": grid / 2 ** 20}
+        if case == "K3_own_reflection" and bool(got["reflection"].any()):
+            raise RuntimeError("the unlit rays-DP reflection gradient is not zero")
+        if mode == "K6":
+            cell["factor_reflection"] = [float(got["factor_reflection"]),
+                                         float(want["factor_reflection"])]
+            if not cell["factor_reflection"][0] != 0.0:
+                raise RuntimeError("the lit rays-DP gradient of factor_reflection is zero")
+        dp_compare[case] = cell
+        del scene, got, want
+    record({"phase": "dp_vs_single", "volume": COMPARE["volume"],
+            "image": [COMPARE["width"], COMPARE["height"]], "bands": DP_BANDS,
+            "device": "every band on cuda:0", "volume_noise": 0.05,
+            "tolerance_of_scale": {"grids": BRICK_GRAD_TOL, "others": GRAD_TOL},
+            "images_bit_equal": ["K1", "K4", "K5"], "cases": dp_compare,
+            "seconds": time.perf_counter() - t_phase})
+    torch.cuda.empty_cache()
+
+    # ---- 13. the rays-DP main path at 256^3 / 512^2 -------------------------
+    t_phase = time.perf_counter()
+    dp_mesh = make_mesh(DP_MAIN_BANDS)
+    dp_scenes = {mode: flagship(MAIN["volume"], mode, ab_aliased=False)
+                 for mode in ("K1", "K4", "K5")}
+    opts = dp_scenes["K1"].options(size, size)
+    singles = {mode: render_forward_fast(s, opts) for mode, s in dp_scenes.items()}
+    # K5's pack is made once a render, not once a band: counted where it is called
+    packs, pack = [0], cuda_march.pack_lookup
+
+    def counted_pack(scene):
+        packs[0] += 1
+        return pack(scene)
+
+    cuda_march.pack_lookup = pallas_dp.pack_lookup = counted_pack
+    try:
+        torch.cuda.synchronize()
+        cuda_march.reset_launch_counts()
+        dp_images = {mode: pallas_dp.render_forward_fast_sharded(s, opts, mesh=dp_mesh)
+                     for mode, s in dp_scenes.items()}
+        torch.cuda.synchronize()
+        dp_render_launches = dict(cuda_march.LAUNCHES_BY_MODE)
+    finally:
+        cuda_march.pack_lookup = pallas_dp.pack_lookup = pack
+    expected = {k: DP_MAIN_BANDS if k in ("K1", "K4", "K5") else 0 for k in dp_render_launches}
+    want_packs = 1 if dev.type == "cuda" else 0  # the plain version reads no pack
+    if dp_render_launches != expected or packs[0] != want_packs:
+        raise RuntimeError(f"the rays-DP render launched {dp_render_launches} and packed "
+                           f"{packs[0]} times, expected {expected} and {want_packs}")
+    for mode, img in dp_images.items():
+        if not (torch.equal(img, singles[mode]) and float(img.amax()) > 0):
+            raise RuntimeError(f"the rays-DP {mode} render differs from the single launch's")
+
+    # the training steps: the first step's gradients against the single kernels
+    dp_runs, dp_first, dp_timing = {}, {}, {}
+    dp_train = {}
+    for mode, fwd_mode in (("K3", "K1"), ("K6", "K4")):
+        scene = flagship(MAIN["volume"], fwd_mode, ab_aliased=False, noise=0.05)
+        target = render_forward_fast(scene, opts)
+        params, static_scene = train.split_params(scene)
+        with torch.no_grad():
+            params["emission"].mul_(1.3).add_(0.05)
+            merged = train.merge_params(params, static_scene)
+            img = render_forward_fast(merged, opts)
+            g = 2.0 * (img - target)
+            _, want = voxel_grads_fast(merged, opts, g, image=img)
+            dp_img, got = pallas_dp.voxel_grads_fast_sharded(merged, opts, g, mesh=dp_mesh)
+        if not torch.equal(dp_img, img):
+            raise RuntimeError(f"rays-DP {mode}: the first step's image differs")
+        dp_first[mode] = dp_grads_check(f"rays-DP first step {mode}", got, want)
+        if mode == "K6" and not float(got["factor_reflection"]) != 0.0:
+            raise RuntimeError("the lit rays-DP step has no factor_reflection gradient")
+        dp_train[mode] = (params, torch.optim.Adam(list(params.values()), lr=TRAIN_LR[mode]),
+                          static_scene, target)
+        dp_runs[mode] = (lambda p=params, o=dp_train[mode][1], sc=static_scene, t=target:
+                         pallas_dp.train_step_fast_sharded(p, o, sc, opts, t, mesh=dp_mesh))
+        del merged, img, g, want, got, dp_img
+    torch.cuda.synchronize()
+    cuda_march.reset_launch_counts()
+    dp_losses = {mode: [float(step()) for _ in range(TRAIN_STEPS)]
+                 for mode, step in dp_runs.items()}
+    torch.cuda.synchronize()
+    dp_train_launches = dict(cuda_march.LAUNCHES_BY_MODE)
+    per_step = DP_MAIN_BANDS * TRAIN_STEPS
+    expected = {k: per_step if k in ("K1", "K3", "K4", "K6") else 0 for k in dp_train_launches}
+    if dp_train_launches != expected:
+        raise RuntimeError(f"the rays-DP steps launched {dp_train_launches}, expected {expected}")
+    for mode, values in dp_losses.items():
+        if not (all(np.isfinite(values)) and all(b < a for a, b in zip(values, values[1:]))):
+            raise RuntimeError(f"the rays-DP {mode} loss did not fall: {values}")
+
+    # train_step_sharded (plain autograd per band) against train.train_step
+    small = flagship(DP_SMALL["volume"], "K1", ab_aliased=False, noise=0.05)
+    small_opts = small.options(DP_SMALL["image"], DP_SMALL["image"])
+    small_target = render_forward_fast(small, small_opts)
+    autograd_steps = {}
+    for name, step in (("train_step", train.train_step),
+                       ("train_step_sharded", functools.partial(train.train_step_sharded,
+                                                                mesh=make_mesh(2)))):
+        params, static_scene = train.split_params(small)
+        with torch.no_grad():
+            params["emission"].mul_(1.3).add_(0.05)
+        optimizer = torch.optim.SGD(list(params.values()), lr=1e-3)
+        loss = float(step(params, optimizer, static_scene, small_opts, small_target))
+        autograd_steps[name] = (loss, {k: p.grad for k, p in params.items()})
+    (l_one, g_one), (l_dp, g_dp) = autograd_steps.values()
+    sharded_step = {"loss": [l_dp, l_one], "grads_err_of_scale": dp_grads_check(
+        "train_step_sharded", g_dp, g_one)}
+    if abs(l_dp - l_one) > 1e-5 * abs(l_one):
+        raise RuntimeError(f"train_step_sharded's loss {l_dp} is not train_step's {l_one}")
+
+    # the rows x bricks mesh: plain brick passes, 2 bands of 2 bricks
+    lit_small = flagship(DP_SMALL["volume"], "K4", ab_aliased=False)
+    lit_opts = lit_small.options(*DP_SMALL["brick_image"])
+    mesh_2d_err = check("rows x bricks render",
+                        bricks.render_forward_bricked(lit_small, lit_opts,
+                                                      mesh=make_mesh_2d(2, 2)),
+                        render_forward_fast(lit_small, lit_opts), *tol["K4"], None)
+    del small, small_target, lit_small, autograd_steps, g_one, g_dp
+
+    # times (CUDA events, warm, median of 5): the single launch, the DP path
+    # (its bands on streams of their own), and its four band launches alone,
+    # one after another on one stream; the host's time in both paths
+    for mode, scene in dp_scenes.items():
+        layout = sharding.bands(size, DP_MAIN_BANDS)
+
+        def bands_alone(s=scene):
+            packed = cuda_march.pack_lookup(s) if kernel_mode(s) == "K5" else None
+            return [render_rows_fast(s, opts, 0.0, y0, rows, packed=packed)
+                    for y0, rows in layout]
+
+        dp_timing[f"{mode}_forward"] = {
+            "single_ms": median_ms(lambda s=scene: render_forward_fast(s, opts))[0],
+            "dp_ms": median_ms(lambda s=scene: pallas_dp.render_forward_fast_sharded(
+                s, opts, mesh=dp_mesh))[0],
+            "bands_one_stream_ms": median_ms(bands_alone)[0],
+            "single_host_ms": host_ms(lambda s=scene: render_forward_fast(s, opts)),
+            "dp_host_ms": host_ms(lambda s=scene: pallas_dp.render_forward_fast_sharded(
+                s, opts, mesh=dp_mesh))}
+    del dp_scenes, singles, dp_images
+    for mode, (params, optimizer, static_scene, target) in dp_train.items():
+        with torch.no_grad():  # the backward alone, from the step's forward image
+            merged = train.merge_params(params, static_scene)
+            img = render_forward_fast(merged, opts)
+            g = 2.0 * (img - target)
+            cell = {"single_backward_ms": median_ms(
+                        lambda: voxel_grads_fast(merged, opts, g, image=img))[0],
+                    "dp_backward_ms": median_ms(lambda: pallas_dp.voxel_grads_fast_sharded(
+                        merged, opts, g, image=img, mesh=dp_mesh))[0]}
+            del merged, img, g
+        for name, step in (
+                ("single", lambda: train.train_step_fast(params, optimizer, static_scene, opts,
+                                                         target)),
+                ("dp", lambda: pallas_dp.train_step_fast_sharded(
+                    params, optimizer, static_scene, opts, target, mesh=dp_mesh))):
+            cell[f"{name}_ms"] = median_ms(step)[0]
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step()
+            torch.cuda.synchronize()
+            cell[f"{name}_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        dp_timing[f"{mode}_step"] = cell
+    record({"phase": "dp_main_path",
+            "entry": ["render_forward_fast_sharded", "train_step_fast_sharded",
+                      "train_step_sharded", "render_forward_bricked (rows x bricks)"],
+            "volume": MAIN["volume"], "image": size, "bands": DP_MAIN_BANDS,
+            "device": "every band on cuda:0", "render_launches": dp_render_launches,
+            "k5_packs_a_render": packs[0], "train_launches": dp_train_launches,
+            "steps": TRAIN_STEPS, "optimizer": "Adam", "lr": TRAIN_LR, "volume_noise": 0.05,
+            "losses": dp_losses, "first_step_vs_single_of_scale": dp_first,
+            "train_step_sharded_vs_train_step": {"volume": DP_SMALL["volume"],
+                                                 "image": DP_SMALL["image"], "bands": 2,
+                                                 "optimizer": "SGD", **sharded_step},
+            "rows_x_bricks_2x2_vs_K4": {"volume": DP_SMALL["volume"],
+                                        "image": DP_SMALL["brick_image"],
+                                        "max_abs_err": mesh_2d_err},
+            "ms": dp_timing, "seconds": time.perf_counter() - t_phase})
+    del dp_train, dp_runs
+    torch.cuda.empty_cache()
+
     # ---- kernels line and the result ------------------------------------
     kernels = []
     for mode, what in (("K1", "unlit"), ("K4", "lit, on-the-fly gradients"),
@@ -1927,6 +2211,8 @@ def main() -> None:
             "source": "volume_renderer_tpu_torch/csrc/march_fwd.cu",
             "replaces": "volume_renderer_tpu/ops/pallas_march.py:688",
             "launches": launches[mode], "max_abs_err": max_err[mode],
+            "dp_launches": dp_render_launches[mode],
+            "dp_forward_ms": dp_timing[f"{mode}_forward"]["dp_ms"],
             "ms": cell["ms"], "plain_ms": cell["plain_ms"], "bound_ms": cell["bound_ms"],
             "bound_by": cell["bound_by"], "library_ms": None,
             "mode": what, "cell": f"{MAIN['volume']}^3 volume, {MAIN['image']}^2 image",
@@ -1941,6 +2227,7 @@ def main() -> None:
             "source": "volume_renderer_tpu_torch/csrc/march_bwd.cu",
             "replaces": "volume_renderer_tpu/ops/pallas_march.py:688",
             "launches": train_launches[mode], "max_abs_err": grad_abs_err[mode],
+            "dp_launches": dp_train_launches[mode],
             "max_err_of_scale": grad_err[mode],
             "ms": cell["ms"], "plain_ms": cell["plain_ms"], "plain_rows": cell["plain_rows"],
             "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"], "library_ms": None,

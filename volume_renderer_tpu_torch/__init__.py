@@ -12,7 +12,10 @@ and the backward of ``render_fused``. ``train`` holds the training steps.
 ``parallel.bricks`` cuts the volume along z into bricks over a list of
 devices (``parallel.mesh.make_mesh``), each marched by the brick kernels
 (``csrc/brick_fwd.cu``, ``csrc/brick_bwd.cu`` behind ``ops/cuda_bricks.py``;
-``ops/brick_march.py`` is their plain version).
+``ops/brick_march.py`` is their plain version); its plain entry points
+also take a rows x bricks mesh (``make_mesh_2d``). ``parallel.sharding``
+and ``parallel.pallas_dp`` cut the image rows into bands over a list of
+devices (rays-DP), a launch of the march kernels a band.
 """
 
 from volume_renderer_tpu_torch.models.volume import Volume
@@ -30,13 +33,19 @@ from volume_renderer_tpu_torch.ops.cuda_march import render_forward_fast
 from volume_renderer_tpu_torch.ops.cuda_grads import transfer_grads_fast, voxel_grads_fast
 from volume_renderer_tpu_torch.ops.vjp import merge_scene, render_fused, split_scene
 from volume_renderer_tpu_torch import train
-from volume_renderer_tpu_torch.parallel.mesh import make_mesh
+from volume_renderer_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
 from volume_renderer_tpu_torch.parallel.bricks import (
     render_forward_bricked,
     render_forward_bricked_fast,
     render_fused_bricked,
     train_step_fast_bricked,
     voxel_grads_bricked_fast,
+)
+from volume_renderer_tpu_torch.parallel.sharding import render_forward_sharded
+from volume_renderer_tpu_torch.parallel.pallas_dp import (
+    render_forward_fast_sharded,
+    train_step_fast_sharded,
+    voxel_grads_fast_sharded,
 )
 from volume_renderer_tpu_torch.api.renderer import StereoRenderMode, VolumeRenderer
 from volume_renderer_tpu_torch.convert import params_from_arrays, scene_from_arrays
@@ -60,11 +69,16 @@ __all__ = [
     "transfer_grads_fast",
     "train",
     "make_mesh",
+    "make_mesh_2d",
     "render_forward_bricked",
     "render_forward_bricked_fast",
     "render_fused_bricked",
     "voxel_grads_bricked_fast",
     "train_step_fast_bricked",
+    "render_forward_sharded",
+    "render_forward_fast_sharded",
+    "voxel_grads_fast_sharded",
+    "train_step_fast_sharded",
     "VolumeRenderer",
     "StereoRenderMode",
     "scene_from_arrays",

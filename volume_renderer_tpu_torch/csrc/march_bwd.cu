@@ -8,6 +8,9 @@
 //                            march_bwd_lit_params_kernel (lit)
 //   K3  scatter              march_bwd_scatter_kernel (unlit)
 //   K6  scatter + lighting   march_bwd_lit_scatter_kernel
+// A launch replays a band of image rows (MarchArgs.row0, height), as
+// march_fwd.cu marches one; under rays-DP the bands of one device scatter
+// into one set of grids (parallel/pallas_dp.py).
 // It computes what ops/vjp.py:replay_backward (the plain PyTorch version)
 // defines: given the pixel cotangent g and the saved image, each ray is
 // replayed front to back exactly as march_fwd.cu marched it (the shared

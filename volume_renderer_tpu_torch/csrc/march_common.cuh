@@ -51,7 +51,9 @@ struct MarchArgs {
   const float* light_col;  // (n_lights, 3)
   float* out;              // (height, width, 3)
   int* steps;              // (height, width) composited samples, or null
-  int width, height, n_lights, n_steps;
+  int width, height;       // a band of height image rows, from row row0:
+  int row0, image_height;  // every (height, width) array holds the band alone
+  int n_lights, n_steps;
   float ratio, cam_off, focal, dist, tstep;
   float boxmin[3], boxmax[3], boxscale[3], gstep[3];
 };
@@ -280,9 +282,11 @@ __device__ __forceinline__ float angle(V3 a, V3 b) {
   return acosf(fminf(fmaxf(ratio, -1.0f), 1.0f));
 }
 
-// The eye ray of pixel (px, py) (ops/geometry.py:generate_rays: only xVec
-// is renormalized) clipped to the box (intersect_box, the reference's
-// cascade). False when the ray misses the box.
+// The eye ray of pixel (px, py) of the band, image row row0 + py
+// (ops/geometry.py:generate_rays: only xVec is renormalized), clipped to
+// the box (intersect_box, the reference's cascade). False when the ray
+// misses the box. v is computed from the image row over the image's
+// height, so a band's ray is the whole image's, bit for bit.
 __device__ __forceinline__ bool make_ray(const MarchArgs& a, int px, int py, V3& origin, V3& dir,
                                          float& tnear, float& tfar) {
   const float* R = a.rotation;
@@ -290,7 +294,7 @@ __device__ __forceinline__ bool make_ray(const MarchArgs& a, int px, int py, V3&
   const V3 yv = {__ldg(R + 1), __ldg(R + 4), __ldg(R + 7)};
   const V3 zv = {__ldg(R + 2), __ldg(R + 5), __ldg(R + 8)};
   const float u = (float)px / (float)a.width * 2.0f - 1.0f;
-  const float v = (float)py / (float)a.height * 2.0f * a.ratio - a.ratio;
+  const float v = (float)(a.row0 + py) / (float)a.image_height * 2.0f * a.ratio - a.ratio;
   const float nd = -a.dist;
   origin = {xv.x * a.cam_off + zv.x * nd, xv.y * a.cam_off + zv.y * nd,
                      xv.z * a.cam_off + zv.z * nd};

@@ -6,7 +6,10 @@
 //   K1  unlit                     march_kernel<LIT=false>
 //   K4  lit, on-the-fly gradients march_kernel<LIT=true, LOOKUP=false>
 //   K5  lit, lookup gradients     march_kernel<LIT=true, LOOKUP=true>
-// It computes the image that ops/forward.py:render_forward (the plain
+// A launch marches a band of image rows (MarchArgs.row0, height; the TPU
+// kernel's band=, pallas_march.py:_launch :1576), the whole image or one
+// device's share under rays-DP (parallel/pallas_dp.py).
+// It computes the image that ops/forward.py:render_rows (the plain
 // PyTorch version) defines, with the same per-ray arithmetic in the same
 // order: positions and t advance by accumulation (pos += step, t += tstep),
 // trilinear fetches blend x, then y, then z with float32 weights, and the

@@ -153,6 +153,24 @@ class Scene:
     def replace(self, **changes) -> "Scene":
         return dataclasses.replace(self, **changes)
 
+    def to(self, device: DeviceLike) -> "Scene":
+        """The scene with every tensor on ``device``: itself where it lies
+        there already. The copies stay in autograd's graph."""
+        dev = torch.device(device)
+        if self.device == dev:
+            return self
+        s = self.settings
+        changes = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        for name, value in changes.items():
+            if isinstance(value, Volume):
+                changes[name] = value.replace(data=value.data.to(dev))
+            elif isinstance(value, torch.Tensor):
+                changes[name] = value.to(dev)
+        changes["camera"] = self.camera.to(dev)
+        changes["settings"] = dataclasses.replace(
+            s, **{f.name: getattr(s, f.name).to(dev) for f in dataclasses.fields(s)})
+        return Scene(**changes)
+
     @property
     def device(self) -> torch.device:
         return self.emission.data.device

@@ -35,7 +35,7 @@ import torch
 from volume_renderer_tpu_torch.models.scene import RenderOptions, Scene
 from volume_renderer_tpu_torch.ops import _build, cuda_march
 from volume_renderer_tpu_torch.ops.cuda_march import (
-    _MarchArgs, _Vol2, _checked, interleave, render_forward_fast)
+    _MarchArgs, _Vol2, _checked, band_rows, interleave, render_rows_fast)
 from volume_renderer_tpu_torch.ops.vjp import replay_backward
 
 PARAM_KEYS = ("factor_emission", "factor_absorption", "factor_reflection", "color",
@@ -92,38 +92,59 @@ def grad_mode(scene: Scene, scatter: bool) -> str:
     return "K6" if scene.has_lighting else "K3"
 
 
+def _grid_volumes(scene: Scene) -> Dict[str, torch.Tensor]:
+    """The volumes that have a gradient grid beside the scatter kernels'
+    (K3, K6): emission, absorption and reflection, each unless aliased.
+    Only K6 fills reflection's; an unlit scene's stays zero."""
+    roles = ("emission", "absorption", "reflection")
+    return {k: getattr(scene, k).data for k in roles if getattr(scene, k) is not None}
+
+
+def zero_grids(scene: Scene) -> Dict[str, torch.Tensor]:
+    """The zeroed gradient grids that the scatter kernels (K3, K6) add into
+    (an unlit scene's reflection grid among them, left at zero)."""
+    return {k: torch.zeros_like(v) for k, v in _grid_volumes(scene).items()}
+
+
 def march_backward(scene: Scene, opts: RenderOptions, g: torch.Tensor, image: torch.Tensor,
                    camera_x_offset: float = 0.0, scatter: bool = True,
-                   angle_floor: bool = True) -> Dict[str, torch.Tensor]:
+                   angle_floor: bool = True, y_offset: int = 0, n_rows: Optional[int] = None,
+                   grids: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
     """One launch of the backward kernel on a CUDA ``scene``: the gradients
     for the cotangent ``g`` and the forward kernel's ``image``, both
-    (H, W, 3). ``scatter=False`` leaves the grids out."""
+    (n_rows, W, 3), of the band of ``n_rows`` image rows from ``y_offset``
+    (default: the whole image). ``scatter=False`` leaves the grids out.
+    ``grids`` (``zero_grids(scene)``, shared by several bands' calls on one
+    device) receives the scatter and is returned; None makes new ones."""
     dev = scene.device
     if dev.type != "cuda":
         raise ValueError(f"march_backward launches a CUDA kernel; the scene is on {dev}")
-    if scene.has_gradient_volumes and scene.has_lighting:
-        raise NotImplementedError("no backward kernel for lookup gradient volumes")
-    shape = (opts.height, opts.width, 3)
+    refuse_lookup(scene)
+    n_rows = band_rows(opts, y_offset, n_rows)
+    shape = (n_rows, opts.width, 3)
     for name, t in (("g", g), ("image", image)):
         if tuple(_checked(t, name, dev, 3).shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     lit = scene.has_lighting
     lib = _library()
     args = _GradArgs()
-    args.m, settings = cuda_march.march_args(scene, opts, camera_x_offset, lookup=False)
+    args.m, settings = cuda_march.march_args(scene, opts, camera_x_offset, lookup=False,
+                                             y_offset=y_offset, n_rows=n_rows)
     n_lights = args.m.n_lights if lit else 0
     if n_lights > lib.vr_march_bwd_max_lights():
         raise ValueError(f"the backward kernel takes at most {lib.vr_march_bwd_max_lights()} "
                          f"lights, got {n_lights}")
 
-    grids: Dict[str, torch.Tensor] = {}
-    if scatter:
-        grids["emission"] = torch.zeros_like(scene.emission.data)
-        if not scene.absorption_aliased:
-            grids["absorption"] = torch.zeros_like(scene.absorption.data)
-        if lit and not scene.reflection_aliased:
-            grids["reflection"] = torch.zeros_like(scene.reflection.data)
-    planes = torch.empty((3 + 3 * n_lights, opts.height, opts.width), dtype=torch.float32,
+    if not scatter:
+        grids = {}
+    elif grids is None:
+        grids = zero_grids(scene)
+    else:
+        for key, volume in _grid_volumes(scene).items():
+            if key not in grids or grids[key].shape != volume.shape:
+                raise ValueError(f"grids must hold a {key} grid of shape {tuple(volume.shape)}")
+            _checked(grids[key], f"the {key} gradient grid", dev, 3)
+    planes = torch.empty((3 + 3 * n_lights, n_rows, opts.width), dtype=torch.float32,
                          device=dev)
     # unlit K2: the pair stays referenced until the launch is enqueued
     pair = pack_pair(scene) if not (lit or scatter) else None
@@ -133,9 +154,10 @@ def march_backward(scene: Scene, opts: RenderOptions, g: torch.Tensor, image: to
             raise ValueError("the packed emission and absorption must be 8-byte aligned")
         args.pair = _Vol2(pair.data_ptr(), d, h, w)
     args.g, args.image, args.planes = g.data_ptr(), image.data_ptr(), planes.data_ptr()
-    args.d_em, args.d_ab, args.d_re = (
-        grids[k].data_ptr() if k in grids else None
-        for k in ("emission", "absorption", "reflection"))
+    args.d_em, args.d_ab = (grids[k].data_ptr() if k in grids else None
+                            for k in ("emission", "absorption"))
+    # K3 has no reflection term: an unlit scene's reflection grid stays zero
+    args.d_re = grids["reflection"].data_ptr() if lit and "reflection" in grids else None
     args.angle_floor = int(angle_floor)
 
     with torch.cuda.device(dev):
@@ -148,8 +170,6 @@ def march_backward(scene: Scene, opts: RenderOptions, g: torch.Tensor, image: to
     cuda_march.count_launch(grad_mode(scene, scatter))
 
     out = dict(grids)
-    if scatter and not scene.reflection_aliased and not lit:
-        out["reflection"] = torch.zeros_like(scene.reflection.data)
     out.update(parameter_grads(scene, opts, g, planes))
     return out
 
@@ -169,7 +189,10 @@ def parameter_grads(scene: Scene, opts: RenderOptions, g: torch.Tensor,
         sums = planes[1:].sum(dim=(1, 2), dtype=torch.float64)
         color = s.color.double()
         out = {}
-        out["factor_emission"] = ts * torch.dot(g_e, color)
+        # a product and a sum, not torch.dot: a cuBLAS call on a band's side
+        # stream (parallel/pallas_dp.py) gives that stream a workspace of
+        # tens of MiB, kept as long as the stream
+        out["factor_emission"] = ts * (g_e * color).sum()
         out["factor_absorption"] = sums[0]
         out["factor_reflection"] = sums[1] if sums.shape[0] > 1 else torch.zeros_like(sums[0])
         out["color"] = s.factor_emission.double() * ts * g_e
@@ -180,29 +203,44 @@ def parameter_grads(scene: Scene, opts: RenderOptions, g: torch.Tensor,
         return {k: v.float() for k, v in out.items()}
 
 
-def _grads_fast(scene: Scene, opts: RenderOptions, g, camera_x_offset: float,
-                image: Optional[torch.Tensor], scatter: bool):
+def refuse_lookup(scene: Scene) -> None:
+    """Raises for a lit scene with lookup gradient volumes: no backward
+    kernel takes it."""
     if scene.has_lighting and scene.has_gradient_volumes:
         raise NotImplementedError(
             "no fast backward for a lit scene with lookup gradient volumes: differentiate "
             "ops.vjp.render_fused instead")
+
+
+def _grads_fast(scene: Scene, opts: RenderOptions, g, camera_x_offset: float,
+                image: Optional[torch.Tensor], scatter: bool, y_offset: int = 0,
+                n_rows: Optional[int] = None, grids: Optional[Dict[str, torch.Tensor]] = None):
+    refuse_lookup(scene)
     dev = scene.device
+    n_rows = band_rows(opts, y_offset, n_rows)
     g = torch.as_tensor(g, dtype=torch.float32, device=dev).contiguous()
     if image is None:
-        image = render_forward_fast(scene, opts, camera_x_offset)
+        image = render_rows_fast(scene, opts, camera_x_offset, y_offset, n_rows)
     if dev.type == "cpu":
-        grads = replay_backward(scene, opts, g, image, camera_x_offset, angle_floor=True)
+        grads = replay_backward(scene, opts, g, image, camera_x_offset, y_offset, n_rows,
+                                angle_floor=True)
         # gradient volumes of an unlit scene are unused: the kernel has no such keys
         grads = {k: v for k, v in grads.items() if not k.startswith("gradient_")}
+        if scatter and grids is not None:  # add into the caller's grids, as the kernel does
+            for key, acc in grids.items():
+                grads[key] = acc.add_(grads[key])
     else:
-        grads = march_backward(scene, opts, g, image, camera_x_offset, scatter=scatter)
+        grads = march_backward(scene, opts, g, image, camera_x_offset, scatter=scatter,
+                               y_offset=y_offset, n_rows=n_rows, grids=grids)
     if not scatter:
         grads = {k: v for k, v in grads.items() if k in PARAM_KEYS}
     return image, grads
 
 
 def voxel_grads_fast(scene: Scene, opts: RenderOptions, g, camera_x_offset: float = 0.0,
-                     image: Optional[torch.Tensor] = None,
+                     image: Optional[torch.Tensor] = None, *, y_offset: int = 0,
+                     n_rows: Optional[int] = None,
+                     grids: Optional[Dict[str, torch.Tensor]] = None,
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full backward, pixel -> voxel grids and transfer parameters.
 
@@ -217,8 +255,14 @@ def voxel_grads_fast(scene: Scene, opts: RenderOptions, g, camera_x_offset: floa
     ``render_forward_fast``'s own output for this scene and offset: the
     replay stops where that march stopped, and a foreign image leaves a
     remainder in the absorption gradient.
+
+    ``y_offset`` and ``n_rows`` replay a band of image rows alone: ``g``
+    and ``image`` are then (n_rows, W, 3), and the gradients are the band's
+    share. ``grids`` (``zero_grids(scene)``) receives the grids' scatter,
+    on every device, so that the bands of one device share one set.
     """
-    return _grads_fast(scene, opts, g, camera_x_offset, image, scatter=True)
+    return _grads_fast(scene, opts, g, camera_x_offset, image, scatter=True,
+                       y_offset=y_offset, n_rows=n_rows, grids=grids)
 
 
 def transfer_grads_fast(scene: Scene, opts: RenderOptions, g, camera_x_offset: float = 0.0,

@@ -4,7 +4,8 @@ shares with the backward kernel's wrapper (``ops/cuda_grads.py``): the
 launch counts and the argument struct.
 
 ``render_forward_fast`` renders through ``csrc/march_fwd.cu`` when the
-scene's tensors lie on a CUDA device: one launch per render, for unlit
+scene's tensors lie on a CUDA device: one launch per render (per band of
+image rows with ``render_rows_fast``, as rays-DP launches it), for unlit
 scenes (K1), lit scenes with on-the-fly gradients (K4) and lit scenes with
 lookup gradient volumes (K5; emission and the gradient volumes packed into
 one grid for the call where they have one shape, ``pack_lookup``). For a
@@ -82,6 +83,8 @@ class _MarchArgs(ctypes.Structure):
         ("steps", ctypes.c_void_p),
         ("width", ctypes.c_int),
         ("height", ctypes.c_int),
+        ("row0", ctypes.c_int),
+        ("image_height", ctypes.c_int),
         ("n_lights", ctypes.c_int),
         ("n_steps", ctypes.c_int),
         ("ratio", ctypes.c_float),
@@ -143,11 +146,25 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
+def band_rows(opts: RenderOptions, y_offset: int, n_rows: Optional[int]) -> int:
+    """The rows of the band from image row ``y_offset`` (None: to the
+    image's last row); raises unless the band lies in the image."""
+    y_offset = int(y_offset)
+    n_rows = opts.height - y_offset if n_rows is None else int(n_rows)
+    if y_offset < 0 or n_rows < 0 or y_offset + n_rows > opts.height:
+        raise ValueError(f"the band of {n_rows} rows from row {y_offset} is not inside the "
+                         f"image's {opts.height} rows")
+    return n_rows
+
+
 def march_args(scene: Scene, opts: RenderOptions, camera_x_offset: float,
-               lookup: bool) -> Tuple[_MarchArgs, torch.Tensor]:
+               lookup: bool, y_offset: int = 0, n_rows: Optional[int] = None
+               ) -> Tuple[_MarchArgs, torch.Tensor]:
     """The kernels' arguments for a CUDA ``scene`` (``out`` and ``steps``
     left null), checked, and the settings tensor that they point into: keep
     it until the launch is enqueued. ``lookup``: also the gradient volumes.
+    The launch marches ``n_rows`` image rows from ``y_offset`` (default: the
+    whole image).
     """
     dev = scene.device
     lit = scene.has_lighting
@@ -185,7 +202,9 @@ def march_args(scene: Scene, opts: RenderOptions, camera_x_offset: float,
         args.n_lights = light_pos.shape[0]
     args.rotation = rotation.data_ptr()
     args.settings = settings.data_ptr()
-    args.width, args.height, args.n_steps = opts.width, opts.height, opts.n_steps
+    args.width, args.height = opts.width, band_rows(opts, y_offset, n_rows)
+    args.row0, args.image_height = int(y_offset), opts.height
+    args.n_steps = opts.n_steps
     args.ratio = _f32(np.float32(opts.height) / np.float32(opts.width))
     args.cam_off = _f32(camera_x_offset)
     args.focal = _f32(scene.camera.focal_length)
@@ -220,32 +239,45 @@ def pack_lookup(scene: Scene) -> Optional[torch.Tensor]:
                                         scene.gradient_z)])
 
 
-def render_forward_fast(scene: Scene, opts: RenderOptions, camera_x_offset: float = 0.0,
-                        steps: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Forward render, (H, W, 3) float32 on the scene's device.
+def render_rows_fast(scene: Scene, opts: RenderOptions, camera_x_offset: float = 0.0,
+                     y_offset: int = 0, n_rows: Optional[int] = None,
+                     steps: Optional[torch.Tensor] = None,
+                     packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Forward render of a band of ``n_rows`` image rows from ``y_offset``
+    (default: the whole image), (n_rows, W, 3) float32 on the scene's
+    device; each pixel is the whole image's, bit for bit.
 
-    On CUDA one launch of the march kernel; on the CPU the plain version.
-    If ``steps`` (int32, (H, W), on the scene's device) is given, it
-    receives each ray's number of composited samples.
+    On CUDA one launch of the march kernel over the band alone; on the CPU
+    the plain version. If ``steps`` (int32, (n_rows, W), on the scene's
+    device) is given, it receives each ray's number of composited samples.
+    ``packed`` (K5): ``pack_lookup(scene)``, made once by a caller that
+    renders several bands of one scene; None packs here.
     """
     dev = scene.device
+    n_rows = band_rows(opts, y_offset, n_rows)
     if dev.type == "cpu":
-        return render_rows(scene, opts, camera_x_offset, 0, opts.height, steps=steps)
+        return render_rows(scene, opts, camera_x_offset, y_offset, n_rows, steps=steps)
     if dev.type != "cuda":
-        raise ValueError(f"render_forward_fast takes CPU or CUDA scenes, not {dev.type}")
+        raise ValueError(f"render_rows_fast takes CPU or CUDA scenes, not {dev.type}")
 
     mode = kernel_mode(scene)
     # settings and packed stay referenced until the launch is enqueued
-    args, settings = march_args(scene, opts, camera_x_offset, lookup=mode == "K5")
-    packed = pack_lookup(scene) if mode == "K5" else None
-    if packed is not None:
-        d, h, w, _ = _checked(packed, "packed lookup grid", dev, 4).shape
+    args, settings = march_args(scene, opts, camera_x_offset, lookup=mode == "K5",
+                                y_offset=y_offset, n_rows=n_rows)
+    if mode == "K5" and packed is None:
+        packed = pack_lookup(scene)
+    if mode == "K5" and packed is not None:
+        d, h, w, c = _checked(packed, "packed lookup grid", dev, 4).shape
+        if (d, h, w, c) != tuple(scene.emission.data.shape) + (4,):
+            raise ValueError(f"the packed lookup grid must be the emission's shape by 4, got "
+                             f"{tuple(packed.shape)}")
         args.packed = _Vol4(packed.data_ptr(), d, h, w)
-    out = torch.empty((opts.height, opts.width, 3), dtype=torch.float32, device=dev)
+    out = torch.empty((n_rows, opts.width, 3), dtype=torch.float32, device=dev)
     if steps is not None:
         if (steps.dtype != torch.int32 or steps.device != dev or not steps.is_contiguous()
-                or tuple(steps.shape) != (opts.height, opts.width)):
-            raise ValueError("steps must be a contiguous int32 (H, W) tensor on the scene's device")
+                or tuple(steps.shape) != (n_rows, opts.width)):
+            raise ValueError("steps must be a contiguous int32 (n_rows, W) tensor on the "
+                             "scene's device")
     args.out = out.data_ptr()
     args.steps = None if steps is None else steps.data_ptr()
 
@@ -259,3 +291,13 @@ def render_forward_fast(scene: Scene, opts: RenderOptions, camera_x_offset: floa
         raise RuntimeError(f"march_fwd launch failed: {lib.vr_cuda_error_string(err).decode()}")
     count_launch(mode)
     return out
+
+
+def render_forward_fast(scene: Scene, opts: RenderOptions, camera_x_offset: float = 0.0,
+                        steps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Forward render, (H, W, 3) float32 on the scene's device: the whole
+    image as one band (``render_rows_fast``). If ``steps`` (int32, (H, W),
+    on the scene's device) is given, it receives each ray's number of
+    composited samples.
+    """
+    return render_rows_fast(scene, opts, camera_x_offset, steps=steps)

@@ -50,7 +50,12 @@ halo rows back into the bricks that own them (``_return_halo``) and sums
 the parameters' gradients over the bricks.
 
 Entry points. ``render_forward_bricked`` and ``render_fused_bricked`` are
-plain PyTorch on any devices and take lit scenes. ``render_forward_bricked_fast``,
+plain PyTorch on any devices and take lit scenes. They also take a rows x
+bricks mesh (``parallel.mesh.make_mesh_2d``, the JAX package's ``ray_axis``):
+band r of the image rows is marched by the bricks of ``mesh[r]`` (the plain
+passes take a band), the bands are joined and the parameters' gradients
+summed over them; the image height must be divisible by the number of
+bands. ``render_forward_bricked_fast``,
 ``voxel_grads_bricked_fast`` and ``train_step_fast_bricked`` run the brick
 kernels (``ops/cuda_bricks.py``) on CUDA bricks and the same plain passes on
 CPU bricks; they take unlit scenes only and raise ``NotImplementedError``
@@ -63,6 +68,7 @@ bricks thinner than 2 rows; depth-1 volumes are copied whole to every brick.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
@@ -72,6 +78,7 @@ from volume_renderer_tpu_torch.ops import brick_march, cuda_bricks
 from volume_renderer_tpu_torch.ops.brick_march import HALO, Brick, Entry
 from volume_renderer_tpu_torch.ops.forward import _init_rays
 from volume_renderer_tpu_torch.ops.vjp import GRID_KEYS, merge_scene, split_scene
+from volume_renderer_tpu_torch.parallel.mesh import check_mesh
 
 Mesh = Sequence[torch.device]
 PerBrick = List[torch.Tensor]
@@ -171,11 +178,33 @@ def assemble(parts: PerBrick, device: Union[str, torch.device, None] = None) -> 
     return torch.cat([p.to(dev) for p in parts], dim=0)
 
 
+def _is_2d(mesh) -> bool:
+    return (isinstance(mesh, (list, tuple)) and len(mesh) > 0
+            and all(isinstance(row, (list, tuple)) for row in mesh))
+
+
 def _check_mesh(mesh: Mesh) -> List[torch.device]:
-    if mesh is None or isinstance(mesh, (str, torch.device)) or len(mesh) < 1:
-        raise ValueError("mesh must be a list of devices, one per brick "
-                         "(parallel.mesh.make_mesh)")
-    return [torch.device(d) for d in mesh]
+    if _is_2d(mesh):
+        raise ValueError("a rows x bricks mesh (make_mesh_2d) is taken by render_forward_bricked "
+                         "and render_fused_bricked alone: the fast bricked path has no ray "
+                         "axis, as in the JAX package")
+    return check_mesh(mesh, "brick")
+
+
+def _band_meshes(mesh, opts: RenderOptions) -> List[Tuple[List[torch.device], int, int]]:
+    """(the bricks' devices, first row, rows) of every band of image rows:
+    one band of the whole image for a list of devices; for a rows x bricks
+    mesh, band r is rows [r * H / R, (r + 1) * H / R) on ``mesh[r]``."""
+    if not _is_2d(mesh):
+        return [(_check_mesh(mesh), 0, opts.height)]
+    n = len(mesh)
+    if len({len(row) for row in mesh}) != 1:
+        raise ValueError("every band of a rows x bricks mesh needs the same number of bricks")
+    if opts.height % n != 0:
+        raise ValueError(f"image height {opts.height} must be divisible by the ray axis "
+                         f"size {n}")
+    rows = opts.height // n
+    return [(check_mesh(row, "brick"), r * rows, rows) for r, row in enumerate(mesh)]
 
 
 def split_bricks(scene: Scene, mesh: Mesh, grids: Optional[Dict[str, PerBrick]] = None
@@ -224,12 +253,13 @@ def _as_bricked(scene: Union[Scene, BrickedScene], mesh: Optional[Mesh]) -> Bric
 # ---------------------------------------------------------------------------
 
 
-def _ascending(bricked: BrickedScene, opts: RenderOptions, camera_x_offset: float
-               ) -> torch.Tensor:
-    """Per ray (H, W), on ``mesh[0]``: whether it passes the bricks in
-    ascending order (the z of its direction is not negative)."""
-    step = _init_rays(bricked.bricks[0].scene, opts, camera_x_offset, 0, opts.height)[3]
-    return (step.z >= 0).reshape(opts.height, opts.width)
+def _ascending(bricked: BrickedScene, opts: RenderOptions, camera_x_offset: float,
+               y_offset: int = 0, n_rows: Optional[int] = None) -> torch.Tensor:
+    """Per ray (H, W) of the band, on ``mesh[0]``: whether it passes the
+    bricks in ascending order (the z of its direction is not negative)."""
+    rows = opts.height if n_rows is None else n_rows
+    step = _init_rays(bricked.bricks[0].scene, opts, camera_x_offset, y_offset, rows)[3]
+    return (step.z >= 0).reshape(rows, opts.width)
 
 
 def _upstream(values: PerBrick, ascending: torch.Tensor,
@@ -255,14 +285,23 @@ class _Forward(NamedTuple):
     w_in: PerBrick        # (H, W) each, on the bricks' devices
     own: PerBrick         # (H, W, 3) each: the bricks' contributions
     entry: List[Entry]    # phase 1's entry records, on the bricks' devices
+    band: dict            # the band of image rows (plain passes), {} for the whole image
 
 
 def _forward(bricked: BrickedScene, opts: RenderOptions, camera_x_offset: float,
-             fast: bool) -> _Forward:
-    transmittance = cuda_bricks.brick_transmittance if fast else brick_march.transmittance_pass
-    segment = cuda_bricks.brick_segment if fast else brick_march.shaded_pass
+             fast: bool, y_offset: int = 0, n_rows: Optional[int] = None) -> _Forward:
+    """The bricked forward of the whole image or, with ``n_rows`` (plain
+    passes only), of the band of ``n_rows`` rows from ``y_offset``; every
+    (H, W) is then (n_rows, W)."""
+    band = {} if n_rows is None else dict(y_offset=y_offset, n_rows=n_rows)
+    if fast:
+        assert not band, "the brick kernels march the whole image"
+        transmittance, segment = cuda_bricks.brick_transmittance, cuda_bricks.brick_segment
+    else:
+        transmittance = functools.partial(brick_march.transmittance_pass, **band)
+        segment = functools.partial(brick_march.shaded_pass, **band)
     with torch.no_grad():
-        ascending = _ascending(bricked, opts, camera_x_offset)
+        ascending = _ascending(bricked, opts, camera_x_offset, **band)
         # every brick's pass is enqueued before the first copy between devices
         w_local, entry = zip(*(transmittance(brick, opts, camera_x_offset)
                                for brick in bricked.bricks))
@@ -271,14 +310,15 @@ def _forward(bricked: BrickedScene, opts: RenderOptions, camera_x_offset: float,
         own = [segment(brick, opts, camera_x_offset, w, entry=e)[0]
                for brick, w, e in zip(bricked.bricks, w_in, entry)]
         image = torch.stack([o.to(ascending.device) for o in own]).sum(dim=0)
-    return _Forward(image, ascending, w_in, own, list(entry))
+    return _Forward(image, ascending, w_in, own, list(entry), band)
 
 
 def _backward(bricked: BrickedScene, opts: RenderOptions, camera_x_offset: float,
               g: torch.Tensor, fwd: _Forward, fast: bool) -> Dict:
-    """The gradients for the pixel cotangent ``g`` (H, W, 3): grid keys as
-    per-brick tensors shaped like the bricks' unpadded parts, on their
-    devices; parameter keys summed over the bricks, on ``mesh[0]``."""
+    """The gradients for the pixel cotangent ``g`` (H, W, 3; the band's
+    rows for a band's ``fwd``): grid keys as per-brick tensors shaped like
+    the bricks' unpadded parts, on their devices; parameter keys summed over
+    the bricks, on ``mesh[0]``."""
     dev0 = fwd.image.device
     with torch.no_grad():
         g = g.to(dev0, torch.float32).contiguous()
@@ -286,7 +326,8 @@ def _backward(bricked: BrickedScene, opts: RenderOptions, camera_x_offset: float
         image_on = [fwd.image.to(brick.device) for brick in bricked.bricks]
         dots = [brick_march.own_dot(gb, own) for gb, own in zip(g_on, fwd.own)]
         up_dot = _upstream(dots, fwd.ascending, torch.cumsum, 0.0)
-        segment_grads = cuda_bricks.brick_gradients if fast else brick_march.replay_pass
+        segment_grads = (cuda_bricks.brick_gradients if fast
+                         else functools.partial(brick_march.replay_pass, **fwd.band))
         per_brick = [segment_grads(brick, opts, camera_x_offset, gb, image, w, up, entry=e)
                      for brick, gb, image, w, up, e in zip(bricked.bricks, g_on, image_on,
                                                            fwd.w_in, up_dot, fwd.entry)]
@@ -305,18 +346,43 @@ def _backward(bricked: BrickedScene, opts: RenderOptions, camera_x_offset: float
 # ---------------------------------------------------------------------------
 
 
+def _forward_bands(scene: Scene, opts: RenderOptions, camera_x_offset: float, mesh
+                   ) -> List[_Forward]:
+    """The plain bricked forward of every band of ``mesh`` (``_band_meshes``);
+    bands on the same devices share one split of the scene."""
+    splits: Dict[Tuple[torch.device, ...], BrickedScene] = {}
+    fwds = []
+    for devices, y0, rows in _band_meshes(mesh, opts):
+        if tuple(devices) not in splits:
+            splits[tuple(devices)] = split_bricks(scene, devices)
+        fwds.append(_forward(splits[tuple(devices)], opts, camera_x_offset, False, y0, rows))
+    return fwds
+
+
+def _joined(fwds: List[_Forward]) -> torch.Tensor:
+    """The bands' images as one, on the first band's ``mesh[0]``."""
+    dev = fwds[0].image.device
+    return torch.cat([f.image.to(dev) for f in fwds])
+
+
 def render_forward_bricked(scene: Union[Scene, BrickedScene], opts: RenderOptions,
                            camera_x_offset: float = 0.0, *, mesh: Optional[Mesh] = None
                            ) -> torch.Tensor:
     """Forward render with the volume cut along z over ``mesh``, in plain
-    PyTorch on whatever devices the mesh names; (H, W, 3) on ``mesh[0]``.
+    PyTorch on whatever devices the mesh names; (H, W, 3) on ``mesh[0]``
+    (``mesh[0][0]`` for a rows x bricks mesh, which takes a ``Scene``).
 
     Agrees with the single-device render including the exact
     opacity-threshold early termination (the two-phase relay of the module
     docstring). Takes unlit and lit scenes (on-the-fly and lookup
     gradients). ``opts`` are the whole scene's.
     """
-    return _forward(_as_bricked(scene, mesh), opts, float(camera_x_offset), fast=False).image
+    cam = float(camera_x_offset)
+    if _is_2d(mesh):
+        if isinstance(scene, BrickedScene):
+            raise TypeError("a rows x bricks mesh takes a Scene, not a BrickedScene")
+        return _joined(_forward_bands(scene, opts, cam, mesh))
+    return _forward(_as_bricked(scene, mesh), opts, cam, fast=False).image
 
 
 class _RenderFusedBricked(torch.autograd.Function):
@@ -325,32 +391,39 @@ class _RenderFusedBricked(torch.autograd.Function):
     @staticmethod
     def forward(ctx, template, opts, cam_off, mesh, keys, *leaves):
         scene = merge_scene(template, dict(zip(keys, leaves)))
-        fwd = _forward(split_bricks(scene, mesh), opts, cam_off, fast=False)
+        fwds = _forward_bands(scene, opts, cam_off, mesh)
         ctx.save_for_backward(*leaves)
-        ctx.static = (template, opts, cam_off, mesh, keys, fwd)
-        return fwd.image
+        ctx.static = (template, opts, cam_off, mesh, keys, fwds)
+        return _joined(fwds)
 
     @staticmethod
     def backward(ctx, g):
-        template, opts, cam_off, mesh, keys, fwd = ctx.static
+        template, opts, cam_off, mesh, keys, fwds = ctx.static
         leaves = ctx.saved_tensors
         scene = merge_scene(template, dict(zip(keys, leaves)))
-        grads = _backward(split_bricks(scene, mesh), opts, cam_off, g, fwd, fast=False)
-        out = []
-        for key, leaf, need in zip(keys, leaves, ctx.needs_input_grad[5:]):
-            if not need:
-                out.append(None)
-            elif key in GRID_KEYS:
-                out.append(assemble(grads[key], leaf.device))
-            else:
-                out.append(grads[key].to(leaf.device))
-        return (None,) * 5 + tuple(out)
+        devices = {key: leaf.device for key, leaf in zip(keys, leaves)}
+        total: Dict[str, torch.Tensor] = {}
+        splits: Dict[Tuple[torch.device, ...], BrickedScene] = {}
+        for (bricks_of_band, y0, rows), fwd in zip(_band_meshes(mesh, opts), fwds):
+            if tuple(bricks_of_band) not in splits:
+                splits[tuple(bricks_of_band)] = split_bricks(scene, bricks_of_band)
+            grads = _backward(splits[tuple(bricks_of_band)], opts, cam_off, g[y0:y0 + rows], fwd,
+                              fast=False)
+            for key, value in grads.items():  # summed over the bands
+                if key not in devices:
+                    continue
+                value = (assemble(value, devices[key]) if key in GRID_KEYS
+                         else value.to(devices[key]))
+                total[key] = value if key not in total else total[key] + value
+        return (None,) * 5 + tuple(total[key] if need else None
+                                   for key, need in zip(keys, ctx.needs_input_grad[5:]))
 
 
 def render_fused_bricked(scene: Scene, opts: RenderOptions, camera_x_offset: float = 0.0, *,
                          mesh: Mesh) -> torch.Tensor:
     """Differentiable bricked render (the drop-in for ``ops.vjp.render_fused``),
-    (H, W, 3) on ``mesh[0]``, in plain PyTorch.
+    (H, W, 3) on ``mesh[0]``, in plain PyTorch; ``mesh`` may be a rows x
+    bricks mesh (``make_mesh_2d``), whose bands' gradients are summed.
 
     Forward: the two-phase bricked march. Backward: every brick replays its
     own samples with cotangents that see the whole ray, scatters into its
@@ -361,8 +434,10 @@ def render_fused_bricked(scene: Scene, opts: RenderOptions, camera_x_offset: flo
     """
     diff, template = split_scene(scene)
     keys = tuple(diff)
-    return _RenderFusedBricked.apply(template, opts, float(camera_x_offset),
-                                     tuple(_check_mesh(mesh)), keys, *(diff[k] for k in keys))
+    mesh = (tuple(tuple(check_mesh(row, "brick")) for row in mesh) if _is_2d(mesh)
+            else tuple(_check_mesh(mesh)))
+    return _RenderFusedBricked.apply(template, opts, float(camera_x_offset), mesh, keys,
+                                     *(diff[k] for k in keys))
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """Device lists (the port's counterpart of ``jax.sharding.Mesh``).
 
 The port is one process that drives every device. A mesh is a plain list of
-``torch.device``s, one per brick, and a device may appear more than once:
-on one card all bricks live on ``cuda:0``, on a host with four cards the
-same code puts bricks on each of them.
+``torch.device``s, one per brick or per band of image rows, and a device
+may appear more than once: on one card every brick and band lives on
+``cuda:0``, on a host with four cards the same code spreads them. A rows x
+bricks mesh (``make_mesh_2d``) is a list of such lists, ``mesh[r][b]``.
 """
 
 from __future__ import annotations
@@ -46,3 +47,24 @@ def make_mesh(n: int, devices: Optional[Union[DeviceLike, Sequence[DeviceLike]]]
         if not pool:
             raise ValueError("devices must not be empty")
     return [pool[i % len(pool)] for i in range(n)]
+
+
+def make_mesh_2d(n_bands: int, n_bricks: int,
+                 devices: Optional[Union[DeviceLike, Sequence[DeviceLike]]] = None
+                 ) -> List[List[torch.device]]:
+    """A rows x bricks mesh: ``n_bands`` lists of ``n_bricks`` devices,
+    ``mesh[r][b]`` the device of brick b of band r (the JAX package's
+    ``Mesh(devices.reshape(n_bands, n_bricks), ("rays", "bricks"))``),
+    ``devices`` repeated round-robin in that order, as ``make_mesh`` does."""
+    flat = make_mesh(int(n_bands) * int(n_bricks), devices)
+    return [flat[r * n_bricks:(r + 1) * n_bricks] for r in range(int(n_bands))]
+
+
+def check_mesh(mesh, what: str) -> List[torch.device]:
+    """``mesh`` as a list of devices, one per ``what`` (brick or band);
+    raises ``ValueError`` for anything else."""
+    if (mesh is None or isinstance(mesh, (str, torch.device)) or len(mesh) < 1
+            or any(isinstance(d, (list, tuple)) for d in mesh)):
+        raise ValueError(f"mesh must be a list of devices, one per {what} "
+                         "(parallel.mesh.make_mesh)")
+    return [torch.device(d) for d in mesh]

@@ -12,13 +12,16 @@ returns the loss.
 loss could take its place). ``train_step_fast`` is the production step for
 the sum-of-squares loss: the forward kernel, the closed-form pixel
 cotangent, the backward kernel, the optimizer; on a CPU scene the same
-calls run the kernels' plain versions.
+calls run the kernels' plain versions. ``train_step_sharded`` is
+``train_step`` with the image rows cut into bands over a device list
+(rays-DP); ``parallel.pallas_dp.train_step_fast_sharded`` is its kernel
+step.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -27,6 +30,8 @@ from volume_renderer_tpu_torch.ops.cuda_grads import voxel_grads_fast
 from volume_renderer_tpu_torch.ops.cuda_march import render_forward_fast
 from volume_renderer_tpu_torch.ops.forward import render_rows
 from volume_renderer_tpu_torch.ops.vjp import render_fused
+from volume_renderer_tpu_torch.parallel.mesh import check_mesh
+from volume_renderer_tpu_torch.parallel.sharding import scenes_on
 
 Params = Dict[str, torch.Tensor]
 
@@ -104,6 +109,36 @@ def train_step(params: Params, optimizer: torch.optim.Optimizer, scene: Scene,
     updates ``params`` in place and returns the loss before the update."""
     optimizer.zero_grad(set_to_none=True)
     loss = band_loss(params, scene, opts, target, 0, opts.height)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def train_step_sharded(params: Params, optimizer: torch.optim.Optimizer, scene: Scene,
+                       opts: RenderOptions, target: torch.Tensor, *,
+                       mesh: Sequence[torch.device]) -> torch.Tensor:
+    """``train_step`` with the rays cut into bands over ``mesh``: band i, rows
+    [i * H / n, (i + 1) * H / n), is ``band_loss`` on ``mesh[i]`` (the
+    parameters copied there inside autograd's graph) with the fixed trip
+    count (``early_exit=False``, equal work on every device); the band
+    losses are summed on ``mesh[0]`` and one backward and one optimizer
+    step follow. ``H`` must be divisible by the mesh size. Updates
+    ``params`` in place and returns the loss before the update."""
+    mesh = check_mesh(mesh, "band")
+    n = len(mesh)
+    if opts.height % n != 0:
+        raise ValueError(f"image height {opts.height} must be divisible by mesh size {n}")
+    rows = opts.height // n
+    on = scenes_on(scene, mesh)
+    target = target.to(torch.float32)
+    optimizer.zero_grad(set_to_none=True)
+    losses = []
+    for i, dev in enumerate(mesh):
+        band_params = {k: v.to(dev) for k, v in params.items()}
+        band_target = target[i * rows:(i + 1) * rows].to(dev)
+        losses.append(band_loss(band_params, on[dev], opts, band_target, i * rows, rows,
+                                early_exit=False).to(mesh[0]))
+    loss = torch.stack(losses).sum()
     loss.backward()
     optimizer.step()
     return loss.detach()
