@@ -62,7 +62,9 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             each launch form on every brick (phase 1 opacity and entry
             record, phase 2 contribution and exit opacity, the gradient
             segment's padded grids and parameter sums) against its plain
-            pass (ops/brick_march.py) on the same inputs, for cameras whose
+            pass (ops/brick_march.py) on the same inputs, on a band of 96
+            rows through the middle (the kernels launched on the whole
+            image, the cotangent zero outside the band), for cameras whose
             rays rise in z, fall in z and do both, and for an absorption
             volume of another shape than emission's; the records and the
             forward phases must equal their plain versions to the bit; the
@@ -128,6 +130,35 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             DP forward, backward and step beside the single-device ones
             (CUDA events, warm, median of 5), the band launches alone on
             one stream, the host's time and each step's peak memory.
+14. slab_vs_plain: the z-slab sweep through the K7 launch forms
+            (ops/cuda_slab.py) at 128^3 / 256x192, slabbed (views of the
+            grids on the card) and streamed (pinned host grids), 4 and 16
+            slabs, and slabs of one row (d = 16, 16 slabs), for cameras whose
+            rays rise in z, fall in z and do both: streamed equals slabbed
+            bit for bit, both within 1e-5 of scale of the K1 image and, at
+            the first slab count, within 2e-3 of the plain slab sweep
+            (ops/slab.py: closed-form positions); the gradients of one
+            slabbed and one streamed call against voxel_grads_fast (grids
+            1e-5 of scale, other keys 1e-4); a lit scene refused by the
+            card's sweep and, planned streamed (K4) or slabbed (K5, whose
+            pack the sweep saves), by the facade.
+15. slab_main_path, counted like phase 5: VolumeRenderer.render() at
+            512^3 / 1024^2 with 1 GiB of pinned host grids under a
+            memory_budget_bytes below them, planned streamed in 8 slabs:
+            its peak device memory <= the plan's est_bytes <= the budget,
+            K7 phase 1 and phase 2 alone (once a slab visited each), the
+            bytes copied to the card and their GB/s, the image within 1e-5
+            of scale of K1's; the slabbed sweep at 256^3 / 512^2 against its
+            estimate (the planner picks "cuda" there: an unlit scene's
+            kernel path holds less); three Adam steps of train_step_streamed
+            and of train_step_planned (streamed) on the noisy K3 scene, the
+            loss falling and the first step's gradients against
+            voxel_grads_fast; train_step_planned without a budget ("cuda":
+            K1 + K3); the facade with make_mesh(4) on the one card
+            ("cuda_dp", K1's image bit for bit) and under a budget that
+            picks "bricked"; the streamed and slabbed render and step beside
+            the whole-grid kernels (CUDA events, warm, median of 5) with the
+            host's time.
 
 Then the kernels line and, last, {"ok": true, "device": {...}}. It needs
 the repository around it and a CUDA card; it imports nothing of JAX.
@@ -514,8 +545,8 @@ def kernel_threads(repo):
             m = re.search(r"constexpr int %s = (\d+);" % name, f.read())
         out[key] = 16 * int(m.group(1)) if m else 256
     return out
-# 4 bricks, all on the one card
-BRICKS = 4
+# 4 bricks, all on the one card; the rows of phase 8's plain passes
+BRICKS, BRICK_BAND = 4, 96
 
 
 def kernel_mode_of(kernel: str, args) -> str:
@@ -1605,7 +1636,8 @@ def main() -> None:
         scene = brick_scene(COMPARE["volume"], rot, **kw)
         opts = scene.options(COMPARE["width"], COMPARE["height"])
         entry = bricks_compare(name, scene, opts,
-                               cotangent(COMPARE["height"], COMPARE["width"], seed=10 + i))
+                               cotangent(COMPARE["height"], COMPARE["width"], seed=10 + i),
+                               band=BRICK_BAND)
         image = entry.pop("image")
         entry["vs_single_device_kernel"] = image_tolerance(
             name, image, render_forward_fast(scene, opts))
@@ -2201,6 +2233,386 @@ def main() -> None:
     del dp_train, dp_runs
     torch.cuda.empty_cache()
 
+    # ---- 14. the slab sweep against the plain sweep and K1 at 128^3 / 256x192 --
+    # imported here, not above: phase 11's turns import older versions of the port
+    from volume_renderer_tpu_torch.api import planner
+    from volume_renderer_tpu_torch.ops import cuda_slab, slab
+
+    def on_host(scene):
+        """``scene`` with its emission and absorption grids in pinned host
+        memory, as the streamed tier takes them."""
+        return scene.replace(**{k: getattr(scene, k).replace(
+            data=getattr(scene, k).data.cpu().pin_memory())
+            for k in ("emission", "absorption") if getattr(scene, k) is not None})
+
+    def of_scale(name, got, want, limit=1e-5):
+        """max |got - want| as a share of want's largest magnitude; raises
+        above ``limit``."""
+        assert got.shape == want.shape and bool(torch.isfinite(got).all()), name
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max()) / scale
+        if err > limit:
+            raise RuntimeError(f"{name}: {err:.3e} of the scale {scale:.3e} off")
+        return err
+
+    def ascending_share(scene, opts):
+        rays = slab._Rays(scene, opts, 0.0, 0, opts.height)
+        return float(((rays.dz() >= 0) & rays.hit).sum() / rays.hit.sum())
+
+    def vs_plain_sweep(name, got, plain):
+        """The kernels' sweep against the plain one. The plain sweep takes
+        positions and t in closed form (the JAX package's), the kernels
+        accumulate them, so about 5 % of the rays take one step more or less
+        at the box's far side, where the shell is bright: allowed 2e-3 of
+        the scale (measured on an H100 at most 6.1e-4, 4.6 % of the values
+        beyond 1e-5 of it; the JAX package allows rtol=5e-3, atol=1e-4 for
+        the same drift, tests/test_slab.py)."""
+        scale = float(plain.abs().max())
+        diff = (got - plain).abs()
+        out = {"max_err_of_scale": float(diff.max()) / scale,
+               "share_beyond_1e-5_of_scale": float((diff > 1e-5 * scale).float().mean())}
+        if out["max_err_of_scale"] > 2e-3:
+            raise RuntimeError(f"{name}: the kernels' sweep is off the plain sweep: {out}")
+        return out
+
+    t_phase = time.perf_counter()
+    slab_cases = {}
+    cw, ch = COMPARE["width"], COMPARE["height"]
+    for name, rot, kw, vol, counts in (
+            ("dz_positive", (10, 5, 0), {}, COMPARE["volume"], (4, 16)),
+            ("dz_negative_aliased", (180, 20, 0), dict(ab_aliased=True), COMPARE["volume"],
+             (4, 16)),
+            ("dz_mixed", (88, 0, 0), {}, COMPARE["volume"], (4, 16)),
+            ("one_row_slabs_d16", (88, 0, 0), {}, 16, (16,))):
+        scene = brick_scene(vol, rot, **kw)
+        host = on_host(scene)
+        opts = scene.options(cw, ch)
+        single = render_forward_fast(scene, opts)
+        cell = {"volume": vol, "ascending_share": ascending_share(scene, opts)}
+        for n in counts:
+            slabbed = cuda_slab.render_forward_slabbed_fast(scene, opts, n_slabs=n)
+            visited = cuda_slab.LAST_SWEEP.visited
+            streamed = slab.render_forward_streamed(host, opts, n_slabs=n)
+            stats = cuda_slab.LAST_SWEEP
+            torch.cuda.synchronize()
+            # the same kernels on the same windows: copies or views
+            if not torch.equal(streamed, slabbed) or stats.visited != visited:
+                raise RuntimeError(f"slab sweep {name}, {n} slabs: streamed and slabbed differ")
+            cell[f"{n}_slabs"] = {
+                "vs_K1_of_scale": of_scale(f"slab sweep {name} {n} slabs vs K1", slabbed, single),
+                "streamed_equals_slabbed": True, "visited": visited,
+                "h2d_bytes": stats.h2d_bytes}
+            if n == counts[0]:  # the plain sweep (seconds at 16 slabs) at the first count
+                plain, plain_ms = timed(lambda: slab.render_forward_slabbed(scene, opts,
+                                                                            n_slabs=n))
+                cell[f"{n}_slabs"].update(vs_plain_sweep=vs_plain_sweep(
+                    f"slab sweep {name} {n} slabs", slabbed, plain), plain_ms=plain_ms)
+        slab_cases[name] = cell
+    signs = [slab_cases[k]["ascending_share"] for k in ("dz_positive", "dz_negative_aliased",
+                                                         "dz_mixed")]
+    if not (signs[0] == 1.0 and signs[1] == 0.0 and 0.05 < signs[2] < 0.95):
+        raise RuntimeError(f"the cameras do not cover rising, falling and mixed rays: {signs}")
+    # gradients of one slabbed and one streamed call against voxel_grads_fast
+    # (phase 12's tolerance: grids 1e-5 of scale, other keys 1e-4)
+    scene = brick_scene(COMPARE["volume"], (88, 0, 0))
+    opts = scene.options(cw, ch)
+    g = cotangent(ch, cw, seed=60)
+    img_k, want = voxel_grads_fast(scene, opts, g)
+    img_s, got_s = cuda_slab.voxel_grads_slabbed_fast(scene, opts, g, n_slabs=4)
+    got_h, img_h = slab.streamed_grads(on_host(scene), opts, g, n_slabs=4)
+    torch.cuda.synchronize()
+    if not (torch.equal(img_s, img_h) and all(v.device.type == "cpu" for k, v in got_h.items()
+                                              if k in ("emission", "absorption"))):
+        raise RuntimeError("the streamed gradients' image or grids are not where they belong")
+    slab_grads = {"slabbed": dp_grads_check("slabbed gradients", got_s, want),
+                  "streamed": dp_grads_check("streamed gradients",
+                                             {k: v.to(dev) for k, v in got_h.items()}, want),
+                  "image_vs_K1_of_scale": of_scale("slab gradients' image", img_s, img_k)}
+    del scene, got_s, got_h, want
+    # a lit scene: refused by the card's sweep and by the facade
+    lit = flagship(64, "K4", ab_aliased=False)
+    lit_opts = lit.options(96, 64)
+    lit_g = cotangent(64, 96, seed=61)
+    refused = []
+    for call in (lambda: cuda_slab.render_forward_slabbed_fast(lit, lit_opts, n_slabs=4),
+                 lambda: cuda_slab.voxel_grads_slabbed_fast(lit, lit_opts, lit_g, n_slabs=4),
+                 lambda: slab.render_forward_streamed(on_host(lit), lit_opts, n_slabs=4),
+                 lambda: slab.streamed_grads(on_host(lit), lit_opts, lit_g, n_slabs=4)):
+        try:
+            call()
+        except NotImplementedError as exc:
+            refused.append(str(exc))
+    if len(refused) != 4:
+        raise RuntimeError("the card's slab sweep took a lit scene")
+    facade_refusals = {}
+    for mode in ("K4", "K5"):
+        em = shell(64).cpu().numpy()
+        r = VolumeRenderer()
+        r.volume_emission = Volume.create(em)
+        r.volume_absorption = Volume.create(em * 0.8)
+        r.volume_reflection = Volume.create(em * 0.5)
+        r.volume_illumination = henyey_greenstein_lut(32)
+        r.light_sources = [LightSource([2.0, 3.0, -1.5], [1.0, 1.0, 1.0])]
+        if mode == "K5":
+            r.volume_gradient_x, r.volume_gradient_y, r.volume_gradient_z = (
+                Volume.create(em).gradient_volumes())
+        r.focal_length, r.distance_to_object = 3.0, 6.0
+        r.rotate(125, 25, 0)
+        r.image_resolution = (96, 64)
+        lscene = r._build_scene()
+        whole = planner.tier_bytes(lscene, lscene.options(96, 64), "cuda")
+        r.memory_budget_bytes = int((whole - 1) / 0.7)
+        try:
+            r.render()
+            raise RuntimeError(f"the facade rendered a lit {mode} scene on {r.last_plan}")
+        except NotImplementedError as exc:
+            facade_refusals[mode] = {"plan": str(r.last_plan), "message": str(exc)}
+    if not (facade_refusals["K4"]["plan"].startswith("RenderPlan(streamed")
+            and facade_refusals["K5"]["plan"].startswith("RenderPlan(slabbed")):
+        raise RuntimeError(f"the lit facade budgets planned {facade_refusals}")
+    record({"phase": "slab_vs_plain", "volume": COMPARE["volume"], "image": [cw, ch],
+            "volume_noise": 0.05, "cases": slab_cases,
+            "tolerance": {"vs_K1_of_scale": 1e-5, "vs_plain_sweep_of_scale": 2e-3,
+                          "grads_of_scale": {"grids": BRICK_GRAD_TOL, "others": GRAD_TOL}},
+            "grads_dz_mixed_4_slabs_vs_voxel_grads_fast": slab_grads,
+            "lit": {"refused_by_the_card_sweep": len(refused),
+                    "refused_by_the_facade": facade_refusals},
+            "seconds": time.perf_counter() - t_phase})
+    del lit, host, single, plain, slabbed, streamed
+    torch.cuda.empty_cache()
+
+    # ---- 15. the slab main path: the planned facade and training steps ----------
+    t_phase = time.perf_counter()
+    K7_FORM_KEYS = ("K7_transmittance", "K7_segment", "K7_scatter")
+
+    def counted(fn):
+        """``fn()`` with the launch counts set to 0 just before and read just
+        after; (result, counts)."""
+        torch.cuda.synchronize()
+        cuda_march.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(cuda_march.LAUNCHES_BY_MODE)
+
+    def peak_of(fn):
+        """``fn()`` and the device memory it allocated at its peak above what
+        was allocated before it."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    def k7_only(name, launches, forms):
+        """Raises unless the launches are K7's ``forms`` alone."""
+        other = {k: v for k, v in launches.items() if v and k not in forms}
+        if other or not all(launches[k] for k in forms):
+            raise RuntimeError(f"{name} launched {launches}, expected {forms} alone")
+
+    def sweep_launches(stats):
+        return sum(len(v) for v in stats.visited)
+
+    # (a) the streamed facade at 512^3 / 1024^2: 1 GiB of host grids
+    nb, ib = BIG["volume"], BIG["image"]
+    em_dev = shell(nb)
+    ramp = torch.linspace(0.5, 1.0, nb, device=dev)[None, None, :]
+    host_em, host_ab = em_dev.cpu(), (em_dev * ramp).cpu()
+    del em_dev
+
+    def big_facade():
+        r = VolumeRenderer()
+        r.volume_emission = Volume.create(host_em, device="cpu")
+        r.volume_absorption = Volume.create(host_ab, device="cpu")
+        r.factor_absorption, r.factor_reflection, r.color = 0.6, 0.4, (1.0, 0.9, 0.8)
+        r.focal_length, r.distance_to_object = 3.0, 6.0
+        r.rotate(125, 25, 0)
+        r.image_resolution = (ib, ib)
+        return r
+
+    r = big_facade()
+    big_scene = r._build_scene(resident=False)
+    big_opts = big_scene.options(ib, ib)
+    vol_bytes = planner.scene_volume_bytes(big_scene)
+    est8 = planner.tier_bytes(big_scene, big_opts, "streamed", n_slabs=8)
+    r.memory_budget_bytes = int(est8 / 0.7) + 1
+    if not r.memory_budget_bytes < vol_bytes:
+        raise RuntimeError("the streamed budget is not below the volumes")
+    r.render()  # the content hashes and the pinned host copies, kept by the renderer
+    (img_stream, stream_launches), stream_peak = peak_of(lambda: counted(r.render))
+    plan, stats = r.last_plan, cuda_slab.LAST_SWEEP
+    if not (plan.path == "streamed" and plan.n_slabs >= 8
+            and stream_peak <= plan.est_bytes <= plan.budget_bytes <= r.memory_budget_bytes):
+        raise RuntimeError(f"streamed facade: {plan}, peak {stream_peak / 2 ** 20:.1f} MiB")
+    visited = sweep_launches(stats)
+    k7_only("the streamed facade render", stream_launches, K7_FORM_KEYS[:2])
+    if not (stream_launches["K7_transmittance"] == stream_launches["K7_segment"] == visited
+            <= 2 * plan.n_slabs):
+        raise RuntimeError(f"streamed facade: {stream_launches} for {stats.visited}")
+    h2d_ms = stats.h2d_ms()
+    dev_scene = r._build_scene()
+    flat_big = render_forward_fast(dev_scene, big_opts)
+    streamed_facade = {
+        "plan": str(plan), "n_slabs": plan.n_slabs, "est_bytes": plan.est_bytes,
+        "budget_bytes": r.memory_budget_bytes, "budget_after_headroom": plan.budget_bytes,
+        "volume_bytes": vol_bytes, "peak_bytes": stream_peak, "launches": stream_launches,
+        "visited": stats.visited, "h2d_bytes": stats.h2d_bytes, "h2d_ms": h2d_ms,
+        "h2d_GB_per_s": stats.h2d_bytes / (h2d_ms * 1e-3) / 1e9,
+        "vs_K1_of_scale": of_scale("streamed facade vs K1", img_stream, flat_big),
+        "nonzero_frac": float((img_stream.amax(-1) > 0).float().mean())}
+    slab_timing = {f"streamed_render_{nb}_{ib}": {
+        "ms": median_ms(r.render)[0], "host_ms": host_ms(r.render),
+        "flat_K1_ms": median_ms(lambda: render_forward_fast(dev_scene, big_opts))[0]}}
+    del r, dev_scene, flat_big, img_stream, big_scene, host_em, host_ab
+    torch.cuda.empty_cache()
+
+    # (b) the slabbed sweep at 256^3 / 512^2 against its estimate; the
+    # planner's pick at that budget
+    scene = brick_scene(MAIN["volume"], (125, 25, 0))  # the noisy K3 scene
+    opts = scene.options(size, size)
+    single = render_forward_fast(scene, opts)
+    n_main = 8
+    est_slabbed = planner.tier_bytes(scene, opts, "slabbed", n_slabs=n_main)
+    (img_slabbed, slabbed_launches), slabbed_peak = peak_of(lambda: counted(
+        lambda: cuda_slab.render_forward_slabbed_fast(scene, opts, n_slabs=n_main)))
+    grids = planner.scene_volume_bytes(scene)  # the views' grids, on the card before
+    k7_only("the slabbed render", slabbed_launches, K7_FORM_KEYS[:2])
+    if not (slabbed_launches["K7_segment"] == sweep_launches(cuda_slab.LAST_SWEEP)
+            and slabbed_peak + grids <= est_slabbed):
+        raise RuntimeError(f"slabbed: {slabbed_launches}, peak {slabbed_peak} + {grids} "
+                           f"over {est_slabbed}")
+    slabbed_budget = int(est_slabbed / 0.7) + 1
+    slabbed_main = {
+        "n_slabs": n_main, "est_bytes": est_slabbed, "budget_bytes": slabbed_budget,
+        "peak_bytes_with_grids": slabbed_peak + grids, "launches": slabbed_launches,
+        "visited": cuda_slab.LAST_SWEEP.visited,
+        "planner_pick_at_this_budget": str(planner.plan_render(scene, opts,
+                                                               budget_bytes=slabbed_budget)),
+        "vs_K1_of_scale": of_scale("slabbed vs K1", img_slabbed, single)}
+    slab_timing[f"slabbed_render_{MAIN['volume']}_{size}"] = {
+        "ms": median_ms(lambda: cuda_slab.render_forward_slabbed_fast(
+            scene, opts, n_slabs=n_main))[0],
+        "host_ms": host_ms(lambda: cuda_slab.render_forward_slabbed_fast(
+            scene, opts, n_slabs=n_main)),
+        "flat_K1_ms": median_ms(lambda: render_forward_fast(scene, opts))[0]}
+
+    # (c) training at 256^3 / 512^2 on the noisy K3 scene: three Adam steps of
+    # train_step_streamed and of train_step_planned (streamed), the grids in
+    # pinned host memory; the first step's gradients against voxel_grads_fast
+    dev_params, static = train.split_params(scene)
+    with torch.no_grad():
+        dev_params["emission"].mul_(1.3).add_(0.05)
+        merged = train.merge_params(dev_params, static)
+        img0 = render_forward_fast(merged, opts)
+        _, want0 = voxel_grads_fast(merged, opts, 2.0 * (img0 - single), image=img0)
+        del merged, img0
+
+    def host_params():
+        return {k: v.detach().cpu().pin_memory().requires_grad_(True)
+                for k, v in dev_params.items()}
+
+    def adam(params):
+        return torch.optim.Adam(list(params.values()), lr=TRAIN_LR["K3"])
+
+    train_cells = {}
+    for name in ("train_step_streamed", "train_step_planned_streamed"):
+        params = host_params()
+        optimizer = adam(params)
+        if name == "train_step_streamed":
+            def step(p=params, o=optimizer):
+                return train.train_step_streamed(p, o, static, opts, single, n_slabs=n_main), None
+        else:
+            est = planner.tier_bytes(train.merge_params(params, static), opts, "streamed",
+                                     n_slabs=n_main, training=True, optimizer=optimizer)
+
+            def step(p=params, o=optimizer, budget=int(est / 0.7) + 1):
+                return train.train_step_planned(p, o, static, opts, single, budget_bytes=budget)
+        (loss, plan), launches = counted(step)
+        first_grads = {k: p.grad.to(dev) for k, p in params.items()}
+        losses = [float(loss)]
+        rest, rest_launches = counted(lambda: [step()[0] for _ in range(TRAIN_STEPS - 1)])
+        losses += [float(x) for x in rest]
+        if not (all(np.isfinite(losses)) and all(b < a for a, b in zip(losses, losses[1:]))):
+            raise RuntimeError(f"{name}: the loss did not fall: {losses}")
+        if plan is not None and (plan.path, plan.n_slabs) != ("streamed", n_main):
+            raise RuntimeError(f"{name} planned {plan}")
+        k7_only(name, launches, K7_FORM_KEYS)
+        train_cells[name] = {
+            "losses": losses, "plan": None if plan is None else str(plan),
+            "first_step_launches": launches,
+            "launches": {k: launches[k] + rest_launches[k] for k in launches},
+            "first_step_vs_voxel_grads_fast_of_scale": dp_grads_check(
+                f"{name} first step", first_grads, want0)}
+    # train_step_planned without a budget: the kernels on the whole grids
+    params = {k: v.detach().clone().requires_grad_(True) for k, v in dev_params.items()}
+    (cuda_loss, cuda_plan), cuda_launches = counted(lambda: train.train_step_planned(
+        params, adam(params), static, opts, single))
+    if cuda_plan.path != "cuda" or {k: v for k, v in cuda_launches.items() if v} != {
+            "K1": 1, "K3": 1}:
+        raise RuntimeError(f"train_step_planned without a budget: {cuda_plan}, {cuda_launches}")
+    train_cells["train_step_planned_no_budget"] = {"plan": str(cuda_plan),
+                                                   "launches": cuda_launches,
+                                                   "loss": float(cuda_loss)}
+    # the step times, CUDA events, warm, median of 5
+    for name, make in (
+            ("train_step_streamed", lambda p, o: train.train_step_streamed(
+                p, o, static, opts, single, n_slabs=n_main)),
+            ("train_step_slabbed", lambda p, o: train.train_step_slabbed(
+                p, o, static, opts, single, n_slabs=n_main)),
+            ("train_step_fast", lambda p, o: train.train_step_fast(p, o, static, opts, single))):
+        params = (host_params() if name == "train_step_streamed" else
+                  {k: v.detach().clone().requires_grad_(True) for k, v in dev_params.items()})
+        optimizer = adam(params)
+        slab_timing[f"{name}_{MAIN['volume']}_{size}"] = {
+            "ms": median_ms(lambda: make(params, optimizer))[0],
+            "host_ms": host_ms(lambda: make(params, optimizer))}
+    del params, dev_params, want0, first_grads
+
+    # (d) the facade with make_mesh(4) on the one card: rays-DP, and bricks
+    # under a budget that the whole grids do not fit
+    em = shell(MAIN["volume"])
+    ramp = torch.linspace(0.5, 1.0, MAIN["volume"], device=dev)[None, None, :]
+    r = VolumeRenderer()
+    r.volume_emission, r.volume_absorption = Volume.create(em), Volume.create(em * ramp)
+    r.factor_absorption, r.factor_reflection, r.color = 0.6, 0.4, (1.0, 0.9, 0.8)
+    r.focal_length, r.distance_to_object = 3.0, 6.0
+    r.rotate(125, 25, 0)
+    r.image_resolution = (size, size)
+    mesh_scene = r._build_scene()
+    mesh_single = render_forward_fast(mesh_scene, opts)
+    r.mesh = make_mesh(DP_MAIN_BANDS)
+    img_dp, dp_launches = counted(r.render)
+    dp_plan = r.last_plan
+    if dp_plan.path != "cuda_dp" or not torch.equal(img_dp, mesh_single):
+        raise RuntimeError(f"the facade with a mesh planned {dp_plan}, or its image differs")
+    r.memory_budget_bytes = int(planner.tier_bytes(mesh_scene, opts, "bricked",
+                                                   n_devices=DP_MAIN_BANDS) / 0.7) + 1
+    img_bricked, bricked_launches = counted(r.render)
+    bricked_plan = r.last_plan
+    if bricked_plan.path != "bricked":
+        raise RuntimeError(f"the facade's bricked budget planned {bricked_plan}")
+    k7_only("the bricked facade render", bricked_launches, K7_FORM_KEYS[:2])
+    mesh_facade = {
+        "cuda_dp": {"plan": str(dp_plan), "launches": dp_launches, "bit_equal_to_K1": True},
+        "bricked": {"plan": str(bricked_plan), "launches": bricked_launches,
+                    "vs_K1": image_tolerance("bricked facade vs K1", img_bricked, mesh_single)}}
+    del r, mesh_scene, mesh_single, img_dp, img_bricked, em, scene, single, img_slabbed
+    torch.cuda.empty_cache()
+    slab_launches = {
+        "streamed_render": {k: stream_launches[k] for k in K7_FORM_KEYS},
+        "slabbed_render": {k: slabbed_launches[k] for k in K7_FORM_KEYS},
+        **{name: train_cells[name]["launches"] for name in ("train_step_streamed",
+                                                              "train_step_planned_streamed")},
+        "bricked_facade_render": {k: bricked_launches[k] for k in K7_FORM_KEYS}}
+    record({"phase": "slab_main_path",
+            "entry": ["VolumeRenderer.render (streamed, cuda_dp, bricked)",
+                      "render_forward_slabbed_fast", "train_step_streamed",
+                      "train_step_planned", "train_step_slabbed (timed)"],
+            "nvidia_smi": smi_line, "streamed_facade": streamed_facade,
+            "slabbed": slabbed_main, "training": train_cells, "mesh_facade": mesh_facade,
+            "steps": TRAIN_STEPS, "optimizer": "Adam", "lr": TRAIN_LR["K3"],
+            "volume_noise": 0.05, "ms": slab_timing, "seconds": time.perf_counter() - t_phase})
+
     # ---- kernels line and the result ------------------------------------
     kernels = []
     for mode, what in (("K1", "unlit"), ("K4", "lit, on-the-fly gradients"),
@@ -2253,6 +2665,7 @@ def main() -> None:
             "source": f"volume_renderer_tpu_torch/csrc/{source}.cu",
             "replaces": "volume_renderer_tpu/ops/pallas_march.py:688",
             "launches": brick_launches[form], "max_abs_err": brick_err[form],
+            "slab_launches": {path: counts[f"K7_{form}"] for path, counts in slab_launches.items()},
             **({"max_err_of_scale": brick_grad_err[0]} if form == "scatter" else {}),
             **({"corner_loads_per_sample": cell["corner_loads"]["loads_per_sample"]}
                if "corner_loads" in cell else {}),

@@ -152,11 +152,10 @@ def test_facade_validation_and_later_slices():
     with pytest.raises(ValueError, match="gradient"):
         r.render()
     r.reset_gradient_volumes()
-    r.mesh = object()
-    with pytest.raises(NotImplementedError):
+    r.mesh = object()  # a mesh is a list of devices (parallel.mesh.make_mesh)
+    with pytest.raises(ValueError, match="mesh"):
         r.render()
-    with pytest.raises(NotImplementedError):
-        r.mem_info()
+    assert "total (deduplicated)" in r.mem_info()
     with pytest.raises(NotImplementedError):
         VolumeRenderer(device="cpu", backend="oracle")
     r = PORT.renderer()

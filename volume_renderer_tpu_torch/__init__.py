@@ -15,7 +15,12 @@ devices (``parallel.mesh.make_mesh``), each marched by the brick kernels
 ``ops/brick_march.py`` is their plain version); its plain entry points
 also take a rows x bricks mesh (``make_mesh_2d``). ``parallel.sharding``
 and ``parallel.pallas_dp`` cut the image rows into bands over a list of
-devices (rays-DP), a launch of the march kernels a band.
+devices (rays-DP), a launch of the march kernels a band. ``ops.slab`` sweeps
+a volume larger than the device in z-slabs, with the grids on the device
+(slabbed) or in host memory (streamed), in plain PyTorch; ``ops.cuda_slab``
+runs that sweep through the brick kernels. ``api.planner.plan_render``
+picks the tier of a render or training step from the device's memory, for
+``VolumeRenderer`` and ``train.train_step_planned``.
 """
 
 from volume_renderer_tpu_torch.models.volume import Volume
@@ -46,6 +51,25 @@ from volume_renderer_tpu_torch.parallel.pallas_dp import (
     render_forward_fast_sharded,
     train_step_fast_sharded,
     voxel_grads_fast_sharded,
+)
+from volume_renderer_tpu_torch.ops.slab import (
+    render_forward_slabbed,
+    render_forward_streamed,
+    render_fused_slabbed,
+    streamed_grads,
+)
+from volume_renderer_tpu_torch.ops.cuda_slab import (
+    render_forward_slabbed_fast,
+    render_forward_streamed_fast,
+    render_fused_slabbed_fast,
+    streamed_grads_fast,
+    voxel_grads_slabbed_fast,
+)
+from volume_renderer_tpu_torch.api.planner import (
+    RenderPlan,
+    device_memory_budget,
+    plan_render,
+    scene_volume_bytes,
 )
 from volume_renderer_tpu_torch.api.renderer import StereoRenderMode, VolumeRenderer
 from volume_renderer_tpu_torch.convert import params_from_arrays, scene_from_arrays
@@ -79,6 +103,19 @@ __all__ = [
     "render_forward_fast_sharded",
     "voxel_grads_fast_sharded",
     "train_step_fast_sharded",
+    "render_forward_slabbed",
+    "render_forward_streamed",
+    "render_fused_slabbed",
+    "streamed_grads",
+    "render_forward_slabbed_fast",
+    "render_forward_streamed_fast",
+    "render_fused_slabbed_fast",
+    "voxel_grads_slabbed_fast",
+    "streamed_grads_fast",
+    "RenderPlan",
+    "plan_render",
+    "device_memory_budget",
+    "scene_volume_bytes",
     "VolumeRenderer",
     "StereoRenderMode",
     "scene_from_arrays",

@@ -6,30 +6,39 @@ pairwise content-equality volume dedup (equal volumes are sampled from one
 grid), the default 1x1x1 reflection volume, and the static image and
 sequence normalization helpers.
 
-Every render goes through ``ops.cuda_march.render_forward_fast``: the march
-kernel on CUDA, the plain version when the renderer was built with
-``device="cpu"``. The memory planner's tiers (slabbed, streamed, mesh),
-``mem_info`` and the oracle backend are not ported yet and raise.
+Every render is planned first (``api.planner.plan_render``, from the
+volumes' shapes, with ``memory_budget_bytes`` and ``mesh``) and then takes
+its tier's route: on a CUDA renderer ``"cuda"`` is the march kernel
+(``ops.cuda_march.render_forward_fast``), ``"cuda_dp"`` rays-DP over the
+mesh, ``"bricked"`` the z-brick kernels over the mesh, ``"slabbed"`` and
+``"streamed"`` the z-slab sweep through the brick kernels
+(``ops/cuda_slab.py``); the last three march unlit scenes only and raise for
+a lit one. On the streamed route the grids stay in host memory, pinned once
+and kept, and only their slabs reach the card. A renderer built with
+``device="cpu"`` takes the same tiers in plain PyTorch (``"plain"``, the
+plain bricked render, the plain slab sweeps), lit scenes included. The
+oracle backend is not ported yet and raises.
 """
 
 from __future__ import annotations
 
 import enum
 import hashlib
-from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from volume_renderer_tpu_torch._device import DeviceLike, resolve_device
+from volume_renderer_tpu_torch.api.planner import RenderPlan, plan_render
 from volume_renderer_tpu_torch.models.camera import Camera
 from volume_renderer_tpu_torch.models.lights import LightSource, pack_lights
 from volume_renderer_tpu_torch.models.scene import RenderSettings, Scene, build_render_options
 from volume_renderer_tpu_torch.models.volume import Volume
+from volume_renderer_tpu_torch.ops import cuda_slab, slab
 from volume_renderer_tpu_torch.ops.cuda_march import render_forward_fast
+from volume_renderer_tpu_torch.parallel import bricks, pallas_dp
 
-_LATER = "not ported yet: the large-volume and multi-device slices of the PyTorch port add it"
 _ORACLE = ("backend='oracle' is not ported yet: a later slice of the PyTorch port adds "
            "ops/oracle.py")
 
@@ -41,12 +50,10 @@ class StereoRenderMode(enum.Enum):
     LEFT_RIGHT_HORIZONTAL = "LeftRightHorizontal"
 
 
-@dataclass(frozen=True)
-class RenderPlan:
-    """What served the last render: ``"cuda"`` (the march kernel) or
-    ``"plain"`` (the plain PyTorch version, for a CPU renderer)."""
-
-    path: str
+# the plain entry point that renders a lit scene the kernels of a tier refuse
+_LIT_PLAIN = {"bricked": "parallel.bricks.render_forward_bricked",
+              "slabbed": "ops.slab.render_forward_slabbed",
+              "streamed": "ops.slab.render_forward_streamed(device='cpu')"}
 
 
 class VolumeRenderer:
@@ -87,7 +94,9 @@ class VolumeRenderer:
         self.volume_gradient_z: Optional[Volume] = None
         self.volume_illumination: Optional[torch.Tensor] = None
 
-        # planner knobs of the JAX facade; anything but None raises
+        # memory planner knobs: None = the device's free memory
+        # (api/planner.py); mesh: a list of devices (parallel.mesh.make_mesh)
+        # for the rays-DP and z-brick tiers, None = one device
         self.memory_budget_bytes: Optional[int] = None
         self.mesh = None
         self.last_plan: Optional[RenderPlan] = None
@@ -95,6 +104,8 @@ class VolumeRenderer:
         # content hashes for identical-volume dedup, keyed by tensor id with
         # the tensor pinned so that ids cannot be recycled
         self._hash_cache: dict = {}
+        # pinned host copies of the streamed route's grids, keyed alike
+        self._host_cache: dict = {}
 
     # ---- scene assembly -------------------------------------------------
 
@@ -137,7 +148,28 @@ class VolumeRenderer:
             return vol
         return vol.replace(data=vol.data.to(self.device))
 
-    def _build_scene(self) -> Scene:
+    def _on_host(self, vol: Optional[Volume]) -> Optional[Volume]:
+        """The volume in pinned host memory (pinned once a tensor, and kept)."""
+        if vol is None:
+            return vol
+        key = id(vol.data)
+        hit = self._host_cache.get(key)
+        if hit is None or hit[0] is not vol.data:
+            data = vol.data.detach()
+            pinned = data if data.device.type == "cpu" and data.is_pinned() else (
+                data.to("cpu").pin_memory())
+            hit = self._host_cache[key] = (vol.data, pinned)
+        return vol.replace(data=hit[1])
+
+    def _placed(self, scene: Scene, place) -> Scene:
+        """``scene`` with ``place`` applied to each of its volumes."""
+        return scene.replace(**{k: place(getattr(scene, k)) for k in
+                                ("emission", "absorption", "reflection", "gradient_x",
+                                 "gradient_y", "gradient_z")})
+
+    def _build_scene(self, resident: bool = True) -> Scene:
+        """The scene of the renderer's state, its grids on the renderer's
+        device (``resident=False``: where the volumes lie)."""
         if self.volume_emission is None or self.volume_absorption is None:
             raise ValueError("Not all volumes are properly set! "
                              "(emission and absorption are required)")
@@ -175,31 +207,56 @@ class VolumeRenderer:
             opacity_threshold=self.opacity_threshold,
             device=self.device,
         )
-        emission = self._on_device(self.volume_emission).replace(
+        emission = self.volume_emission.replace(
             element_size_um=tuple(float(e) for e in self.element_size_um))
-        return Scene(
+        scene = Scene(
             emission=emission,
-            absorption=self._on_device(absorption),
-            reflection=self._on_device(reflection),
+            absorption=absorption,
+            reflection=reflection,
             camera=camera,
             settings=settings,
-            gradient_x=self._on_device(self.volume_gradient_x),
-            gradient_y=self._on_device(self.volume_gradient_y),
-            gradient_z=self._on_device(self.volume_gradient_z),
+            gradient_x=self.volume_gradient_x,
+            gradient_y=self.volume_gradient_y,
+            gradient_z=self.volume_gradient_z,
             illumination=illumination,
             light_positions=light_pos,
             light_colors=light_col,
         )
+        return self._placed(scene, self._on_device) if resident else scene
 
     def _render_once(self, camera_x_offset: float, width: int, height: int) -> torch.Tensor:
-        if self.mesh is not None or self.memory_budget_bytes is not None:
-            raise NotImplementedError("memory-planned and multi-device rendering is " + _LATER)
-        scene = self._build_scene()
+        scene = self._build_scene(resident=False)
         opts = build_render_options(scene.emission.extent_xyz, scene.emission.element_size_um,
                                     width, height)
-        img = render_forward_fast(scene, opts, camera_x_offset)
-        self.last_plan = RenderPlan(path="cuda" if self.device.type == "cuda" else "plain")
-        return img
+        # memory pre-flight from the volumes' shapes, before any grid moves
+        # (the reference errors instead, mmanager.hxx:144-173)
+        plan = plan_render(scene, opts, budget_bytes=self.memory_budget_bytes, mesh=self.mesh,
+                           device=self.device)
+        self.last_plan = plan
+        kernel = self.device.type == "cuda"
+        if kernel and scene.has_lighting and plan.path in _LIT_PLAIN:
+            raise NotImplementedError(
+                f"{plan}: the {plan.path} route runs the z-brick kernels, which march unlit "
+                f"scenes only; render this lit scene with {_LIT_PLAIN[plan.path]} (plain "
+                f"PyTorch) or give it a larger memory_budget_bytes")
+        if plan.path == "streamed":
+            if kernel:
+                return cuda_slab.render_forward_streamed_fast(
+                    self._placed(scene, self._on_host), opts, camera_x_offset,
+                    n_slabs=plan.n_slabs, device=self.device)
+            return slab.render_forward_streamed(scene, opts, camera_x_offset,
+                                                n_slabs=plan.n_slabs, device=self.device)
+        if plan.path == "bricked":  # split_bricks copies each brick where it marches
+            fn = bricks.render_forward_bricked_fast if kernel else bricks.render_forward_bricked
+            return fn(scene, opts, camera_x_offset, mesh=self.mesh)
+        scene = self._placed(scene, self._on_device)
+        if plan.path == "cuda_dp":
+            return pallas_dp.render_forward_fast_sharded(scene, opts, camera_x_offset,
+                                                         mesh=self.mesh)
+        if plan.path == "slabbed":
+            fn = cuda_slab.render_forward_slabbed_fast if kernel else slab.render_forward_slabbed
+            return fn(scene, opts, camera_x_offset, n_slabs=plan.n_slabs)
+        return render_forward_fast(scene, opts, camera_x_offset)
 
     # ---- rendering ------------------------------------------------------
 
@@ -233,8 +290,37 @@ class VolumeRenderer:
     # ---- introspection --------------------------------------------------
 
     def mem_info(self) -> str:
-        """The scene memory report of the JAX facade."""
-        raise NotImplementedError("mem_info is " + _LATER)
+        """Human-readable scene memory report (the reference's
+        ``MManager::memInfo``): each volume with its shape and size, shared
+        volumes counted once, the deduplicated total and, on a card, the
+        memory that PyTorch has allocated there."""
+        lines = ["volume_renderer_tpu_torch scene memory:"]
+        total = 0
+        seen = []  # (name, Volume) already counted as resident
+        for name in ("volume_emission", "volume_absorption", "volume_reflection",
+                     "volume_gradient_x", "volume_gradient_y", "volume_gradient_z"):
+            vol = getattr(self, name)
+            if vol is None:
+                continue
+            nbytes = int(np.prod(vol.data.shape)) * 4
+            # the render path's pairwise content-equality rule (_same_volume)
+            shared_with = next((n for n, v in seen if self._same_volume(vol, v)), None)
+            dedup = f" (shared with {shared_with})" if shared_with else ""
+            if not shared_with:
+                seen.append((name, vol))
+                total += nbytes
+            lines.append(f"  {name}: shape={tuple(vol.data.shape)} "
+                         f"{nbytes / 2 ** 20:.1f} MiB{dedup}")
+        if self.volume_illumination is not None:
+            nbytes = int(np.prod(self.volume_illumination.shape)) * 4
+            total += nbytes
+            lines.append(f"  volume_illumination: shape={tuple(self.volume_illumination.shape)} "
+                         f"{nbytes / 2 ** 20:.1f} MiB")
+        lines.append(f"  total (deduplicated): {total / 2 ** 20:.1f} MiB")
+        if self.device.type == "cuda":
+            allocated = torch.cuda.memory_allocated(self.device)
+            lines.append(f"  device memory_allocated: {allocated / 2 ** 20:.1f} MiB")
+        return "\n".join(lines)
 
     # ---- static helpers -------------------------------------------------
 

@@ -118,6 +118,26 @@ class Brick(NamedTuple):
         return self.index * bd - HALO, bd * self.n
 
 
+class Slab(Brick):
+    """Slab ``index`` of ``n`` of a z-slab sweep (``ops/slab.py``): a brick
+    whose grids are clamped windows of the whole volumes, bd + 2 HALO rows
+    from ``clip(index * bd - HALO, 0, D - rows)`` (the JAX package's
+    ``_slab_window``), so that the windows are views of the grids and no
+    halo row lies outside the volume. Every pass of this module and every
+    brick kernel takes a slab as it takes a brick: the owner rule and the
+    entry record are the same, only the rows of the grids differ."""
+
+    __slots__ = ()
+
+    def slab_geometry(self, data: torch.Tensor) -> Tuple[int, int]:
+        if data.shape[0] == 1:  # a placeholder, never sampled
+            return 0, 1
+        rows = data.shape[0]
+        bd = rows - 2 * HALO
+        full_d = bd * self.n
+        return min(max(self.index * bd - HALO, 0), full_d - rows), full_d
+
+
 def brick_samplers(brick: Brick) -> core.Samplers:
     """Samplers over the brick's padded grids, at global coords."""
     scene = brick.scene

@@ -60,7 +60,8 @@ bands. ``render_forward_bricked_fast``,
 kernels (``ops/cuda_bricks.py``) on CUDA bricks and the same plain passes on
 CPU bricks; they take unlit scenes only and raise ``NotImplementedError``
 for a lit one. All take a ``Scene`` (split on every call) or a
-``BrickedScene`` (split once, ``split_bricks``), return the image on
+``BrickedScene`` (split once, ``split_bricks``; ``train_step_fast_bricked``
+also a ``Scene`` with whole params, cut for each step), return the image on
 ``mesh[0]``, and raise ``ValueError`` for a depth that B does not divide or
 bricks thinner than 2 rows; depth-1 volumes are copied whole to every brick.
 """
@@ -545,28 +546,41 @@ def merge_params_bricked(params: Params, bricked: BrickedScene) -> BrickedScene:
 
 
 def train_step_fast_bricked(params: Params, optimizer: torch.optim.Optimizer,
-                            scene: BrickedScene, opts: RenderOptions, target: torch.Tensor, *,
-                            mesh: Optional[Mesh] = None, camera_x_offset: float = 0.0
-                            ) -> torch.Tensor:
+                            scene: Union[Scene, BrickedScene], opts: RenderOptions,
+                            target: torch.Tensor, *, mesh: Optional[Mesh] = None,
+                            camera_x_offset: float = 0.0) -> torch.Tensor:
     """One training step at kernel speed with the grids cut across the mesh
-    from end to end (sum-of-squares loss): halo exchange, bricked forward,
-    closed-form pixel cotangent, gradient segments with the halo rows folded
-    back, optimizer. 3 launches a brick. Updates ``params`` (those of
-    ``split_params_bricked``: per-brick leaves, each on its device) in place
-    and returns the loss before the update, on ``mesh[0]``."""
-    if not isinstance(scene, BrickedScene):
-        raise TypeError("scene must be the BrickedScene of split_params_bricked")
-    if mesh is not None:
-        _as_bricked(scene, mesh)
+    (sum-of-squares loss): halo exchange, bricked forward, closed-form pixel
+    cotangent, gradient segments with the halo rows folded back, optimizer.
+    3 launches a brick. Updates ``params`` in place and returns the loss
+    before the update, on ``mesh[0]``.
+
+    With the ``BrickedScene`` of ``split_params_bricked`` and its params
+    (per-brick leaves, each on its device) the grids stay cut from end to
+    end. With a ``Scene`` and the whole params of ``train.split_params``
+    (the memory planner's bricked tier) the grids are cut for the step
+    over ``mesh`` and their gradients joined on each leaf's device."""
     cam = float(camera_x_offset)
+    whole = not isinstance(scene, BrickedScene)
+    if whole:
+        if mesh is None:
+            raise ValueError("a Scene with whole params needs the mesh to cut it over")
+    elif mesh is not None:
+        _as_bricked(scene, mesh)
     with torch.no_grad():
-        merged = merge_params_bricked(params, scene)
+        if whole:
+            merged = split_bricks(merge_scene(scene, {k: v.detach() for k, v in params.items()}),
+                                  mesh)
+        else:
+            merged = merge_params_bricked(params, scene)
         fwd = _forward(merged, opts, cam, fast=True)
         resid = fwd.image - target.to(fwd.image.device, torch.float32)
         loss = torch.sum(resid ** 2)
         grads = _voxel_grads(merged, opts, 2.0 * resid, cam, fwd)
         for key, value in params.items():
-            if isinstance(value, (list, tuple)):
+            if whole and key in GRID_KEYS:
+                value.grad = assemble(grads[key], value.device).reshape(value.shape)
+            elif isinstance(value, (list, tuple)):
                 for p, grad in zip(value, grads[key]):
                     p.grad = grad.reshape(p.shape)
             else:

@@ -63,7 +63,7 @@ def make_mesh_2d(n_bands: int, n_bricks: int,
 def check_mesh(mesh, what: str) -> List[torch.device]:
     """``mesh`` as a list of devices, one per ``what`` (brick or band);
     raises ``ValueError`` for anything else."""
-    if (mesh is None or isinstance(mesh, (str, torch.device)) or len(mesh) < 1
+    if (not isinstance(mesh, (list, tuple)) or len(mesh) < 1
             or any(isinstance(d, (list, tuple)) for d in mesh)):
         raise ValueError(f"mesh must be a list of devices, one per {what} "
                          "(parallel.mesh.make_mesh)")

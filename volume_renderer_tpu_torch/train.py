@@ -16,15 +16,22 @@ calls run the kernels' plain versions. ``train_step_sharded`` is
 ``train_step`` with the image rows cut into bands over a device list
 (rays-DP); ``parallel.pallas_dp.train_step_fast_sharded`` is its kernel
 step.
+
+For volumes larger than a device: ``train_step_slabbed`` differentiates the
+z-slab sweep, ``train_step_streamed`` keeps the grids in host memory and
+streams them a slab at a time (``ops/slab.py``, ``ops/cuda_slab.py``), and
+``train_step_planned`` lets the memory planner (``api/planner.py``) pick
+the tier for a step.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from volume_renderer_tpu_torch._device import DeviceLike, resolve_device
 from volume_renderer_tpu_torch.models.scene import RenderOptions, Scene
 from volume_renderer_tpu_torch.ops.cuda_grads import voxel_grads_fast
 from volume_renderer_tpu_torch.ops.cuda_march import render_forward_fast
@@ -169,3 +176,100 @@ def train_step_fast(params: Params, optimizer: torch.optim.Optimizer, scene: Sce
             p.grad = grads[key].reshape(p.shape)
     optimizer.step()
     return loss
+
+
+def train_step_streamed(params: Params, optimizer: torch.optim.Optimizer, scene: Scene,
+                        opts: RenderOptions, target: torch.Tensor, *, n_slabs: int,
+                        device: DeviceLike = None) -> torch.Tensor:
+    """One training step with the grids in host memory: the forward and the
+    backward stream one halo-padded z-slab at a time to ``device`` (default:
+    the card; ``ops.slab.streamed_grads`` with the sum-of-squares cotangent
+    ``2 * (image - target)``), so that only the march's working set must fit
+    it. The optimizer updates ``params`` wherever they live: grids held as
+    CPU tensors (pinned, for fast copies) are updated in host memory. Returns
+    the loss before the update, on ``device``."""
+    from volume_renderer_tpu_torch.ops.slab import streamed_grads
+
+    dev = resolve_device(device)
+    with torch.no_grad():
+        merged = merge_params(params, scene)
+        tgt = target.to(dev, torch.float32)
+        grads, image = streamed_grads(merged, opts, None, n_slabs=n_slabs,
+                                      g_fn=lambda out: 2.0 * (out - tgt), device=dev)
+        loss = torch.sum((image - tgt) ** 2)
+        for key, p in params.items():
+            p.grad = grads[key].to(p.device).reshape(p.shape)
+    optimizer.step()
+    return loss
+
+
+def band_loss_slabbed(params: Params, scene: Scene, opts: RenderOptions, target: torch.Tensor,
+                      n_slabs: int, camera_x_offset: float = 0.0) -> torch.Tensor:
+    """Sum of squared errors of the whole image through the differentiable
+    z-slab sweep: ``ops.slab.render_fused_slabbed`` (plain PyTorch) on a CPU
+    scene, ``ops.cuda_slab.render_fused_slabbed_fast`` (the K7 launch forms)
+    on a CUDA one."""
+    from volume_renderer_tpu_torch.ops import cuda_slab, slab
+
+    merged = merge_params(params, scene)
+    fused = (cuda_slab.render_fused_slabbed_fast if merged.device.type == "cuda"
+             else slab.render_fused_slabbed)
+    img = fused(merged, opts, camera_x_offset, n_slabs=n_slabs)
+    return torch.sum((img - target.to(img.device, torch.float32)) ** 2)
+
+
+def train_step_slabbed(params: Params, optimizer: torch.optim.Optimizer, scene: Scene,
+                       opts: RenderOptions, target: torch.Tensor, *,
+                       n_slabs: int) -> torch.Tensor:
+    """One training step through the z-slab sweep (``band_loss_slabbed``);
+    updates ``params`` in place and returns the loss before the update."""
+    optimizer.zero_grad(set_to_none=True)
+    loss = band_loss_slabbed(params, scene, opts, target, n_slabs)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def train_step_planned(params: Params, optimizer: torch.optim.Optimizer, scene: Scene,
+                       opts: RenderOptions, target: torch.Tensor,
+                       budget_bytes: Optional[int] = None, mesh=None,
+                       device: DeviceLike = None):
+    """A training step whose tier the memory planner picks
+    (``api.planner.plan_render`` with ``training=True`` and this
+    ``optimizer``), marching on ``device`` (default: the card): ``"cuda"``
+    ``train_step_fast``, ``"plain"`` ``train_step``, ``"cuda_dp"``
+    ``parallel.pallas_dp.train_step_fast_sharded`` and ``"bricked"``
+    ``parallel.bricks.train_step_fast_bricked`` over ``mesh``, ``"slabbed"``
+    ``train_step_slabbed`` and ``"streamed"`` ``train_step_streamed``. The
+    streamed tier takes grids in host memory, every other tier grids on
+    ``device``; a step whose grids are elsewhere raises ``ValueError``.
+    Updates ``params`` in place and returns ``(loss, plan)``."""
+    from volume_renderer_tpu_torch.api.planner import plan_render
+
+    dev = resolve_device(device)
+    merged = merge_params(params, scene)
+    plan = plan_render(merged, opts, budget_bytes=budget_bytes, training=True, mesh=mesh,
+                       optimizer=optimizer, device=dev)
+    where = params["emission"].device
+    want = torch.device("cpu") if plan.path == "streamed" else dev
+    if where.type != want.type or (want.index is not None and where != want):
+        raise ValueError(f"{plan}: the {plan.path} tier takes the grids on {want}, "
+                         f"they are on {where}")
+    if plan.path == "cuda_dp":
+        from volume_renderer_tpu_torch.parallel.pallas_dp import train_step_fast_sharded
+
+        loss = train_step_fast_sharded(params, optimizer, scene, opts, target, mesh=mesh)
+    elif plan.path == "bricked":
+        from volume_renderer_tpu_torch.parallel.bricks import train_step_fast_bricked
+
+        loss = train_step_fast_bricked(params, optimizer, scene, opts, target, mesh=mesh)
+    elif plan.path == "slabbed":
+        loss = train_step_slabbed(params, optimizer, scene, opts, target, n_slabs=plan.n_slabs)
+    elif plan.path == "streamed":
+        loss = train_step_streamed(params, optimizer, scene, opts, target,
+                                   n_slabs=plan.n_slabs, device=dev)
+    elif plan.path == "cuda":
+        loss = train_step_fast(params, optimizer, scene, opts, target)
+    else:  # plain: the whole-grid step through torch.autograd
+        loss = train_step(params, optimizer, scene, opts, target)
+    return loss, plan
