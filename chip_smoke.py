@@ -160,6 +160,31 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             the whole-grid kernels (CUDA events, warm, median of 5) with the
             host's time.
 
+16. camera_grads (plain PyTorch on the card): render_fused(camera_grads=True)
+            on rows 224-287 of 512^2 at 256^3 on the noisy K3 scene, and on
+            rows 112-143 of 256^2 at 64^3 on the noisy lit OTF scene, against
+            torch.autograd of the fixed-trip march (render_rows(
+            differentiable=True), its trip count cut to the band's longest
+            march) on the same band: the rotation within 5e-3 of its scale,
+            focal length, distance and x offset within 2e-3 (the JAX
+            package's bounds), the images equal; the forward, backward and
+            scan ms; then a 12-step Adam fit of the rotation, focal length
+            and distance at 12^3 / 24^2, whose loss and pose error must fall.
+17. oracle_vs_kernels: render_oracle on rows 224-287 of 512^2 at 256^3
+            against the K1 image of render_forward_fast, and on rows 112-143
+            of 256^2 at 64^3 against K4's and K5's (launched once each,
+            counted; the oracle launches nothing), the facade's
+            backend="oracle" against backend="forward" on the main path's
+            scenes at 32^3 and 64 x 16, and bench.py's check (the 32^3 unlit
+            flagship at 24^2), all within atol=3e-5, rtol=3e-4.
+18. utils: utils.trace around one K1 render (the trace, written under
+            out/chip_smoke/trace, must name march_kernel), Stopwatch
+            and PhaseTimer around the same render beside its CUDA-event ms,
+            and a checkpoint round trip (out/chip_smoke) of three
+            train_step_fast steps' params and Adam state at 128^3: the
+            fourth step's loss after a reload equals it without one, to the
+            bit.
+
 Then the kernels line and, last, {"ok": true, "device": {...}}. It needs
 the repository around it and a CUDA card; it imports nothing of JAX.
 """
@@ -605,6 +630,339 @@ def ptxas_by_kernel(log: str, strict: bool = True, threads=KERNEL_THREADS) -> di
                 out[key].update(blocks_per_sm=blocks,
                                 warps_per_sm=blocks * out[key]["threads"] // 32)
     return out
+
+
+# ---- phases 16-18: camera gradients, the oracle, utils ------------------
+# All plain PyTorch on the card but the forward kernels the oracle is held
+# against. Each phase takes the helpers of main() as ``ctx``.
+# The plain march and replay cost hundreds to thousands of launches a step
+# whatever the rays, so their time follows the steps, that is the volume's
+# edge: at full size only the unlit camera check and the K1 oracle band
+# run. The lit camera check and the lit oracle bands run at 64^3 / 256^2,
+# the pose fit at 12^3 / 24^2 (at 64^3 / 96^2 its 12 steps take a minute).
+CAMERA = dict(first_row=224, rows=64)              # a band of MAIN's 512^2
+CAMERA_LIT = dict(volume=64, image=256, first_row=112, rows=32)
+POSE_FIT = dict(volume=12, image=24, steps=12, lr=5e-3)
+ORACLE = dict(first_row=224, rows=64, lit_volume=64, lit_image=256, lit_first_row=112,
+              lit_rows=32, facade_volume=32, facade_image=(64, 16))
+BENCH_ORACLE = dict(volume=32, image=24, atol=3e-5, rtol=3e-4)   # bench.py's check
+# The JAX package's bounds for its fused camera gradients against its scan
+# (tests/test_camera_grad.py): the rotation's largest error over its largest
+# magnitude, each intrinsic's error over the larger of the two values.
+CAMERA_TOL = {"camera_rotation": 5e-3, "camera_focal": 2e-3, "camera_distance": 2e-3,
+              "camera_x_offset": 2e-3}
+
+
+def camera_grads_phase(ctx) -> dict:
+    """render_fused(camera_grads=True) on a band against autograd of the
+    fixed-trip march (render_rows(differentiable=True)) on the same band, at
+    full size on the noisy unlit scene and at 64^3 on the lit OTF one; then
+    a pose-and-intrinsics fit through it."""
+    import torch
+
+    from volume_renderer_tpu_torch.ops.cuda_march import render_rows_fast
+    from volume_renderer_tpu_torch.ops.forward import render_rows
+    from volume_renderer_tpu_torch.ops.vjp import (CAMERA_KEYS, POSE_KEYS, merge_scene,
+                                                   render_fused, split_scene)
+
+    t_phase = time.perf_counter()
+    dev = ctx.dev
+
+    def posed(scene, x_offset=0.05):
+        """The scene with its camera as fresh leaves, and the leaves, the x
+        offset among them."""
+        diff, template = split_scene(scene, with_camera=True)
+        leaves = {k: diff[k].detach().clone().requires_grad_(True) for k in CAMERA_KEYS}
+        leaves["camera_x_offset"] = torch.tensor(x_offset, device=dev, requires_grad=True)
+        return merge_scene(template, {**diff, **leaves}), leaves
+
+    def versus_scan(name, scene, image, first_row, rows, seed):
+        opts = scene.options(image, image)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        g = torch.randn((rows, image, 3), generator=gen, device=dev) * 1e-3
+        s, fused = posed(scene)
+        img, fwd_ms = ctx.timed(lambda: render_fused(s, opts, fused["camera_x_offset"],
+                                                     first_row, rows, camera_grads=True))
+        _, bwd_ms = ctx.timed(lambda: img.backward(g))
+        # The scan's fixed trip count cut to the band's longest march (the
+        # kernel's sample counts, its plain version's): the steps after it
+        # composite nothing and carry no gradient, so the result is the same.
+        counts = torch.zeros((rows, image), dtype=torch.int32, device=dev)
+        render_rows_fast(scene, opts, 0.05, first_row, rows, steps=counts)
+        scan_opts = type(opts)(opts.width, opts.height, opts.boxmin, opts.boxmax, opts.tstep,
+                               opts.gradient_step, int(counts.max()) + 1)
+        s, scan = posed(scene)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def scan_grads():
+            out = render_rows(s, scan_opts, scan["camera_x_offset"], first_row, rows,
+                              differentiable=True)
+            out.backward(g)
+            return out.detach()
+
+        scan_img, scan_ms = ctx.timed(scan_grads)
+        scan_peak = torch.cuda.max_memory_allocated() - base
+        if not torch.equal(img.detach(), scan_img):
+            raise RuntimeError(f"camera_grads {name}: the fused and the scan images differ")
+        errs, grads = {}, {}
+        for key in POSE_KEYS:
+            got, want = fused[key].grad, scan[key].grad
+            if not (bool(torch.isfinite(got).all()) and bool(want.abs().max() > 0)):
+                raise RuntimeError(f"camera_grads {name} {key}: {got} against {want}")
+            if key == "camera_rotation":
+                err = float((got - want).abs().max() / want.abs().max())
+            else:
+                err = float((got - want).abs() / torch.maximum(got.abs(), want.abs()))
+            if not err <= CAMERA_TOL[key]:
+                raise RuntimeError(f"camera_grads {name} {key}: {err:.3e} off the scan "
+                                   f"(bound {CAMERA_TOL[key]})")
+            errs[key], grads[key] = err, got.tolist()
+        return {"volume": scene.emission.data.shape[0], "image": image,
+                "band_first_row": first_row, "band_rows": rows, "n_steps": opts.n_steps,
+                "scan_steps": scan_opts.n_steps,
+                "fused_forward_ms": fwd_ms, "fused_backward_ms": bwd_ms,
+                "scan_forward_backward_ms": scan_ms, "scan_peak_mib": scan_peak / 2 ** 20,
+                "err": errs, "grads": grads}
+
+    out = {"tolerance": CAMERA_TOL, "reference": "render_rows(differentiable=True) autograd"}
+    t0 = time.perf_counter()
+    out["unlit"] = versus_scan("unlit", ctx.flagship(ctx.MAIN["volume"], "K1", ab_aliased=False,
+                                                     noise=0.05),
+                               ctx.MAIN["image"], CAMERA["first_row"], CAMERA["rows"], 11)
+    out["unlit"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["lit_otf"] = versus_scan("lit OTF", ctx.flagship(CAMERA_LIT["volume"], "K4",
+                                                         ab_aliased=False, noise=0.05),
+                                 CAMERA_LIT["image"], CAMERA_LIT["first_row"],
+                                 CAMERA_LIT["rows"], 12)
+    out["lit_otf"]["seconds"] = time.perf_counter() - t0
+
+    # the pose fit: rotation, focal length and distance perturbed, Adam back
+    t0 = time.perf_counter()
+    n, image = POSE_FIT["volume"], POSE_FIT["image"]
+    scene = ctx.flagship(n, "K1", ab_aliased=False, noise=0.05)
+    opts = scene.options(image, image)
+    target = render_fused(scene, opts).detach()
+    diff0, template = split_scene(scene, with_camera=True)
+    truth = {k: diff0[k].detach().clone() for k in CAMERA_KEYS}
+    params = {"camera_rotation": (truth["camera_rotation"] + 0.02).requires_grad_(True),
+              "camera_focal": (truth["camera_focal"] + 0.15).requires_grad_(True),
+              "camera_distance": (truth["camera_distance"] - 0.2).requires_grad_(True)}
+    optimizer = torch.optim.Adam(list(params.values()), lr=POSE_FIT["lr"])
+
+    def pose_err():
+        return sum(float(torch.sum((params[k].detach() - truth[k]) ** 2)) for k in truth)
+
+    errors, losses = [pose_err()], []
+    for _ in range(POSE_FIT["steps"]):
+        optimizer.zero_grad()
+        img = render_fused(merge_scene(template, {**diff0, **params}), opts, camera_grads=True)
+        loss = torch.mean((img - target) ** 2)
+        loss.backward()
+        optimizer.step()
+        losses.append(float(loss.detach()))
+        errors.append(pose_err())
+    with torch.no_grad():
+        losses.append(float(torch.mean((render_fused(merge_scene(template, {**diff0, **params}),
+                                                     opts) - target) ** 2)))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0] and errors[-1] < errors[0]):
+        raise RuntimeError(f"the pose fit did not descend: losses {losses}, errors {errors}")
+    out["pose_fit"] = {"volume": n, "image": image, "steps": POSE_FIT["steps"], "optimizer": "Adam",
+                       "lr": POSE_FIT["lr"], "losses": losses, "pose_sq_errors": errors,
+                       "step_ms": (time.perf_counter() - t0) * 1e3 / POSE_FIT["steps"],
+                       "seconds": time.perf_counter() - t0}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def oracle_phase(ctx) -> dict:
+    """render_oracle on a band against K1, K4 and K5 on the same rows; the
+    facade's oracle backend against its forward one; bench.py's check."""
+    import torch
+
+    from volume_renderer_tpu_torch import LightSource, Volume, VolumeRenderer, henyey_greenstein_lut
+    from volume_renderer_tpu_torch.ops import cuda_march
+    from volume_renderer_tpu_torch.ops.cuda_march import render_forward_fast
+    from volume_renderer_tpu_torch.ops.oracle import render_oracle
+
+    t_phase = time.perf_counter()
+    modes = ("K1", "K4", "K5")
+    # (volume, image, first row, rows) of each mode's band
+    cells = {mode: (ctx.MAIN["volume"], ctx.MAIN["image"], ORACLE["first_row"], ORACLE["rows"])
+             if mode == "K1" else (ORACLE["lit_volume"], ORACLE["lit_image"],
+                                   ORACLE["lit_first_row"], ORACLE["lit_rows"])
+             for mode in modes}
+    scenes = {mode: ctx.flagship(cells[mode][0], mode) for mode in modes}
+    opts = {mode: scenes[mode].options(cells[mode][1], cells[mode][1]) for mode in modes}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        cuda_march.reset_launch_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, dict(cuda_march.LAUNCHES_BY_MODE)
+
+    kernel_images, kernel_launches = counted(
+        lambda: {mode: render_forward_fast(scenes[mode], opts[mode]) for mode in modes})
+    out = {"tolerance": {"atol": BENCH_ORACLE["atol"], "rtol": BENCH_ORACLE["rtol"]},
+           "kernel_launches": kernel_launches}
+    oracle_launches = None
+    for mode in modes:
+        n, size, y0, rows = cells[mode]
+        (img, ms), counts = counted(lambda: ctx.timed(lambda: render_oracle(
+            scenes[mode], opts[mode], y_offset=y0, n_rows=rows)))
+        oracle_launches = {k: (oracle_launches or {}).get(k, 0) + v for k, v in counts.items()}
+        kernel_rows = kernel_images[mode][y0:y0 + rows]
+        out[mode] = {"volume": n, "image": size, "band_first_row": y0, "band_rows": rows,
+                     "oracle_band_ms": ms, "max_abs_err": ctx.check(
+                         f"oracle {mode}", kernel_rows, img, BENCH_ORACLE["atol"],
+                         BENCH_ORACLE["rtol"], None)}
+    out["oracle_launches"] = oracle_launches
+    for mode in modes:
+        if kernel_launches[mode] != 1:
+            raise RuntimeError(f"the forward side launched {kernel_launches}")
+    if any(oracle_launches.values()):
+        raise RuntimeError(f"the oracle launched a kernel: {oracle_launches}")
+
+    # the facade, backend="oracle" against backend="forward", on the main
+    # path's scenes cut to 32^3 and a 64 x 16 image (at 256^3 and 512 x 64
+    # the oracle takes 3 to 19 s a mode)
+    em = ctx.shell(ORACLE["facade_volume"]).cpu().numpy()
+    width, height = ORACLE["facade_image"]
+    facade = {}
+    for mode in modes:
+        images = {}
+        for backend in ("forward", "oracle"):
+            r = VolumeRenderer(backend=backend)
+            r.volume_emission = Volume.create(em)
+            r.volume_absorption = Volume.create(em)
+            r.factor_absorption, r.factor_reflection, r.color = 0.6, 0.4, (1.0, 0.9, 0.8)
+            r.focal_length, r.distance_to_object = 3.0, 6.0
+            r.rotate(125, 25, 0)
+            r.image_resolution = (width, height)
+            if mode != "K1":
+                r.volume_reflection = Volume.create(em)
+                r.volume_illumination = henyey_greenstein_lut(32)
+                r.light_sources = [LightSource([2.0, 3.0, -1.5], [1.0, 1.0, 1.0])]
+            if mode == "K5":
+                r.volume_gradient_x, r.volume_gradient_y, r.volume_gradient_z = (
+                    Volume.create(em).gradient_volumes())
+            (images[backend], ms), counts = counted(lambda: ctx.timed(r.render))
+            facade.setdefault(mode, {})[f"{backend}_ms"] = ms
+            facade[mode][f"{backend}_launches"] = counts[mode]
+        if facade[mode]["forward_launches"] != 1 or facade[mode]["oracle_launches"] != 0:
+            raise RuntimeError(f"facade launches {mode}: {facade[mode]}")
+        facade[mode]["max_abs_err"] = ctx.check(f"facade oracle {mode}", images["forward"],
+                                                images["oracle"], BENCH_ORACLE["atol"],
+                                                BENCH_ORACLE["rtol"], None)
+    out["facade"] = {"volume": ORACLE["facade_volume"], "image": [width, height], **facade}
+
+    # bench.py's oracle_allclose: the 32^3 unlit flagship at 24^2
+    scene = ctx.flagship(BENCH_ORACLE["volume"], "K1", ab_aliased=False)
+    bopts = scene.options(BENCH_ORACLE["image"], BENCH_ORACLE["image"])
+    got, want = render_forward_fast(scene, bopts), render_oracle(scene, bopts)
+    out["bench_check"] = {**BENCH_ORACLE, "max_abs_err": ctx.check(
+        "bench oracle", got, want, BENCH_ORACLE["atol"], BENCH_ORACLE["rtol"], None),
+        "allclose": True}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def utils_phase(ctx, trace_dir: str, checkpoint_dir: str) -> dict:
+    """utils.trace around one K1 render (the trace must name march_kernel),
+    Stopwatch and PhaseTimer around the same render beside CUDA events, and
+    a checkpoint round trip of train_step_fast's params and Adam state."""
+    import shutil
+
+    import torch
+
+    from volume_renderer_tpu_torch import train
+    from volume_renderer_tpu_torch.ops.cuda_march import render_forward_fast
+    from volume_renderer_tpu_torch.utils import (PhaseTimer, Stopwatch, load_checkpoint,
+                                                 save_checkpoint, trace)
+
+    t_phase = time.perf_counter()
+    n, size = ctx.MAIN["volume"], ctx.MAIN["image"]
+    scene = ctx.flagship(n, "K1")
+    opts = scene.options(size, size)
+
+    def render():
+        return render_forward_fast(scene, opts)
+
+    event_ms, event_times = ctx.median_ms(render)
+    host_ms = ctx.host_ms(render)
+    # the trace: one warm render inside it
+    logdir = trace_dir
+    shutil.rmtree(logdir, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with trace(logdir) as prof:
+        _, traced_ms = ctx.timed(render)
+    traced_host_ms = (time.perf_counter() - t0) * 1e3
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    marches = [e for e in kernels if "march_kernel" in e.get("name", "")]
+    if not marches:
+        raise RuntimeError(f"the trace names no march_kernel: {sorted({e.get('name') for e in kernels})[:20]}")
+    device_ms = {a.key: a.device_time_total / 1e3 for a in prof.key_averages()
+                 if "march_kernel" in a.key}
+    # Stopwatch and PhaseTimer on the host's clock, waiting for the card
+    sw, pt = Stopwatch("utils"), PhaseTimer()
+    sw_ms, pt_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        sw.start("render")
+        img = render()
+        sw_ms.append(sw.stop("render", sync=img) * 1e3)
+        torch.cuda.synchronize()
+        before = pt.totals.get("render", 0.0)
+        pt.timed("render", render)
+        pt_ms.append((pt.totals["render"] - before) * 1e3)
+
+    # the checkpoint: three train_step_fast steps, save, the fourth step's
+    # loss with and without a reload
+    t0 = time.perf_counter()
+    cn = ctx.COMPARE["volume"]
+    cscene = ctx.flagship(cn, "K1", ab_aliased=False, noise=0.05)
+    copts = cscene.options(ctx.COMPARE["width"], ctx.COMPARE["height"])
+    target = render_forward_fast(cscene, copts)
+
+    def start():
+        params, static = train.split_params(cscene)
+        with torch.no_grad():
+            params["emission"].mul_(1.3).add_(0.05)
+        return params, static, torch.optim.Adam(list(params.values()), lr=2e-3)
+
+    params, static, optimizer = start()
+    losses = [float(train.train_step_fast(params, optimizer, static, copts, target))
+              for _ in range(3)]
+    path = os.path.join(checkpoint_dir, "checkpoint.npz")
+    save_checkpoint(path, params, optimizer, 3)
+    size_mib = os.path.getsize(path) / 2 ** 20
+    want = float(train.train_step_fast(params, optimizer, static, copts, target))
+    fresh, fresh_static, fresh_opt = start()
+    _, _, step = load_checkpoint(path, fresh, fresh_opt)
+    got = float(train.train_step_fast(fresh, fresh_opt, fresh_static, copts, target))
+    os.remove(path)
+    if step != 3 or got != want:
+        raise RuntimeError(f"the reloaded fourth step's loss {got!r} is not {want!r}")
+    return {"render": "K1 render_forward_fast", "volume": n, "image": size,
+            "cuda_event_ms": event_ms, "cuda_event_times": event_times, "host_ms": host_ms,
+            "stopwatch_ms": sw_ms, "phase_timer_ms": pt_ms,
+            "trace": {"file": os.path.relpath(prof.trace_path, REPO), "events": len(events),
+                      "kernel_events": len(kernels),
+                      "march_kernel_us": [e.get("dur") for e in marches],
+                      "key_averages_device_ms": device_ms,
+                      "traced_render_event_ms": traced_ms, "traced_host_ms": traced_host_ms},
+            "checkpoint": {"volume": cn, "image": [ctx.COMPARE["width"], ctx.COMPARE["height"]],
+                           "losses": losses, "fourth_loss": want, "fourth_loss_reloaded": got,
+                           "bit_equal": True, "file_mib": size_mib,
+                           "seconds": time.perf_counter() - t0},
+            "seconds": time.perf_counter() - t_phase}
 
 
 def emit(obj) -> None:
@@ -2527,7 +2885,7 @@ def main() -> None:
 
             def step(p=params, o=optimizer, budget=int(est / 0.7) + 1):
                 return train.train_step_planned(p, o, static, opts, single, budget_bytes=budget)
-        (loss, plan), launches = counted(step)
+        (loss, plan), step_launches = counted(step)
         first_grads = {k: p.grad.to(dev) for k, p in params.items()}
         losses = [float(loss)]
         rest, rest_launches = counted(lambda: [step()[0] for _ in range(TRAIN_STEPS - 1)])
@@ -2536,11 +2894,11 @@ def main() -> None:
             raise RuntimeError(f"{name}: the loss did not fall: {losses}")
         if plan is not None and (plan.path, plan.n_slabs) != ("streamed", n_main):
             raise RuntimeError(f"{name} planned {plan}")
-        k7_only(name, launches, K7_FORM_KEYS)
+        k7_only(name, step_launches, K7_FORM_KEYS)
         train_cells[name] = {
             "losses": losses, "plan": None if plan is None else str(plan),
-            "first_step_launches": launches,
-            "launches": {k: launches[k] + rest_launches[k] for k in launches},
+            "first_step_launches": step_launches,
+            "launches": {k: step_launches[k] + rest_launches[k] for k in step_launches},
             "first_step_vs_voxel_grads_fast_of_scale": dp_grads_check(
                 f"{name} first step", first_grads, want0)}
     # train_step_planned without a budget: the kernels on the whole grids
@@ -2613,6 +2971,17 @@ def main() -> None:
             "steps": TRAIN_STEPS, "optimizer": "Adam", "lr": TRAIN_LR["K3"],
             "volume_noise": 0.05, "ms": slab_timing, "seconds": time.perf_counter() - t_phase})
 
+    # ---- 16-18. camera gradients, the oracle, utils -----------------------
+    ctx = argparse.Namespace(dev=dev, MAIN=MAIN, COMPARE=COMPARE, shell=shell, flagship=flagship,
+                             timed=timed, median_ms=median_ms, host_ms=host_ms, check=check)
+    for name, run in (
+            ("camera_grads", lambda: camera_grads_phase(ctx)),
+            ("oracle_vs_kernels", lambda: oracle_phase(ctx)),
+            ("utils", lambda: utils_phase(ctx, os.path.join(REPO, "out", "chip_smoke", "trace"),
+                                          os.path.join(REPO, "out", "chip_smoke")))):
+        record({"phase": name, "nvidia_smi": smi_line, **run()})
+        torch.cuda.empty_cache()
+
     # ---- kernels line and the result ------------------------------------
     kernels = []
     for mode, what in (("K1", "unlit"), ("K4", "lit, on-the-fly gradients"),
@@ -2678,6 +3047,9 @@ def main() -> None:
     for name, cell in cells.items():
         if "finite" in cell and not (cell["finite"] and cell["nonzero_frac"] > 0.05):
             raise RuntimeError(f"cell {name} rendered nothing useful: {cell}")
+    unlaunched = [k["name"] for k in kernels if not k["launches"]]
+    if unlaunched:
+        raise RuntimeError(f"the main path's counts show no launch of {unlaunched}")
     record({"kernels": kernels})
     if args.out:
         with open(args.out, "w") as f:

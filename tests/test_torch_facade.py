@@ -156,8 +156,8 @@ def test_facade_validation_and_later_slices():
     with pytest.raises(ValueError, match="mesh"):
         r.render()
     assert "total (deduplicated)" in r.mem_info()
-    with pytest.raises(NotImplementedError):
-        VolumeRenderer(device="cpu", backend="oracle")
+    with pytest.raises(ValueError, match="backend"):
+        VolumeRenderer(device="cpu", backend="oracles")
     r = PORT.renderer()
     with pytest.raises(ValueError, match="image_resolution"):
         r.render()

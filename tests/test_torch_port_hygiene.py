@@ -16,10 +16,11 @@ import pytest
 import torch
 
 import volume_renderer_tpu_torch
-from volume_renderer_tpu_torch import Volume, VolumeRenderer, henyey_greenstein_lut
+from volume_renderer_tpu_torch import (Volume, VolumeRenderer, henyey_greenstein_lut,
+                                       render_oracle)
 from volume_renderer_tpu_torch.models.camera import Camera
 from volume_renderer_tpu_torch.models.lights import LightSource, pack_lights
-from volume_renderer_tpu_torch.models.scene import RenderSettings
+from volume_renderer_tpu_torch.models.scene import RenderSettings, Scene
 from volume_renderer_tpu_torch.ops import _build, cuda_bricks, cuda_grads, cuda_march
 
 PKG = Path(volume_renderer_tpu_torch.__file__).resolve().parent
@@ -34,6 +35,9 @@ def test_import_pulls_in_no_jax():
             "import volume_renderer_tpu_torch.ops.cuda_bricks\n"
             "import volume_renderer_tpu_torch.parallel.mesh\n"
             "import volume_renderer_tpu_torch.parallel.bricks\n"
+            "import volume_renderer_tpu_torch.ops.oracle, volume_renderer_tpu_torch.utils\n"
+            "import volume_renderer_tpu_torch.utils.checkpoint\n"
+            "import volume_renderer_tpu_torch.utils.profiling\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
             " or m == 'volume_renderer_tpu' or m.startswith('volume_renderer_tpu.'))\n"
             "print(bad)\n")
@@ -56,10 +60,14 @@ def test_sources_import_no_jax():
 def test_no_default_device_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     data = np.ones((2, 2, 2), np.float32)
+    scene = Scene(emission=Volume.create(data, device="cpu"),
+                  camera=Camera.create(focal_length=3.0, distance_to_object=6.0, device="cpu"),
+                  settings=RenderSettings.create(device="cpu"))
     for call in (lambda: VolumeRenderer(), lambda: Volume.create(data),
                  lambda: Camera.create(), lambda: RenderSettings.create(),
                  lambda: henyey_greenstein_lut(4),
-                 lambda: pack_lights([LightSource([0, 0, 0], [1, 1, 1])])):
+                 lambda: pack_lights([LightSource([0, 0, 0], [1, 1, 1])]),
+                 lambda: render_oracle(scene, scene.options(4, 4))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert Volume.create(data, device="cpu").data.device.type == "cpu"

@@ -20,7 +20,9 @@ a volume larger than the device in z-slabs, with the grids on the device
 (slabbed) or in host memory (streamed), in plain PyTorch; ``ops.cuda_slab``
 runs that sweep through the brick kernels. ``api.planner.plan_render``
 picks the tier of a render or training step from the device's memory, for
-``VolumeRenderer`` and ``train.train_step_planned``.
+``VolumeRenderer`` and ``train.train_step_planned``. ``render_oracle`` is the
+per-pixel reference march (the facade's ``backend="oracle"``), and
+``utils`` holds the stopwatch, the profiler trace and the checkpoints.
 """
 
 from volume_renderer_tpu_torch.models.volume import Volume
@@ -34,6 +36,7 @@ from volume_renderer_tpu_torch.models.scene import (
 )
 from volume_renderer_tpu_torch.ops.hg import henyey_greenstein_lut
 from volume_renderer_tpu_torch.ops.forward import render_forward
+from volume_renderer_tpu_torch.ops.oracle import render_oracle
 from volume_renderer_tpu_torch.ops.cuda_march import render_forward_fast
 from volume_renderer_tpu_torch.ops.cuda_grads import transfer_grads_fast, voxel_grads_fast
 from volume_renderer_tpu_torch.ops.vjp import merge_scene, render_fused, split_scene
@@ -85,6 +88,7 @@ __all__ = [
     "build_render_options",
     "henyey_greenstein_lut",
     "render_forward",
+    "render_oracle",
     "render_forward_fast",
     "render_fused",
     "split_scene",

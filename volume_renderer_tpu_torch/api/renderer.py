@@ -16,8 +16,9 @@ mesh, ``"bricked"`` the z-brick kernels over the mesh, ``"slabbed"`` and
 a lit one. On the streamed route the grids stay in host memory, pinned once
 and kept, and only their slabs reach the card. A renderer built with
 ``device="cpu"`` takes the same tiers in plain PyTorch (``"plain"``, the
-plain bricked render, the plain slab sweeps), lit scenes included. The
-oracle backend is not ported yet and raises.
+plain bricked render, the plain slab sweeps), lit scenes included.
+``backend="oracle"`` renders every image with ``ops.oracle.render_oracle``
+on the renderer's device instead, without a plan.
 """
 
 from __future__ import annotations
@@ -37,10 +38,8 @@ from volume_renderer_tpu_torch.models.scene import RenderSettings, Scene, build_
 from volume_renderer_tpu_torch.models.volume import Volume
 from volume_renderer_tpu_torch.ops import cuda_slab, slab
 from volume_renderer_tpu_torch.ops.cuda_march import render_forward_fast
+from volume_renderer_tpu_torch.ops.oracle import render_oracle
 from volume_renderer_tpu_torch.parallel import bricks, pallas_dp
-
-_ORACLE = ("backend='oracle' is not ported yet: a later slice of the PyTorch port adds "
-           "ops/oracle.py")
 
 
 class StereoRenderMode(enum.Enum):
@@ -65,9 +64,7 @@ class VolumeRenderer:
     """
 
     def __init__(self, device: DeviceLike = None, backend: str = "forward"):
-        if backend == "oracle":
-            raise NotImplementedError(_ORACLE)
-        if backend != "forward":
+        if backend not in ("forward", "oracle"):
             raise ValueError(f"unknown backend {backend!r}")
         self.backend = backend
         self.device = resolve_device(device)
@@ -228,6 +225,8 @@ class VolumeRenderer:
         scene = self._build_scene(resident=False)
         opts = build_render_options(scene.emission.extent_xyz, scene.emission.element_size_um,
                                     width, height)
+        if self.backend == "oracle":
+            return render_oracle(scene, opts, camera_x_offset, device=self.device)
         # memory pre-flight from the volumes' shapes, before any grid moves
         # (the reference errors instead, mmanager.hxx:144-173)
         plan = plan_render(scene, opts, budget_bytes=self.memory_budget_bytes, mesh=self.mesh,

@@ -39,6 +39,11 @@ def scene_from_arrays(arrays: Dict[str, ArrayLike], device: DeviceLike = None) -
     ``illumination``, ``light_positions``, ``light_colors``, ``rotation``,
     ``focal_length``, ``distance_to_object``, the settings fields and
     ``element_size_um`` (of the emission volume).
+
+    ``focal_length`` and ``distance_to_object`` carry the camera's leaves
+    across: a number stays a Python float, a numpy array (0-d) becomes a 0-d
+    float32 tensor, as the JAX package's camera holds them, which
+    ``ops.vjp.split_scene(with_camera=True)`` then keeps.
     """
     dev = resolve_device(device)
     unknown = set(arrays) - {*VOLUME_KEYS, *TENSOR_KEYS, *SETTING_KEYS, *CAMERA_KEYS,
@@ -48,6 +53,9 @@ def scene_from_arrays(arrays: Dict[str, ArrayLike], device: DeviceLike = None) -
 
     def get(key):
         return arrays.get(key)
+
+    def get_or_zero(key):
+        return 0.0 if get(key) is None else get(key)
 
     es = tuple(float(e) for e in (get("element_size_um") if get("element_size_um") is not None
                                   else (1.0, 1.0, 1.0)))
@@ -62,8 +70,8 @@ def scene_from_arrays(arrays: Dict[str, ArrayLike], device: DeviceLike = None) -
         **{k: np.asarray(get(k), np.float32) for k in SETTING_KEYS if get(k) is not None},
         device=dev)
     camera = Camera.create(rotation=get("rotation"),
-                           focal_length=float(get("focal_length") or 0.0),
-                           distance_to_object=float(get("distance_to_object") or 0.0),
+                           focal_length=get_or_zero("focal_length"),
+                           distance_to_object=get_or_zero("distance_to_object"),
                            device=dev)
     return Scene(camera=camera, settings=settings, **vols, **tensors)
 

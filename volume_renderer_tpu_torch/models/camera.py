@@ -8,13 +8,19 @@ record carries it). The rotation lives on the render's device; where it
 was built on the host (``create`` from an array, ``rotate``) the camera
 keeps its nine values as Python floats too, so that the key needs no
 device-to-host copy, which would stall the stream.
+
+The focal length and the distance to the object are Python floats, or 0-d
+float32 tensors where a gradient should reach them (they are leaves of the
+JAX package's camera pytree too): ``ops.vjp.split_scene(with_camera=True)``
+makes them so, and the plain march keeps them tensors, so that autograd
+and ``render_fused(camera_grads=True)`` reach them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -23,17 +29,24 @@ from volume_renderer_tpu_torch._device import DeviceLike, as_float32, resolve_de
 from volume_renderer_tpu_torch.ops.float3 import F3
 
 
+Intrinsic = Union[float, torch.Tensor]
+
+
 @dataclass(frozen=True, eq=False)
 class Camera:
     rotation: torch.Tensor  # (3, 3) float32; columns are xVec, yVec, zVec
-    focal_length: float = 0.0
-    distance_to_object: float = 0.0
+    focal_length: Intrinsic = 0.0       # a float or a 0-d float32 tensor
+    distance_to_object: Intrinsic = 0.0
     # the rotation's values, row-major, where the host had them; else None
     rotation_host: Optional[Tuple[float, ...]] = dataclasses.field(default=None, repr=False)
 
     @classmethod
-    def create(cls, rotation=None, focal_length: float = 0.0,
-               distance_to_object: float = 0.0, device: DeviceLike = None) -> "Camera":
+    def create(cls, rotation=None, focal_length: Intrinsic = 0.0,
+               distance_to_object: Intrinsic = 0.0, device: DeviceLike = None) -> "Camera":
+        """A camera on ``device``. A number for ``focal_length`` or
+        ``distance_to_object`` stays a Python float; a tensor or a numpy
+        array becomes a 0-d float32 tensor on ``device`` (a tensor that is
+        there already is kept, and with it its place in autograd's graph)."""
         dev = resolve_device(device)
         if rotation is None:
             rotation = np.eye(3, dtype=np.float32)
@@ -46,8 +59,8 @@ class Camera:
             host = _host_values(np.asarray(rotation, np.float32))
         return cls(
             rotation=as_float32(rotation, dev),
-            focal_length=float(focal_length),
-            distance_to_object=float(distance_to_object),
+            focal_length=_intrinsic(focal_length, dev),
+            distance_to_object=_intrinsic(distance_to_object, dev),
             rotation_host=host,
         )
 
@@ -59,13 +72,20 @@ class Camera:
         return dataclasses.replace(self, **changes)
 
     def to(self, device: torch.device) -> "Camera":
-        """The same camera with its rotation on ``device``."""
-        return dataclasses.replace(self, rotation=self.rotation.to(device))
+        """The same camera with its tensors on ``device``."""
+        return dataclasses.replace(
+            self, rotation=self.rotation.to(device),
+            **{name: value.to(device) for name in ("focal_length", "distance_to_object")
+               if isinstance(value := getattr(self, name), torch.Tensor)})
 
     def key(self) -> Tuple[float, ...]:
         """The camera as eleven floats: the rotation row-major, the focal
         length and the distance to the object. From the host values where
-        the camera has them, else read from the device."""
+        the camera has them, else read from the device. A camera built from
+        leaf tensors (``ops.vjp.merge_scene`` of a pose being fitted) has no
+        host values: its key reads the rotation and the intrinsics from the
+        device, a stall of the stream that a pose fit pays on the brick
+        path at each call."""
         rotation = self.rotation_host
         if rotation is None:
             rotation = _host_values(self.rotation.detach().cpu().numpy())
@@ -93,6 +113,12 @@ class Camera:
         rotated = rotate_matrix(m, alpha_deg, beta_deg, gamma_deg)
         return self.replace(rotation=torch.tensor(rotated, device=self.rotation.device),
                             rotation_host=_host_values(rotated))
+
+
+def _intrinsic(value, device: torch.device) -> Intrinsic:
+    if isinstance(value, (torch.Tensor, np.ndarray)):
+        return as_float32(value, device).reshape(())
+    return float(value)
 
 
 def _host_values(rotation: np.ndarray) -> Tuple[float, ...]:

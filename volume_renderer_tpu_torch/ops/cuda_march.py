@@ -142,7 +142,11 @@ def _vol(t: Optional[torch.Tensor], name: str, device: torch.device) -> _Vol:
     return _Vol(t.data_ptr(), d, h, w)
 
 
-def _f32(v: float) -> float:
+def _f32(v) -> float:
+    """``v`` (a number, or a 0-d tensor such as a camera leaf, read from
+    its device) rounded to float32."""
+    if isinstance(v, torch.Tensor):
+        v = v.item()
     return float(np.float32(v))
 
 

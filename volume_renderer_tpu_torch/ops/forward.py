@@ -31,14 +31,28 @@ from volume_renderer_tpu_torch.ops.float3 import F3
 from volume_renderer_tpu_torch.ops.geometry import generate_rays, intersect_box
 
 
+def _camera_scalar(value, device: torch.device):
+    """A camera quantity as the rays take it: a tensor stays one (float32 on
+    ``device``), so that autograd reaches it; a number is rounded to
+    float32. Both give the same float32 arithmetic."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device, torch.float32)
+    return float(np.float32(value))
+
+
 def _init_rays(scene: Scene, opts: RenderOptions, camera_x_offset, y_offset: int, n_rows: int):
-    """Flattened (R,) ray state; r = y * W + x so reshape(rows, W) is the band."""
+    """Flattened (R,) ray state; r = y * W + x so reshape(rows, W) is the band.
+
+    Differentiable in the camera's rotation, focal length and distance and
+    in ``camera_x_offset`` where those are tensors: through the rays, the
+    box clip and ``pos0 = origin + direction * tnear``; ``origin`` is 0-d.
+    """
     consts = core.make_consts(scene, opts)
     dev = scene.device
     x_vec, y_vec, z_vec = scene.camera.basis()
-    focal = float(np.float32(scene.camera.focal_length))
-    dist = float(np.float32(scene.camera.distance_to_object))
-    cam_off = float(np.float32(camera_x_offset))
+    focal = _camera_scalar(scene.camera.focal_length, dev)
+    dist = _camera_scalar(scene.camera.distance_to_object, dev)
+    cam_off = _camera_scalar(camera_x_offset, dev)
 
     r = torch.arange(opts.width * n_rows, dtype=torch.int64, device=dev)
     px = r % opts.width

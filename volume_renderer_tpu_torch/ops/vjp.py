@@ -27,9 +27,23 @@ the backward march kernel (``csrc/march_bwd.cu``, ``ops/cuda_grads.py``).
 
 Gradients produced: emission, absorption and reflection grids, the
 gradient volumes (lookup mode), the transfer factors, the color and the
-light colors. The march geometry (camera, tnear, tfar, positions) and the
-early-termination boundary are not differentiated, exactly as autograd of
-the masked march does not differentiate them.
+light colors. The early-termination boundary and the per-step masks are
+not differentiated, exactly as autograd of the masked march does not
+differentiate them.
+
+Camera gradients (``render_fused(camera_grads=True)``, ``split_scene(
+with_camera=True)``): the rotation, the focal length, the distance to the
+object and the stereo x offset. Step k samples at pos_k = pos0 + k * step,
+and the rays' (origin, pos0, step) are closed-form in the camera
+(``ops.forward._init_rays``). The replay adds each step's position
+cotangent d_pos_k to per-ray sums, d_pos0 += d_pos_k and d_step += k *
+d_pos_k, and the origin's to d_origin; one ``torch.autograd.grad`` of
+``_init_rays`` pulls the three back to the camera at the end. d_pos_k is
+each tap value's derivative in its sample position (through the trilinear
+weights: zero where a corner pair is clamped to one texel) times the tap's
+cotangent, and, lit, the light and view vectors' own (through the angles of
+the LUT coordinates). Plain PyTorch on any device, as in the JAX package:
+no kernel computes camera gradients.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from volume_renderer_tpu_torch.models.scene import RenderOptions, Scene
@@ -48,17 +63,31 @@ from volume_renderer_tpu_torch.ops.sampling import sample_trilinear, zslab_corne
 Diff = Dict[str, torch.Tensor]
 
 GRID_KEYS = ("emission", "absorption", "reflection", "gradient_x", "gradient_y", "gradient_z")
+# the leaves of split_scene(with_camera=True), and render_fused's x offset
+CAMERA_KEYS = ("camera_rotation", "camera_focal", "camera_distance")
+POSE_KEYS = CAMERA_KEYS + ("camera_x_offset",)
 
 # the floored angle adjoint bounds 1 / sqrt(1 - ratio^2) at 1e3
 ANGLE_FLOOR = 1e-6
 
 
-def split_scene(scene: Scene) -> Tuple[Diff, Scene]:
+def _scalar_leaf(value, device: torch.device) -> torch.Tensor:
+    """A 0-d float32 tensor of ``value``: a tensor is kept as it is."""
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.tensor(np.float32(value), device=device)
+
+
+def split_scene(scene: Scene, with_camera: bool = False) -> Tuple[Diff, Scene]:
     """The differentiable leaves of ``scene`` as a dict, and the scene as
     the template that ``merge_scene`` puts them back into.
 
     Aliased absorption or reflection (None in the scene) have no leaf of
     their own: their gradients flow into the emission grid.
+
+    ``with_camera=True`` adds the camera: ``camera_rotation`` (3, 3),
+    ``camera_focal`` and ``camera_distance`` (0-d float32; a tensor of the
+    camera is kept, a number becomes one), the JAX package's keys.
     """
     s = scene.settings
     diff: Diff = {
@@ -77,6 +106,11 @@ def split_scene(scene: Scene) -> Tuple[Diff, Scene]:
     if scene.has_gradient_volumes:
         for key in ("gradient_x", "gradient_y", "gradient_z"):
             diff[key] = getattr(scene, key).data
+    if with_camera:
+        cam = scene.camera
+        diff["camera_rotation"] = cam.rotation
+        diff["camera_focal"] = _scalar_leaf(cam.focal_length, scene.device)
+        diff["camera_distance"] = _scalar_leaf(cam.distance_to_object, scene.device)
     return diff, scene
 
 
@@ -93,6 +127,10 @@ def merge_scene(template: Scene, diff: Diff) -> Scene:
               for key in GRID_KEYS if key in diff}
     if "light_colors" in diff:
         kwargs["light_colors"] = diff["light_colors"]
+    camera = {field: diff[key] for key, field in zip(
+        CAMERA_KEYS, ("rotation", "focal_length", "distance_to_object")) if key in diff}
+    if camera:
+        kwargs["camera"] = template.camera.replace(**camera)
     return template.replace(settings=settings, **kwargs)
 
 
@@ -180,11 +218,17 @@ class StepReplay:
     with ``samplers`` over the brick's halo-padded grids and
     ``slab_geometry`` (grid tensor -> (z_offset, full depth)) saying where
     each grid lies in its volume.
+
+    ``pose=True`` (whole volumes only) also sums each ray's position and
+    origin cotangents over the steps (``d_pos0``, ``d_step``, ``d_origin``:
+    F3s of (R,)); ``step`` then needs the step's index ``k``.
     """
 
     def __init__(self, scene: Scene, consts, origin: F3, g: torch.Tensor, image: torch.Tensor,
                  samplers=None, slab_geometry=_whole_volume, angle_floor: bool = False,
-                 accum_dtype: torch.dtype = torch.float32):
+                 accum_dtype: torch.dtype = torch.float32, pose: bool = False):
+        if pose and samplers is not None:
+            raise ValueError("pose cotangents need the scene's whole volumes, not samplers")
         self.scene, self.consts, self.origin = scene, consts, origin
         self.samplers = core.make_samplers(scene) if samplers is None else samplers
         self.params = core.params_of(scene, consts)
@@ -208,13 +252,17 @@ class StepReplay:
             self.geometry[key] = (tuple(data.shape), *slab_geometry(data))
         # the parameters' cotangents accumulate per ray and are summed once
         self.acc: Dict = {}
+        self.pose = None
+        if pose:
+            zero = torch.zeros(n_rays, dtype=accum_dtype, device=g.device)
+            self.pose = {key: F3(zero, zero, zero) for key in ("d_pos0", "d_step", "d_origin")}
 
     def _scatter(self, key: str, coords: F3, d_val: torch.Tensor) -> None:
         shape, z_offset, full_d = self.geometry[key]
         scatter_trilinear(self.grids[key], shape, coords, d_val, z_offset, full_d)
 
     def step(self, pos: F3, active: torch.Tensor, sum_w: torch.Tensor,
-             prefix_dot: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+             prefix_dot: torch.Tensor, k: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
         scene, consts, params, samplers = self.scene, self.consts, self.params, self.samplers
         origin, g3, acc, accum_dtype = self.origin, self.g3, self.acc, self.accum_dtype
         lit, lookup = scene.has_lighting, scene.has_gradient_volumes
@@ -278,6 +326,7 @@ class StepReplay:
         d_em, d_ab = d_emission * fe, d_absorption * fa
         d_re = None
         d_grad = None
+        d_light_in = d_light_out = None   # the pose's: sums over the lights
         if lit:
             d_refl = torch.zeros_like(alpha)
             d_n = F3(d_refl, d_refl, d_refl)
@@ -293,12 +342,12 @@ class StepReplay:
                 # d lut -> d angles -> d normal; the tangent-plane
                 # projections pull the third angle back to the normal too
                 d_lut = d_contrib * reflection
-                d_a, _ = angle_backward(normal, light_in,
-                                        div_scalar(d_lut * terms.d_lut.x, float(core.PI)),
-                                        self.angle_floor)
-                d_b, _ = angle_backward(normal, terms.light_out,
-                                        div_scalar(d_lut * terms.d_lut.y, float(core.PI)),
-                                        self.angle_floor)
+                d_a, d_in_a = angle_backward(normal, light_in,
+                                             div_scalar(d_lut * terms.d_lut.x, float(core.PI)),
+                                             self.angle_floor)
+                d_b, d_out_b = angle_backward(normal, terms.light_out,
+                                              div_scalar(d_lut * terms.d_lut.y, float(core.PI)),
+                                              self.angle_floor)
                 u, v = angle_backward(in_proj, terms.out_proj,
                                       div_scalar(d_lut * terms.d_lut.z, float(core.PI)),
                                       self.angle_floor)
@@ -306,6 +355,12 @@ class StepReplay:
                 # d n -= (u . n) light_in + (light_in . n) u, likewise out
                 d_n = (d_n + d_a + d_b - light_in * dot(u, normal) - u * dot_in
                        - terms.light_out * dot(v, normal) - v * terms.dot_out)
+                if self.pose is not None:
+                    # and d light_in += u - (u . n) n, likewise out
+                    d_in = d_in_a + u - normal * dot(u, normal)
+                    d_out = d_out_b + v - normal * dot(v, normal)
+                    d_light_in = d_in if d_light_in is None else d_light_in + d_in
+                    d_light_out = d_out if d_light_out is None else d_light_out + d_out
             _accumulate(acc, "factor_reflection", d_refl * taps.re, accum_dtype)
             d_re = d_refl * fr
             # n = -grad / |grad|
@@ -334,7 +389,49 @@ class StepReplay:
                 for p, d_tap in zip(core.otf_tap_positions(pos, consts), d_taps):
                     self._scatter("emission", p, d_tap)
         self._scatter("emission", sample_pos, d_at_em)
+        if self.pose is not None:
+            self._pose_step(k, pos, sample_pos, d_at_em, d_ab, d_re, d_grad, d_light_in,
+                            d_light_out)
         return alpha, prefix_dot
+
+    def _pose_step(self, k: int, pos: F3, sample_pos: F3, d_at_em, d_ab, d_re, d_grad,
+                   d_light_in: Optional[F3], d_light_out: Optional[F3]) -> None:
+        """Adds step k's position and origin cotangents to the per-ray sums.
+        The taps' values move with their sample positions through the
+        trilinear weights (``sample_trilinear(with_grad=True)``: derivatives
+        in normalized coordinates, times the box scale for world units);
+        lit, the light vectors lp - pos and the view vector origin - pos
+        move with pos and origin themselves."""
+        scene, consts = self.scene, self.consts
+        lit, lookup = scene.has_lighting, scene.has_gradient_volumes
+
+        def coord_cot(volume: torch.Tensor, coords: F3, d_val: torch.Tensor) -> F3:
+            _, dx, dy, dz = sample_trilinear(volume, coords, with_grad=True)
+            return F3(d_val * dx, d_val * dy, d_val * dz)
+
+        d_c = coord_cot(scene.emission.data, sample_pos, d_at_em)
+        if not scene.absorption_aliased:
+            d_c = d_c + coord_cot(scene.absorption.data, sample_pos, d_ab)
+        if lit:
+            if not scene.reflection_aliased:
+                d_c = d_c + coord_cot(scene.reflection.data, sample_pos, d_re)
+            if lookup:
+                for key, d_tap in zip(("gradient_x", "gradient_y", "gradient_z"), d_grad):
+                    d_c = d_c + coord_cot(getattr(scene, key).data, sample_pos, d_tap)
+            else:
+                d_taps = (d_grad.x * 0.5, d_grad.x * -0.5, d_grad.y * 0.5, d_grad.y * -0.5,
+                          d_grad.z * 0.5, d_grad.z * -0.5)
+                for p, d_tap in zip(core.otf_tap_positions(pos, consts), d_taps):
+                    d_c = d_c + coord_cot(scene.emission.data, p, d_tap)
+        bs = consts.boxscale
+        d_pos = F3(d_c.x * bs[0], d_c.y * bs[1], d_c.z * bs[2])
+        if d_light_in is not None:
+            d_pos = d_pos - d_light_in - d_light_out
+        acc, dtype = self.pose, self.accum_dtype
+        acc["d_pos0"] = F3(*(a + d.to(dtype) for a, d in zip(acc["d_pos0"], d_pos)))
+        acc["d_step"] = F3(*(a + (d * float(k)).to(dtype) for a, d in zip(acc["d_step"], d_pos)))
+        if d_light_in is not None:
+            acc["d_origin"] = F3(*(a + d.to(dtype) for a, d in zip(acc["d_origin"], d_light_in)))
 
     def result(self) -> Diff:
         """The gradients of every leaf of ``split_scene(scene)``; the grids
@@ -371,9 +468,13 @@ def replay_backward(
     early_exit: bool = True,
     angle_floor: bool = False,
     accum_dtype: torch.dtype = torch.float32,
+    camera_grads: bool = False,
 ) -> Diff:
     """The gradients of every leaf of ``split_scene(scene)`` for the pixel
     cotangent ``g`` (n_rows, W, 3), given the rendered band ``image``.
+    ``camera_grads=True`` adds the camera's (``POSE_KEYS``: those of
+    ``split_scene(scene, with_camera=True)`` and ``camera_x_offset``); the
+    other gradients are the same, bit for bit.
 
     ``image`` must be what the forward march gave for this scene, band and
     ``camera_x_offset``. ``early_exit=False`` replays the fixed trip count
@@ -394,13 +495,13 @@ def replay_backward(
         consts, origin, pos, step, t, tfar, active = _init_rays(
             scene, opts, camera_x_offset, int(y_offset), n_rows)
         replay = StepReplay(scene, consts, origin, g, image, angle_floor=angle_floor,
-                            accum_dtype=accum_dtype)
+                            accum_dtype=accum_dtype, pose=camera_grads)
         sum_w = torch.zeros_like(t)
         prefix_dot = torch.zeros_like(t)
 
         i = 0
         while i < opts.n_steps and (not early_exit or bool(active.any())):
-            alpha, prefix_dot = replay.step(pos, active, sum_w, prefix_dot)
+            alpha, prefix_dot = replay.step(pos, active, sum_w, prefix_dot, i)
 
             # ---- advance exactly like the forward march ----
             sum_w = torch.where(active, (1.0 - sum_w) * alpha + sum_w, sum_w)
@@ -408,16 +509,43 @@ def replay_backward(
             active = active & (sum_w <= consts.opacity_threshold) & (t <= tfar)
             pos = pos + step
             i += 1
-        return replay.result()
+        grads = replay.result()
+    if camera_grads:
+        grads.update(_pose_pullback(scene, opts, camera_x_offset, int(y_offset), n_rows,
+                                    replay.pose, accum_dtype))
+    return grads
+
+
+def _pose_pullback(scene: Scene, opts: RenderOptions, camera_x_offset, y_offset: int,
+                   n_rows: int, pose: Dict[str, F3], accum_dtype: torch.dtype) -> Diff:
+    """The camera's gradients from the per-ray sums of the pose cotangents:
+    one ``torch.autograd.grad`` of ``_init_rays``'s (pos0, step, origin)."""
+    cam, dev = scene.camera, scene.device
+    values = (cam.rotation, cam.focal_length, cam.distance_to_object, camera_x_offset)
+    leaves = [_scalar_leaf(v, dev).detach().to(dev, torch.float32).requires_grad_(True)
+              for v in values]
+    with torch.enable_grad():
+        posed = scene.replace(camera=cam.replace(
+            rotation=leaves[0], focal_length=leaves[1], distance_to_object=leaves[2]))
+        _, origin, pos0, step, _, _, _ = _init_rays(posed, opts, leaves[3], y_offset, n_rows)
+        # origin is 0-d: its cotangent is the sum over the rays
+        cot = (*pose["d_pos0"], *pose["d_step"], *(d.sum() for d in pose["d_origin"]))
+        grads = torch.autograd.grad((*pos0, *step, *origin), leaves,
+                                    [c.to(torch.float32) for c in cot], allow_unused=True)
+    return {key: (torch.zeros_like(leaf) if grad is None else grad).to(accum_dtype)
+            for key, leaf, grad in zip(POSE_KEYS, leaves, grads)}
 
 
 class _RenderFused(torch.autograd.Function):
-    """The early-exit march forward, the replay backward; saves the image."""
+    """The early-exit march forward, the replay backward; saves the image.
+    With the camera's leaves among ``keys``, the x offset is one of them."""
 
     @staticmethod
     def forward(ctx, template, opts, cam_off, y_offset, n_rows, early_exit, keys, *leaves):
-        scene = merge_scene(template, dict(zip(keys, leaves)))
-        out = render_rows(scene, opts, cam_off, y_offset, n_rows, differentiable=not early_exit)
+        diff = dict(zip(keys, leaves))
+        scene = merge_scene(template, diff)
+        out = render_rows(scene, opts, diff.get("camera_x_offset", cam_off), y_offset, n_rows,
+                          differentiable=not early_exit)
         ctx.save_for_backward(out, *leaves)
         ctx.static = (template, opts, cam_off, y_offset, n_rows, early_exit, keys)
         return out
@@ -426,9 +554,12 @@ class _RenderFused(torch.autograd.Function):
     def backward(ctx, g):
         template, opts, cam_off, y_offset, n_rows, early_exit, keys = ctx.static
         out, *leaves = ctx.saved_tensors
-        scene = merge_scene(template, dict(zip(keys, leaves)))
-        grads = replay_backward(scene, opts, g, out, cam_off, y_offset, n_rows,
-                                early_exit=early_exit)
+        diff = dict(zip(keys, leaves))
+        scene = merge_scene(template, diff)
+        needs = dict(zip(keys, ctx.needs_input_grad[7:]))
+        grads = replay_backward(scene, opts, g, out, diff.get("camera_x_offset", cam_off),
+                                y_offset, n_rows, early_exit=early_exit,
+                                camera_grads=any(needs.get(key) for key in POSE_KEYS))
         return (None,) * 7 + tuple(
             grads[key] if need else None
             for key, need in zip(keys, ctx.needs_input_grad[7:]))
@@ -441,6 +572,7 @@ def render_fused(
     y_offset: int = 0,
     n_rows: Optional[int] = None,
     early_exit: bool = True,
+    camera_grads: bool = False,
 ) -> torch.Tensor:
     """Differentiable render of a band, (n_rows, W, 3), on the scene's
     device: the early-exit march forward and the replay backward, in plain
@@ -451,8 +583,17 @@ def render_fused(
 
     ``early_exit=False`` runs the fixed trip count ``opts.n_steps`` in both
     directions, for callers whose replicas must do equal work.
+
+    ``camera_grads=True`` differentiates the camera too: the leaves of
+    ``split_scene(scene, with_camera=True)`` (the camera's rotation, and its
+    focal length and distance where they are tensors) and
+    ``camera_x_offset`` where it is a tensor. The other gradients are those
+    without it, bit for bit.
     """
-    diff, template = split_scene(scene)
+    diff, template = split_scene(scene, with_camera=camera_grads)
+    if camera_grads:
+        diff["camera_x_offset"] = _scalar_leaf(camera_x_offset, scene.device)
+        camera_x_offset = 0.0
     keys = tuple(diff)
     return _RenderFused.apply(template, opts, float(camera_x_offset), int(y_offset),
                               opts.height if n_rows is None else int(n_rows),
