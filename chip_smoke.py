@@ -12,7 +12,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
 2. goldens: the five tests/goldens scenes through VolumeRenderer on the
             card, held against the committed images.
 3. kernel_vs_plain: the forward march kernel against its plain PyTorch
-            version (ops/forward.py) on the card at 128^3 / 256x192, per
+            version (ops/forward.py) on the card at 64^3 / 256x192, per
             mode, unlit (K1) also with absorption of another shape, lit
             (K4) on an anisotropic (36, 24, 64) volume and on a 48^3 one
             seen near an axis (taps on faces and edges), and lookup (K5)
@@ -22,7 +22,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             versions exactly, here and wherever else they are compared.
 4. grads_vs_plain: the backward march kernel through voxel_grads_fast (K3
             unlit, K6 lit) and transfer_grads_fast (K2) against its plain
-            version (ops/vjp.py:replay_backward) at 128^3 / 256x192, K3
+            version (ops/vjp.py:replay_backward) at 64^3 / 256x192, K3
             also with absorption of another shape, K6 on the two lit
             scenes of phase 3, unlit K2 packed (absorption separate and of
             emission's shape) and not (aliased, of another shape), every
@@ -58,7 +58,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             march's positions (march_flushes), and K2's pack alone and, at
             256^3 / 512^2, the gather model of its float2 corner loads.
 
-8. bricks_vs_plain: the z-brick kernels (K7) at 128^3 / 256x192, 4 bricks:
+8. bricks_vs_plain: the z-brick kernels (K7) at 64^3 / 256x192, 4 bricks:
             each launch form on every brick (phase 1 opacity and entry
             record, phase 2 contribution and exit opacity, the gradient
             segment's padded grids and parameter sums) against its plain
@@ -68,9 +68,14 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             rays rise in z, fall in z and do both, and for an absorption
             volume of another shape than emission's; the records and the
             forward phases must equal their plain versions to the bit; the
-            bricked image against the single-device kernel's; a lit scene,
-            which the fast entry points must refuse and the plain bricked
-            render must get right.
+            bricked image against the single-device kernel's. Then the lit
+            forms at 64^3 / 96x64 on a band of 32 rows (the plain lit passes
+            cost thousands of launches a step): lit phase 2 equal to its
+            plain pass to the bit on an on-the-fly scene (two lights, rays of
+            both signs of dz), within K5's tolerance on a lookup one
+            (unpacked); the lit gradient segment's grids within 1e-5 of
+            scale, its other keys 1e-4; the bricked image and the slab sweep
+            against K4's and K5's.
 9. bricks_main_path: at 256^3 / 512^2 on the noisy K3 scene, the launch
             forms against their plain passes on a 64-row band; then, counted
             like phase 5, render_forward_bricked_fast with 4 and 8 bricks,
@@ -90,7 +95,14 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             the plain walk; the launch
             forms, phase 1's loads and the bricked forward on the dense
             scene too, where the walk to a brick was a larger share of a
-            ray's work.
+            ray's work. Then bricks_lit_main_path, counted like phase 5: the
+            lit bricked render of the noisy K4 scene and of the K5 scene, a
+            lit bricked gradient call and a lit bricked Adam step (phase 1,
+            lit phase 2 and the lit gradient segment a brick), against K4, K5
+            and K6's voxel_grads_fast; lit phase 2 of both scenes and the
+            lit segment of the K4 scene on the last brick against their plain
+            passes on 32 rows through the middle, held as in phase 8; and
+            the lit forms over all bricks timed with their samples and bound.
 11. parent_vs_new, only with --parent DIR: DIR holds another version of
             the port's package (e.g. the parent commit's, unpacked with git
             archive). Timed in turns, DIR's, the checkout's, the checkout's,
@@ -124,9 +136,9 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             steps of train_step_fast_sharded unlit (4 K1 + 4 K3 a step) and
             lit (4 K4 + 4 K6), the loss falling and the first step's
             gradients held against voxel_grads_fast as in phase 12; one
-            train_step_sharded step at 64^3 / 64^2 on 2 bands against
+            train_step_sharded step at 32^3 / 64^2 on 2 bands against
             train.train_step; a 2 x 2 rows x bricks render_forward_bricked
-            (plain passes) at 64^3 / 64x48 against the K4 kernel. Then the
+            (plain passes) at 32^3 / 64x48 against the K4 kernel. Then the
             DP forward, backward and step beside the single-device ones
             (CUDA events, warm, median of 5), the band launches alone on
             one stream, the host's time and each step's peak memory.
@@ -139,9 +151,10 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             the first slab count, within 2e-3 of the plain slab sweep
             (ops/slab.py: closed-form positions); the gradients of one
             slabbed and one streamed call against voxel_grads_fast (grids
-            1e-5 of scale, other keys 1e-4); a lit scene refused by the
-            card's sweep and, planned streamed (K4) or slabbed (K5, whose
-            pack the sweep saves), by the facade.
+            1e-5 of scale, other keys 1e-4); lit scenes (K4 with two lights
+            and both signs of dz, K5) through the lit forms, 4 slabs:
+            streamed equals slabbed, both within 1e-5 of scale of the
+            kernel's image, the K4 scene's gradients against K6's.
 15. slab_main_path, counted like phase 5: VolumeRenderer.render() at
             512^3 / 1024^2 with 1 GiB of pinned host grids under a
             memory_budget_bytes below them, planned streamed in 8 slabs:
@@ -158,11 +171,18 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             ("cuda_dp", K1's image bit for bit) and under a budget that
             picks "bricked"; the streamed and slabbed render and step beside
             the whole-grid kernels (CUDA events, warm, median of 5) with the
-            host's time.
+            host's time. Lit at 256^3 / 512^2: the facade under a budget
+            below the whole grids plans the K4 scene streamed and the K5
+            scene slabbed, K7 phase 1 and lit phase 2 alone, the image within
+            1e-5 of scale of the kernel's, the peak within the estimate; one
+            Adam step each of train_step_streamed, train_step_slabbed and
+            train_step_planned (streamed) on the noisy K4 scene: the loss
+            against train_step_fast's, the gradients against K6's for the
+            cotangent of the sweep's own image; all timed.
 
 16. camera_grads (plain PyTorch on the card): render_fused(camera_grads=True)
-            on rows 224-287 of 512^2 at 256^3 on the noisy K3 scene, and on
-            rows 112-143 of 256^2 at 64^3 on the noisy lit OTF scene, against
+            on rows 112-143 of 256^2 at 64^3 on the noisy K3 scene and on
+            the noisy lit OTF scene, against
             torch.autograd of the fixed-trip march (render_rows(
             differentiable=True), its trip count cut to the band's longest
             march) on the same band: the rotation within 5e-3 of its scale,
@@ -184,6 +204,17 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             train_step_fast steps' params and Adam state at 128^3: the
             fourth step's loss after a reload equals it without one, to the
             bit.
+19. multi_process: parallel/multihost.run_demo on the card, a one-rank
+            NCCL world and two ranks over gloo on the one card's tensors:
+            every rank's rays-DP image of the lit flagship scene equal to
+            render_forward_fast's, its plain and kernel DP steps' losses
+            and gradients against train.train_step_sharded's and
+            train_step_fast_sharded's on as many bands, its launches.
+20. scaling_probe: utils/scaling_probe.measure at 256^3 / 512^2, the
+            device time of render_forward_fast_sharded on 8 bands and of
+            render_forward_bricked_fast on 8 bricks against 1, all on the
+            one card (one card's total-work overhead, not a scaling
+            measurement).
 
 Then the kernels line and, last, {"ok": true, "device": {...}}. It needs
 the repository around it and a CUDA card; it imports nothing of JAX.
@@ -192,6 +223,7 @@ the repository around it and a CUDA card; it imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import functools
 import hashlib
@@ -209,6 +241,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 # volume edge and image size of the phases
 COMPARE = dict(volume=128, width=256, height=192)
+# the kernels against their plain versions (phases 3, 4, 8): the plain march
+# costs hundreds to thousands of launches a step whatever the rays, so its
+# time follows the volume's edge
+PLAIN = dict(volume=64, width=256, height=192)
 MAIN = dict(volume=256, image=512)
 BIG = dict(volume=512, image=1024, band=64)
 # Training steps, the plain replay's band rows, and Adam's rates. Lit, the
@@ -220,7 +256,7 @@ TRAIN_STEPS, BAND = 3, 64
 # rays-DP: bands at COMPARE's size (the last one shorter) and on the main path;
 # the plain train_step_sharded and the rows x bricks render at a small size
 DP_BANDS, DP_MAIN_BANDS = 5, 4
-DP_SMALL = dict(volume=64, image=64, brick_image=(64, 48))
+DP_SMALL = dict(volume=32, image=64, brick_image=(64, 48))
 TRAIN_LR = {"K3": 2e-3, "K6": 2e-6, "K2": 1e-2}
 
 # Published peaks of one H100 SXM at its full 700 W power limit.
@@ -298,14 +334,23 @@ def bwd_flops_per_step(lit: bool, scatter: bool, ab_aliased: bool, re_aliased: b
 _BRICK_WALK = _COORDS + 4 + 2 + 1 + 1 + 3
 
 
-def brick_flops_per_sample(form: str, ab_aliased: bool) -> int:
-    """form: transmittance (phase 1), segment (phase 2) or scatter."""
+def brick_flops_per_sample(form: str, ab_aliased: bool, re_aliased: bool = False,
+                           lookup: bool = False, n_lights: int = 1) -> int:
+    """form: transmittance (phase 1), segment (phase 2), scatter (the
+    gradient segment), segment_lit or scatter_lit (the lit forms, with
+    on-the-fly taps or, ``lookup``, gradient volumes)."""
     if form == "transmittance":
         return _BRICK_WALK + _FETCH + 4 + 3
-    if form == "segment":
-        return _BRICK_WALK + _FETCH + (0 if ab_aliased else _BLEND) + 4 + 3 + 16
+    if form in ("segment", "segment_lit"):
+        ops = _BRICK_WALK + _FETCH + (0 if ab_aliased else _BLEND) + 4 + 3 + 16
+        if form == "segment_lit":  # K4's or K5's lit terms of a step
+            ops += (0 if re_aliased else _BLEND) + _STEP_NORMAL + 3 + n_lights * _STEP_PER_LIGHT
+            ops += _STEP_LOOKUP_TAPS if lookup else _STEP_OTF_TAPS
+        return ops
     # the single-device backward step plus the owner (mul, floor, 2 clamps, test)
-    return bwd_flops_per_step(False, True, ab_aliased, True, 0) + 5
+    lit = form == "scatter_lit"
+    return bwd_flops_per_step(lit, True, ab_aliased, True if not lit else re_aliased,
+                              n_lights if lit else 0) + 5
 
 
 class CarryCount:
@@ -548,13 +593,15 @@ KERNEL_PARAMS = {
     "march_bwd_scatter_kernel": ("AB_ALIASED", "AB_OWN_CELL"),
     "march_bwd_lit_scatter_kernel": ("AB_ALIASED", "RE_ALIASED"),
     "brick_fwd_kernel": ("SHADE", "AB_ALIASED"),
+    "brick_lit_fwd_kernel": ("LOOKUP", "AB_ALIASED", "RE_ALIASED"),
     "brick_bwd_kernel": ("AB_ALIASED", "AB_OWN_CELL"),
+    "brick_lit_bwd_kernel": ("AB_ALIASED", "RE_ALIASED"),
 }
 # Threads a block by mode or kernel, where it is not 16x16 (K3, K6 and the
 # K7 gradient segment run in 16x8 blocks: csrc/march_bwd.cu,
 # csrc/brick_bwd.cu; K7 phase 1 and K2 in 16 rows of a constant of their
 # source: kernel_threads)
-KERNEL_THREADS = {"K3": 128, "K6": 128, "K7_scatter": 128}
+KERNEL_THREADS = {"K3": 128, "K6": 128, "K7_scatter": 128, "K7_scatter_lit": 128}
 # the constants of 16 x ROWS blocks: kernel or mode -> (source, constant)
 BLOCK_ROWS = {"K7_transmittance": ("brick_fwd.cu", "kPhase1Rows"),
               "march_bwd_params_kernel": ("march_bwd.cu", "kK2Rows"),
@@ -572,6 +619,8 @@ def kernel_threads(repo):
     return out
 # 4 bricks, all on the one card; the rows of phase 8's plain passes
 BRICKS, BRICK_BAND = 4, 96
+# phase 8's lit scenes: the plain lit passes' time follows the march's steps
+LIT_BRICKS = dict(volume=64, width=96, height=64, band=32)
 
 
 def kernel_mode_of(kernel: str, args) -> str:
@@ -585,6 +634,10 @@ def kernel_mode_of(kernel: str, args) -> str:
         return "K6"
     if kernel == "brick_fwd_kernel":
         return "K7_segment" if args[0] else "K7_transmittance"
+    if kernel == "brick_lit_fwd_kernel":
+        return "K7_segment_lit"
+    if kernel == "brick_lit_bwd_kernel":
+        return "K7_scatter_lit"
     return "K7_scatter"
 
 
@@ -637,11 +690,10 @@ def ptxas_by_kernel(log: str, strict: bool = True, threads=KERNEL_THREADS) -> di
 # against. Each phase takes the helpers of main() as ``ctx``.
 # The plain march and replay cost hundreds to thousands of launches a step
 # whatever the rays, so their time follows the steps, that is the volume's
-# edge: at full size only the unlit camera check and the K1 oracle band
-# run. The lit camera check and the lit oracle bands run at 64^3 / 256^2,
-# the pose fit at 12^3 / 24^2 (at 64^3 / 96^2 its 12 steps take a minute).
-CAMERA = dict(first_row=224, rows=64)              # a band of MAIN's 512^2
-CAMERA_LIT = dict(volume=64, image=256, first_row=112, rows=32)
+# edge: at full size only the K1 oracle band runs. The camera checks, unlit
+# and lit, and the lit oracle bands run at 64^3 / 256^2, the pose fit at
+# 12^3 / 24^2 (at 64^3 / 96^2 its 12 steps take a minute).
+CAMERA = dict(volume=64, image=256, first_row=112, rows=32)
 POSE_FIT = dict(volume=12, image=24, steps=12, lr=5e-3)
 ORACLE = dict(first_row=224, rows=64, lit_volume=64, lit_image=256, lit_first_row=112,
               lit_rows=32, facade_volume=32, facade_image=(64, 16))
@@ -656,7 +708,7 @@ CAMERA_TOL = {"camera_rotation": 5e-3, "camera_focal": 2e-3, "camera_distance": 
 def camera_grads_phase(ctx) -> dict:
     """render_fused(camera_grads=True) on a band against autograd of the
     fixed-trip march (render_rows(differentiable=True)) on the same band, at
-    full size on the noisy unlit scene and at 64^3 on the lit OTF one; then
+    64^3 on the noisy unlit scene and on the lit OTF one; then
     a pose-and-intrinsics fit through it."""
     import torch
 
@@ -729,15 +781,15 @@ def camera_grads_phase(ctx) -> dict:
 
     out = {"tolerance": CAMERA_TOL, "reference": "render_rows(differentiable=True) autograd"}
     t0 = time.perf_counter()
-    out["unlit"] = versus_scan("unlit", ctx.flagship(ctx.MAIN["volume"], "K1", ab_aliased=False,
+    out["unlit"] = versus_scan("unlit", ctx.flagship(CAMERA["volume"], "K1", ab_aliased=False,
                                                      noise=0.05),
-                               ctx.MAIN["image"], CAMERA["first_row"], CAMERA["rows"], 11)
+                               CAMERA["image"], CAMERA["first_row"], CAMERA["rows"], 11)
     out["unlit"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out["lit_otf"] = versus_scan("lit OTF", ctx.flagship(CAMERA_LIT["volume"], "K4",
+    out["lit_otf"] = versus_scan("lit OTF", ctx.flagship(CAMERA["volume"], "K4",
                                                          ab_aliased=False, noise=0.05),
-                                 CAMERA_LIT["image"], CAMERA_LIT["first_row"],
-                                 CAMERA_LIT["rows"], 12)
+                                 CAMERA["image"], CAMERA["first_row"],
+                                 CAMERA["rows"], 12)
     out["lit_otf"]["seconds"] = time.perf_counter() - t0
 
     # the pose fit: rotation, focal length and distance perturbed, Adam back
@@ -1390,8 +1442,20 @@ def main() -> None:
                   "seconds": time.perf_counter() - t_turn})
         return
 
-    # imported here, not above: the turns may import an older port without it
+    # imported here, not above: the turns may import an older port without them
+    from volume_renderer_tpu_torch.api import planner
+    from volume_renderer_tpu_torch.ops import cuda_slab, slab
     from volume_renderer_tpu_torch.ops.cuda_march import render_rows_fast
+
+    def of_scale(name, got, want, limit=1e-5):
+        """max |got - want| as a share of want's largest magnitude; raises
+        above ``limit``."""
+        assert got.shape == want.shape and bool(torch.isfinite(got).all()), name
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max()) / scale
+        if err > limit:
+            raise RuntimeError(f"{name}: {err:.3e} of the scale {scale:.3e} off")
+        return err
 
     # ---- 2. goldens through the facade ----------------------------------
     # the scenes of tests/test_goldens.py, rebuilt with numpy
@@ -1445,7 +1509,7 @@ def main() -> None:
         golden_err[name] = check(f"golden {name}", golden_render(name), golden, 1e-4, 1e-3, None)
     record({"phase": "goldens", "atol": 1e-4, "rtol": 1e-3, "max_abs_err": golden_err})
 
-    # ---- 3. kernel vs plain at 128^3 / 256x192 --------------------------
+    # ---- 3. kernel vs plain at 64^3 / 256x192 ---------------------------
     compare = {}
     for name, mode, kw, offset in (
             ("K1_absorption_aliased", "K1", dict(ab_aliased=True), 0.0),
@@ -1461,22 +1525,22 @@ def main() -> None:
             ("K4_stereo_offset_0.25", "K4", dict(re_aliased=True), 0.25),
             ("K4_anisotropic_36x24x64", "K4", ANISOTROPIC, 0.0),
             ("K4_faces_and_edges_48", "K4", FACES, 0.0)):
-        scene = flagship(48 if kw is FACES else COMPARE["volume"], mode, **kw)
+        scene = flagship(48 if kw is FACES else PLAIN["volume"], mode, **kw)
         assert kernel_mode(scene) == mode
         if mode == "K5":  # packed unless the gradient volumes have another shape
             assert (cuda_march.pack_lookup(scene) is None) == ("grad_other_shape" in kw), name
-        opts = scene.options(COMPARE["width"], COMPARE["height"])
+        opts = scene.options(PLAIN["width"], PLAIN["height"])
         got = render_forward_fast(scene, opts, offset)
         torch.cuda.synchronize()
         compare[name] = check(f"kernel vs plain {name}", got, render_forward(scene, opts, offset),
                               *tol[mode], mode)
-    record({"phase": "kernel_vs_plain", "volume": COMPARE["volume"],
-            "image": [COMPARE["width"], COMPARE["height"]],
+    record({"phase": "kernel_vs_plain", "volume": PLAIN["volume"],
+            "image": [PLAIN["width"], PLAIN["height"]],
             "tolerance": {k: {"atol": a, "rtol": r} for k, (a, r) in tol.items()},
             "K1_K4_exact": True, "K5_packed_except": ["K5_gradients_other_shape"],
             "max_abs_err": compare})
 
-    # ---- 4. backward kernel vs plain replay at 128^3 / 256x192 ----------
+    # ---- 4. backward kernel vs plain replay at 64^3 / 256x192 -----------
     # Kernel and plain replay compute each sample's terms with the same
     # float32 arithmetic and differ in the order of their sums: the kernel's
     # atomic adds land in no fixed order, index_add_ and torch.sum have their
@@ -1520,6 +1584,17 @@ def main() -> None:
                                        f"{errs[key]:.3e} of the gradient's scale {scale:.3e}")
         return errs
 
+    def dp_grads_check(name, got, want):
+        """Every key of ``got`` against ``want``: the grids (atomic adds in
+        another order or split over launches) within 1e-5 of scale, the
+        other keys GRAD_TOL."""
+        errs = check_grads(name, got, want, None, keys=want.keys())
+        for key, err in errs.items():
+            limit = BRICK_GRAD_TOL if key in ("emission", "absorption", "reflection") else GRAD_TOL
+            if err > limit:
+                raise RuntimeError(f"{name} {key}: the gradient is {err:.3e} of its scale off")
+        return errs
+
     def cotangent(height, width, seed):
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -1540,15 +1615,15 @@ def main() -> None:
             ("K6_anisotropic_36x24x64", "K4", ANISOTROPIC, 0.0, False),
             ("K6_faces_and_edges_48", "K4", FACES, 0.0, False),
             ("K2_absorption_separate_paired", "K1", dict(ab_aliased=False), 0.0, False)):
-        scene = flagship(48 if kw is FACES else COMPARE["volume"], mode,
+        scene = flagship(48 if kw is FACES else PLAIN["volume"], mode,
                          **{"noise": 0.05, **kw})
         # unlit K2 reads the packed pair where absorption is separate and of
         # emission's shape
         paired = mode == "K1" and cuda_grads.pack_pair(scene) is not None
         if mode == "K1" and paired != (not kw["ab_aliased"] and "ab_other_shape" not in kw):
             raise RuntimeError(f"{name}: K2's pair {'packed' if paired else 'not packed'}")
-        opts = scene.options(COMPARE["width"], COMPARE["height"])
-        g = cotangent(COMPARE["height"], COMPARE["width"], seed=len(grads_compare))
+        opts = scene.options(PLAIN["width"], PLAIN["height"])
+        g = cotangent(PLAIN["height"], PLAIN["width"], seed=len(grads_compare))
         img0 = render_forward_fast(scene, opts, offset) if reuse else None
         img, got = voxel_grads_fast(scene, opts, g, offset, image=img0)
         _, got_transfer = transfer_grads_fast(scene, opts, g, offset, image=img)
@@ -1562,8 +1637,8 @@ def main() -> None:
             "K2_err_of_scale": check_grads(name + " K2", got_transfer, want, "K2",
                                            keys=[k for k in want if k in transfer_keys])}
         del scene, got, want
-    record({"phase": "grads_vs_plain", "volume": COMPARE["volume"],
-            "image": [COMPARE["width"], COMPARE["height"]], "volume_noise": 0.05,
+    record({"phase": "grads_vs_plain", "volume": PLAIN["volume"],
+            "image": [PLAIN["width"], PLAIN["height"]], "volume_noise": 0.05,
             "tolerance_of_scale": GRAD_TOLS, "max_err_of_scale": dict(grad_err),
             "cases": grads_compare})
 
@@ -1885,7 +1960,7 @@ def main() -> None:
             torch.cuda.empty_cache()
 
 
-    # ---- 8. the z-brick kernels vs their plain passes at 128^3 / 256x192 --
+    # ---- 8. the z-brick kernels vs their plain passes at 64^3 / 256x192 ---
     K7_FORMS = ("transmittance", "segment", "scatter")
     brick_err = {form: 0.0 for form in K7_FORMS}  # max abs error against the plain pass
     brick_grad_err = [0.0]                        # share of the gradient's scale
@@ -1991,10 +2066,10 @@ def main() -> None:
             ("dz_negative_aliased", (180, 20, 0), dict(ab_aliased=True)),
             ("dz_mixed", (88, 0, 0), {}),
             ("dz_positive_absorption_other_shape", (10, 5, 0), dict(ab_other_shape=True)))):
-        scene = brick_scene(COMPARE["volume"], rot, **kw)
-        opts = scene.options(COMPARE["width"], COMPARE["height"])
+        scene = brick_scene(PLAIN["volume"], rot, **kw)
+        opts = scene.options(PLAIN["width"], PLAIN["height"])
         entry = bricks_compare(name, scene, opts,
-                               cotangent(COMPARE["height"], COMPARE["width"], seed=10 + i),
+                               cotangent(PLAIN["height"], PLAIN["width"], seed=10 + i),
                                band=BRICK_BAND)
         image = entry.pop("image")
         entry["vs_single_device_kernel"] = image_tolerance(
@@ -2006,33 +2081,115 @@ def main() -> None:
     if not (signs[0] == 1.0 and signs[1] == 0.0 and 0.05 < signs[2] < 0.95):
         raise RuntimeError(f"the cameras do not cover rising, falling and mixed rays: {signs}")
 
-    # a lit scene: refused by the fast entry points, rendered by the plain path
-    lit_scene = flagship(64, "K4", ab_aliased=False)
-    lit_opts = lit_scene.options(96, 64)
-    refused = []
-    for call in (lambda: bricks.render_forward_bricked_fast(lit_scene, lit_opts,
-                                                            mesh=make_mesh(BRICKS)),
-                 lambda: bricks.voxel_grads_bricked_fast(lit_scene, lit_opts,
-                                                         cotangent(64, 96, seed=20),
-                                                         mesh=make_mesh(BRICKS))):
-        try:
-            call()
-        except NotImplementedError as exc:
-            refused.append(str(exc))
-    if len(refused) != 2:
-        raise RuntimeError("a fast brick entry point took a lit scene")
-    lit_err = check("lit plain bricked render",
-                    bricks.render_forward_bricked(lit_scene, lit_opts, mesh=make_mesh(BRICKS)),
-                    render_forward_fast(lit_scene, lit_opts), *tol["K4"], None)
-    record({"phase": "bricks_vs_plain", "volume": COMPARE["volume"],
-            "image": [COMPARE["width"], COMPARE["height"]], "bricks": BRICKS, "volume_noise": 0.05,
+    # Lit scenes: the lit forms of phase 2 and of the gradient segment
+    # against their plain passes on the same inputs, launched on the whole
+    # image and compared on a band through the middle (the cotangent zero
+    # outside it), at 64^3 / 96x64: the plain lit passes cost thousands of
+    # launches a step whatever the rays. Lit phase 2 equals its plain pass to
+    # the bit on the on-the-fly scene (K4's step) and within K5's tolerance
+    # on the lookup one (unpacked gradient volumes); the lit gradient
+    # segment's grids are held within 1e-5 of scale, its other keys within
+    # GRAD_TOL. The bricked image and the slabbed sweep against the
+    # single-device kernel.
+    brick_err.update(segment_lit=0.0, scatter_lit=0.0)
+    lit_plain_ms = {"segment_lit": 0.0, "scatter_lit": 0.0}
+
+    def lit_bricks_compare(name, scene, opts, g, band, held=None):
+        """The lit forms of the bricks ``held`` (indices; None: all) against
+        their plain passes on ``band`` rows through the middle; the record
+        has the plain passes' ms."""
+        lookup = scene.has_gradient_volumes
+        y0, rows = (opts.height - band) // 2, band
+        g_band = torch.zeros_like(g)
+        g_band[y0:y0 + rows] = g[y0:y0 + rows]
+
+        def cut(t):
+            return t[y0:y0 + rows].contiguous()
+
+        split = bricks.split_bricks(scene, make_mesh(BRICKS))
+        fwd = bricks._forward(split, opts, 0.0, fast=True)
+        up_dots = bricks._upstream([brick_march.own_dot(g_band, own) for own in fwd.own],
+                                   fwd.ascending, torch.cumsum, 0.0)
+        band_kw = dict(y_offset=y0, n_rows=rows)
+        seg_err, got_grads, want_grads = 0.0, [], []
+        plain_ms = {"segment_lit": 0.0, "scatter_lit": 0.0}
+        for brick, w_in, up, entry in zip(split.bricks, fwd.w_in, up_dots, fwd.entry):
+            if held is not None and brick.index not in held:
+                continue
+            w_in, up = w_in.contiguous(), up.contiguous()
+            own, w_out = cuda_bricks.brick_segment(brick, opts, 0.0, w_in, entry)
+            band_entry = entry.rows(y0, rows)
+            (p_own, p_out), ms = timed(lambda: brick_march.shaded_pass(
+                brick, opts, 0.0, cut(w_in), entry=band_entry, **band_kw))
+            plain_ms["segment_lit"] += ms
+            tag = f"{name} brick {brick.index}"
+            mode = "K5" if lookup else "K4"
+            seg_err = max(seg_err,
+                          check(f"{tag} lit phase 2 contribution", cut(own), p_own, *tol[mode],
+                                None),
+                          check(f"{tag} lit phase 2 exit opacity", cut(w_out), p_out, *tol[mode],
+                                None))
+            if not lookup and seg_err:
+                raise RuntimeError(f"{tag}: lit phase 2 is {seg_err:.3e} off its plain pass")
+            if lookup:
+                continue
+            got_grads.append(cuda_bricks.brick_gradients(brick, opts, 0.0, g_band, fwd.image,
+                                                         w_in, up, entry))
+            want, ms = timed(lambda: brick_march.replay_pass(
+                brick, opts, 0.0, cut(g_band), cut(fwd.image), cut(w_in), cut(up),
+                angle_floor=True, entry=band_entry, **band_kw))
+            plain_ms["scatter_lit"] += ms
+            want_grads.append({k: v for k, v in want.items() if not k.startswith("gradient_")})
+        brick_err["segment_lit"] = max(brick_err["segment_lit"], seg_err)
+        grad_errs = {}
+        for key in (want_grads[0] if want_grads else {}):
+            scale = max(max(float(w[key].abs().max()) for w in want_grads), 1e-30)
+            for got, want in zip(got_grads, want_grads):
+                assert got[key].shape == want[key].shape, (name, key)
+                abs_err = float((got[key].double() - want[key].double()).abs().max())
+                grad_errs[key] = max(grad_errs.get(key, 0.0), abs_err / scale)
+                brick_err["scatter_lit"] = max(brick_err["scatter_lit"], abs_err)
+            limit = (BRICK_GRAD_TOL if key in ("emission", "absorption", "reflection")
+                     else GRAD_TOL)
+            if grad_errs[key] > limit:
+                raise RuntimeError(f"{name} {key}: the lit gradient segment is "
+                                   f"{grad_errs[key]:.3e} of its scale off its plain pass")
+        if got_grads:
+            assert set(got_grads[0]) == set(want_grads[0]), (name, sorted(got_grads[0]))
+            brick_grad_err[0] = max(brick_grad_err[0], max(grad_errs.values()))
+        single = render_forward_fast(scene, opts)
+        slabbed = cuda_slab.render_forward_slabbed_fast(scene, opts, n_slabs=BRICKS)
+        return {"ascending_share": float(fwd.ascending.float().mean()),
+                "bricks_held": sorted(held) if held is not None else list(range(BRICKS)),
+                "plain_ms": plain_ms, "plain_rows": rows,
+                "phase_2_max_abs_err": seg_err, "grad_err_of_scale": grad_errs,
+                "bricked_vs_single_device_kernel": image_tolerance(name, fwd.image, single),
+                "slabbed_vs_single_device_kernel_of_scale": of_scale(
+                    f"{name} slabbed", slabbed, single)}
+
+    lit_cases = {}
+    lit_w, lit_h = LIT_BRICKS["width"], LIT_BRICKS["height"]
+    for i, (name, mode, kw) in enumerate((
+            ("otf_two_lights_dz_mixed", "K4",
+             dict(ab_aliased=False, n_lights=2, noise=0.05, rotate=(88, 0, 0))),
+            ("lookup_unpacked", "K5", dict(ab_aliased=False)))):
+        scene = flagship(LIT_BRICKS["volume"], mode, **kw)
+        lit_cases[name] = lit_bricks_compare(name, scene, scene.options(lit_w, lit_h),
+                                             cotangent(lit_h, lit_w, seed=20 + i),
+                                             LIT_BRICKS["band"])
+        for form, ms in lit_cases[name]["plain_ms"].items():
+            lit_plain_ms[form] += ms
+        del scene
+    record({"phase": "bricks_vs_plain", "volume": PLAIN["volume"],
+            "image": [PLAIN["width"], PLAIN["height"]], "bricks": BRICKS, "volume_noise": 0.05,
             "tolerance": {"atol": tol["K1"][0], "rtol": tol["K1"][1],
                           "gradients_of_scale": BRICK_GRAD_TOL},
             "cases": bricks_cases,
-            "lit": {"refused_by_fast_entry_points": True,
-                    "plain_bricked_vs_K4_kernel_max_abs_err": lit_err, "volume": 64,
-                    "image": [96, 64]}})
-    del lit_scene
+            "lit": {"volume": LIT_BRICKS["volume"], "image": [lit_w, lit_h],
+                    "plain_rows": LIT_BRICKS["band"], "cases": lit_cases,
+                    "plain_ms": lit_plain_ms,
+                    "tolerance": {"phase_2_otf": 0.0, "phase_2_lookup": tol["K5"],
+                                  "grids_of_scale": BRICK_GRAD_TOL, "others_of_scale": GRAD_TOL}}})
 
     # ---- 9. the z-brick main path at 256^3 / 512^2 ------------------------
     scene = brick_scene(MAIN["volume"], (125, 25, 0))      # the noisy K3 scene
@@ -2261,6 +2418,129 @@ def main() -> None:
     del dense, dense_split, dense_fwd
     torch.cuda.empty_cache()
 
+    # ---- the lit forms on the brick path at 256^3 / 512^2, 4 bricks ----------
+    # Counted like phase 5: the lit bricked render of the noisy K4 scene and of
+    # the K5 scene, a lit bricked gradient call and a lit bricked Adam step on
+    # the K4 scene (phase 1, lit phase 2 and the lit gradient segment a brick);
+    # images against K4 and K5, gradients against K6's voxel_grads_fast. Then
+    # the lit forms against their plain passes at these shapes, on the last
+    # brick (its offsets are the largest and its taps reach the volume's far
+    # face) and a band of 32 rows through the middle: lit phase 2 of both
+    # scenes, the lit segment of the K4 scene (phase 8's tolerances; the plain
+    # passes cost thousands of launches a step, so one brick). Last, the two
+    # lit forms over all bricks (CUDA events, warm, median of 5), with their
+    # samples and bound.
+    t_phase = time.perf_counter()
+    lit4 = flagship(MAIN["volume"], "K4", ab_aliased=False, noise=0.05)
+    lit5 = flagship(MAIN["volume"], "K5", ab_aliased=False)
+    opts = lit4.options(size, size)
+    with torch.no_grad():
+        want4, want5 = render_forward_fast(lit4, opts), render_forward_fast(lit5, opts)
+        g_lit = cotangent(size, size, seed=31)
+        _, want_lit = voxel_grads_fast(lit4, opts, g_lit, image=want4)
+        split4 = bricks.split_bricks(lit4, make_mesh(BRICKS))
+        split5 = bricks.split_bricks(lit5, make_mesh(BRICKS))
+    lit_params, lit_static = train.split_params(lit4)
+    with torch.no_grad():
+        lit_params["emission"].mul_(1.3).add_(0.05)
+    lit_optimizer = torch.optim.Adam(list(lit_params.values()), lr=TRAIN_LR["K6"])
+    torch.cuda.synchronize()
+    cuda_march.reset_launch_counts()
+    img4 = bricks.render_forward_bricked_fast(split4, opts)
+    img5 = bricks.render_forward_bricked_fast(split5, opts)
+    img_g, got_lit = bricks.voxel_grads_bricked_fast(split4, opts, g_lit)
+    lit_step_loss = float(bricks.train_step_fast_bricked(
+        lit_params, lit_optimizer, lit_static, opts, want4, mesh=make_mesh(BRICKS)))
+    torch.cuda.synchronize()
+    lit_brick_launches = {k: v for k, v in cuda_march.LAUNCHES_BY_MODE.items() if v}
+    # 2 launches a brick and render, the gradient call and the step 3 each
+    expected = {"K7_transmittance": 4 * BRICKS, "K7_segment_lit": 4 * BRICKS,
+                "K7_scatter_lit": 2 * BRICKS}
+    if lit_brick_launches != expected:
+        raise RuntimeError(f"the lit brick path launched {lit_brick_launches}, expected {expected}")
+    lit_main = {
+        "K4_render_vs_single_device_kernel": image_tolerance("lit bricked K4", img4, want4),
+        "K5_render_vs_single_device_kernel": image_tolerance("lit bricked K5", img5, want5),
+        "grads_image_vs_K4": image_tolerance("lit bricked gradients' image", img_g, want4),
+        "grads_vs_voxel_grads_fast_K6_of_scale": dp_grads_check(
+            "lit bricked gradients", {k: bricks.assemble(v) if isinstance(v, list) else v
+                                      for k, v in got_lit.items()}, want_lit),
+        "train_step_fast_bricked_loss": lit_step_loss}
+    if not (np.isfinite(lit_step_loss) and lit_step_loss > 0.0):
+        raise RuntimeError(f"the lit bricked step's loss is {lit_step_loss}")
+    lit_band = {mode: lit_bricks_compare(f"main shapes {mode}", scene, opts, g_lit,
+                                         LIT_BRICKS["band"], held={BRICKS - 1})
+                for mode, scene in (("K4", lit4), ("K5", lit5))}
+    lit_main["kernels_vs_plain_band"] = lit_band
+
+    def lit_form_cells(split, lookup):
+        """Lit phase 2 (and, on the on-the-fly scene, the lit gradient
+        segment) over all bricks: ms, samples, bytes and operations."""
+        fwd = bricks._forward(split, opts, 0.0, fast=True)
+        w_ins = [w.contiguous() for w in fwd.w_in]
+        up = [u.contiguous() for u in bricks._upstream(
+            [brick_march.own_dot(g_lit, own) for own in fwd.own], fwd.ascending, torch.cumsum,
+            0.0)]
+        samples = 0
+        for brick, w_in, entry in zip(split.bricks, w_ins, fwd.entry):
+            steps = torch.zeros((size, size), dtype=torch.int32, device=dev)
+            cuda_bricks.brick_segment(brick, opts, 0.0, w_in, entry, steps=steps)
+            samples += int(steps.sum())
+        scene0 = split.bricks[0].scene
+        n_lights = scene0.light_positions.shape[0]
+        roles = ["emission", "absorption", "reflection"] + (
+            ["gradient_x", "gradient_y", "gradient_z"] if lookup else [])
+        grid_bytes = sum(getattr(b.scene, k).data.numel() * 4 for b in split.bricks
+                         for k in roles)
+        lut_bytes = scene0.illumination.numel() * 4
+        forms = {"segment_lit": (
+            median_ms(lambda: [cuda_bricks.brick_segment(b, opts, 0.0, w, e)
+                               for b, w, e in zip(split.bricks, w_ins, fwd.entry)]),
+            brick_flops_per_sample("segment_lit", False, lookup=lookup, n_lights=n_lights),
+            grid_bytes + BRICKS * (lut_bytes + pixels * (5 + 1 + 3 + 1)))}
+        if not lookup:
+            forms["scatter_lit"] = (
+                median_ms(lambda: [cuda_bricks.brick_gradients(b, opts, 0.0, g_lit, fwd.image, w,
+                                                               u, e)
+                                   for b, w, u, e in zip(split.bricks, w_ins, up, fwd.entry)]),
+                brick_flops_per_sample("scatter_lit", False, n_lights=n_lights),
+                2 * grid_bytes + BRICKS * (lut_bytes + pixels * (5 + 3 + 3 + 1 + 1 + 3
+                                                                 + 3 * n_lights)))
+        out = {}
+        for form, ((ms, ms_all), per_sample, nbytes) in forms.items():
+            flops = samples * per_sample
+            bound = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
+                     "operations": flops / PEAK_FP32_FLOPS * 1e3}
+            bound_by = max(bound, key=bound.get)
+            out[form] = {"ms": ms, "ms_all": ms_all, "launches_timed": BRICKS,
+                         "samples": samples, "flops": flops, "bytes": nbytes,
+                         "bound_ms": bound[bound_by], "bound_by": bound_by,
+                         "plain_ms": lit_band["K5" if lookup else "K4"]["plain_ms"][form],
+                         "plain_rows": LIT_BRICKS["band"],
+                         "plain_cell": f"brick {BRICKS - 1} of {BRICKS}, {LIT_BRICKS['band']} "
+                                       f"rows of {size}^2 through the middle"}
+        return out
+
+    with torch.no_grad():
+        lit_cells = lit_form_cells(split4, lookup=False)
+        lit_cells["segment_lit_lookup"] = lit_form_cells(split5, lookup=True)["segment_lit"]
+        lit_paths = {
+            "single_K4_ms": median_ms(lambda: render_forward_fast(lit4, opts))[0],
+            "single_K5_ms": median_ms(lambda: render_forward_fast(lit5, opts))[0],
+            "single_K6_backward_ms": median_ms(lambda: voxel_grads_fast(lit4, opts, g_lit,
+                                                                        image=want4))[0],
+            "bricked_forward_K4_ms": median_ms(lambda: bricks.render_forward_bricked_fast(
+                split4, opts))[0],
+            "bricked_forward_K5_ms": median_ms(lambda: bricks.render_forward_bricked_fast(
+                split5, opts))[0]}
+    record({"phase": "bricks_lit_main_path", "volume": MAIN["volume"], "image": size,
+            "bricks": BRICKS, "volume_noise_K4": 0.05, "launches": lit_brick_launches,
+            "expected_launches": expected, **lit_main, "forms": lit_cells, "ms": lit_paths,
+            "seconds": time.perf_counter() - t_phase})
+    del lit4, lit5, split4, split5, want4, want5, want_lit, got_lit, img4, img5, img_g
+    del lit_params, lit_static, lit_optimizer
+    torch.cuda.empty_cache()
+
     # ---- 11. another version's K1-K7 against the checkout's -----------------
     if args.parent:
         t_phase = time.perf_counter()
@@ -2359,14 +2639,6 @@ def main() -> None:
     # K1, K4 and K5 give the single launch's image bit for bit. K3 and K6 add
     # the same per-sample atomic adds, split over the bands, into one set of
     # grids: within the carried grids' 1e-5 of scale, other keys GRAD_TOL.
-    def dp_grads_check(name, got, want):
-        errs = check_grads(name, got, want, None, keys=want.keys())
-        for key, err in errs.items():
-            limit = BRICK_GRAD_TOL if key in ("emission", "absorption", "reflection") else GRAD_TOL
-            if err > limit:
-                raise RuntimeError(f"{name} {key}: the bands' gradient is {err:.3e} of its scale "
-                                   f"off the single launch's")
-        return errs
 
     # imported here, not above: phase 11's turns import older versions of the port
     from volume_renderer_tpu_torch.parallel import pallas_dp, sharding
@@ -2592,26 +2864,13 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 14. the slab sweep against the plain sweep and K1 at 128^3 / 256x192 --
-    # imported here, not above: phase 11's turns import older versions of the port
-    from volume_renderer_tpu_torch.api import planner
-    from volume_renderer_tpu_torch.ops import cuda_slab, slab
-
     def on_host(scene):
-        """``scene`` with its emission and absorption grids in pinned host
-        memory, as the streamed tier takes them."""
+        """``scene`` with every grid the march samples in pinned host memory,
+        as the streamed tier takes them."""
         return scene.replace(**{k: getattr(scene, k).replace(
             data=getattr(scene, k).data.cpu().pin_memory())
-            for k in ("emission", "absorption") if getattr(scene, k) is not None})
-
-    def of_scale(name, got, want, limit=1e-5):
-        """max |got - want| as a share of want's largest magnitude; raises
-        above ``limit``."""
-        assert got.shape == want.shape and bool(torch.isfinite(got).all()), name
-        scale = float(want.abs().max())
-        err = float((got - want).abs().max()) / scale
-        if err > limit:
-            raise RuntimeError(f"{name}: {err:.3e} of the scale {scale:.3e} off")
-        return err
+            for k in ("emission", "absorption", "reflection", "gradient_x", "gradient_y",
+                      "gradient_z") if getattr(scene, k) is not None})
 
     def ascending_share(scene, opts):
         rays = slab._Rays(scene, opts, 0.0, 0, opts.height)
@@ -2687,56 +2946,50 @@ def main() -> None:
                                              {k: v.to(dev) for k, v in got_h.items()}, want),
                   "image_vs_K1_of_scale": of_scale("slab gradients' image", img_s, img_k)}
     del scene, got_s, got_h, want
-    # a lit scene: refused by the card's sweep and by the facade
-    lit = flagship(64, "K4", ab_aliased=False)
-    lit_opts = lit.options(96, 64)
-    lit_g = cotangent(64, 96, seed=61)
-    refused = []
-    for call in (lambda: cuda_slab.render_forward_slabbed_fast(lit, lit_opts, n_slabs=4),
-                 lambda: cuda_slab.voxel_grads_slabbed_fast(lit, lit_opts, lit_g, n_slabs=4),
-                 lambda: slab.render_forward_streamed(on_host(lit), lit_opts, n_slabs=4),
-                 lambda: slab.streamed_grads(on_host(lit), lit_opts, lit_g, n_slabs=4)):
-        try:
-            call()
-        except NotImplementedError as exc:
-            refused.append(str(exc))
-    if len(refused) != 4:
-        raise RuntimeError("the card's slab sweep took a lit scene")
-    facade_refusals = {}
-    for mode in ("K4", "K5"):
-        em = shell(64).cpu().numpy()
-        r = VolumeRenderer()
-        r.volume_emission = Volume.create(em)
-        r.volume_absorption = Volume.create(em * 0.8)
-        r.volume_reflection = Volume.create(em * 0.5)
-        r.volume_illumination = henyey_greenstein_lut(32)
-        r.light_sources = [LightSource([2.0, 3.0, -1.5], [1.0, 1.0, 1.0])]
-        if mode == "K5":
-            r.volume_gradient_x, r.volume_gradient_y, r.volume_gradient_z = (
-                Volume.create(em).gradient_volumes())
-        r.focal_length, r.distance_to_object = 3.0, 6.0
-        r.rotate(125, 25, 0)
-        r.image_resolution = (96, 64)
-        lscene = r._build_scene()
-        whole = planner.tier_bytes(lscene, lscene.options(96, 64), "cuda")
-        r.memory_budget_bytes = int((whole - 1) / 0.7)
-        try:
-            r.render()
-            raise RuntimeError(f"the facade rendered a lit {mode} scene on {r.last_plan}")
-        except NotImplementedError as exc:
-            facade_refusals[mode] = {"plan": str(r.last_plan), "message": str(exc)}
-    if not (facade_refusals["K4"]["plan"].startswith("RenderPlan(streamed")
-            and facade_refusals["K5"]["plan"].startswith("RenderPlan(slabbed")):
-        raise RuntimeError(f"the lit facade budgets planned {facade_refusals}")
+    # lit scenes through the lit forms, 4 slabs: the on-the-fly scene with two
+    # lights and rays of both signs of dz, and the lookup one; streamed equals
+    # slabbed bit for bit, both within 1e-5 of scale of K4's or K5's image;
+    # the on-the-fly scene's gradients of one slabbed and one streamed call
+    # against voxel_grads_fast (K6) as above
+    lit_slab = {}
+    for name, mode, kw in (("otf_two_lights_dz_mixed", "K4",
+                            dict(ab_aliased=False, n_lights=2, noise=0.05, rotate=(88, 0, 0))),
+                           ("lookup", "K5", dict(ab_aliased=False))):
+        lit = flagship(COMPARE["volume"], mode, **kw)
+        lit_host = on_host(lit)
+        lit_opts = lit.options(cw, ch)
+        lit_single = render_forward_fast(lit, lit_opts)
+        slabbed = cuda_slab.render_forward_slabbed_fast(lit, lit_opts, n_slabs=4)
+        streamed = slab.render_forward_streamed(lit_host, lit_opts, n_slabs=4)
+        torch.cuda.synchronize()
+        if not torch.equal(streamed, slabbed):
+            raise RuntimeError(f"lit slab sweep {name}: streamed and slabbed differ")
+        cell = {"vs_single_device_kernel_of_scale": of_scale(
+            f"lit slab sweep {name} vs {mode}", slabbed, lit_single),
+            "streamed_equals_slabbed": True, "visited": cuda_slab.LAST_SWEEP.visited,
+            "h2d_bytes": cuda_slab.LAST_SWEEP.h2d_bytes}
+        if mode == "K4":
+            g = cotangent(ch, cw, seed=61)
+            img_k, want = voxel_grads_fast(lit, lit_opts, g)
+            img_s, got_s = cuda_slab.voxel_grads_slabbed_fast(lit, lit_opts, g, n_slabs=4)
+            got_h, img_h = slab.streamed_grads(lit_host, lit_opts, g, n_slabs=4)
+            torch.cuda.synchronize()
+            if not torch.equal(img_s, img_h):
+                raise RuntimeError("the lit streamed gradients' image differs from the slabbed")
+            cell["grads_vs_voxel_grads_fast"] = {
+                "slabbed": dp_grads_check("lit slabbed gradients", got_s, want),
+                "streamed": dp_grads_check("lit streamed gradients",
+                                           {k: v.to(dev) for k, v in got_h.items()}, want)}
+        lit_slab[name] = cell
+        del lit, lit_host, lit_single
     record({"phase": "slab_vs_plain", "volume": COMPARE["volume"], "image": [cw, ch],
             "volume_noise": 0.05, "cases": slab_cases,
             "tolerance": {"vs_K1_of_scale": 1e-5, "vs_plain_sweep_of_scale": 2e-3,
                           "grads_of_scale": {"grids": BRICK_GRAD_TOL, "others": GRAD_TOL}},
             "grads_dz_mixed_4_slabs_vs_voxel_grads_fast": slab_grads,
-            "lit": {"refused_by_the_card_sweep": len(refused),
-                    "refused_by_the_facade": facade_refusals},
+            "lit_4_slabs": lit_slab,
             "seconds": time.perf_counter() - t_phase})
-    del lit, host, single, plain, slabbed, streamed
+    del host, single, plain, slabbed, streamed
     torch.cuda.empty_cache()
 
     # ---- 15. the slab main path: the planned facade and training steps ----------
@@ -2926,6 +3179,129 @@ def main() -> None:
             "host_ms": host_ms(lambda: make(params, optimizer))}
     del params, dev_params, want0, first_grads
 
+    # (c2) lit scenes at 256^3 / 512^2. The facade under a budget below the
+    # whole-grid tier: the K4 scene planned streamed, the K5 scene slabbed
+    # (the sweep saves K5's pack), counted: K7 phase 1 and lit phase 2 alone,
+    # the image within 1e-5 of scale of the kernel's, the peak within the
+    # plan's estimate. Then one Adam step each of train_step_streamed,
+    # train_step_slabbed and train_step_planned (streamed) on the noisy K4
+    # scene: loss and gradients against train_step_fast's (K4 + K6).
+    lit_facade = {}
+    lit_launches = {}
+    for mode in ("K4", "K5"):
+        em = shell(MAIN["volume"])
+        r = VolumeRenderer()
+        r.volume_emission = Volume.create(em)
+        r.volume_absorption = Volume.create(em * 0.8)
+        r.volume_reflection = Volume.create(em * 0.5)
+        r.volume_illumination = henyey_greenstein_lut(32)
+        r.light_sources = [LightSource([2.0, 3.0, -1.5], [1.0, 1.0, 1.0])]
+        if mode == "K5":
+            r.volume_gradient_x, r.volume_gradient_y, r.volume_gradient_z = (
+                Volume.create(em).gradient_volumes())
+        r.factor_absorption, r.factor_reflection, r.color = 0.6, 0.4, (1.0, 0.9, 0.8)
+        r.focal_length, r.distance_to_object = 3.0, 6.0
+        r.rotate(125, 25, 0)
+        r.image_resolution = (size, size)
+        lscene = r._build_scene()
+        want = render_forward_fast(lscene, opts)
+        r.memory_budget_bytes = int((planner.tier_bytes(lscene, opts, "cuda") - 1) / 0.7)
+        r.render()  # the content hashes and, streamed, the pinned host copies
+        grids = planner.scene_volume_bytes(lscene)
+        (img, counts), peak = peak_of(lambda: counted(r.render))
+        plan = r.last_plan
+        k7_only(f"the lit {mode} facade render", counts, ("K7_transmittance", "K7_segment_lit"))
+        resident = grids if plan.path == "slabbed" else 0  # the views' grids, there before
+        if not (plan.path == ("streamed" if mode == "K4" else "slabbed")
+                and counts["K7_transmittance"] == counts["K7_segment_lit"]
+                and peak + resident <= plan.est_bytes <= plan.budget_bytes):
+            raise RuntimeError(f"lit {mode} facade: {plan}, {counts}, peak {peak}")
+        lit_launches[f"{plan.path}_facade_render_{mode}"] = counts
+        lit_facade[mode] = {
+            "plan": str(plan), "est_bytes": plan.est_bytes, "peak_bytes": peak + resident,
+            "launches": counts, "visited": cuda_slab.LAST_SWEEP.visited,
+            "h2d_bytes": cuda_slab.LAST_SWEEP.h2d_bytes,
+            "vs_kernel_of_scale": of_scale(f"lit {mode} facade vs {mode}", img, want),
+            "ms": median_ms(r.render)[0], "host_ms": host_ms(r.render),
+            f"flat_{mode}_ms": median_ms(lambda: render_forward_fast(lscene, opts))[0]}
+        del r, lscene, want, img, em
+        torch.cuda.empty_cache()
+
+    lit = flagship(MAIN["volume"], "K4", ab_aliased=False, noise=0.05)
+    lit_target = render_forward_fast(lit, opts)
+    lit_dev_params, lit_static = train.split_params(lit)
+    # the streamed steps take every grid from host memory, reflection too
+    lit_host_static = lit_static.replace(reflection=lit_static.reflection.replace(
+        data=lit_static.reflection.data.cpu().pin_memory()))
+    with torch.no_grad():
+        lit_dev_params["emission"].mul_(1.3).add_(0.05)
+        # A sweep step's cotangent comes from the sweep's own image, which
+        # sums the slabs' contributions and differs from K4's in the last
+        # bits; the lit normals carry that into the emission gradient. So its
+        # gradients are held against K6's for the sweep image's cotangent.
+        merged = train.merge_params(lit_dev_params, lit_static)
+        img_k4 = render_forward_fast(merged, opts)
+        img_sweep = cuda_slab.render_forward_slabbed_fast(merged, opts, n_slabs=n_main)
+        _, want_sweep = voxel_grads_fast(merged, opts, 2.0 * (img_sweep - lit_target),
+                                         image=img_k4)
+        want_sweep_loss = float(torch.sum((img_sweep - lit_target) ** 2))
+        sweep_image_vs_k4 = of_scale("the lit sweep image vs K4", img_sweep, img_k4)
+        del merged, img_k4, img_sweep
+
+    def lit_params(host):
+        return {k: (v.detach().cpu().pin_memory() if host else v.detach().clone())
+                .requires_grad_(True) for k, v in lit_dev_params.items()}
+
+    def lit_adam(params):
+        return torch.optim.Adam(list(params.values()), lr=TRAIN_LR["K6"])
+
+    lit_steps = {
+        "train_step_fast": (False, lambda p, o: (train.train_step_fast(
+            p, o, lit_static, opts, lit_target), None)),
+        "train_step_streamed": (True, lambda p, o: (train.train_step_streamed(
+            p, o, lit_host_static, opts, lit_target, n_slabs=n_main), None)),
+        "train_step_slabbed": (False, lambda p, o: (train.train_step_slabbed(
+            p, o, lit_static, opts, lit_target, n_slabs=n_main), None)),
+        "train_step_planned_streamed": (True, lambda p, o: train.train_step_planned(
+            p, o, lit_host_static, opts, lit_target, budget_bytes=int(planner.tier_bytes(
+                train.merge_params(p, lit_host_static), opts, "streamed", n_slabs=n_main,
+                training=True, optimizer=o) / 0.7) + 1))}
+    lit_train = {}
+    for name, (host, step) in lit_steps.items():
+        params = lit_params(host)
+        optimizer = lit_adam(params)
+        (loss, plan), counts = counted(lambda: step(params, optimizer))
+        grads = {k: p.grad.to(dev) for k, p in params.items()}
+        cell = {"loss": float(loss), "plan": None if plan is None else str(plan),
+                "launches": counts}
+        if name == "train_step_fast":
+            want_loss, want_grads = float(loss), grads
+            if {k: v for k, v in counts.items() if v} != {"K4": 1, "K6": 1}:
+                raise RuntimeError(f"the lit train_step_fast launched {counts}")
+        else:
+            k7_only(name, counts, ("K7_transmittance", "K7_segment_lit", "K7_scatter_lit"))
+            if plan is not None and (plan.path, plan.n_slabs) != ("streamed", n_main):
+                raise RuntimeError(f"{name} planned {plan}")
+            cell["loss_vs_train_step_fast_of_it"] = abs(float(loss) - want_loss) / want_loss
+            cell["loss_vs_sweep_image_of_it"] = (abs(float(loss) - want_sweep_loss)
+                                                 / want_sweep_loss)
+            if cell["loss_vs_train_step_fast_of_it"] > 1e-4 or cell[
+                    "loss_vs_sweep_image_of_it"] > 1e-6:
+                raise RuntimeError(f"lit {name}: loss {float(loss)} against {want_loss} "
+                                   f"(K4) and {want_sweep_loss} (the sweep's image)")
+            cell["grads_vs_K6_same_cotangent_of_scale"] = dp_grads_check(
+                f"lit {name} first step", grads, {k: want_sweep[k] for k in grads})
+            cell["grads_vs_train_step_fast_of_scale"] = check_grads(
+                f"lit {name} first step against train_step_fast", grads, want_grads, None,
+                keys=want_grads.keys())
+            lit_launches[f"lit_{name}"] = counts
+        cell["ms"] = median_ms(lambda: step(params, optimizer))[0]
+        cell["host_ms"] = host_ms(lambda: step(params, optimizer))
+        lit_train[name] = cell
+    del lit, lit_target, lit_dev_params, lit_static, lit_host_static, params, optimizer, grads
+    del want_grads, want_sweep
+    torch.cuda.empty_cache()
+
     # (d) the facade with make_mesh(4) on the one card: rays-DP, and bricks
     # under a budget that the whole grids do not fit
     em = shell(MAIN["volume"])
@@ -2963,11 +3339,13 @@ def main() -> None:
                                                               "train_step_planned_streamed")},
         "bricked_facade_render": {k: bricked_launches[k] for k in K7_FORM_KEYS}}
     record({"phase": "slab_main_path",
-            "entry": ["VolumeRenderer.render (streamed, cuda_dp, bricked)",
-                      "render_forward_slabbed_fast", "train_step_streamed",
-                      "train_step_planned", "train_step_slabbed (timed)"],
+            "entry": ["VolumeRenderer.render (streamed, cuda_dp, bricked; lit streamed and "
+                      "slabbed)", "render_forward_slabbed_fast", "train_step_streamed",
+                      "train_step_planned", "train_step_slabbed (timed; lit counted)"],
             "nvidia_smi": smi_line, "streamed_facade": streamed_facade,
             "slabbed": slabbed_main, "training": train_cells, "mesh_facade": mesh_facade,
+            "lit_facade": lit_facade, "lit_training": lit_train,
+            "lit_sweep_image_vs_K4_of_scale": sweep_image_vs_k4,
             "steps": TRAIN_STEPS, "optimizer": "Adam", "lr": TRAIN_LR["K3"],
             "volume_noise": 0.05, "ms": slab_timing, "seconds": time.perf_counter() - t_phase})
 
@@ -2981,6 +3359,78 @@ def main() -> None:
                                           os.path.join(REPO, "out", "chip_smoke")))):
         record({"phase": name, "nvidia_smi": smi_line, **run()})
         torch.cuda.empty_cache()
+
+    # ---- 19. the multi-process path over torch.distributed -----------------
+    # multihost.run_demo on the card: a one-rank NCCL world, and two ranks
+    # over gloo on the one card's tensors (NCCL puts no two ranks on one
+    # card). Each rank renders the lit flagship scene rays-DP and takes one
+    # Adam step of the plain and of the kernel DP step; every rank's image,
+    # losses and gradients against the single-process render_forward_fast,
+    # train.train_step_sharded and train_step_fast_sharded on as many bands
+    # of the one card (the kernels' grids within 1e-5 of scale, other keys
+    # GRAD_TOL: atomic adds land in no fixed order), and the ranks' launch
+    # counts (K4 for the render and the steps, K6 for the kernel step).
+    from volume_renderer_tpu_torch.parallel import multihost
+    from volume_renderer_tpu_torch.utils import scaling_probe
+
+    t_phase = time.perf_counter()
+    multi = {}
+    mp_scene, mp_opts, mp_target, mp_start = multihost.demo_problem(dev)
+    mp_image = render_forward_fast(mp_scene, mp_opts)
+    worlds = ((1, "nccl"), (2, "gloo"))
+    # the two rehearsals at once, each in processes of its own
+    with concurrent.futures.ThreadPoolExecutor(len(worlds)) as pool:
+        started = {world: (time.perf_counter(), pool.submit(
+            multihost.run_demo, world[0], "cuda", world[1], 300.0)) for world in worlds}
+        rehearsals = {world: (future.result(), time.perf_counter() - t0)
+                      for world, (t0, future) in started.items()}
+    for ranks, backend in worlds:
+        results, seconds = rehearsals[(ranks, backend)]
+        want = {}
+        for name, step in (("plain", train.train_step_sharded),
+                           ("fast", pallas_dp.train_step_fast_sharded)):
+            params = {k: v.detach().clone().requires_grad_(True) for k, v in mp_start.items()}
+            optimizer = torch.optim.Adam(list(params.values()), lr=multihost.DEMO["lr"])
+            loss = step(params, optimizer, mp_scene, mp_opts, mp_target, mesh=make_mesh(ranks))
+            want[name] = (float(loss), {k: p.grad for k, p in params.items()})
+        cell = {"backend": backend, "mesh": results[0]["mesh"], "seconds": seconds,
+                "rank_launches": [{k: v for k, v in r["launches"].items() if v}
+                                  for r in results]}
+        for r in results:
+            if r["backend"] != backend or not torch.equal(r["image"].to(dev), mp_image):
+                raise RuntimeError(f"rank {r['rank']} of {ranks} ({backend}): its image is not "
+                                   "render_forward_fast's")
+            if not (r["launches"]["K4"] and r["launches"]["K6"]):
+                raise RuntimeError(f"rank {r['rank']} of {ranks} launched {r['launches']}")
+            for name, (want_loss, want_grads) in want.items():
+                loss_err = abs(r[name]["loss"] - want_loss) / want_loss
+                if loss_err > 1e-6:
+                    raise RuntimeError(f"rank {r['rank']} of {ranks} ({backend}) {name} step: "
+                                       f"loss {r[name]['loss']} against {want_loss}")
+                errs = dp_grads_check(f"rank {r['rank']} of {ranks} {name} step",
+                                      {k: v.to(dev) for k, v in r[name]["grads"].items()},
+                                      want_grads)
+                cell.setdefault(name, []).append({"loss": r[name]["loss"],
+                                                  "loss_err_of_it": loss_err,
+                                                  "grads_err_of_scale": errs})
+        multi[f"{ranks}_{backend}"] = cell
+    record({"phase": "multi_process", "nvidia_smi": smi_line,
+            "scene": f"lit flagship {multihost.DEMO['volume']}^3, "
+                     f"{multihost.DEMO['width']}x{multihost.DEMO['height']}",
+            "against": ["render_forward_fast", "train.train_step_sharded",
+                        "train_step_fast_sharded"],
+            **multi, "seconds": time.perf_counter() - t_phase})
+
+    # ---- 20. the scaling probe on the card ----------------------------------
+    # The device time of the rays-DP and the bricked render, 8 bands and 8
+    # bricks against 1, all on the one card at 256^3 / 512^2: one card's
+    # total-work overhead of the sharded formulations, not a scaling
+    # measurement.
+    t_phase = time.perf_counter()
+    record({"phase": "scaling_probe", "nvidia_smi": smi_line,
+            **scaling_probe.measure(dev, MAIN["volume"], MAIN["image"], reps=3),
+            "seconds": time.perf_counter() - t_phase})
+    torch.cuda.empty_cache()
 
     # ---- kernels line and the result ------------------------------------
     kernels = []
@@ -3043,6 +3493,29 @@ def main() -> None:
             "mode": what,
             "cell": f"{MAIN['volume']}^3 volume, {MAIN['image']}^2 image, {BRICKS} bricks "
                     f"(ms over all bricks)",
+        })
+    for form, source, what in (
+            ("segment_lit", "brick_fwd", "z-brick lit phase 2: K4's step (and K5's, unpacked) "
+                                         "on the brick's windows from the entry opacity"),
+            ("scatter_lit", "brick_bwd", "z-brick lit gradient segment: K6's sample replay on "
+                                         "the brick's windows")):
+        cell = lit_cells[form]
+        kernels.append({
+            "name": f"{source}[K7 {form}]", "route": "cuda",
+            "source": f"volume_renderer_tpu_torch/csrc/{source}.cu",
+            "replaces": "volume_renderer_tpu/ops/pallas_march.py:688",
+            "launches": lit_brick_launches[f"K7_{form}"], "max_abs_err": brick_err[form],
+            "slab_launches": {path: counts[f"K7_{form}"] for path, counts in lit_launches.items()},
+            **({"max_err_of_scale": brick_grad_err[0]} if form == "scatter_lit" else {}),
+            **({"lookup": {k: lit_cells["segment_lit_lookup"][k]
+                           for k in ("ms", "samples", "bound_ms", "bound_by")}}
+               if form == "segment_lit" else {}),
+            "ms": cell["ms"], "plain_ms": cell["plain_ms"], "plain_rows": cell["plain_rows"],
+            "plain_cell": cell["plain_cell"],
+            "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"], "library_ms": None,
+            "mode": what,
+            "cell": f"{MAIN['volume']}^3 volume, {MAIN['image']}^2 image, {BRICKS} bricks "
+                    f"(ms over all bricks), the noisy lit K4 scene",
         })
     for name, cell in cells.items():
         if "finite" in cell and not (cell["finite"] and cell["nonzero_frac"] > 0.05):

@@ -226,18 +226,28 @@ def test_make_mesh_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("gradient_volumes", [False, True])
 def test_fast_entry_points_refuse_lit_scenes(gradient_volumes):
-    """The brick kernels are unlit only, so the fast entry points refuse a
-    lit scene on every device and name the plain path that serves it."""
+    """What the fast entry points refuse of a lit scene: since the lit forms
+    of phase 2 and of the gradient segment, only the gradients of a scene
+    with lookup gradient volumes (no backward kernel takes one), on every
+    device, naming the plain path that serves them. The render of either
+    scene, and the gradients of an on-the-fly one, go through."""
     _, tscene = make_scenes(vol_shape=VOL, lighting=True, gradient_volumes=gradient_volumes)
     opts = tscene.options(16, 16)
     mesh = make_mesh(4, "cpu")
-    with pytest.raises(NotImplementedError, match="render_forward_bricked"):
-        bricks.render_forward_bricked_fast(tscene, opts, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="render_fused_bricked"):
-        bricks.voxel_grads_bricked_fast(tscene, opts, np.zeros((16, 16, 3), np.float32), mesh=mesh)
+    img = bricks.render_forward_bricked_fast(tscene, opts, mesh=mesh)
+    np.testing.assert_allclose(img.numpy(), render_forward(tscene, opts).numpy(),
+                               rtol=0, atol=1e-7)
+    g = np.zeros((16, 16, 3), np.float32)
     brick = bricks.split_bricks(tscene, mesh).bricks[1]
+    w, entry = cuda_bricks.brick_transmittance(brick, opts)
+    if not gradient_volumes:
+        _, grads = bricks.voxel_grads_bricked_fast(tscene, opts, g, mesh=mesh)
+        assert "light_colors" in grads and "reflection" in grads
+        return
     with pytest.raises(NotImplementedError, match="render_fused_bricked"):
-        cuda_bricks.brick_transmittance(brick, opts)
+        bricks.voxel_grads_bricked_fast(tscene, opts, g, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="render_fused_bricked"):
+        cuda_bricks.brick_gradients(brick, opts, 0.0, torch.from_numpy(g), img, w, w, entry)
 
 
 # ---- the fast entry points' CPU path ---------------------------------------

@@ -189,4 +189,5 @@ def test_grad_mode():
     assert cuda_grads.grad_mode(unlit, scatter=False) == "K2"
     assert cuda_grads.grad_mode(lit, scatter=False) == "K2"
     assert set(cuda_march.LAUNCHES_BY_MODE) == {
-        "K1", "K2", "K3", "K4", "K5", "K6", "K7_transmittance", "K7_segment", "K7_scatter"}
+        "K1", "K2", "K3", "K4", "K5", "K6", "K7_transmittance", "K7_segment", "K7_scatter",
+        "K7_segment_lit", "K7_scatter_lit"}

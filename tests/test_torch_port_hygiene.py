@@ -151,9 +151,14 @@ def test_ctypes_mirrors_list_the_structs_fields(source, struct, mirror):
 def test_corner_carry_has_one_copy():
     """The cell of a sample, its fetch and the corner carry are defined once,
     in corner_carry.cuh, which the two carried scatters reach, K3
-    (march_bwd.cu) and the K7 gradient segment (brick_bwd.cu, through
-    brick_common.cuh), and K5 (march_fwd.cu) and K2 (march_bwd.cu), which
-    fetch their packed grids at the cell with one blend of the corners."""
+    (march_bwd.cu, through lit_replay.cuh) and the K7 gradient segment
+    (brick_bwd.cu, through brick_common.cuh), and K5 (march_fwd.cu) and K2
+    (march_bwd.cu), which fetch their packed grids at the cell with one blend
+    of the corners. The lit step's pieces are defined once too: the tap fetch
+    and the shading in march_common.cuh, which K4, K5 and lit phase 2
+    (brick_fwd.cu) reach, the sample's replay and its adjoint in
+    lit_replay.cuh, which K6, lit K2 and the lit gradient segment
+    (brick_bwd.cu) reach."""
     pattern = re.compile(r"^(?:template <[^>]*>\s*)?struct (CornerCarry|Cell|ZSlab)\b|"
                          r"^__device__ __forceinline__ [\w&]+ (cell_of|fetch_cell|fetch_cell_pair|"
                          r"corner_weights|slab_row|blend_cell|load_corners|fetch_packed2?)\(",
@@ -170,7 +175,31 @@ def test_corner_carry_has_one_copy():
     def includes(name):
         return re.findall(r'#include "(\w+\.cuh)"', (_build.CSRC_DIR / name).read_text())
 
-    assert "corner_carry.cuh" in includes("march_bwd.cu")
+    def reaches(name):
+        seen, todo = set(), includes(name)
+        while todo:
+            header = todo.pop()
+            if header not in seen:
+                seen.add(header)
+                todo += includes(header)
+        return seen
+
+    assert includes("march_bwd.cu") == ["lit_replay.cuh"]
     assert includes("march_fwd.cu") == ["corner_carry.cuh"]
-    assert includes("brick_fwd.cu") == includes("brick_bwd.cu") == ["brick_common.cuh"]
-    assert includes("brick_common.cuh") == ["corner_carry.cuh"]
+    assert includes("brick_fwd.cu") == ["brick_common.cuh"]
+    assert includes("brick_bwd.cu") == ["brick_common.cuh", "lit_replay.cuh"]
+    assert includes("brick_common.cuh") == includes("lit_replay.cuh") == ["corner_carry.cuh"]
+    for source in ("march_fwd.cu", "march_bwd.cu", "brick_fwd.cu", "brick_bwd.cu"):
+        assert {"corner_carry.cuh", "march_common.cuh"} <= reaches(source)
+    assert "lit_replay.cuh" in reaches("march_bwd.cu") & reaches("brick_bwd.cu")
+
+    lit = re.compile(r"^(?:template <[^>]*>\s*)?__device__ __forceinline__ [\w&]+ "
+                     r"(tap_geom|fetch_em_taps|shade|scatter_em_taps|angle_bwd|"
+                     r"lit_replay_sample)\(", re.M)
+    found = {}
+    for path in sorted(_build.CSRC_DIR.glob("*.cu*")):
+        for m in lit.finditer(path.read_text()):
+            found.setdefault(m.group(1), []).append(path.name)
+    assert found == {"tap_geom": ["march_common.cuh"], "fetch_em_taps": ["march_common.cuh"],
+                     "shade": ["march_common.cuh"], "scatter_em_taps": ["lit_replay.cuh"],
+                     "angle_bwd": ["lit_replay.cuh"], "lit_replay_sample": ["lit_replay.cuh"]}

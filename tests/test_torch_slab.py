@@ -184,15 +184,21 @@ def test_card_sweep_stops_where_the_rays_do():
 
 
 def test_card_sweep_refuses_lit_scenes():
-    _, tscene, n = scenes("lit_otf")
+    """What the card's sweep refuses of a lit scene: since the lit forms of
+    the brick kernels, only the gradients of a scene with lookup gradient
+    volumes, naming the plain sweep that differentiates it; it renders one
+    (the lit sweeps' results are in test_torch_lit_routes.py)."""
+    _, tscene, n = scenes("lit_lookup")
     opts = tscene.options(W, H)
+    np.testing.assert_allclose(
+        cuda_slab.render_forward_slabbed_fast(tscene, opts, n_slabs=n).numpy(),
+        render_forward(tscene, opts).numpy(), rtol=0, atol=1e-7)
     g = torch.zeros((H, W, 3))
-    for call in (lambda: cuda_slab.render_forward_slabbed_fast(tscene, opts, n_slabs=n),
-                 lambda: cuda_slab.voxel_grads_slabbed_fast(tscene, opts, g, n_slabs=n),
+    for call in (lambda: cuda_slab.voxel_grads_slabbed_fast(tscene, opts, g, n_slabs=n),
                  lambda: cuda_slab.render_fused_slabbed_fast(tscene, opts, n_slabs=n),
-                 lambda: cuda_slab.render_forward_streamed_fast(tscene, opts, n_slabs=n,
-                                                                device="cuda")):
-        with pytest.raises(NotImplementedError, match="render_forward_slabbed"):
+                 lambda: cuda_slab.streamed_grads_fast(tscene, opts, g, n_slabs=n,
+                                                       device="cuda")):
+        with pytest.raises(NotImplementedError, match="render_fused_slabbed"):
             call()
 
 

@@ -12,8 +12,8 @@ its tier's route: on a CUDA renderer ``"cuda"`` is the march kernel
 (``ops.cuda_march.render_forward_fast``), ``"cuda_dp"`` rays-DP over the
 mesh, ``"bricked"`` the z-brick kernels over the mesh, ``"slabbed"`` and
 ``"streamed"`` the z-slab sweep through the brick kernels
-(``ops/cuda_slab.py``); the last three march unlit scenes only and raise for
-a lit one. On the streamed route the grids stay in host memory, pinned once
+(``ops/cuda_slab.py``); every route takes unlit and lit scenes, the last
+three through the lit forms of the brick kernels. On the streamed route the grids stay in host memory, pinned once
 and kept, and only their slabs reach the card. A renderer built with
 ``device="cpu"`` takes the same tiers in plain PyTorch (``"plain"``, the
 plain bricked render, the plain slab sweeps), lit scenes included.
@@ -47,12 +47,6 @@ class StereoRenderMode(enum.Enum):
 
     RED_CYAN = "RedCyan"
     LEFT_RIGHT_HORIZONTAL = "LeftRightHorizontal"
-
-
-# the plain entry point that renders a lit scene the kernels of a tier refuse
-_LIT_PLAIN = {"bricked": "parallel.bricks.render_forward_bricked",
-              "slabbed": "ops.slab.render_forward_slabbed",
-              "streamed": "ops.slab.render_forward_streamed(device='cpu')"}
 
 
 class VolumeRenderer:
@@ -233,11 +227,6 @@ class VolumeRenderer:
                            device=self.device)
         self.last_plan = plan
         kernel = self.device.type == "cuda"
-        if kernel and scene.has_lighting and plan.path in _LIT_PLAIN:
-            raise NotImplementedError(
-                f"{plan}: the {plan.path} route runs the z-brick kernels, which march unlit "
-                f"scenes only; render this lit scene with {_LIT_PLAIN[plan.path]} (plain "
-                f"PyTorch) or give it a larger memory_budget_bytes")
         if plan.path == "streamed":
             if kernel:
                 return cuda_slab.render_forward_streamed_fast(

@@ -10,14 +10,25 @@
 // and prefix = sum T (g . s) seeded with the dots of the bricks in front,
 // so that
 //   d alpha = -(g . out_global - prefix) / (1 - alpha)
-// sees the whole ray. The step's adjoint is that of march_bwd.cu, unlit:
-// cotangents go to the taps, which are added into the brick's halo-padded
-// gradient grids with the trilinear weights of the fetch, and to the
-// transfer parameters as per-ray planes that the wrapper sums:
-//   plane 0  E = sum T alpha em          -> factor_emission, color
-//   plane 1  F = sum d absorption * ab   -> factor_absorption
+// sees the whole ray. The step's adjoint is that of march_bwd.cu:
+//   brick_bwd_kernel      unlit (K3's step): cotangents go to the taps,
+//                         which are added into the brick's halo-padded
+//                         gradient grids with the trilinear weights of the
+//                         fetch, and to the transfer parameters as per-ray
+//                         planes that the wrapper sums:
+//     plane 0  E = sum T alpha em          -> factor_emission, color
+//     plane 1  F = sum d absorption * ab   -> factor_absorption
+//   brick_lit_bwd_kernel  lit with on-the-fly gradients (K6's step, the one
+//                         lit_replay_sample of lit_replay.cuh over the
+//                         brick's windows): also the reflection grid, and
+//     plane 2      rac = sum d reflection * re   -> factor_reflection
+//     plane 3+3l+c P   = the light sums          -> light_colors, color
 // Halo rows of the padded grids collect what belongs to the neighbouring
-// bricks; parallel/bricks.py folds them back.
+// bricks; parallel/bricks.py folds them back, and the slab sweep adds a
+// window's rows into the whole grid (ops/cuda_slab.py). The TPU mode has no
+// lit form; the JAX package differentiates a lit brick in XLA. A lit scene
+// with lookup gradient volumes has no gradient segment, as it has no K6
+// (ops/cuda_grads.py, refuse_lookup).
 //
 // What bounds it on this card: as march_bwd.cu, the gathers and the atomic
 // adds into L2 (8 a sample and grid if each sample adds its shares alone).
@@ -39,11 +50,19 @@
 //   The grids differ from run to run in the last bits.
 // - A ray whose cotangent is zero, that has no record or that enters above
 //   the opacity threshold writes zero planes at once.
+// - Lit, the sample's replay and scatter are K6's (the shared window of the
+//   centre and the six taps, 20 atomic adds for the emission where the taps
+//   lie half a voxel out), with every row placed in the brick's window:
+//   clamped at the whole volume's faces, then shifted, so the taps, two rows
+//   beyond an owned sample at most, read and scatter the rows the halo holds.
+//   Its registers are capped as K6's are (kLitMaxRegisters), 16x8 blocks,
+//   the light sums in shared memory a column a thread.
 //
 // Build flags as for march_fwd.cu (-fmad=false, no fast math). Plain C
 // interface, loaded with ctypes (ops/cuda_bricks.py).
 
 #include "brick_common.cuh"
+#include "lit_replay.cuh"
 
 // Mirrored field for field by _BrickGradArgs in ops/cuda_bricks.py.
 struct BrickGradArgs {
@@ -52,16 +71,18 @@ struct BrickGradArgs {
   const float* image;   // (height, width, 3) the GLOBAL image
   const float* up_dot;  // (height, width) g . contribution of the bricks in front
   float* d_em;          // zero-initialised padded gradient grids;
-  float* d_ab;          // null when absorption is aliased to emission
-  float* planes;        // (2, height, width)
+  float* d_ab;          // null when absorption is aliased to emission,
+  float* d_re;          // reflection aliased or the scene unlit
+  float* planes;        // (2, height, width); lit (3 + 3 n_lights, height, width)
 };
 
 namespace {
 
 constexpr int kScatterCols = kBlock, kScatterRows = 8;
 constexpr int kScatterThreads = kScatterCols * kScatterRows;
-
-__device__ __forceinline__ V3 scale(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
+// The lit form's register cap: K6's (march_bwd.cu, kMaxRegisters), whose
+// sample replay it shares.
+constexpr int kLitMaxRegisters = 168;
 
 // AB_OWN_CELL: absorption has another shape or place than emission, so it
 // keeps its own cell and carry; otherwise it shares emission's.
@@ -97,7 +118,7 @@ __global__ void __launch_bounds__(kScatterThreads) brick_bwd_kernel(const BrickG
     ray_step(m, px, py, step, tfar);
     CornerCarry<kCarried> carry(m.em, em_slab, ga.d_em, ga.d_ab);
     CornerCarry<1> ab_carry(m.ab, ab_slab, ga.d_ab, nullptr);  // with AB_OWN_CELL
-    march_brick(a, e, step, tfar, threshold, sw, [&](V3 s, float& w) {
+    march_brick(a, e, step, tfar, threshold, sw, [&](V3 s, V3, float& w) {
       // ---- the sample's forward values, as brick_fwd.cu has them ----
       const Cell k = cell_of(m.em, em_slab, s);
       const Cell ka = AB_OWN_CELL ? cell_of(m.ab, ab_slab, s) : k;
@@ -149,6 +170,53 @@ __global__ void __launch_bounds__(kScatterThreads) brick_bwd_kernel(const BrickG
   ga.planes[plane + pix] = acc_f;
 }
 
+// The lit gradient segment (on-the-fly gradients): the brick's own samples
+// replayed with K6's sample replay (lit_replay_sample) over its windows.
+template <bool AB_ALIASED, bool RE_ALIASED>
+__global__ void __maxnreg__(kLitMaxRegisters) brick_lit_bwd_kernel(const BrickGradArgs ga) {
+  constexpr int kT = kScatterThreads;
+  extern __shared__ float light_sums[];  // [3 n_lights][kT], a column per thread
+  const BrickArgs& a = ga.b;
+  const MarchArgs& m = a.m;
+  const int px = blockIdx.x * kScatterCols + threadIdx.x;
+  const int py = blockIdx.y * kScatterRows + threadIdx.y;
+  if (px >= m.width || py >= m.height) return;
+  const int tid = threadIdx.y * kScatterCols + threadIdx.x;
+  const int n_lights = m.n_lights;
+  float* sums = light_sums + tid;
+  for (int k = 0; k < 3 * n_lights; ++k) sums[k * kT] = 0.0f;
+
+  const float threshold = __ldg(m.settings + 6);
+  const size_t pix = (size_t)py * m.width + px;
+  LitRay r = {};
+  r.g = {__ldg(ga.g + 3 * pix), __ldg(ga.g + 3 * pix + 1), __ldg(ga.g + 3 * pix + 2)};
+  float sw = __ldg(a.w_in + pix);
+  const Entry e = load_entry(a, pix);
+  if (!(r.g.x == 0.0f && r.g.y == 0.0f && r.g.z == 0.0f) && enters(e, sw, threshold)) {
+    const V3 out = {__ldg(ga.image + 3 * pix), __ldg(ga.image + 3 * pix + 1),
+                    __ldg(ga.image + 3 * pix + 2)};
+    r.total_dot = dot(r.g, out);
+    r.prefix = __ldg(ga.up_dot + pix);
+    V3 step;
+    float tfar;
+    ray_step(m, px, py, step, tfar, r.origin);
+    const LitConsts c = lit_consts(m, true);  // the fast entry points' angle adjoint
+    const LitGrids d = {ga.d_em, ga.d_ab, ga.d_re};
+    const ZSlab em_z = {a.em_d_global, a.em_z_off}, ab_z = {a.ab_d_global, a.ab_z_off};
+    const ZSlab re_z = {a.re_d_global, a.re_z_off};
+    march_brick(a, e, step, tfar, threshold, sw, [&](V3 s, V3 p, float& w) {
+      lit_replay_sample<true, AB_ALIASED, RE_ALIASED>(m, c, d, em_z, ab_z, re_z, p, s, w, r,
+                                                      sums, kT);
+    });
+  }
+
+  const size_t plane = (size_t)m.width * m.height;
+  ga.planes[pix] = r.acc_e;
+  ga.planes[plane + pix] = r.acc_f;
+  ga.planes[2 * plane + pix] = r.acc_rac;
+  for (int k = 0; k < 3 * n_lights; ++k) ga.planes[(3 + k) * plane + pix] = sums[k * kT];
+}
+
 template <bool AB, bool OWN>
 cudaError_t launch(const BrickGradArgs& ga, cudaStream_t stream) {
   const MarchArgs& m = ga.b.m;
@@ -159,6 +227,17 @@ cudaError_t launch(const BrickGradArgs& ga, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <bool AB, bool RE>
+cudaError_t launch_lit(const BrickGradArgs& ga, cudaStream_t stream) {
+  const MarchArgs& m = ga.b.m;
+  const dim3 block(kScatterCols, kScatterRows);
+  const dim3 grid((m.width + kScatterCols - 1) / kScatterCols,
+                  (m.height + kScatterRows - 1) / kScatterRows);
+  const size_t shared = sizeof(float) * 3 * m.n_lights * kScatterThreads;
+  brick_lit_bwd_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -166,9 +245,17 @@ extern "C" {
 // Size of BrickGradArgs, so that the Python side can check its mirror.
 size_t vr_brick_grad_args_size() { return sizeof(BrickGradArgs); }
 
+// The most lights the lit gradient segment takes: their per-thread sums must
+// fit the 48 KB of shared memory a block gets without opting in to more.
+int vr_brick_bwd_max_lights() {
+  return (48 * 1024) / (int)(sizeof(float) * 3 * kScatterThreads);
+}
+
 // Launches the gradient segment on ``stream``; returns the launch's
-// cudaError_t.
-int vr_brick_bwd(const BrickGradArgs* args, int ab_aliased, void* stream) {
+// cudaError_t. lit: the lit form (on-the-fly gradients; planes 3 + 3 n_lights,
+// d_re unless re_aliased).
+int vr_brick_bwd(const BrickGradArgs* args, int ab_aliased, int lit, int re_aliased,
+                 void* stream) {
   const BrickGradArgs& ga = *args;
   const BrickArgs& a = ga.b;
   if (a.m.width <= 0 || a.m.height <= 0) return (int)cudaSuccess;
@@ -176,6 +263,15 @@ int vr_brick_bwd(const BrickGradArgs* args, int ab_aliased, void* stream) {
   if (a.entry_step == nullptr || a.entry_state == nullptr || a.w_in == nullptr)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lit) {
+    if (a.m.n_lights > vr_brick_bwd_max_lights() || a.m.lut.data == nullptr ||
+        (!re_aliased && (a.m.re.data == nullptr || ga.d_re == nullptr)))
+      return (int)cudaErrorInvalidValue;
+    if (ab_aliased) {
+      return (int)(re_aliased ? launch_lit<true, true>(ga, s) : launch_lit<true, false>(ga, s));
+    }
+    return (int)(re_aliased ? launch_lit<false, true>(ga, s) : launch_lit<false, false>(ga, s));
+  }
   if (ab_aliased) return (int)launch<true, false>(ga, s);
   // absorption shares emission's corners where it has its shape and place
   const Vol &em = a.m.em, &ab = a.m.ab;

@@ -27,6 +27,10 @@ struct BrickArgs {
   float* w_out;         // (height, width) exit opacity
   int* entry_step;      // (height, width) the entry record: phase 1 writes it,
   float* entry_state;   // (height, width, 4) phase 2 and the gradient segment read it
+  int re_d_global, re_z_off;  // lit: reflection's grid, and the gradient
+  int gx_d_global, gx_z_off;  // volumes' (lookup), placed as em and ab
+  int gy_d_global, gy_z_off;
+  int gz_d_global, gz_z_off;
 };
 
 namespace {
@@ -39,11 +43,6 @@ struct Entry {
   float t;
   V3 p;
 };
-
-// sample() on a brick, at global coordinates.
-__device__ __forceinline__ float sample_slab(const Vol& v, ZSlab z, V3 c) {
-  return fetch_cell(v, z, cell_of(v, z, c));
-}
 
 // The owner of a sample at normalized z: clamp(floor(s.z * B), 0, B - 1),
 // one expression that does not know b, so every sample has exactly one
@@ -108,10 +107,19 @@ __device__ __forceinline__ void ray_step(const MarchArgs& m, int px, int py, V3&
   step = {dir.x * m.tstep, dir.y * m.tstep, dir.z * m.tstep};
 }
 
+// The same, and the ray's origin, which lighting needs.
+__device__ __forceinline__ void ray_step(const MarchArgs& m, int px, int py, V3& step,
+                                         float& tfar, V3& origin) {
+  V3 dir;
+  float tnear;
+  make_ray(m, px, py, origin, dir, tnear, tfar);
+  step = {dir.x * m.tstep, dir.y * m.tstep, dir.z * m.tstep};
+}
+
 // Marches the brick's part of a ray from its entry record e (e.i >= 0).
-// body(s, sw) is called for every sample the brick composites, with its
-// normalized position s and the opacity sw carried into it, which body
-// updates. Returns the number of samples composited. A ray that leaves the
+// body(s, p, sw) is called for every sample the brick composites, with its
+// normalized position s, its position p and the opacity sw carried into it,
+// which body updates. Returns the number of samples composited. A ray that leaves the
 // brick, or moves away from it, ends; a later sample composites only while
 // sw <= threshold and t <= tfar, the single-device march's stop test taken
 // before the sample instead of after its predecessor.
@@ -129,7 +137,7 @@ __device__ __forceinline__ int march_brick(const BrickArgs& a, const Entry& e, V
     const float owner = owner_of(s.z, nb);
     if (owner == bf) {
       if (i > 0 && !(sw <= threshold)) break;
-      body(s, sw);
+      body(s, p, sw);
       ++count;
     } else if (!((step.z > 0.0f && owner < bf) || (step.z < 0.0f && owner > bf))) {
       break;

@@ -5,12 +5,17 @@
 // mode at :931-947), launched by the pl.pallas_call at :1935 through
 // _launch(brick=...) (:1594) from parallel/bricks.py:427 and :445:
 //   phase 1  brick_fwd_kernel<SHADE=false>  the opacity that the brick's own
-//            samples build up from zero; fetches absorption alone
+//            samples build up from zero; fetches absorption alone, lit or not
 //   phase 2  brick_fwd_kernel<SHADE=true>   the brick's contribution to the
-//            image from its entry opacity, and its exit opacity
+//            image from its entry opacity, and its exit opacity; unlit
+//   lit phase 2  brick_lit_fwd_kernel<LOOKUP>  the same for a lit scene, with
+//            on-the-fly gradient taps (K4's step) or lookup gradient volumes
+//            (K5's, unpacked), the HG LUT and the lights
 // It computes what ops/brick_march.py (transmittance_pass, shaded_pass, the
 // plain PyTorch versions) defines, with the same per-ray arithmetic in the
-// same order. Unlit scenes only, like the TPU mode.
+// same order. The TPU mode marches unlit bricks only; the JAX package
+// renders a lit brick or slab in XLA, and lit phase 2 is the port's
+// counterpart of that code.
 //
 // What bounds it on this card. As march_fwd.cu: the roofline counts the
 // float32 operations of the composited samples against the grids read once
@@ -38,6 +43,15 @@
 // once per brick and render, not twice. A ray without a record, or entering
 // above the opacity threshold, writes its zeros at once: a block whose rays
 // all do so ends without marching.
+//
+// Lit phase 2 is K4's or K5's step on the brick's samples, resumed from the
+// same entry record: the shared tap fetch (march_common.cuh, fetch_em_taps)
+// and shading (shade) with every row placed in the brick's window (ZSlab):
+// clamped at the whole volume's faces, then shifted into the window, so a
+// sample's taps, two rows beyond it at most, are the whole volume's values
+// and the contribution is the plain pass's float for float. What bounds it
+// is K4's: the gathers of the taps and the LUT. Like K4 it runs in 16x16
+// blocks; its registers are reported by chip_smoke.py (ptxas -v).
 //
 // Build flags as for march_fwd.cu (-fmad=false, no fast math). Plain C
 // interface, loaded with ctypes (ops/cuda_bricks.py).
@@ -83,10 +97,10 @@ __global__ void __launch_bounds__(kBlock * block_rows(SHADE)) brick_fwd_kernel(c
     const float tstep = m.tstep;
     const ZSlab em_slab = {a.em_d_global, a.em_z_off};
     const ZSlab ab_slab = {a.ab_d_global, a.ab_z_off};
-    count = march_brick(a, e, step, tfar, threshold, sw, [&](V3 s, float& w) {
+    count = march_brick(a, e, step, tfar, threshold, sw, [&](V3 s, V3, float& w) {
       float em = 0.0f;
-      if (SHADE || AB_ALIASED) em = sample_slab(m.em, em_slab, s);
-      const float ab = AB_ALIASED ? em : sample_slab(m.ab, ab_slab, s);
+      if (SHADE || AB_ALIASED) em = z_sample(m.em, em_slab, s);
+      const float ab = AB_ALIASED ? em : z_sample(m.ab, ab_slab, s);
       const float absorption = fa * ab;
       const float alpha = 1.0f - expf(-absorption * tstep);
       const float tw = 1.0f - w;
@@ -111,6 +125,72 @@ __global__ void __launch_bounds__(kBlock * block_rows(SHADE)) brick_fwd_kernel(c
   if (m.steps != nullptr) m.steps[pix] = count;
 }
 
+// Lit phase 2: the brick's contribution from its entry opacity for a lit
+// scene, K4's step (LOOKUP false: the emission taps) or K5's (LOOKUP true:
+// the three gradient volumes, each at its own cell) on the brick's windows.
+template <bool LOOKUP, bool AB_ALIASED, bool RE_ALIASED>
+__global__ void __launch_bounds__(kBlock * kBlock) brick_lit_fwd_kernel(const BrickArgs a) {
+  const MarchArgs& m = a.m;
+  const int px = blockIdx.x * kBlock + threadIdx.x;
+  const int py = blockIdx.y * kBlock + threadIdx.y;
+  if (px >= m.width || py >= m.height) return;
+
+  const float* st = m.settings;
+  const float threshold = __ldg(st + 6);
+  const size_t pix = (size_t)py * m.width + px;
+  float sw = __ldg(a.w_in + pix);
+  float sr = 0.0f, sg = 0.0f, sb = 0.0f;
+  int count = 0;
+  const Entry e = load_entry(a, pix);
+  if (enters(e, sw, threshold)) {
+    V3 step, origin;
+    float tfar;
+    ray_step(m, px, py, step, tfar, origin);
+    const float fe = __ldg(st + 0), fa = __ldg(st + 1), fr = __ldg(st + 2);
+    const V3 color = {__ldg(st + 3), __ldg(st + 4), __ldg(st + 5)};
+    const float tstep = m.tstep;
+    const ZSlab em_z = {a.em_d_global, a.em_z_off}, ab_z = {a.ab_d_global, a.ab_z_off};
+    const ZSlab re_z = {a.re_d_global, a.re_z_off};
+    const ZSlab gx_z = {a.gx_d_global, a.gx_z_off}, gy_z = {a.gy_d_global, a.gy_z_off};
+    const ZSlab gz_z = {a.gz_d_global, a.gz_z_off};
+    count = march_brick(a, e, step, tfar, threshold, sw, [&](V3 s, V3 p, float& w) {
+      float em;
+      V3 grad;
+      if (LOOKUP) {
+        em = z_sample(m.em, em_z, s);
+        grad = {z_sample(m.gx, gx_z, s), z_sample(m.gy, gy_z, s),
+                z_sample(m.gz, gz_z, s)};
+      } else {
+        const EmTaps t = fetch_em_taps(m, p, tap_geom(m, p, s, em_z), em_z);
+        em = t.c;
+        grad = {(t.xp - t.xm) * 0.5f, (t.yp - t.ym) * 0.5f, (t.zp - t.zm) * 0.5f};
+      }
+      const float ab = AB_ALIASED ? em : z_sample(m.ab, ab_z, s);
+      const float emission = fe * em;
+      const float absorption = fa * ab;
+      const float alpha = 1.0f - expf(-absorption * tstep);
+      float ir = emission * tstep * color.x;
+      float ig = emission * tstep * color.y;
+      float ib = emission * tstep * color.z;
+      const float re = RE_ALIASED ? em : z_sample(m.re, re_z, s);
+      const V3 light = shade(m, p, grad, origin, re, fr, color);
+      ir = ir + light.x;
+      ig = ig + light.y;
+      ib = ib + light.z;
+      const float tw = 1.0f - w;
+      sr = tw * (ir * alpha) + sr;
+      sg = tw * (ig * alpha) + sg;
+      sb = tw * (ib * alpha) + sb;
+      w = tw * alpha + w;
+    });
+  }
+  m.out[3 * pix + 0] = sr;
+  m.out[3 * pix + 1] = sg;
+  m.out[3 * pix + 2] = sb;
+  a.w_out[pix] = sw;
+  if (m.steps != nullptr) m.steps[pix] = count;
+}
+
 template <bool SHADE, bool AB>
 cudaError_t launch(const BrickArgs& a, cudaStream_t stream) {
   constexpr int rows = block_rows(SHADE);
@@ -118,6 +198,25 @@ cudaError_t launch(const BrickArgs& a, cudaStream_t stream) {
   const dim3 grid((a.m.width + kBlock - 1) / kBlock, (a.m.height + rows - 1) / rows);
   brick_fwd_kernel<SHADE, AB><<<grid, block, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <bool LOOKUP, bool AB, bool RE>
+cudaError_t launch_lit(const BrickArgs& a, cudaStream_t stream) {
+  const dim3 block(kBlock, kBlock);
+  const dim3 grid((a.m.width + kBlock - 1) / kBlock, (a.m.height + kBlock - 1) / kBlock);
+  brick_lit_fwd_kernel<LOOKUP, AB, RE><<<grid, block, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool LOOKUP>
+cudaError_t launch_lit_aliasing(const BrickArgs& a, bool ab_aliased, bool re_aliased,
+                                cudaStream_t stream) {
+  if (ab_aliased) {
+    return re_aliased ? launch_lit<LOOKUP, true, true>(a, stream)
+                      : launch_lit<LOOKUP, true, false>(a, stream);
+  }
+  return re_aliased ? launch_lit<LOOKUP, false, true>(a, stream)
+                    : launch_lit<LOOKUP, false, false>(a, stream);
 }
 
 }  // namespace
@@ -129,14 +228,25 @@ size_t vr_brick_args_size() { return sizeof(BrickArgs); }
 
 // Launches the brick march on ``stream``; returns the launch's cudaError_t.
 // shade: 0 phase 1 (opacity only, args->m.out and w_in unused; writes the
-// entry record), 1 phase 2 (reads the entry record).
-int vr_brick_fwd(const BrickArgs* args, int shade, int ab_aliased, void* stream) {
+// entry record; the same kernel lit or not), 1 phase 2 (reads the entry
+// record). lit: phase 2 shades with the lights, from the emission taps or,
+// with lookup, from the gradient volumes; re_aliased: reflection is
+// emission's grid.
+int vr_brick_fwd(const BrickArgs* args, int shade, int ab_aliased, int lit, int lookup,
+                 int re_aliased, void* stream) {
   const BrickArgs& a = *args;
   if (a.m.width <= 0 || a.m.height <= 0) return (int)cudaSuccess;
   if (a.n_bricks < 1 || a.brick < 0 || a.brick >= a.n_bricks) return (int)cudaErrorInvalidValue;
   if (a.entry_step == nullptr || a.entry_state == nullptr) return (int)cudaErrorInvalidValue;
   if (shade && (a.w_in == nullptr || a.m.out == nullptr)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (shade && lit) {
+    if (a.m.lut.data == nullptr || (!re_aliased && a.m.re.data == nullptr) ||
+        (lookup && (a.m.gx.data == nullptr || a.m.gy.data == nullptr || a.m.gz.data == nullptr)))
+      return (int)cudaErrorInvalidValue;
+    return (int)(lookup ? launch_lit_aliasing<true>(a, ab_aliased, re_aliased, s)
+                        : launch_lit_aliasing<false>(a, ab_aliased, re_aliased, s));
+  }
   if (shade) {
     return (int)(ab_aliased ? launch<true, true>(a, s) : launch<true, false>(a, s));
   }

@@ -71,6 +71,29 @@ __device__ __forceinline__ float fetch_cell(const Vol& v, ZSlab z, const Cell& k
   return c0 + fz * (c1 - c0);
 }
 
+// A window's placement along z (march_common.cuh, WholeZ): normalized z is
+// taken against the whole depth, a global row is clamped to the whole
+// volume and shifted into the window (slab_row), and a fetch is
+// fetch_cell's.
+__device__ __forceinline__ int z_depth(const Vol&, ZSlab z) { return z.d_global; }
+
+__device__ __forceinline__ float z_sample(const Vol& v, ZSlab z, V3 c) {
+  return fetch_cell(v, z, cell_of(v, z, c));
+}
+
+__device__ __forceinline__ size_t row_offset(const Vol& v, ZSlab z, int y, int g) {
+  return (size_t)clamp_index(y, v.h) * (size_t)v.w +
+         (size_t)slab_row(g, v, z) * ((size_t)v.w * (size_t)v.h);
+}
+
+__device__ __forceinline__ float z_corner(const Vol& v, ZSlab z, float c, int& z0, int& z1) {
+  float f;
+  const int i = floor_index(c, z.d_global, f);
+  z0 = slab_row(i, v, z);
+  z1 = slab_row(i + 1, v, z);
+  return f;
+}
+
 // fetch_cell of two volumes a and b of one shape and place: one cell, one
 // set of offsets, the loads of both issued corner by corner before the
 // blends.

@@ -1,8 +1,10 @@
 // march_common.cuh: what the forward and the backward march share.
 //
-// The volume and argument structs, the trilinear fetch, the angle and the
-// ray set-up. march_bwd.cu replays the forward step for step, so both
-// kernels take their arithmetic from here: one copy, one rounding.
+// The volume and argument structs, the trilinear fetch, the emission taps of
+// a lit step, the angle, the shading and the ray set-up. march_bwd.cu replays
+// the forward step for step, and the z-brick kernels (brick_fwd.cu,
+// brick_bwd.cu) take the same steps over a z-window of each volume, so all of
+// them take their arithmetic from here: one copy, one rounding.
 
 #pragma once
 
@@ -118,6 +120,32 @@ __device__ __forceinline__ float sample(const Vol& v, float cx, float cy, float 
 
 __device__ __forceinline__ float sample(const Vol& v, V3 c) { return sample(v, c.x, c.y, c.z); }
 
+// ---- where a grid lies along z ----
+//
+// A kernel reads a grid that is the whole volume (WholeZ) or, on the z-brick
+// path, a halo-padded z-window of it (ZSlab, corner_carry.cuh). Four
+// functions of the placement say what differs: the depth that a normalized z
+// is taken against (z_depth), the offset of a row at a global z (row_offset),
+// the z corners of a normalized z (z_corner), and a trilinear fetch at
+// normalized coordinates (z_sample). For WholeZ they are the single-device
+// kernels' own expressions.
+struct WholeZ {};
+
+__device__ __forceinline__ int z_depth(const Vol& v, WholeZ) { return v.d; }
+
+__device__ __forceinline__ float z_sample(const Vol& v, WholeZ, V3 c) { return sample(v, c); }
+
+// Offset of row (y, z) of v, each corner clamped to the volume.
+__device__ __forceinline__ size_t row_offset(const Vol& v, WholeZ, int y, int z) {
+  return (size_t)clamp_index(y, v.h) * (size_t)v.w +
+         (size_t)clamp_index(z, v.d) * ((size_t)v.w * (size_t)v.h);
+}
+
+// The z corners of normalized z c, clamped to the volume, and their weight.
+__device__ __forceinline__ float z_corner(const Vol& v, WholeZ, float c, int& z0, int& z1) {
+  return corner(c, v.d, z0, z1);
+}
+
 __device__ __forceinline__ V3 to_sample(const MarchArgs& a, V3 p) {
   return {(p.x - a.boxmin[0]) * a.boxscale[0], (p.y - a.boxmin[1]) * a.boxscale[1],
           (p.z - a.boxmin[2]) * a.boxscale[2]};
@@ -164,18 +192,14 @@ struct TapGeom {
   TapAxis x, y, z;
 };
 
-// The window of position p (sample coordinates s = to_sample(a, p)).
-__device__ __forceinline__ TapGeom tap_geom(const MarchArgs& a, V3 p, V3 s) {
+// The window of position p (sample coordinates s = to_sample(a, p)) in the
+// emission grid a.em, placed along z by zp: z corners are global rows.
+template <class ZP = WholeZ>
+__device__ __forceinline__ TapGeom tap_geom(const MarchArgs& a, V3 p, V3 s, ZP zp = ZP()) {
   const V3 sp = to_sample(a, {p.x + a.gstep[0], p.y + a.gstep[1], p.z + a.gstep[2]});
   const V3 sm = to_sample(a, {p.x - a.gstep[0], p.y - a.gstep[1], p.z - a.gstep[2]});
   return {tap_axis(s.x, sp.x, sm.x, a.em.w), tap_axis(s.y, sp.y, sm.y, a.em.h),
-          tap_axis(s.z, sp.z, sm.z, a.em.d)};
-}
-
-// Offset of row (y, z) of v, each corner clamped to the volume.
-__device__ __forceinline__ size_t row_offset(const Vol& v, int y, int z) {
-  return (size_t)clamp_index(y, v.h) * (size_t)v.w +
-         (size_t)clamp_index(z, v.d) * ((size_t)v.w * (size_t)v.h);
+          tap_axis(s.z, sp.z, sm.z, z_depth(a.em, zp))};
 }
 
 // q[1 + d], for d in -1..2
@@ -200,7 +224,13 @@ struct EmTaps {
 // every axis is near and the offset half a voxel (at most 32 for offsets up
 // to a voxel), against 56 for seven sample() calls. A row's loads are
 // blended as soon as they arrive, so that few of them are live at once.
-__device__ __forceinline__ EmTaps fetch_em_taps(const MarchArgs& a, V3 p, const TapGeom& g) {
+// On a z-window (zp a ZSlab) the rows are clamped at the whole volume's
+// faces, then shifted into the window, as fetch_cell does: with two halo
+// rows a side every tap of an owned sample at an offset of up to a voxel
+// lies inside the window, so the values are the whole volume's.
+template <class ZP = WholeZ>
+__device__ __forceinline__ EmTaps fetch_em_taps(const MarchArgs& a, V3 p, const TapGeom& g,
+                                                ZP zp = ZP()) {
   const Vol& v = a.em;
   const TapAxis &X = g.x, &Y = g.y, &Z = g.z;
   const int x0 = clamp_index(X.i - 1, v.w), x1 = clamp_index(X.i, v.w);
@@ -213,7 +243,7 @@ __device__ __forceinline__ EmTaps fetch_em_taps(const MarchArgs& a, V3 p, const 
   for (int ky = 0; ky < 2; ++ky) {
 #pragma unroll
     for (int kz = 0; kz < 2; ++kz) {
-      const float* row = v.data + row_offset(v, Y.i + ky, Z.i + kz);
+      const float* row = v.data + row_offset(v, zp, Y.i + ky, Z.i + kz);
       const float q[4] = {need_x0 ? __ldg(row + x0) : 0.0f, __ldg(row + x1), __ldg(row + x2),
                           need_x3 ? __ldg(row + x3) : 0.0f};
       ly[1 + ky][kz] = lz[ky][1 + kz] = lerp(q[1], q[2], X.f);
@@ -231,11 +261,11 @@ __device__ __forceinline__ EmTaps fetch_em_taps(const MarchArgs& a, V3 p, const 
     for (int j = 0; j < 2; ++j) {
       ly[k][j] = lz[j][k] = 0.0f;
       if (need_y[e]) {
-        const float* row = v.data + row_offset(v, Y.i + d, Z.i + j);
+        const float* row = v.data + row_offset(v, zp, Y.i + d, Z.i + j);
         ly[k][j] = lerp(__ldg(row + x1), __ldg(row + x2), X.f);
       }
       if (need_z[e]) {
-        const float* row = v.data + row_offset(v, Y.i + j, Z.i + d);
+        const float* row = v.data + row_offset(v, zp, Y.i + j, Z.i + d);
         lz[j][k] = lerp(__ldg(row + x1), __ldg(row + x2), X.f);
       }
     }
@@ -247,8 +277,8 @@ __device__ __forceinline__ EmTaps fetch_em_taps(const MarchArgs& a, V3 p, const 
     t.xp = lerp(lerp(bp[0][0], bp[1][0], Y.f), lerp(bp[0][1], bp[1][1], Y.f), Z.f);
     t.xm = lerp(lerp(bm[0][0], bm[1][0], Y.f), lerp(bm[0][1], bm[1][1], Y.f), Z.f);
   } else {
-    t.xp = sample(v, to_sample(a, {p.x + a.gstep[0], p.y, p.z}));
-    t.xm = sample(v, to_sample(a, {p.x - a.gstep[0], p.y, p.z}));
+    t.xp = z_sample(v, zp, to_sample(a, {p.x + a.gstep[0], p.y, p.z}));
+    t.xm = z_sample(v, zp, to_sample(a, {p.x - a.gstep[0], p.y, p.z}));
   }
   if (Y.near) {
     const float q0[4] = {ly[0][0], ly[1][0], ly[2][0], ly[3][0]};
@@ -256,8 +286,8 @@ __device__ __forceinline__ EmTaps fetch_em_taps(const MarchArgs& a, V3 p, const 
     t.yp = lerp(blend_x(q0, Y.dp, Y.fp), blend_x(q1, Y.dp, Y.fp), Z.f);
     t.ym = lerp(blend_x(q0, Y.dm, Y.fm), blend_x(q1, Y.dm, Y.fm), Z.f);
   } else {
-    t.yp = sample(v, to_sample(a, {p.x, p.y + a.gstep[1], p.z}));
-    t.ym = sample(v, to_sample(a, {p.x, p.y - a.gstep[1], p.z}));
+    t.yp = z_sample(v, zp, to_sample(a, {p.x, p.y + a.gstep[1], p.z}));
+    t.ym = z_sample(v, zp, to_sample(a, {p.x, p.y - a.gstep[1], p.z}));
   }
   if (Z.near) {
     // the y blend of each z slot, then the z blend with the tap's weight
@@ -267,8 +297,8 @@ __device__ __forceinline__ EmTaps fetch_em_taps(const MarchArgs& a, V3 p, const 
     t.zp = blend_x(q, Z.dp, Z.fp);
     t.zm = blend_x(q, Z.dm, Z.fm);
   } else {
-    t.zp = sample(v, to_sample(a, {p.x, p.y, p.z + a.gstep[2]}));
-    t.zm = sample(v, to_sample(a, {p.x, p.y, p.z - a.gstep[2]}));
+    t.zp = z_sample(v, zp, to_sample(a, {p.x, p.y, p.z + a.gstep[2]}));
+    t.zm = z_sample(v, zp, to_sample(a, {p.x, p.y, p.z - a.gstep[2]}));
   }
   return t;
 }
@@ -280,6 +310,37 @@ __device__ __forceinline__ float angle(V3 a, V3 b) {
   float ratio = 0.0f;
   if (d2 > kAngleDenomEps * kAngleDenomEps) ratio = dot(a, b) * rsqrtf(d2);
   return acosf(fminf(fmaxf(ratio, -1.0f), 1.0f));
+}
+
+// Illumination summed over the lights (ops/raymarch_core.py:shade_from_taps)
+// for the emission gradient g at p: K4, K5 and the lit z-brick phase 2.
+__device__ __forceinline__ V3 shade(const MarchArgs& a, V3 p, V3 g, V3 origin, float re, float fr,
+                                    V3 color) {
+  const float g2 = dot(g, g);
+  const float inv = g2 > kGradEps2 ? rsqrtf(g2) : 0.0f;
+  const V3 n = {g.x * -inv, g.y * -inv, g.z * -inv};
+
+  const float reflection = fr * re;
+  V3 result = {0.0f, 0.0f, 0.0f};
+  for (int l = 0; l < a.n_lights; ++l) {
+    const V3 lp = {__ldg(a.light_pos + 3 * l), __ldg(a.light_pos + 3 * l + 1),
+                   __ldg(a.light_pos + 3 * l + 2)};
+    const V3 light_out = sub(lp, p);
+    const V3 light_in = sub(origin, p);
+    const float al = angle(n, light_in) / kPi;
+    const float be = angle(n, light_out) / kPi;
+    const float d_out = dot(light_out, n), d_in = dot(light_in, n);
+    const V3 out_proj = {light_out.x - n.x * d_out, light_out.y - n.y * d_out,
+                         light_out.z - n.z * d_out};
+    const V3 in_proj = {light_in.x - n.x * d_in, light_in.y - n.y * d_in,
+                        light_in.z - n.z * d_in};
+    const float ga = angle(in_proj, out_proj) / kPi;
+    const float contrib = reflection * sample(a.lut, al, be, ga);
+    result.x = result.x + contrib * __ldg(a.light_col + 3 * l) * color.x;
+    result.y = result.y + contrib * __ldg(a.light_col + 3 * l + 1) * color.y;
+    result.z = result.z + contrib * __ldg(a.light_col + 3 * l + 2) * color.z;
+  }
+  return result;
 }
 
 // The eye ray of pixel (px, py) of the band, image row row0 + py

@@ -89,37 +89,6 @@ __device__ __forceinline__ bool same_shape(const Vol& a, const Vol& b) {
   return a.d == b.d && a.h == b.h && a.w == b.w;
 }
 
-// Illumination summed over the lights (ops/raymarch_core.py:shade_from_taps)
-// for the emission gradient g at p.
-__device__ __forceinline__ V3 shade(const MarchArgs& a, V3 p, V3 g, V3 origin, float re, float fr,
-                                    V3 color) {
-  const float g2 = dot(g, g);
-  const float inv = g2 > kGradEps2 ? rsqrtf(g2) : 0.0f;
-  const V3 n = {g.x * -inv, g.y * -inv, g.z * -inv};
-
-  const float reflection = fr * re;
-  V3 result = {0.0f, 0.0f, 0.0f};
-  for (int l = 0; l < a.n_lights; ++l) {
-    const V3 lp = {__ldg(a.light_pos + 3 * l), __ldg(a.light_pos + 3 * l + 1),
-                   __ldg(a.light_pos + 3 * l + 2)};
-    const V3 light_out = sub(lp, p);
-    const V3 light_in = sub(origin, p);
-    const float al = angle(n, light_in) / kPi;
-    const float be = angle(n, light_out) / kPi;
-    const float d_out = dot(light_out, n), d_in = dot(light_in, n);
-    const V3 out_proj = {light_out.x - n.x * d_out, light_out.y - n.y * d_out,
-                         light_out.z - n.z * d_out};
-    const V3 in_proj = {light_in.x - n.x * d_in, light_in.y - n.y * d_in,
-                        light_in.z - n.z * d_in};
-    const float ga = angle(in_proj, out_proj) / kPi;
-    const float contrib = reflection * sample(a.lut, al, be, ga);
-    result.x = result.x + contrib * __ldg(a.light_col + 3 * l) * color.x;
-    result.y = result.y + contrib * __ldg(a.light_col + 3 * l + 1) * color.y;
-    result.z = result.z + contrib * __ldg(a.light_col + 3 * l + 2) * color.z;
-  }
-  return result;
-}
-
 template <bool LIT, bool LOOKUP, bool AB_ALIASED, bool RE_ALIASED, bool PACKED>
 __global__ void __launch_bounds__(kBlock * kBlock) march_kernel(const MarchArgs a) {
   const int px = blockIdx.x * kBlock + threadIdx.x;

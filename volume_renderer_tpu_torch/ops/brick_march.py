@@ -6,9 +6,9 @@ of ``_bricked_fused_bwd``).
 A brick holds rows [b * bd, (b + 1) * bd) of every volume plus ``HALO``
 rows on each side, and marches the part of every ray that it owns. The
 three passes here are the plain versions of the brick kernels
-(``csrc/brick_fwd.cu``, ``csrc/brick_bwd.cu`` behind ``ops/cuda_bricks.py``)
-and the CPU path of their wrappers; lit scenes (on-the-fly and lookup
-gradients) run only here.
+(``csrc/brick_fwd.cu``, ``csrc/brick_bwd.cu`` behind ``ops/cuda_bricks.py``,
+lit scenes included: the lit forms of phase 2 and of the gradient segment)
+and the CPU path of their wrappers.
 
 What every pass shares, and the kernels repeat:
 

@@ -8,20 +8,26 @@ One brick's three passes, each a function of that brick's tensors:
   the first step the brick owns) (``csrc/brick_fwd.cu``, counted as
   ``K7_transmittance``);
 - ``brick_segment``: phase 2, the brick's contribution to the image from its
-  entry opacity, and its exit opacity (same source, ``K7_segment``);
+  entry opacity, and its exit opacity (same source, ``K7_segment``; lit,
+  with on-the-fly gradient taps or lookup gradient volumes,
+  ``K7_segment_lit``);
 - ``brick_gradients``: the gradient segment with the scatter into the
-  brick's halo-padded grids (``csrc/brick_bwd.cu``, ``K7_scatter``).
+  brick's halo-padded grids (``csrc/brick_bwd.cu``, ``K7_scatter``; lit,
+  with the reflection grid and the light colors, ``K7_scatter_lit``).
 
 Phase 2 and the gradient segment resume every ray from phase 1's record and
-require it: nothing walks a ray from step 0 but phase 1.
+require it: nothing walks a ray from step 0 but phase 1, which fetches
+absorption alone and is one kernel lit or not.
 
 For a brick on a CUDA device each is one kernel launch; for a brick on the
 CPU the plain pass of ``ops/brick_march.py``. There is no fallback: on a
 CUDA brick a failed build, a tensor the kernel does not take or a refused
-launch raises. The kernels march unlit scenes only, as the TPU mode did; a
-lit brick raises ``NotImplementedError`` on every device, and
-``parallel.bricks.render_forward_bricked`` / ``render_fused_bricked`` serve
-lit scenes through the plain passes.
+launch raises. A lit scene with lookup gradient volumes renders, but has no
+gradient segment, as it has no single-device backward kernel
+(``ops.cuda_grads.refuse_lookup``): ``brick_gradients`` raises
+``NotImplementedError`` for it on every device, and
+``parallel.bricks.render_fused_bricked`` / ``ops.slab.render_fused_slabbed``
+differentiate it.
 """
 
 from __future__ import annotations
@@ -31,11 +37,16 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from volume_renderer_tpu_torch.models.scene import RenderOptions
+from volume_renderer_tpu_torch.models.scene import RenderOptions, Scene
 from volume_renderer_tpu_torch.ops import _build, brick_march, cuda_march
 from volume_renderer_tpu_torch.ops.brick_march import Brick, Entry
 from volume_renderer_tpu_torch.ops.cuda_grads import parameter_grads
 from volume_renderer_tpu_torch.ops.cuda_march import _MarchArgs, _checked
+
+
+# the lit roles' grids, placed along z as emission and absorption are:
+# BrickArgs field prefix -> Scene attribute
+_LIT_ROLES = {"re": "reflection", "gx": "gradient_x", "gy": "gradient_y", "gz": "gradient_z"}
 
 
 class _BrickArgs(ctypes.Structure):
@@ -53,6 +64,8 @@ class _BrickArgs(ctypes.Structure):
         ("w_out", ctypes.c_void_p),
         ("entry_step", ctypes.c_void_p),
         ("entry_state", ctypes.c_void_p),
+        *((f"{role}_{field}", ctypes.c_int) for role in _LIT_ROLES
+          for field in ("d_global", "z_off")),
     ]
 
 
@@ -66,6 +79,7 @@ class _BrickGradArgs(ctypes.Structure):
         ("up_dot", ctypes.c_void_p),
         ("d_em", ctypes.c_void_p),
         ("d_ab", ctypes.c_void_p),
+        ("d_re", ctypes.c_void_p),
         ("planes", ctypes.c_void_p),
     ]
 
@@ -86,21 +100,25 @@ def _typed(lib: ctypes.CDLL, launch: str, args_type, n_ints: int, size_fn: str,
 
 
 def _fwd_library() -> ctypes.CDLL:
-    return _typed(_build.load("brick_fwd"), "vr_brick_fwd", _BrickArgs, 2, "vr_brick_args_size",
+    return _typed(_build.load("brick_fwd"), "vr_brick_fwd", _BrickArgs, 5, "vr_brick_args_size",
                   "csrc/brick_common.cuh")
 
 
 def _bwd_library() -> ctypes.CDLL:
-    return _typed(_build.load("brick_bwd"), "vr_brick_bwd", _BrickGradArgs, 1,
-                  "vr_brick_grad_args_size", "csrc/brick_bwd.cu")
+    lib = _typed(_build.load("brick_bwd"), "vr_brick_bwd", _BrickGradArgs, 3,
+                 "vr_brick_grad_args_size", "csrc/brick_bwd.cu")
+    lib.vr_brick_bwd_max_lights.restype = ctypes.c_int
+    return lib
 
 
-def _refuse_lit(brick: Brick) -> None:
-    if brick.scene.has_lighting:
+def refuse_lit_lookup(scene: Scene) -> None:
+    """Raises for a lit scene with lookup gradient volumes: no gradient
+    segment takes it, as no single-device backward kernel does."""
+    if scene.has_lighting and scene.has_gradient_volumes:
         raise NotImplementedError(
-            "the brick kernels march unlit scenes only: render a lit scene through "
-            "parallel.bricks.render_forward_bricked and differentiate it through "
-            "parallel.bricks.render_fused_bricked")
+            "no gradient segment for a lit scene with lookup gradient volumes (no backward "
+            "kernel takes one): differentiate it through parallel.bricks.render_fused_bricked "
+            "or ops.slab.render_fused_slabbed")
 
 
 def _cuda_device(brick: Brick, what: str) -> torch.device:
@@ -124,12 +142,22 @@ def _brick_args(brick: Brick, opts: RenderOptions, camera_x_offset: float
     null), and the settings tensor they point into: keep it until the launch
     is enqueued."""
     scene = brick.scene
+    lookup = scene.has_lighting and scene.has_gradient_volumes
     args = _BrickArgs()
-    args.m, settings = cuda_march.march_args(scene, opts, camera_x_offset, lookup=False)
+    args.m, settings = cuda_march.march_args(scene, opts, camera_x_offset, lookup=lookup)
     args.n_bricks, args.brick = brick.n, brick.index
     args.em_z_off, args.em_d_global = brick.slab_geometry(scene.emission.data)
     if not scene.absorption_aliased:
         args.ab_z_off, args.ab_d_global = brick.slab_geometry(scene.absorption.data)
+    if scene.has_lighting:
+        roles = {"re": None if scene.reflection_aliased else scene.reflection}
+        if lookup:
+            roles.update(gx=scene.gradient_x, gy=scene.gradient_y, gz=scene.gradient_z)
+        for role, vol in roles.items():
+            if vol is not None:
+                z_off, d_global = brick.slab_geometry(vol.data)
+                setattr(args, f"{role}_z_off", z_off)
+                setattr(args, f"{role}_d_global", d_global)
     return args, settings
 
 
@@ -179,14 +207,18 @@ def _launch_fwd(brick: Brick, opts: RenderOptions, camera_x_offset: float,
     args.w_out = w_out.data_ptr()
     args.m.steps = _int_plane(steps, "steps", dev, opts)
 
+    scene = brick.scene
+    lit = shade and scene.has_lighting
     lib = _fwd_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.vr_brick_fwd(ctypes.byref(args), int(shade),
-                               int(brick.scene.absorption_aliased), ctypes.c_void_p(stream))
+        err = lib.vr_brick_fwd(ctypes.byref(args), int(shade), int(scene.absorption_aliased),
+                               int(lit), int(lit and scene.has_gradient_volumes),
+                               int(scene.reflection_aliased), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"brick_fwd launch failed: {lib.vr_cuda_error_string(err).decode()}")
-    cuda_march.count_launch("K7_segment" if shade else "K7_transmittance")
+    cuda_march.count_launch(("K7_segment_lit" if lit else "K7_segment") if shade
+                            else "K7_transmittance")
     return out, w_out, entry
 
 
@@ -195,8 +227,8 @@ def brick_transmittance(brick: Brick, opts: RenderOptions, camera_x_offset: floa
     """Phase 1: the opacity (H, W) that the brick's own samples build up
     from zero, on the brick's device (its transmittance is one minus that),
     and every ray's entry record, which phase 2 and the gradient segment
-    take. ``steps`` (int32, (H, W)) receives each ray's number of samples."""
-    _refuse_lit(brick)
+    take. ``steps`` (int32, (H, W)) receives each ray's number of samples.
+    One kernel for every scene: the opacity reads absorption alone."""
     if brick.device.type == "cpu":
         return brick_march.transmittance_pass(brick, opts, camera_x_offset, steps)
     _, w, entry = _launch_fwd(brick, opts, camera_x_offset, None, None, steps)
@@ -208,8 +240,8 @@ def brick_segment(brick: Brick, opts: RenderOptions, camera_x_offset: float,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Phase 2: the brick's contribution to the image (H, W, 3) from its
     entry opacity ``w_in`` (H, W), every ray resumed from phase 1's
-    ``entry`` record, and its exit opacity (H, W)."""
-    _refuse_lit(brick)
+    ``entry`` record, and its exit opacity (H, W). Lit scenes shade with
+    the lights, from the emission taps or the lookup gradient volumes."""
     _require_entry(entry, brick, opts, camera_x_offset)
     if brick.device.type == "cpu":
         return brick_march.shaded_pass(brick, opts, camera_x_offset, w_in, steps, entry=entry)
@@ -224,12 +256,15 @@ def brick_gradients(brick: Brick, opts: RenderOptions, camera_x_offset: float,
     entry opacity ``w_in``, ``up_dot``, the sum of ``g . contribution``
     over the bricks in front (both (H, W)), and phase 1's ``entry`` record,
     from which every ray resumes. The grids come back halo-padded
-    like the brick's own (``reflection`` zeros), the parameters
-    (``factor_emission``, ``factor_absorption``, ``factor_reflection``,
-    ``color``) as this brick's term of the sum over bricks."""
-    _refuse_lit(brick)
-    _require_entry(entry, brick, opts, camera_x_offset)
+    like the brick's own (``reflection`` zeros for an unlit scene), the
+    parameters (``factor_emission``, ``factor_absorption``,
+    ``factor_reflection``, ``color`` and, lit, ``light_colors``) as this
+    brick's term of the sum over bricks: the keys of
+    ``ops.cuda_grads.voxel_grads_fast``. A lit scene with lookup gradient
+    volumes raises ``NotImplementedError`` (``refuse_lit_lookup``)."""
     scene = brick.scene
+    refuse_lit_lookup(scene)
+    _require_entry(entry, brick, opts, camera_x_offset)
     if brick.device.type == "cpu":
         grads = brick_march.replay_pass(brick, opts, camera_x_offset, g, image, w_in, up_dot,
                                         angle_floor=True, entry=entry)
@@ -242,24 +277,31 @@ def brick_gradients(brick: Brick, opts: RenderOptions, camera_x_offset: float,
     args.g = _plane(g, "g", dev, opts, 3).data_ptr()
     args.image = _plane(image, "image", dev, opts, 3).data_ptr()
     args.up_dot = _plane(up_dot, "up_dot", dev, opts).data_ptr()
+    lit = scene.has_lighting
+    lib = _bwd_library()
+    n_lights = args.b.m.n_lights if lit else 0
+    if n_lights > lib.vr_brick_bwd_max_lights():
+        raise ValueError(f"the lit gradient segment takes at most "
+                         f"{lib.vr_brick_bwd_max_lights()} lights, got {n_lights}")
     grids = {"emission": torch.zeros_like(scene.emission.data)}
     if not scene.absorption_aliased:
         grids["absorption"] = torch.zeros_like(scene.absorption.data)
-    planes = torch.empty((2, opts.height, opts.width), dtype=torch.float32, device=dev)
+    if not scene.reflection_aliased:  # the lit form fills it; unlit it stays zero
+        grids["reflection"] = torch.zeros_like(scene.reflection.data)
+    planes = torch.empty(((3 + 3 * n_lights) if lit else 2, opts.height, opts.width),
+                         dtype=torch.float32, device=dev)
     args.d_em = grids["emission"].data_ptr()
     args.d_ab = grids["absorption"].data_ptr() if "absorption" in grids else None
+    args.d_re = grids["reflection"].data_ptr() if lit and "reflection" in grids else None
     args.planes = planes.data_ptr()
 
-    lib = _bwd_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.vr_brick_bwd(ctypes.byref(args), int(scene.absorption_aliased),
-                               ctypes.c_void_p(stream))
+        err = lib.vr_brick_bwd(ctypes.byref(args), int(scene.absorption_aliased), int(lit),
+                               int(scene.reflection_aliased), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"brick_bwd launch failed: {lib.vr_cuda_error_string(err).decode()}")
-    cuda_march.count_launch("K7_scatter")
+    cuda_march.count_launch("K7_scatter_lit" if lit else "K7_scatter")
 
-    if not scene.reflection_aliased:
-        grids["reflection"] = torch.zeros_like(scene.reflection.data)
     grids.update(parameter_grads(scene, opts, g, planes))
     return grids

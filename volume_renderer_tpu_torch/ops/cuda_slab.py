@@ -42,9 +42,12 @@ record a slab would cost 36 bytes a ray and slab.
 
 On a CUDA device each form is one kernel launch; on the CPU the wrappers run
 their plain passes (``ops/brick_march.py``), so the same sweep is tested
-here. The kernels march unlit scenes only: a lit scene raises
-``NotImplementedError``; ``ops.slab`` renders and differentiates it in plain
-PyTorch.
+here. Lit scenes take the lit forms of phase 2 and of the gradient segment,
+their windows those of reflection and, with lookup gradients, of the three
+gradient volumes too (``ops.slab._role_volumes``). A lit scene with lookup
+gradient volumes renders, but its gradients raise ``NotImplementedError``
+(``cuda_bricks.refuse_lit_lookup``); ``ops.slab.render_fused_slabbed``
+differentiates it in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -87,16 +90,8 @@ class SweepStats:
 
 LAST_SWEEP: Optional[SweepStats] = None
 
-_LIT = ("the slab sweep on the card runs the z-brick kernels, which march unlit scenes "
-        "only: render a lit scene through ops.slab.render_forward_slabbed and "
-        "differentiate it through ops.slab.render_fused_slabbed (plain PyTorch on the "
-        "scene's device), or stream it with ops.slab.render_forward_streamed / "
-        "streamed_grads(device='cpu')")
-
-
-def refuse_lit(scene: Scene) -> None:
-    if scene.has_lighting:
-        raise NotImplementedError(_LIT)
+# the keys of a slab's gradients that are window-shaped grids
+_GRID_KEYS = ("emission", "absorption", "reflection")
 
 
 class _Ranges:
@@ -278,9 +273,12 @@ def _sweep(windows, ranges: _Ranges, scene: Scene, opts: RenderOptions,
             else:
                 grads = cuda_bricks.brick_gradients(slab, opts, camera_x_offset, g_dir, image,
                                                     w_in, up, entry)
-                add(slab, {key: v for key, v in grads.items() if key in ("emission", "absorption")})
+                # the grids of the windows; a role the march does not sample
+                # (an unlit scene's reflection) has a placeholder's zeros
+                sampled = {_NAME_OF[role] for role in _role_volumes(slab.scene)}
+                add(slab, {key: v for key, v in grads.items() if key in sampled})
                 for key, value in grads.items():
-                    if key not in ("emission", "absorption", "reflection"):
+                    if key not in _GRID_KEYS:
                         params[key] = value if key not in params else params[key] + value
                 up = (up + own_dot(g_dir, contrib)).contiguous()
             windows.release()
@@ -292,9 +290,13 @@ def _sweep(windows, ranges: _Ranges, scene: Scene, opts: RenderOptions,
 
 
 def _param_zeros(scene: Scene) -> Dict[str, torch.Tensor]:
+    """The parameters' gradients of a sweep in which no ray hit the box."""
     dev = scene.device
-    return {key: torch.zeros((3,) if key == "color" else (), dtype=torch.float32, device=dev)
-            for key in ("factor_emission", "factor_absorption", "factor_reflection", "color")}
+    out = {key: torch.zeros((3,) if key == "color" else (), dtype=torch.float32, device=dev)
+           for key in ("factor_emission", "factor_absorption", "factor_reflection", "color")}
+    if scene.has_lighting:
+        out["light_colors"] = torch.zeros_like(scene.light_colors, dtype=torch.float32)
+    return out
 
 
 def _finish(stats: SweepStats, windows) -> None:
@@ -318,8 +320,8 @@ def render_forward_slabbed_fast(scene: Scene, opts: RenderOptions, camera_x_offs
     """Forward render sweeping the scene's grids in ``n_slabs`` z-slabs, 2
     launches a slab visited and direction (K7 phase 1 and phase 2) on a CUDA
     scene, the plain passes on a CPU one; (H, W, 3) on the scene's device.
-    Each slab's grids are views of the scene's. Unlit scenes only."""
-    refuse_lit(scene)
+    Each slab's grids are views of the scene's. Lit scenes take the lit
+    phase 2."""
     _check_divisible(scene, n_slabs)
     stats = SweepStats("slabbed", n_slabs)
     windows = _Resident(scene, n_slabs)
@@ -337,8 +339,9 @@ def voxel_grads_slabbed_fast(scene: Scene, opts: RenderOptions, g, camera_x_offs
     ``ops.cuda_grads.voxel_grads_fast``; the grids whole, on the scene's
     device. 3 launches a slab visited and direction (phase 1 and 2 again, the
     gradient segment) after the forward's 2, or without it when ``image``
-    (``render_forward_slabbed_fast``'s own) is given. Unlit scenes only."""
-    refuse_lit(scene)
+    (``render_forward_slabbed_fast``'s own) is given. Lit scenes take the lit
+    forms (on-the-fly gradients only: ``cuda_bricks.refuse_lit_lookup``)."""
+    cuda_bricks.refuse_lit_lookup(scene)
     _check_divisible(scene, n_slabs)
     cam = float(camera_x_offset)
     if image is None:
@@ -357,7 +360,7 @@ def voxel_grads_slabbed_fast(scene: Scene, opts: RenderOptions, g, camera_x_offs
         _, params = _sweep(windows, _Ranges(scene, opts, cam, n_slabs), scene, opts, cam, stats,
                            g, image, add)
     _finish(stats, windows)
-    if not scene.reflection_aliased:
+    if not scene.reflection_aliased and "reflection" not in grids:  # unlit: not sampled
         grids["reflection"] = torch.zeros_like(scene.reflection.data)
     grids.update(params or _param_zeros(scene))
     return image, grids
@@ -371,7 +374,6 @@ def _stream_device(scene: Scene, device: DeviceLike) -> torch.device:
     if dev.type != "cuda":
         raise ValueError(f"the streamed sweep copies slabs to a CUDA device, not {dev}: "
                          "ops.slab.render_forward_streamed marches on the CPU")
-    refuse_lit(scene)
     return dev
 
 
@@ -380,7 +382,7 @@ def render_forward_streamed_fast(scene: Scene, opts: RenderOptions, camera_x_off
     """Forward render of a scene whose grids are CPU tensors, in ``n_slabs``
     z-slabs on the CUDA ``device`` (default: the card): a window of each
     role a slab on the card, 2 launches a slab visited and direction.
-    Returns (H, W, 3) on ``device``. Unlit scenes only."""
+    Returns (H, W, 3) on ``device``."""
     dev = _stream_device(scene, device)
     _check_divisible(scene, n_slabs)
     cam = float(camera_x_offset)
@@ -400,9 +402,11 @@ def streamed_grads_fast(scene: Scene, opts: RenderOptions, g, *, n_slabs: int,
                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """``ops.slab.streamed_grads`` on the card: the streamed forward, then the
     backward sweep, a slab at a time; ``(grads, image)``, the sampled grids'
-    gradients (emission and, unless aliased, absorption) as CPU tensors, the
-    parameters' and the image on ``device``. Each window
-    is copied to the card twice (forward and backward). Unlit scenes only."""
+    gradients (emission and, unless aliased, absorption and, lit, reflection)
+    as CPU tensors, the parameters' and the image on ``device``. Each window
+    is copied to the card twice (forward and backward). Lit scenes with
+    lookup gradient volumes raise (``cuda_bricks.refuse_lit_lookup``)."""
+    cuda_bricks.refuse_lit_lookup(scene)
     dev = _stream_device(scene, device)
     _check_divisible(scene, n_slabs)
     cam = float(camera_x_offset)
@@ -454,8 +458,9 @@ def render_fused_slabbed_fast(scene: Scene, opts: RenderOptions, camera_x_offset
     """Differentiable slabbed sweep through the K7 launch forms (the kernel
     route of ``ops.slab.render_fused_slabbed``): ``render_forward_slabbed_fast``
     forward, ``voxel_grads_slabbed_fast`` backward. Gradients reach every
-    leaf of ``split_scene(scene)`` that requires grad. Unlit scenes only."""
-    refuse_lit(scene)
+    leaf of ``split_scene(scene)`` that requires grad. A lit scene with lookup
+    gradient volumes raises (``cuda_bricks.refuse_lit_lookup``)."""
+    cuda_bricks.refuse_lit_lookup(scene)
     _check_divisible(scene, n_slabs)
     diff, template = split_scene(scene)
     keys = tuple(diff)

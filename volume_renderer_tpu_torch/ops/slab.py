@@ -244,8 +244,8 @@ def render_forward_streamed(scene: Scene, opts: RenderOptions, camera_x_offset: 
     window per role is ever on the device; the per-ray (color, opacity,
     cursor) state stays there between slabs. ``device=None`` is the CUDA
     card, where the sweep runs through the K7 launch forms
-    (``ops.cuda_slab.render_forward_streamed_fast``; unlit scenes only);
-    ``device="cpu"`` runs it here in plain PyTorch.
+    (``ops.cuda_slab.render_forward_streamed_fast``, lit scenes through the
+    lit phase 2); ``device="cpu"`` runs it here in plain PyTorch.
     """
     dev = resolve_device(device)
     _check_divisible(scene, n_slabs)
@@ -384,8 +384,9 @@ def streamed_grads(scene: Scene, opts: RenderOptions, g: Optional[torch.Tensor],
     image: the streamed forward runs here anyway.
 
     ``device=None`` is the CUDA card: the K7 sweep
-    (``ops.cuda_slab.streamed_grads_fast``; unlit scenes only). On the CPU
-    it is the plain replay, which takes lit scenes too.
+    (``ops.cuda_slab.streamed_grads_fast``, lit scenes through the lit
+    gradient segment; lit lookup scenes raise there). On the CPU it is the
+    plain replay, which takes every scene.
     """
     dev = resolve_device(device)
     _check_divisible(scene, n_slabs)

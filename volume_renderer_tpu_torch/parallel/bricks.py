@@ -58,9 +58,12 @@ summed over them; the image height must be divisible by the number of
 bands. ``render_forward_bricked_fast``,
 ``voxel_grads_bricked_fast`` and ``train_step_fast_bricked`` run the brick
 kernels (``ops/cuda_bricks.py``) on CUDA bricks and the same plain passes on
-CPU bricks; they take unlit scenes only and raise ``NotImplementedError``
-for a lit one. All take a ``Scene`` (split on every call) or a
-``BrickedScene`` (split once, ``split_bricks``; ``train_step_fast_bricked``
+CPU bricks, lit scenes through the lit forms of phase 2 and of the gradient
+segment; a lit scene with lookup gradient volumes renders, and its gradients
+raise ``NotImplementedError`` (no backward kernel takes it;
+``render_fused_bricked`` differentiates it). All take a ``Scene`` (split on
+every call) or a ``BrickedScene`` (split once, ``split_bricks``;
+``train_step_fast_bricked``
 also a ``Scene`` with whole params, cut for each step), return the image on
 ``mesh[0]``, and raise ``ValueError`` for a depth that B does not divide or
 bricks thinner than 2 rows; depth-1 volumes are copied whole to every brick.
@@ -451,8 +454,8 @@ def render_forward_bricked_fast(scene: Union[Scene, BrickedScene], opts: RenderO
                                 ) -> torch.Tensor:
     """Bricked forward render with the brick kernel per brick: 2 launches a
     brick (phase 1, phase 2) on CUDA bricks, the plain passes on CPU bricks;
-    (H, W, 3) on ``mesh[0]``. Any camera; unlit scenes only (a lit one
-    raises ``NotImplementedError``: ``render_forward_bricked`` renders it).
+    (H, W, 3) on ``mesh[0]``. Any camera; unlit and lit scenes (on-the-fly
+    and lookup gradients).
     """
     return _forward(_as_bricked(scene, mesh), opts, float(camera_x_offset), fast=True).image
 
@@ -475,11 +478,13 @@ def voxel_grads_bricked_fast(scene: Union[Scene, BrickedScene], opts: RenderOpti
     The grids stay cut: ``emission``, ``absorption`` (if not aliased) and
     ``reflection`` (if not aliased; zeros) are lists of per-brick tensors
     (D / B, H, W) on the bricks' devices (``assemble`` joins them); the
-    parameters' gradients are summed over the bricks, on ``mesh[0]``.
-    Unlit scenes only: a lit one raises ``NotImplementedError``, and
+    parameters' gradients are summed over the bricks, on ``mesh[0]``; lit,
+    ``reflection`` is filled and ``light_colors`` added. A lit scene with
+    lookup gradient volumes raises ``NotImplementedError``, and
     ``render_fused_bricked`` differentiates it.
     """
     bricked = _as_bricked(scene, mesh)
+    cuda_bricks.refuse_lit_lookup(bricked.bricks[0].scene)
     cam = float(camera_x_offset)
     fwd = _forward(bricked, opts, cam, fast=True)
     return fwd.image, _voxel_grads(bricked, opts, g, cam, fwd)
@@ -559,7 +564,10 @@ def train_step_fast_bricked(params: Params, optimizer: torch.optim.Optimizer,
     (per-brick leaves, each on its device) the grids stay cut from end to
     end. With a ``Scene`` and the whole params of ``train.split_params``
     (the memory planner's bricked tier) the grids are cut for the step
-    over ``mesh`` and their gradients joined on each leaf's device."""
+    over ``mesh`` and their gradients joined on each leaf's device. Lit
+    scenes train through the lit forms (on-the-fly gradients; lookup ones
+    raise, as in ``voxel_grads_bricked_fast``)."""
+    cuda_bricks.refuse_lit_lookup(scene if isinstance(scene, Scene) else scene.bricks[0].scene)
     cam = float(camera_x_offset)
     whole = not isinstance(scene, BrickedScene)
     if whole:
