@@ -12,7 +12,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
 2. goldens: the five tests/goldens scenes through VolumeRenderer on the
             card, held against the committed images.
 3. kernel_vs_plain: the forward march kernel against its plain PyTorch
-            version (ops/forward.py) on the card at 64^3 / 256x192, per
+            version (ops/forward.py) on the card at 32^3 / 256x192, per
             mode, unlit (K1) also with absorption of another shape, lit
             (K4) on an anisotropic (36, 24, 64) volume and on a 48^3 one
             seen near an axis (taps on faces and edges), and lookup (K5)
@@ -22,7 +22,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             versions exactly, here and wherever else they are compared.
 4. grads_vs_plain: the backward march kernel through voxel_grads_fast (K3
             unlit, K6 lit) and transfer_grads_fast (K2) against its plain
-            version (ops/vjp.py:replay_backward) at 64^3 / 256x192, K3
+            version (ops/vjp.py:replay_backward) at 32^3 / 256x192, K3
             also with absorption of another shape, K6 on the two lit
             scenes of phase 3, unlit K2 packed (absorption separate and of
             emission's shape) and not (aliased, of another shape), every
@@ -58,7 +58,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             march's positions (march_flushes), and K2's pack alone and, at
             256^3 / 512^2, the gather model of its float2 corner loads.
 
-8. bricks_vs_plain: the z-brick kernels (K7) at 64^3 / 256x192, 4 bricks:
+8. bricks_vs_plain: the z-brick kernels (K7) at 32^3 / 256x192, 4 bricks:
             each launch form on every brick (phase 1 opacity and entry
             record, phase 2 contribution and exit opacity, the gradient
             segment's padded grids and parameter sums) against its plain
@@ -69,7 +69,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             volume of another shape than emission's; the records and the
             forward phases must equal their plain versions to the bit; the
             bricked image against the single-device kernel's. Then the lit
-            forms at 64^3 / 96x64 on a band of 32 rows (the plain lit passes
+            forms at 48^3 / 96x64 on a band of 32 rows (the plain lit passes
             cost thousands of launches a step): lit phase 2 equal to its
             plain pass to the bit on an on-the-fly scene (two lights, rays of
             both signs of dz), within K5's tolerance on a lookup one
@@ -209,12 +209,25 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             every rank's rays-DP image of the lit flagship scene equal to
             render_forward_fast's, its plain and kernel DP steps' losses
             and gradients against train.train_step_sharded's and
-            train_step_fast_sharded's on as many bands, its launches.
+            train_step_fast_sharded's on as many bands, its launches. In
+            the same pool, at once, the bricked rehearsal (a z-brick a
+            rank, the relay over the group; BRICK_WORLDS) in those two
+            worlds at 12^3 / 16^2 and in four gloo ranks on the one card at
+            256^3 / 512^2 (the flagship shell with 5 % seeded noise, unlit,
+            lit and lit lookup), each rank building only its own z-rows: a
+            bricked render and one train_step_fast_bricked_ranks step a
+            rank, with every rank's K7 launches, ms and peak MiB, against
+            the one-process bricked kernels on make_mesh(ranks), timed
+            alike (bricked_rehearsal_cells).
 20. scaling_probe: utils/scaling_probe.measure at 256^3 / 512^2, the
             device time of render_forward_fast_sharded on 8 bands and of
             render_forward_bricked_fast on 8 bricks against 1, all on the
             one card (one card's total-work overhead, not a scaling
             measurement).
+21. examples: every example of volume_renderer_tpu_torch/examples at its
+            defaults on the card (the inverse ones with --steps 3), with
+            the launches by mode each made; every image finite and not
+            all zero (examples_phase).
 
 Then the kernels line and, last, {"ok": true, "device": {...}}. It needs
 the repository around it and a CUDA card; it imports nothing of JAX.
@@ -243,8 +256,8 @@ DEVICE = "cuda"
 COMPARE = dict(volume=128, width=256, height=192)
 # the kernels against their plain versions (phases 3, 4, 8): the plain march
 # costs hundreds to thousands of launches a step whatever the rays, so its
-# time follows the volume's edge
-PLAIN = dict(volume=64, width=256, height=192)
+# time follows the volume's edge, which the script's time limit sets
+PLAIN = dict(volume=32, width=256, height=192)
 MAIN = dict(volume=256, image=512)
 BIG = dict(volume=512, image=1024, band=64)
 # Training steps, the plain replay's band rows, and Adam's rates. Lit, the
@@ -620,7 +633,7 @@ def kernel_threads(repo):
 # 4 bricks, all on the one card; the rows of phase 8's plain passes
 BRICKS, BRICK_BAND = 4, 96
 # phase 8's lit scenes: the plain lit passes' time follows the march's steps
-LIT_BRICKS = dict(volume=64, width=96, height=64, band=32)
+LIT_BRICKS = dict(volume=48, width=96, height=64, band=32)
 
 
 def kernel_mode_of(kernel: str, args) -> str:
@@ -1015,6 +1028,185 @@ def utils_phase(ctx, trace_dir: str, checkpoint_dir: str) -> dict:
                            "bit_equal": True, "file_mib": size_mib,
                            "seconds": time.perf_counter() - t0},
             "seconds": time.perf_counter() - t_phase}
+
+
+# the bricked rehearsal's worlds of phase 19: (ranks, backend, at full
+# width); the last at this slice's full width (multihost.FULL), 4 ranks on
+# the one card
+BRICK_WORLDS = ((1, "nccl", False), (2, "gloo", False), (4, "gloo", True))
+BRICK_FORMS = {"unlit": ("K7_transmittance", "K7_segment", "K7_scatter"),
+               "lit": ("K7_transmittance", "K7_segment_lit", "K7_scatter_lit"),
+               "lookup": ("K7_transmittance", "K7_segment_lit")}
+RANK_IMAGE_TOL = 1e-6    # of scale: the ranks' image against the one-process one's
+RANK_GRAD_TOL = 1e-5     # of scale: the gradient segment's atomic adds land in any order
+RANK_LOSS_TOL = 1e-6     # relative
+
+
+def bricked_rehearsal_cells(ctx, rehearsals) -> dict:
+    """Each bricked rehearsal (``multihost.run_demo(bricks=...)``, a brick a
+    rank) against the one-process bricked kernels on ``make_mesh(ranks)`` of
+    the same card, on the same cases (``multihost.brick_demo_cases``): every
+    rank's image within RANK_IMAGE_TOL of scale, its entry record equal to
+    phase 1's on the same brick, its gradients for the step's cotangent and
+    its kernel step's gradients within RANK_GRAD_TOL of scale, the loss
+    within RANK_LOSS_TOL; every rank launched each K7 form of its case
+    (``BRICK_FORMS``). Each rank held only its own rows (``rows``) and
+    reports its peak MiB. The ranks' forward and step ms beside the one
+    process's on the same bricks (``multihost.one_process_ms``; both
+    ``multihost.wall_ms``, the median of 5 warm calls): on one card that is
+    the collectives' cost (gloo's host copies) and the worlds' sharing of
+    the card, not scaling."""
+    import torch
+
+    from volume_renderer_tpu_torch import train
+    from volume_renderer_tpu_torch.ops import cuda_bricks
+    from volume_renderer_tpu_torch.ops.vjp import GRID_KEYS
+    from volume_renderer_tpu_torch.parallel import bricks, multihost
+    from volume_renderer_tpu_torch.parallel.mesh import make_mesh
+
+    def err_of_scale(got, want):
+        got, want = got.to(ctx.dev).double(), want.to(ctx.dev).double()
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"{got.shape} against {want.shape}, or not finite")
+        return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+    def joined(results, case, step, key):
+        parts = [r[case][step]["grads"][key] for r in results]
+        return bricks.assemble(parts) if key in GRID_KEYS else parts[0]
+
+    def grads_err(name, results, case, step, want):
+        errs = {}
+        for key, value in want.items():
+            value = bricks.assemble(value) if isinstance(value, list) else value
+            errs[key] = err_of_scale(joined(results, case, step, key), value)
+            if errs[key] > RANK_GRAD_TOL:
+                raise RuntimeError(f"{name} {step} {key}: {errs[key]:.3e} of scale off the "
+                                   "one-process bricked kernels")
+        return errs
+
+    cells = {}
+    for (ranks, backend, spec), (results, seconds) in rehearsals.items():
+        name = f"{ranks}_{backend}_{spec.volume}"
+        mesh = make_mesh(ranks, ctx.dev)
+        cell = {"backend": backend, "ranks": ranks, "mesh": results[0]["mesh"],
+                "volume": spec.volume, "image": [spec.width, spec.height], "noise": spec.noise,
+                "seconds": seconds, "rank_peak_mib": [r["peak_mib"] for r in results]}
+        for case, (scene, opts, target, start) in multihost.brick_demo_cases(ctx.dev,
+                                                                             spec).items():
+            what = f"{name} {case}"
+            image = bricks.render_forward_bricked_fast(scene, opts, mesh=mesh)
+            split = bricks.split_bricks(scene, mesh)
+            out = {"rank_launches": [r[case]["launches"] for r in results],
+                   "rank_forward_ms": [r[case]["forward_ms"] for r in results],
+                   "image_err_of_scale": [],
+                   **multihost.one_process_ms(scene, opts, target, start, mesh)}
+            for r in results:
+                rows = {k: spec.volume // ranks for k in r[case]["rows"]}
+                if r[case]["rows"] != rows:
+                    raise RuntimeError(f"{what}: rank {r['rank']} held {r[case]['rows']} rows, "
+                                       f"not its own {spec.volume // ranks}")
+                out["image_err_of_scale"].append(err_of_scale(r[case]["image"], image))
+                if out["image_err_of_scale"][-1] > RANK_IMAGE_TOL:
+                    raise RuntimeError(f"{what}: rank {r['rank']}'s image is "
+                                       f"{out['image_err_of_scale'][-1]:.3e} of scale off")
+                _, entry = cuda_bricks.brick_transmittance(split.bricks[r["rank"]], opts)
+                if not (torch.equal(r[case]["entry"]["step"].to(ctx.dev), entry.step)
+                        and torch.equal(r[case]["entry"]["state"].to(ctx.dev), entry.state)):
+                    raise RuntimeError(f"{what}: rank {r['rank']}'s entry record is not "
+                                       "phase 1's on its brick")
+                missing = [k for k in BRICK_FORMS[case] if not r[case]["launches"].get(k)]
+                if missing:
+                    raise RuntimeError(f"{what}: rank {r['rank']} launched no {missing}: "
+                                       f"{r[case]['launches']}")
+            if case == "lookup":
+                if not all("render_fused_bricked" in r[case]["grads_refused"] for r in results):
+                    raise RuntimeError(f"{what}: a rank's gradients did not refuse")
+                cell[case] = out
+                continue
+            g = 2.0 * (image - target)
+            _, want = bricks.voxel_grads_bricked_fast(split, opts, g)
+            out["grads_err_of_scale"] = grads_err(what, results, case, "grads", want)
+            params, static = bricks.split_params_bricked(train.merge_params(start, scene), mesh)
+            optimizer = torch.optim.Adam(bricks.param_leaves(params), lr=multihost.DEMO["lr"])
+            loss = float(bricks.train_step_fast_bricked(params, optimizer, static, opts, target))
+            want = {k: [p.grad for p in v] if isinstance(v, list) else v.grad
+                    for k, v in params.items()}
+            out["step_grads_err_of_scale"] = grads_err(what, results, case, "fast", want)
+            out["loss"] = loss
+            out["loss_err"] = max(abs(r[case]["fast"]["loss"] - loss) / loss for r in results)
+            if out["loss_err"] > RANK_LOSS_TOL:
+                raise RuntimeError(f"{what}: the ranks' loss is {out['loss_err']:.3e} off {loss}")
+            out["rank_step_ms"] = [r[case]["step_ms"] for r in results]
+            if spec.fused:  # the plain step through autograd: the same image and loss
+                fused = results[0][case]["fused"]
+                out["fused_loss_err"] = abs(fused["loss"] - loss) / loss
+                if out["fused_loss_err"] > RANK_LOSS_TOL:
+                    raise RuntimeError(f"{what}: the fused step's loss {fused['loss']} is not "
+                                       f"the kernels' {loss}")
+                out["fused_grads_vs_kernels_err_of_scale"] = {
+                    key: err_of_scale(joined(results, case, "fused", key),
+                                      joined(results, case, "fast", key))
+                    for key in fused["grads"]}
+            cell[case] = out
+        cells[name] = cell
+    return cells
+
+
+EXAMPLES = ("example1", "example1_grad", "example2", "example3", "example4", "example_inverse",
+            "example_inverse_lit", "paper_illustration_multiple_channels",
+            "paper_scale_permutations")
+EXAMPLE_CUTS = {"example_inverse": ["--steps", "3"], "example_inverse_lit": ["--steps", "3"]}
+
+
+def examples_phase(ctx, out_dir: str) -> dict:
+    """Every ported example (volume_renderer_tpu_torch/examples) at its
+    defaults on the card, the inverse ones with --steps 3 (EXAMPLE_CUTS),
+    writing under ``out_dir``: the launches by mode each made, counted from
+    0, its seconds, and every image it saved, which must be finite and not
+    all zero. ``example_inverse`` runs the plain replay (``train.train_step``)
+    and must launch nothing; every other example must launch a kernel."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    from volume_renderer_tpu_torch.ops import cuda_march
+
+    out = {}
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"volume_renderer_tpu_torch.examples.{name}")
+        saved = {}
+        save_image = mod.save_image
+
+        def capture(path, img, save_image=save_image, saved=saved):
+            img = np.asarray(img, np.float32)
+            saved[os.path.relpath(path, out_dir)] = {
+                "shape": list(img.shape), "finite": bool(np.isfinite(img).all()),
+                "max": float(np.abs(img).max()) if img.size else 0.0}
+            save_image(path, img)
+
+        argv = EXAMPLE_CUTS.get(name, []) + ["--out", os.path.join(out_dir, name)]
+        mod.save_image = capture
+        cuda_march.reset_launch_counts()
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(stdout):
+                mod.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            mod.save_image = save_image
+        launches = {k: v for k, v in cuda_march.LAUNCHES_BY_MODE.items() if v}
+        bad = [path for path, img in saved.items() if not (img["finite"] and img["max"] > 0)]
+        if not saved or bad:
+            raise RuntimeError(f"example {name} saved {sorted(saved)}; empty or not finite: {bad}")
+        if (name == "example_inverse") != (not launches):
+            raise RuntimeError(f"example {name} launched {launches}")
+        out[name] = {"argv": argv, "seconds": time.perf_counter() - t0, "launches": launches,
+                     "images": saved, "stdout_tail": stdout.getvalue().splitlines()[-3:]}
+        torch.cuda.empty_cache()
+    return {"examples": out, "cut": {k: v for k, v in EXAMPLE_CUTS.items()}}
 
 
 def emit(obj) -> None:
@@ -1509,7 +1701,7 @@ def main() -> None:
         golden_err[name] = check(f"golden {name}", golden_render(name), golden, 1e-4, 1e-3, None)
     record({"phase": "goldens", "atol": 1e-4, "rtol": 1e-3, "max_abs_err": golden_err})
 
-    # ---- 3. kernel vs plain at 64^3 / 256x192 ---------------------------
+    # ---- 3. kernel vs plain at 32^3 / 256x192 ---------------------------
     compare = {}
     for name, mode, kw, offset in (
             ("K1_absorption_aliased", "K1", dict(ab_aliased=True), 0.0),
@@ -1540,7 +1732,7 @@ def main() -> None:
             "K1_K4_exact": True, "K5_packed_except": ["K5_gradients_other_shape"],
             "max_abs_err": compare})
 
-    # ---- 4. backward kernel vs plain replay at 64^3 / 256x192 -----------
+    # ---- 4. backward kernel vs plain replay at 32^3 / 256x192 -----------
     # Kernel and plain replay compute each sample's terms with the same
     # float32 arithmetic and differ in the order of their sums: the kernel's
     # atomic adds land in no fixed order, index_add_ and torch.sum have their
@@ -1960,7 +2152,7 @@ def main() -> None:
             torch.cuda.empty_cache()
 
 
-    # ---- 8. the z-brick kernels vs their plain passes at 64^3 / 256x192 ---
+    # ---- 8. the z-brick kernels vs their plain passes at 32^3 / 256x192 ---
     K7_FORMS = ("transmittance", "segment", "scatter")
     brick_err = {form: 0.0 for form in K7_FORMS}  # max abs error against the plain pass
     brick_grad_err = [0.0]                        # share of the gradient's scale
@@ -2084,7 +2276,7 @@ def main() -> None:
     # Lit scenes: the lit forms of phase 2 and of the gradient segment
     # against their plain passes on the same inputs, launched on the whole
     # image and compared on a band through the middle (the cotangent zero
-    # outside it), at 64^3 / 96x64: the plain lit passes cost thousands of
+    # outside it), at 48^3 / 96x64: the plain lit passes cost thousands of
     # launches a step whatever the rays. Lit phase 2 equals its plain pass to
     # the bit on the on-the-fly scene (K4's step) and within K5's tolerance
     # on the lookup one (unpacked gradient volumes); the lit gradient
@@ -3378,10 +3570,16 @@ def main() -> None:
     mp_scene, mp_opts, mp_target, mp_start = multihost.demo_problem(dev)
     mp_image = render_forward_fast(mp_scene, mp_opts)
     worlds = ((1, "nccl"), (2, "gloo"))
-    # the two rehearsals at once, each in processes of its own
-    with concurrent.futures.ThreadPoolExecutor(len(worlds)) as pool:
+    brick_worlds = tuple((ranks, backend, multihost.FULL if full else multihost.BrickDemo())
+                         for ranks, backend, full in BRICK_WORLDS)
+    # every rehearsal at once, each in processes of its own: rays-DP and
+    # bricked in the two small worlds, and the bricked one at full width
+    with concurrent.futures.ThreadPoolExecutor(len(worlds) + len(brick_worlds)) as pool:
         started = {world: (time.perf_counter(), pool.submit(
             multihost.run_demo, world[0], "cuda", world[1], 300.0)) for world in worlds}
+        started.update({world: (time.perf_counter(), pool.submit(
+            multihost.run_demo, world[0], "cuda", world[1], 300.0, bricks=world[2]))
+            for world in brick_worlds})
         rehearsals = {world: (future.result(), time.perf_counter() - t0)
                       for world, (t0, future) in started.items()}
     for ranks, backend in worlds:
@@ -3414,12 +3612,21 @@ def main() -> None:
                                                   "loss_err_of_it": loss_err,
                                                   "grads_err_of_scale": errs})
         multi[f"{ranks}_{backend}"] = cell
+    bricked_multi = bricked_rehearsal_cells(
+        ctx, {world: rehearsals[world] for world in brick_worlds})
     record({"phase": "multi_process", "nvidia_smi": smi_line,
             "scene": f"lit flagship {multihost.DEMO['volume']}^3, "
                      f"{multihost.DEMO['width']}x{multihost.DEMO['height']}",
             "against": ["render_forward_fast", "train.train_step_sharded",
                         "train_step_fast_sharded"],
-            **multi, "seconds": time.perf_counter() - t_phase})
+            **multi,
+            "bricked": {"scene": "the flagship shell, unlit, lit and lit lookup "
+                                 "(multihost.brick_demo_cases; 5 % seeded noise at 256^3)",
+                        "against": ["render_forward_bricked_fast", "voxel_grads_bricked_fast",
+                                    "train_step_fast_bricked on make_mesh(ranks)"],
+                        **bricked_multi},
+            "seconds": time.perf_counter() - t_phase})
+    torch.cuda.empty_cache()
 
     # ---- 20. the scaling probe on the card ----------------------------------
     # The device time of the rays-DP and the bricked render, 8 bands and 8
@@ -3432,7 +3639,20 @@ def main() -> None:
             "seconds": time.perf_counter() - t_phase})
     torch.cuda.empty_cache()
 
+    # ---- 21. the examples ---------------------------------------------------
+    t_phase = time.perf_counter()
+    record({"phase": "examples", "nvidia_smi": smi_line,
+            **examples_phase(ctx, os.path.join(REPO, "out", "chip_smoke", "examples")),
+            "seconds": time.perf_counter() - t_phase})
+
     # ---- kernels line and the result ------------------------------------
+    def rank_launches(mode):
+        """Each rank's launches of ``mode`` in each bricked world (render and
+        step, summed over the cases)."""
+        return {name: [sum(counts.get(mode, 0) for counts in per_rank)
+                       for per_rank in zip(*(cell[case]["rank_launches"] for case in BRICK_FORMS))]
+                for name, cell in bricked_multi.items()}
+
     kernels = []
     for mode, what in (("K1", "unlit"), ("K4", "lit, on-the-fly gradients"),
                        ("K5", "lit, lookup gradients")):
@@ -3485,6 +3705,7 @@ def main() -> None:
             "replaces": "volume_renderer_tpu/ops/pallas_march.py:688",
             "launches": brick_launches[form], "max_abs_err": brick_err[form],
             "slab_launches": {path: counts[f"K7_{form}"] for path, counts in slab_launches.items()},
+            "rank_launches": rank_launches(f"K7_{form}"),
             **({"max_err_of_scale": brick_grad_err[0]} if form == "scatter" else {}),
             **({"corner_loads_per_sample": cell["corner_loads"]["loads_per_sample"]}
                if "corner_loads" in cell else {}),
@@ -3506,6 +3727,7 @@ def main() -> None:
             "replaces": "volume_renderer_tpu/ops/pallas_march.py:688",
             "launches": lit_brick_launches[f"K7_{form}"], "max_abs_err": brick_err[form],
             "slab_launches": {path: counts[f"K7_{form}"] for path, counts in lit_launches.items()},
+            "rank_launches": rank_launches(f"K7_{form}"),
             **({"max_err_of_scale": brick_grad_err[0]} if form == "scatter_lit" else {}),
             **({"lookup": {k: lit_cells["segment_lit_lookup"][k]
                            for k in ("ms", "samples", "bound_ms", "bound_by")}}

@@ -21,10 +21,14 @@ from volume_renderer_tpu_torch import (Volume, VolumeRenderer, henyey_greenstein
 from volume_renderer_tpu_torch.models.camera import Camera
 from volume_renderer_tpu_torch.models.lights import LightSource, pack_lights
 from volume_renderer_tpu_torch.models.scene import RenderSettings, Scene
+from volume_renderer_tpu_torch.examples import example1, example_inverse
 from volume_renderer_tpu_torch.ops import _build, cuda_bricks, cuda_grads, cuda_march
+from volume_renderer_tpu_torch.parallel import multihost
 
 PKG = Path(volume_renderer_tpu_torch.__file__).resolve().parent
 REPO = PKG.parent
+# the port's examples: one for each script of the JAX package's examples/
+EXAMPLES = sorted(p.stem for p in (REPO / "examples").glob("*.py") if p.stem != "_data")
 
 
 def test_import_pulls_in_no_jax():
@@ -38,8 +42,15 @@ def test_import_pulls_in_no_jax():
             "import volume_renderer_tpu_torch.ops.oracle, volume_renderer_tpu_torch.utils\n"
             "import volume_renderer_tpu_torch.utils.checkpoint\n"
             "import volume_renderer_tpu_torch.utils.profiling\n"
+            "from volume_renderer_tpu_torch.parallel.multihost import (GroupRelay, BrickDemo,\n"
+            "    split_brick_rank, render_forward_bricked_ranks, voxel_grads_bricked_ranks,\n"
+            "    split_params_bricked_rank, train_step_fast_bricked_ranks,\n"
+            "    render_fused_bricked_ranks, run_demo)\n"
+            "import volume_renderer_tpu_torch.examples._data\n"
+            + "".join(f"import volume_renderer_tpu_torch.examples.{name}\n" for name in EXAMPLES) +
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
-            " or m == 'volume_renderer_tpu' or m.startswith('volume_renderer_tpu.'))\n"
+            " or m in ('volume_renderer_tpu', 'examples', 'optax')"
+            " or m.startswith(('volume_renderer_tpu.', 'examples.', 'optax.')))\n"
             "print(bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
@@ -57,6 +68,16 @@ def test_sources_import_no_jax():
         assert not hits, f"{path} imports {hits}"
 
 
+def test_the_port_imports_nothing_from_examples():
+    """The port's examples are its own: a copy of ``examples/_data.py`` and a
+    script for each of ``examples/*.py``, none importing the JAX package's."""
+    ported = sorted(p.stem for p in (PKG / "examples").glob("*.py") if p.stem != "__init__")
+    assert ported == sorted(EXAMPLES + ["_data"]) and len(EXAMPLES) == 9
+    pattern = re.compile(r"^\s*(import|from)\s+examples\b", re.M)
+    for path in sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        assert not pattern.findall(path.read_text()), f"{path} imports examples"
+
+
 def test_no_default_device_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     data = np.ones((2, 2, 2), np.float32)
@@ -67,7 +88,10 @@ def test_no_default_device_without_a_card(monkeypatch):
                  lambda: Camera.create(), lambda: RenderSettings.create(),
                  lambda: henyey_greenstein_lut(4),
                  lambda: pack_lights([LightSource([0, 0, 0], [1, 1, 1])]),
-                 lambda: render_oracle(scene, scene.options(4, 4))):
+                 lambda: render_oracle(scene, scene.options(4, 4)),
+                 lambda: multihost.initialize("file:///nonexistent/store", 1, 0),
+                 lambda: example1.main(["--size", "8"]),
+                 lambda: example_inverse.main(["--size", "8", "--steps", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert Volume.create(data, device="cpu").data.device.type == "cpu"

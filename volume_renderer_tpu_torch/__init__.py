@@ -23,6 +23,10 @@ picks the tier of a render or training step from the device's memory, for
 ``VolumeRenderer`` and ``train.train_step_planned``. ``render_oracle`` is the
 per-pixel reference march (the facade's ``backend="oracle"``), and
 ``utils`` holds the stopwatch, the profiler trace and the checkpoints.
+``parallel.multihost`` runs rays-DP and the z-brick relay across processes
+over ``torch.distributed``, a band or a brick a rank. ``examples`` holds the
+JAX package's example scripts, ported (``python -m
+volume_renderer_tpu_torch.examples.example1``).
 """
 
 from volume_renderer_tpu_torch.models.volume import Volume

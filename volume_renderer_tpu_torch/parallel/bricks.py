@@ -3,12 +3,16 @@
 
 Brick b of B holds z-rows [b * D / B, (b + 1) * D / B) of every volume plus
 a ``HALO``-row copy of its neighbours' edge rows, and marches the part of
-every ray that falls inside it. The port is one process that drives every
-device: ``mesh`` is a list of B ``torch.device``s (``parallel.mesh.make_mesh``),
+every ray that falls inside it. Here one process drives every device:
+``mesh`` is a list of B ``torch.device``s (``parallel.mesh.make_mesh``),
 brick b lives on ``mesh[b]``, and a device may appear more than once. On
 one card all bricks share it; on a host with several cards the same code
 spreads them, and every pass launches all bricks before any copy between
-devices, so the cards work at the same time.
+devices, so the cards work at the same time. Where the bricks meet (the
+halo rows in and back, the relay of opacities and dots, the image, the
+parameters' sums) goes through a ``Relay``; ``parallel.multihost`` runs the
+same passes a brick a rank over ``torch.distributed`` with its
+``GroupRelay``.
 
 Exact early termination without a ring
 --------------------------------------
@@ -88,10 +92,51 @@ Mesh = Sequence[torch.device]
 PerBrick = List[torch.Tensor]
 
 
+class Relay:
+    """Where the bricks meet: the halo rows in and back, phase 1's opacities
+    and the backward's contribution dots to every brick, the image, and the
+    sums of the gradients of what every brick holds whole (the JAX
+    package's ``ppermute``, ``all_gather`` and ``psum``).
+
+    Every method takes and returns the per-brick lists of the bricks that
+    this process holds. This class is one process that holds every brick
+    and moves tensors between their devices; ``multihost.GroupRelay`` runs
+    the same steps as collectives over a process group, a brick a rank."""
+
+    def with_halo(self, parts: PerBrick) -> PerBrick:
+        return _with_halo(parts)
+
+    def return_halo(self, padded: PerBrick) -> PerBrick:
+        return _return_halo(padded)
+
+    def whole_sum(self, grads: PerBrick) -> PerBrick:
+        """The gradient of a volume every brick holds whole, on each brick."""
+        total = sum(p.to(grads[0].device) for p in grads)
+        return [total.to(p.device) for p in grads]
+
+    def upstream(self, values: PerBrick, ascending: torch.Tensor,
+                 scan: Callable[..., torch.Tensor], identity: float) -> PerBrick:
+        return _upstream(values, ascending, scan, identity)
+
+    def image(self, own: PerBrick, device: torch.device) -> torch.Tensor:
+        """The bricks' contributions summed, on ``device``."""
+        return torch.stack([o.to(device) for o in own]).sum(dim=0)
+
+    def param_sums(self, parts: Dict[str, PerBrick], device: torch.device
+                   ) -> Dict[str, torch.Tensor]:
+        """Each key's per-brick terms summed over the bricks, on ``device``."""
+        return {key: torch.stack([p.to(device) for p in terms]).sum(dim=0)
+                for key, terms in parts.items()}
+
+
+ONE_PROCESS = Relay()
+
+
 class BrickedScene(NamedTuple):
-    """A scene cut into bricks, brick b on ``mesh[b]``."""
+    """A scene cut into bricks, brick b on ``mesh[b]``; ``relay`` joins them."""
 
     bricks: Tuple[Brick, ...]
+    relay: Relay = ONE_PROCESS
 
     @property
     def mesh(self) -> List[torch.device]:
@@ -160,17 +205,16 @@ def _brick_grids(data: torch.Tensor, mesh: Mesh) -> PerBrick:
     return [chunk.to(dev) for chunk, dev in zip(data.chunk(len(mesh), dim=0), mesh)]
 
 
-def _pad(parts: PerBrick) -> PerBrick:
-    return list(parts) if _is_whole(parts[0]) else _with_halo(parts)
+def _pad(parts: PerBrick, relay: Relay) -> PerBrick:
+    return list(parts) if _is_whole(parts[0]) else relay.with_halo(parts)
 
 
-def _fold(padded: PerBrick) -> PerBrick:
+def _fold(padded: PerBrick, relay: Relay) -> PerBrick:
     """Per-brick gradients of the unpadded parts from those of the padded
     grids; a whole volume's gradient is the sum over the bricks, on each."""
     if not _is_whole(padded[0]):
-        return _return_halo(padded)
-    total = sum(p.to(padded[0].device) for p in padded)
-    return [total.to(p.device) for p in padded]
+        return relay.return_halo(padded)
+    return relay.whole_sum(padded)
 
 
 def assemble(parts: PerBrick, device: Union[str, torch.device, None] = None) -> torch.Tensor:
@@ -225,23 +269,30 @@ def split_bricks(scene: Scene, mesh: Mesh, grids: Optional[Dict[str, PerBrick]] 
     for key in GRID_KEYS:
         vol = getattr(scene, key)
         if key in grids:
-            padded[key] = _pad([part.detach() for part in grids[key]])
+            padded[key] = _pad([part.detach() for part in grids[key]], ONE_PROCESS)
         elif vol is not None:
-            padded[key] = _pad(_brick_grids(vol.data.detach(), mesh))
+            padded[key] = _pad(_brick_grids(vol.data.detach(), mesh), ONE_PROCESS)
 
+    return BrickedScene(tuple(brick_of(scene, {key: parts[b] for key, parts in padded.items()},
+                                       b, n, dev)
+                              for b, dev in enumerate(mesh)))
+
+
+def brick_of(scene: Scene, padded: Dict[str, torch.Tensor], index: int, n: int,
+             device: torch.device) -> Brick:
+    """Brick ``index`` of ``n``: ``scene`` with the halo-padded grids of
+    ``padded`` (key -> grid, on ``device``) and its camera, settings and
+    lights on ``device``."""
     s = scene.settings
-    bricks = []
-    for b, dev in enumerate(mesh):
-        settings = dataclasses.replace(
-            s, **{f.name: getattr(s, f.name).to(dev) for f in dataclasses.fields(s)})
-        volumes = {key: getattr(scene, key).replace(data=parts[b].contiguous())
-                   for key, parts in padded.items()}
-        tensors = {key: None if getattr(scene, key) is None else getattr(scene, key).to(dev)
-                   for key in ("illumination", "light_positions", "light_colors")}
-        bricks.append(Brick(scene.replace(camera=scene.camera.to(dev), settings=settings,
-                                          **volumes, **tensors),
-                            b, n))
-    return BrickedScene(tuple(bricks))
+    settings = dataclasses.replace(
+        s, **{f.name: getattr(s, f.name).to(device) for f in dataclasses.fields(s)})
+    volumes = {key: getattr(scene, key).replace(data=grid.contiguous())
+               for key, grid in padded.items()}
+    tensors = {key: None if getattr(scene, key) is None else getattr(scene, key).to(device)
+               for key in ("illumination", "light_positions", "light_colors")}
+    return Brick(scene.replace(camera=scene.camera.to(device), settings=settings,
+                               **volumes, **tensors),
+                 index, n)
 
 
 def _as_bricked(scene: Union[Scene, BrickedScene], mesh: Optional[Mesh]) -> BrickedScene:
@@ -304,16 +355,17 @@ def _forward(bricked: BrickedScene, opts: RenderOptions, camera_x_offset: float,
     else:
         transmittance = functools.partial(brick_march.transmittance_pass, **band)
         segment = functools.partial(brick_march.shaded_pass, **band)
+    relay = bricked.relay
     with torch.no_grad():
         ascending = _ascending(bricked, opts, camera_x_offset, **band)
         # every brick's pass is enqueued before the first copy between devices
         w_local, entry = zip(*(transmittance(brick, opts, camera_x_offset)
                                for brick in bricked.bricks))
-        up_t = _upstream([1.0 - w for w in w_local], ascending, torch.cumprod, 1.0)
+        up_t = relay.upstream([1.0 - w for w in w_local], ascending, torch.cumprod, 1.0)
         w_in = [1.0 - t for t in up_t]
         own = [segment(brick, opts, camera_x_offset, w, entry=e)[0]
                for brick, w, e in zip(bricked.bricks, w_in, entry)]
-        image = torch.stack([o.to(ascending.device) for o in own]).sum(dim=0)
+        image = relay.image(own, ascending.device)
     return _Forward(image, ascending, w_in, own, list(entry), band)
 
 
@@ -323,26 +375,22 @@ def _backward(bricked: BrickedScene, opts: RenderOptions, camera_x_offset: float
     rows for a band's ``fwd``): grid keys as per-brick tensors shaped like
     the bricks' unpadded parts, on their devices; parameter keys summed over
     the bricks, on ``mesh[0]``."""
-    dev0 = fwd.image.device
+    dev0, relay = fwd.image.device, bricked.relay
     with torch.no_grad():
         g = g.to(dev0, torch.float32).contiguous()
         g_on = [g.to(brick.device) for brick in bricked.bricks]
         image_on = [fwd.image.to(brick.device) for brick in bricked.bricks]
         dots = [brick_march.own_dot(gb, own) for gb, own in zip(g_on, fwd.own)]
-        up_dot = _upstream(dots, fwd.ascending, torch.cumsum, 0.0)
+        up_dot = relay.upstream(dots, fwd.ascending, torch.cumsum, 0.0)
         segment_grads = (cuda_bricks.brick_gradients if fast
                          else functools.partial(brick_march.replay_pass, **fwd.band))
         per_brick = [segment_grads(brick, opts, camera_x_offset, gb, image, w, up, entry=e)
                      for brick, gb, image, w, up, e in zip(bricked.bricks, g_on, image_on,
                                                            fwd.w_in, up_dot, fwd.entry)]
-        grads: Dict = {}
-        for key in per_brick[0]:
-            parts = [p[key] for p in per_brick]
-            if key in GRID_KEYS:
-                grads[key] = _fold(parts)
-            else:
-                grads[key] = torch.stack([p.to(dev0) for p in parts]).sum(dim=0)
-        return grads
+        terms = {key: [p[key] for p in per_brick] for key in per_brick[0]}
+        sums = relay.param_sums({k: v for k, v in terms.items() if k not in GRID_KEYS}, dev0)
+        return {key: _fold(parts, relay) if key in GRID_KEYS else sums[key]
+                for key, parts in terms.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -502,26 +550,40 @@ def split_params_bricked(scene: Scene, mesh: Mesh) -> Tuple[Params, BrickedScene
     the color are leaves on ``mesh[0]``. ``param_leaves`` lists them all for
     an optimizer."""
     mesh = _check_mesh(mesh)
-    _check_divisible(scene, len(mesh))
-    if _is_whole(scene.emission.data) or (
-            not scene.absorption_aliased and _is_whole(scene.absorption.data)):
-        raise ValueError("a depth-1 volume is copied to every brick and cannot be trained cut")
+    params = trainable_leaves(scene, len(mesh), range(len(mesh)), mesh)
+    static = split_bricks(scene, mesh, grids={k: v for k, v in params.items()
+                                              if k in GRID_KEYS})
+    return params, static
+
+
+def trainable_leaves(scene: Scene, n: int, indices: Sequence[int],
+                     devices: Sequence[torch.device],
+                     grids: Optional[Dict[str, PerBrick]] = None) -> Params:
+    """The parameters of ``split_params_bricked`` for bricks ``indices`` of
+    ``n``, brick ``indices[i]`` on ``devices[i]``: the grids as lists of
+    per-brick leaves, the factors and the color as leaves on ``devices[0]``.
+    ``grids`` (key -> the unpadded parts of bricks ``indices``) takes the
+    place of the scene's own volumes of those keys, which then are not read."""
+    grids = dict(grids or {})
+    _check_divisible(scene, n, skip=tuple(grids))
+    keys = ("emission",) + (() if scene.absorption_aliased else ("absorption",))
+    parts = {}
+    for key in keys:
+        data = grids[key][0] if key in grids else getattr(scene, key).data
+        if _is_whole(data):
+            raise ValueError("a depth-1 volume is copied to every brick and cannot be trained cut")
+        parts[key] = (list(grids[key]) if key in grids
+                      else [data.chunk(n, dim=0)[b] for b in indices])
 
     def leaf(t, dev):
         return t.detach().to(dev, copy=True).requires_grad_(True)
 
-    def leaves(data):
-        return [leaf(part, dev) for part, dev in zip(data.chunk(len(mesh), dim=0), mesh)]
-
     s = scene.settings
-    params: Params = {"emission": leaves(scene.emission.data)}
-    if not scene.absorption_aliased:
-        params["absorption"] = leaves(scene.absorption.data)
+    params: Params = {key: [leaf(p, dev) for p, dev in zip(parts[key], devices)]
+                      for key in keys}
     for key in ("factor_emission", "factor_absorption", "factor_reflection", "color"):
-        params[key] = leaf(getattr(s, key), mesh[0])
-    static = split_bricks(scene, mesh, grids={k: v for k, v in params.items()
-                                              if k in GRID_KEYS})
-    return params, static
+        params[key] = leaf(getattr(s, key), devices[0])
+    return params
 
 
 def param_leaves(params: Params) -> List[torch.Tensor]:
@@ -535,7 +597,7 @@ def param_leaves(params: Params) -> List[torch.Tensor]:
 def merge_params_bricked(params: Params, bricked: BrickedScene) -> BrickedScene:
     """``bricked`` with ``params`` in place of its own leaves: the grids'
     halos are exchanged anew, the factors and the color go to every brick."""
-    padded = {key: _pad([part.detach() for part in params[key]])
+    padded = {key: _pad([part.detach() for part in params[key]], bricked.relay)
               for key in ("emission", "absorption") if key in params}
     bricks = []
     for b, brick in enumerate(bricked.bricks):
@@ -547,7 +609,7 @@ def merge_params_bricked(params: Params, bricked: BrickedScene) -> BrickedScene:
         volumes = {key: getattr(scene, key).replace(data=parts[b].detach().contiguous())
                    for key, parts in padded.items()}
         bricks.append(brick._replace(scene=scene.replace(settings=settings, **volumes)))
-    return BrickedScene(tuple(bricks))
+    return BrickedScene(tuple(bricks), bricked.relay)
 
 
 def train_step_fast_bricked(params: Params, optimizer: torch.optim.Optimizer,

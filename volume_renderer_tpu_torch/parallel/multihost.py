@@ -25,15 +25,42 @@ collectives are NCCL's between cards and gloo's on the CPU.
   takes the same optimizer step on its own copy of the parameters, so the
   copies stay equal. A gloo group reduces a card's tensors through host
   copies.
-- ``run_demo`` rehearses it: it spawns N processes
+- The z-brick relay across ranks: rank r of W holds brick r of W, z-rows
+  [r * D / W, (r + 1) * D / W) of every grid and ``HALO`` rows of each
+  neighbour's, and marches it with the brick passes of
+  ``parallel/bricks.py`` (the K7 kernels on a card, the plain passes on the
+  CPU). ``GroupRelay`` takes the place of the one process's device lists
+  (``bricks.Relay``) at the six points where bricks meet. What crosses the
+  group, a rank's share: the halo rows, sent to and received from ranks
+  r - 1 and r + 1 (``batch_isend_irecv``), on the cut and, as gradients,
+  back to their owners; phase 1's (H, W) opacities and the backward's
+  (H, W) contribution dots, ``all_gather``ed, then scanned on each rank as
+  on one process; the (H, W, 3) contributions, ``all_gather``ed and summed
+  in brick order, so that every rank holds the one-process image to the
+  bit; the parameters' gradients (factors, color, ``light_colors``) and a
+  depth-1 volume's, ``all_reduce``d with SUM. The whole volume is never
+  gathered (but by ``render_fused_bricked_ranks``'s backward, whose grid
+  leaves are whole), and a rank need never hold it: ``split_brick_rank``
+  and ``split_params_bricked_rank`` take the rank's own rows (``grids=``).
+  Entry points, the one-process names with ``_ranks``:
+  ``split_brick_rank``, ``render_forward_bricked_ranks``,
+  ``voxel_grads_bricked_ranks``, ``split_params_bricked_rank`` and
+  ``train_step_fast_bricked_ranks``, ``render_fused_bricked_ranks``.
+- ``run_demo`` rehearses either: it spawns N processes
   (``torch.multiprocessing``, joined through a ``file://`` store in a
   temporary directory, so parallel test workers never share a port) that
-  render and train the lit flagship scene, and checks that every rank's
-  loss and gradients are the same.
+  render and train the lit flagship scene rays-DP, or (``bricks=``, the
+  CLI's ``--bricks``) render and train the flagship shell's cases a brick a
+  rank, each rank building its own rows alone, and checks that every rank
+  holds the same images, losses and replicated values. Run as a module::
 
-Not here: the z-brick relay across ranks (the exit opacities by
-``all_gather``, the halo rows by send and receive). ``parallel/bricks.py``
-drives every brick from one process.
+      python -m volume_renderer_tpu_torch.parallel.multihost --demo --device cpu
+      python -m volume_renderer_tpu_torch.parallel.multihost --demo --bricks \
+          --num-processes 4 [--backend gloo] [--full]
+
+  On the cards the bricked rehearsal also prints, as one JSON line, each
+  rank's forward and step ms and peak MiB beside one process driving the
+  same bricks (``one_process_ms``).
 """
 
 from __future__ import annotations
@@ -43,7 +70,7 @@ import tempfile
 import time
 import traceback
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -51,8 +78,12 @@ import torch.distributed as dist
 
 from volume_renderer_tpu_torch._device import DeviceLike, resolve_device
 from volume_renderer_tpu_torch.models.scene import RenderOptions, Scene
+from volume_renderer_tpu_torch.ops import cuda_bricks
+from volume_renderer_tpu_torch.ops.brick_march import HALO, Brick
 from volume_renderer_tpu_torch.ops.cuda_grads import refuse_lookup, voxel_grads_fast
 from volume_renderer_tpu_torch.ops.cuda_march import render_rows_fast
+from volume_renderer_tpu_torch.ops.vjp import GRID_KEYS, merge_scene, split_scene
+from volume_renderer_tpu_torch.parallel import bricks
 from volume_renderer_tpu_torch.parallel.sharding import bands
 from volume_renderer_tpu_torch.train import Params, band_loss, merge_params
 
@@ -219,6 +250,243 @@ def train_step_fast_dp(params: Params, optimizer: torch.optim.Optimizer, scene: 
 
 
 # ---------------------------------------------------------------------------
+# the z-brick relay across ranks
+# ---------------------------------------------------------------------------
+
+
+class GroupRelay(bricks.Relay):
+    """``bricks.Relay`` over the process group: rank r of W holds brick r of
+    W, and every step where the bricks meet is a collective (the JAX
+    package's ``ppermute``, ``all_gather`` and ``psum`` over the brick axis).
+    Its per-brick lists hold the rank's one brick.
+
+    - the halo rows, in and back: send and receive with ranks r - 1 and
+      r + 1 (``batch_isend_irecv``);
+    - phase 1's opacities and the backward's contribution dots:
+      ``all_gather`` of the (H, W) planes, then the same two scans as on
+      one process (``bricks._upstream``), on this rank;
+    - the image: ``all_gather`` of the contributions, summed in brick order
+      on every rank, so that it is the one-process image to the bit (the
+      gradient segments read it; an ``all_reduce`` sums in its own order);
+    - the parameters' gradients and a depth-1 volume's: ``all_reduce`` SUM.
+
+    A gloo group moves a card's tensors through host copies."""
+
+    def __init__(self):
+        self.rank, self.world = dist.get_rank(), dist.get_world_size()
+
+    def _gather(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """``t`` of every rank, in rank order, on ``t``'s device."""
+        buf = t.contiguous()
+        buf = buf.cpu() if _on_host(buf) else buf
+        parts = [torch.empty_like(buf) for _ in range(self.world)]
+        dist.all_gather(parts, buf)
+        return [p.to(t.device) for p in parts]
+
+    def _exchange(self, to_prev: torch.Tensor, to_next: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Sends ``to_prev`` to rank r - 1 and ``to_next`` to rank r + 1, and
+        returns what those two sent this rank (zeros where there is no such
+        rank)."""
+        dev = to_next.device
+        host = _on_host(to_next)
+        to_prev, to_next = (t.contiguous().cpu() if host else t.contiguous()
+                            for t in (to_prev, to_next))
+        from_prev, from_next = torch.zeros_like(to_next), torch.zeros_like(to_prev)
+        ops = []
+        if self.rank > 0:
+            ops += [dist.P2POp(dist.isend, to_prev, self.rank - 1),
+                    dist.P2POp(dist.irecv, from_prev, self.rank - 1)]
+        if self.rank < self.world - 1:
+            ops += [dist.P2POp(dist.isend, to_next, self.rank + 1),
+                    dist.P2POp(dist.irecv, from_next, self.rank + 1)]
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return from_prev.to(dev), from_next.to(dev)
+
+    def with_halo(self, parts):
+        (own,) = parts
+        lo, hi = self._exchange(own[:HALO], own[-HALO:])
+        return [torch.cat([lo, own, hi], dim=0)]
+
+    def return_halo(self, padded):
+        (grad,) = padded
+        from_prev, from_next = self._exchange(grad[:HALO], grad[-HALO:])
+        center = grad[HALO:-HALO].clone()
+        if self.rank < self.world - 1:  # the next rank's low halo holds my last rows
+            center[-HALO:] += from_next
+        if self.rank > 0:
+            center[:HALO] += from_prev
+        return [center]
+
+    def whole_sum(self, grads):
+        (grad,) = grads
+        total = grad.clone()
+        all_reduce_sum([total])
+        return [total]
+
+    def upstream(self, values, ascending, scan, identity):
+        (value,) = values
+        return [bricks._upstream(self._gather(value), ascending, scan, identity)[self.rank]]
+
+    def image(self, own, device):
+        (contribution,) = own
+        return super().image(self._gather(contribution), device)
+
+    def param_sums(self, parts, device):
+        total = {key: terms[0].to(device, torch.float32).clone() for key, terms in parts.items()}
+        all_reduce_sum(list(total.values()))
+        return total
+
+    def whole(self, part: torch.Tensor) -> torch.Tensor:
+        """The whole grid from every rank's part (a depth-1 volume is whole
+        already)."""
+        return part if bricks._is_whole(part) else torch.cat(self._gather(part))
+
+
+def split_brick_rank(scene: Scene, grids: Optional[Dict[str, torch.Tensor]] = None) -> Brick:
+    """This rank's brick of ``scene``: brick r of W, z-rows
+    [r * D / W, (r + 1) * D / W) of every grid, on the scene's device.
+
+    ``grids`` (key -> this rank's unpadded part, (D / W, H, W)) takes the
+    place of the scene's own volumes of those keys, which then are not read.
+    The halo rows always come from the neighbouring ranks. Depth-1 volumes
+    are whole on every rank. Every rank calls it with the same keys."""
+    relay = GroupRelay()
+    grids = dict(grids or {})
+    bricks._check_divisible(scene, relay.world, skip=tuple(grids))
+    dev = scene.device
+    padded = {}
+    for key in GRID_KEYS:
+        vol = getattr(scene, key)
+        if key in grids:
+            part = grids[key].detach()
+        elif vol is not None:
+            data = vol.data.detach()
+            part = (data if bricks._is_whole(data)
+                    else data.chunk(relay.world, dim=0)[relay.rank]).to(dev)
+        else:
+            continue
+        padded[key] = bricks._pad([part], relay)[0]
+    return bricks.brick_of(scene, padded, relay.rank, relay.world, dev)
+
+
+def _rank_bricked(scene_or_brick: Union[Scene, Brick]) -> bricks.BrickedScene:
+    relay = GroupRelay()
+    if not isinstance(scene_or_brick, Brick):
+        scene_or_brick = split_brick_rank(scene_or_brick)
+    if (scene_or_brick.index, scene_or_brick.n) != (relay.rank, relay.world):
+        raise ValueError(f"brick {scene_or_brick.index} of {scene_or_brick.n} is not this "
+                         f"rank's: rank {relay.rank} of {relay.world} holds brick "
+                         f"{relay.rank} of {relay.world}")
+    return bricks.BrickedScene((scene_or_brick,), relay)
+
+
+def render_forward_bricked_ranks(scene_or_brick: Union[Scene, Brick], opts: RenderOptions,
+                                 camera_x_offset: float = 0.0) -> torch.Tensor:
+    """``bricks.render_forward_bricked_fast`` across the ranks: this rank
+    marches its brick (2 launches of the brick kernels on a card, the plain
+    passes on the CPU) and every rank returns the image (H, W, 3). Takes a
+    ``Scene`` (cut on every call) or this rank's ``Brick``
+    (``split_brick_rank``)."""
+    return bricks._forward(_rank_bricked(scene_or_brick), opts, float(camera_x_offset),
+                           fast=True).image
+
+
+def voxel_grads_bricked_ranks(scene_or_brick: Union[Scene, Brick], opts: RenderOptions, g,
+                              camera_x_offset: float = 0.0) -> Tuple[torch.Tensor, Dict]:
+    """``bricks.voxel_grads_bricked_fast`` across the ranks, 3 launches a
+    rank: ``(image, grads)``, the grid keys this rank's part (D / W, H, W),
+    the parameter keys summed over the ranks, on every rank. A lit scene
+    with lookup gradient volumes raises ``NotImplementedError``."""
+    bricked = _rank_bricked(scene_or_brick)
+    cuda_bricks.refuse_lit_lookup(bricked.bricks[0].scene)
+    cam = float(camera_x_offset)
+    fwd = bricks._forward(bricked, opts, cam, fast=True)
+    grads = bricks._voxel_grads(bricked, opts, g, cam, fwd)
+    return fwd.image, {k: v[0] if k in GRID_KEYS else v for k, v in grads.items()}
+
+
+def split_params_bricked_rank(scene: Scene, grids: Optional[Dict[str, torch.Tensor]] = None
+                              ) -> Tuple[Params, Brick]:
+    """``bricks.split_params_bricked`` for this rank: the emission grid and,
+    unless aliased, the absorption grid as leaves of this rank's part
+    (D / W, H, W); the factors and the color as leaves of their own, the
+    same on every rank; and this rank's brick, which they go back into.
+    ``grids`` as in ``split_brick_rank``: with every grid key given, the
+    rank never holds more than its part."""
+    relay = GroupRelay()
+    dev = scene.device
+    grids = dict(grids or {})
+    params = {k: v[0] if k in GRID_KEYS else v for k, v in bricks.trainable_leaves(
+        scene, relay.world, [relay.rank], [dev],
+        grids={k: [v] for k, v in grids.items()}).items()}
+    brick = split_brick_rank(scene, grids={**grids, **{k: v for k, v in params.items()
+                                                       if k in GRID_KEYS}})
+    return params, brick
+
+
+def train_step_fast_bricked_ranks(params: Params, optimizer: torch.optim.Optimizer,
+                                  brick: Brick, opts: RenderOptions, target: torch.Tensor,
+                                  camera_x_offset: float = 0.0) -> torch.Tensor:
+    """``bricks.train_step_fast_bricked`` across the ranks, with the params
+    and brick of ``split_params_bricked_rank``: the halo rows exchanged, the
+    bricked forward, the cotangent of the sum-of-squares loss, this rank's
+    gradient segment with the halo rows returned, the parameters' gradients
+    summed over the ranks, then this rank's optimizer. Every rank takes the
+    same step on its replicated leaves, so they stay equal. 3 launches a
+    rank; lit scenes through the lit forms. Returns the image's loss before
+    the update, the same on every rank."""
+    cut = {k: [v] if k in GRID_KEYS else v for k, v in params.items()}
+    return bricks.train_step_fast_bricked(cut, optimizer, _rank_bricked(brick), opts, target,
+                                          camera_x_offset=camera_x_offset)
+
+
+class _RenderFusedRanks(torch.autograd.Function):
+    """The bricked march forward, the per-brick replay backward, a brick a rank."""
+
+    @staticmethod
+    def forward(ctx, template, opts, cam_off, keys, *leaves):
+        bricked = _rank_bricked(merge_scene(template, dict(zip(keys, leaves))))
+        fwd = bricks._forward(bricked, opts, cam_off, fast=False)
+        ctx.static = (bricked, opts, cam_off, keys, fwd, [leaf.device for leaf in leaves])
+        return fwd.image
+
+    @staticmethod
+    def backward(ctx, g):
+        bricked, opts, cam_off, keys, fwd, devices = ctx.static
+        grads = bricks._backward(bricked, opts, cam_off, g, fwd, fast=False)
+        out = []
+        for key, need, dev in zip(keys, ctx.needs_input_grad[4:], devices):
+            if not need:  # the same keys on every rank: the gathers stay matched
+                out.append(None)
+                continue
+            value = grads[key]
+            if key in GRID_KEYS:
+                value = bricked.relay.whole(value[0])
+            out.append(value.to(dev))
+        return (None,) * 4 + tuple(out)
+
+
+def render_fused_bricked_ranks(scene: Scene, opts: RenderOptions,
+                               camera_x_offset: float = 0.0) -> torch.Tensor:
+    """``bricks.render_fused_bricked`` across the ranks, in plain PyTorch: a
+    ``torch.autograd.Function`` whose forward is the bricked march of this
+    rank's brick and whose backward is that brick's replay, with the relay
+    over the group. ``scene`` is the whole scene, the same on every rank;
+    the image (H, W, 3) is the same on every rank, and so must be the loss
+    of it. Gradients reach every leaf of ``split_scene(scene)`` that
+    requires grad, whole and the same on every rank (a grid's parts are
+    gathered), so the ranks' optimizers keep the leaves equal. Any loss;
+    unlit and lit scenes, lookup gradient volumes too."""
+    diff, template = split_scene(scene)
+    keys = tuple(diff)
+    return _RenderFusedRanks.apply(template, opts, float(camera_x_offset), keys,
+                                   *(diff[k] for k in keys))
+
+
+# ---------------------------------------------------------------------------
 # the local multi-process rehearsal
 # ---------------------------------------------------------------------------
 
@@ -243,32 +511,99 @@ def demo_problem(device: DeviceLike):
     return static, opts, target, params
 
 
-def _demo_worker(rank: int, world: int, store: str, out_dir: str, device: Optional[str],
-                 backend: Optional[str]) -> None:
-    """One rank of the rehearsal: joins the group, renders the flagship
-    scene rays-DP, takes one Adam step of ``train_step_dp`` and, from the same
-    start, one of ``train_step_fast_dp``; saves what it got to
-    ``out_dir/rank<r>.pt`` (its traceback to ``rank<r>.err`` if it fails)."""
-    from volume_renderer_tpu_torch.ops import cuda_march
+class BrickDemo(NamedTuple):
+    """The bricked rehearsal's problem: the flagship shell at ``volume``^3,
+    its volumes times seeded noise ``1 + noise (u - 1/2)`` (``noise`` 0: the
+    smooth shell), seen through a ``width`` x ``height`` image by the
+    flagship's camera turned by ``rotate``, in three cases: unlit, lit with
+    on-the-fly gradients, and lit with lookup gradient volumes. ``fused``:
+    each rank also takes a step of ``render_fused_bricked_ranks``, plain
+    PyTorch (too slow for the card at full size)."""
 
+    volume: int = DEMO["volume"]
+    width: int = DEMO["width"]
+    height: int = DEMO["height"]
+    rotate: Tuple[float, float, float] = (125.0, 25.0, 0.0)
+    noise: float = 0.0
+    fused: bool = True
+
+
+# this slice's full width: the bricked rehearsal of chip_smoke.py's four-rank
+# world and of the CLI's --full
+FULL = BrickDemo(volume=256, width=512, height=512, noise=0.05, fused=False)
+
+BRICK_CASES = ("unlit", "lit", "lookup")
+
+
+def brick_demo_cases(device: DeviceLike, spec: BrickDemo = BrickDemo(),
+                     part: Optional[Tuple[int, int]] = None) -> Dict[str, tuple]:
+    """Case name -> (scene, options, target, starting params) of the bricked
+    rehearsal (``BrickDemo``): the target is the scene's single-device
+    render, the params are ``train.split_params``' with the emission scaled
+    by 1.2 and raised by 0.05.
+
+    ``part`` (r, W): only the z-rows of brick r of W reach ``device``. The
+    grids are made whole on the host (where their floats are the card's:
+    numpy, and elementwise float32 products and differences) and cut there;
+    the scene's and the params' grids are the rank's rows, the rest of the
+    scene is on ``device``, and there is no target (None): a rank gets it
+    as data."""
+    from volume_renderer_tpu_torch import train
+    from volume_renderer_tpu_torch.models.camera import Camera
+    from volume_renderer_tpu_torch.ops.cuda_march import render_forward_fast
+    from volume_renderer_tpu_torch.utils.flagship import flagship_scene
+
+    dev = resolve_device(device)
+    grid_dev = torch.device("cpu") if part else dev
+    camera = Camera.create(focal_length=3.0, distance_to_object=6.0,
+                           device=dev).rotate(*spec.rotate)
+    factor = None
+    if spec.noise:
+        rng = np.random.default_rng(spec.volume)
+        u = rng.random((spec.volume,) * 3, dtype=np.float32)
+        factor = torch.from_numpy(1.0 + np.float32(spec.noise) * (u - np.float32(0.5))
+                                  ).to(grid_dev)
+    cases = {}
+    for name in BRICK_CASES:
+        scene = flagship_scene(spec.volume, lighting=name != "unlit", device=dev,
+                               volume_device=grid_dev)
+        scene = scene.replace(camera=camera)
+        if factor is not None:
+            scene = scene.replace(**{key: getattr(scene, key).replace(
+                data=getattr(scene, key).data * factor)
+                for key in ("emission", "absorption", "reflection")})
+        if name == "lookup":
+            scene = scene.replace(**dict(zip(("gradient_x", "gradient_y", "gradient_z"),
+                                             scene.emission.gradient_volumes())))
+        opts = scene.options(spec.width, spec.height)
+        if part:
+            rank, world = part
+            scene = scene.replace(**{key: getattr(scene, key).replace(
+                data=getattr(scene, key).data.chunk(world, dim=0)[rank].to(dev))
+                for key in GRID_KEYS if getattr(scene, key) is not None})
+        params, _ = train.split_params(scene)
+        with torch.no_grad():
+            params["emission"].mul_(1.2).add_(0.05)
+        cases[name] = (scene, opts, None if part else render_forward_fast(scene, opts), params)
+    return cases
+
+
+def _demo_worker(rank: int, world: int, store: str, out_dir: str, device: Optional[str],
+                 backend: Optional[str], spec: Optional[BrickDemo]) -> None:
+    """One rank of the rehearsal: joins the group and runs the rays-DP
+    rehearsal (``_dp_demo``) or, with ``spec``, the bricked one
+    (``_brick_demo``, its targets from ``out_dir/targets.pt``); saves what
+    it got to ``out_dir/rank<r>.pt`` (its traceback to ``rank<r>.err`` if it
+    fails)."""
     try:
         torch.set_num_threads(1)
         if device == "cuda":
             device = f"cuda:{rank % torch.cuda.device_count()}"
         dev = initialize(store, world, rank, device=device, backend=backend)
-        scene, opts, target, start = demo_problem(dev)
         out = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
                "mesh": [str(d) for d in global_mesh(dev)]}
-        cuda_march.reset_launch_counts()
-        out["image"] = render_forward_dp(scene, opts).cpu()
-        for name, step in (("plain", train_step_dp), ("fast", train_step_fast_dp)):
-            params = {k: v.detach().clone().requires_grad_(True) for k, v in start.items()}
-            optimizer = torch.optim.Adam(list(params.values()), lr=DEMO["lr"])
-            loss = step(params, optimizer, scene, opts, target)
-            out[name] = {"loss": float(loss),
-                         "grads": {k: p.grad.cpu() for k, p in params.items()},
-                         "params": {k: p.detach().cpu() for k, p in params.items()}}
-        out["launches"] = dict(cuda_march.LAUNCHES_BY_MODE)
+        out.update(_dp_demo(dev) if spec is None else _brick_demo(
+            dev, spec, torch.load(os.path.join(out_dir, "targets.pt"))))
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     except BaseException:
         Path(out_dir, f"rank{rank}.err").write_text(traceback.format_exc())
@@ -278,25 +613,212 @@ def _demo_worker(rank: int, world: int, store: str, out_dir: str, device: Option
             dist.destroy_process_group()
 
 
-def _same(results: List[dict], get) -> bool:
-    first = get(results[0])
-    return all(np.array_equal(np.asarray(get(r)), np.asarray(first)) for r in results[1:])
+def _dp_demo(dev: torch.device) -> dict:
+    """Renders the flagship scene rays-DP, takes one Adam step of
+    ``train_step_dp`` and, from the same start, one of
+    ``train_step_fast_dp``."""
+    from volume_renderer_tpu_torch.ops import cuda_march
+
+    scene, opts, target, start = demo_problem(dev)
+    cuda_march.reset_launch_counts()
+    out = {"image": render_forward_dp(scene, opts).cpu()}
+    for name, step in (("plain", train_step_dp), ("fast", train_step_fast_dp)):
+        params = {k: v.detach().clone().requires_grad_(True) for k, v in start.items()}
+        optimizer = torch.optim.Adam(list(params.values()), lr=DEMO["lr"])
+        loss = step(params, optimizer, scene, opts, target)
+        out[name] = {"loss": float(loss),
+                     "grads": {k: p.grad.cpu() for k, p in params.items()},
+                     "params": {k: p.detach().cpu() for k, p in params.items()}}
+    out["launches"] = dict(cuda_march.LAUNCHES_BY_MODE)
+    return out
+
+
+REPS = 5  # the warm calls a rehearsal's time is the median of
+
+
+def wall_ms(call, devices: List[torch.device], reps: int = REPS):
+    """(the last ``call()``, the median ms of ``reps`` calls after a warm
+    one): each call timed on the host's clock from idle cards ``devices``
+    to the end of its work on all of them (synchronised before and after),
+    so that a rank and one process are timed alike."""
+    out = call()
+    times = []
+    for _ in range(reps):
+        for dev in devices:
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = call()
+        for dev in devices:
+            torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, float(np.median(times))
+
+
+def one_process_ms(scene: Scene, opts: RenderOptions, target: torch.Tensor, start: Params,
+                   mesh: List[torch.device]) -> Dict[str, float]:
+    """What a rank's times are held against: one process driving the same
+    bricks on ``mesh`` (a case of ``brick_demo_cases``), timed as
+    ``_brick_demo`` times a rank (``wall_ms``): ``forward_ms`` of
+    ``bricks.render_forward_bricked_fast`` on bricks cut before the timer,
+    and, where the scene has kernel gradients, ``step_ms`` of
+    ``bricks.train_step_fast_bricked`` from ``start``."""
+    from volume_renderer_tpu_torch import train
+
+    split = bricks.split_bricks(scene, mesh)
+    out = {"forward_ms": wall_ms(lambda: bricks.render_forward_bricked_fast(split, opts),
+                                 mesh)[1]}
+    if not (scene.has_lighting and scene.has_gradient_volumes):
+        params, static = bricks.split_params_bricked(train.merge_params(start, scene), mesh)
+        optimizer = torch.optim.Adam(bricks.param_leaves(params), lr=DEMO["lr"])
+        out["step_ms"] = wall_ms(lambda: bricks.train_step_fast_bricked(
+            params, optimizer, static, opts, target), mesh)[1]
+    return out
+
+
+def _grids(scene: Scene) -> Dict[str, torch.Tensor]:
+    return {key: getattr(scene, key).data for key in GRID_KEYS
+            if getattr(scene, key) is not None}
+
+
+def _own_rows(t: torch.Tensor) -> torch.Tensor:
+    """This rank's z-rows of a whole grid."""
+    return t.chunk(dist.get_world_size(), dim=0)[dist.get_rank()]
+
+
+def _brick_demo(dev: torch.device, spec: BrickDemo, targets: Dict[str, torch.Tensor]) -> dict:
+    """For each case of ``brick_demo_cases``, built with this rank's z-rows
+    alone (``part=``; ``targets``, the cases' target images, come as data):
+    the bricked render, this rank's brick's entry record, and
+    ``voxel_grads_bricked_ranks`` for the cotangent of the sum-of-squares
+    loss (every kernel is then loaded); then, counted from 0, the bricked
+    render and one Adam step of ``train_step_fast_bricked_ranks``; on a
+    card their ms (``wall_ms``: the median of ``REPS`` warm calls on the
+    brick, steps after the first) and, over the whole rehearsal, the peak
+    MiB that PyTorch allocated on the card (``peak_mib``). With
+    ``spec.fused``, from the same start one Adam step of
+    ``render_fused_bricked_ranks`` through autograd, whose grid leaves are
+    whole (the whole scene is built for it). A lookup scene has no kernel
+    step: its kernel gradients must raise, and the fused step
+    differentiates it. Grids are kept as this rank's rows."""
+    from volume_renderer_tpu_torch import train
+    from volume_renderer_tpu_torch.ops import cuda_march
+
+    card = dev.type == "cuda"
+    if card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = {}
+    whole = brick_demo_cases(dev, spec) if spec.fused else {}
+    for name, (scene, opts, _, start) in brick_demo_cases(
+            dev, spec, part=(dist.get_rank(), dist.get_world_size())).items():
+        target = targets[name].to(dev)
+        res = {"rows": {key: int(data.shape[0]) for key, data in _grids(scene).items()}}
+        lookup = scene.has_lighting and scene.has_gradient_volumes
+        brick = split_brick_rank(scene, grids=_grids(scene))
+        _, entry = cuda_bricks.brick_transmittance(brick, opts)
+        res["entry"] = {"step": entry.step.cpu(), "state": entry.state.cpu()}
+        g = 2.0 * (render_forward_bricked_ranks(brick, opts) - target)
+        if lookup:
+            try:
+                voxel_grads_bricked_ranks(brick, opts, g)
+            except NotImplementedError as err:
+                res["grads_refused"] = str(err)
+            else:
+                raise AssertionError("the gradients of a lit lookup scene did not raise")
+        else:
+            _, grads = voxel_grads_bricked_ranks(brick, opts, g)
+            res["grads"] = {"grads": {k: v.cpu() for k, v in grads.items()}}
+
+        cuda_march.reset_launch_counts()
+        res["image"] = render_forward_bricked_ranks(brick, opts).cpu()
+        if not lookup:
+            merged = train.merge_params(start, scene)
+            params, step_brick = split_params_bricked_rank(merged, grids=_grids(merged))
+            optimizer = torch.optim.Adam(list(params.values()), lr=DEMO["lr"])
+
+            def step():
+                return train_step_fast_bricked_ranks(params, optimizer, step_brick, opts, target)
+
+            loss = step()
+            res["fast"] = {"loss": float(loss),
+                           "grads": {k: p.grad.detach().cpu().clone() for k, p in params.items()},
+                           "params": {k: p.detach().cpu().clone() for k, p in params.items()}}
+        res["launches"] = {k: v for k, v in cuda_march.LAUNCHES_BY_MODE.items() if v}
+        if card:
+            res["forward_ms"] = wall_ms(lambda: render_forward_bricked_ranks(brick, opts),
+                                        [dev])[1]
+            if not lookup:
+                res["step_ms"] = wall_ms(step, [dev])[1]
+
+        if spec.fused:
+            scene, _, _, start = whole[name]
+            params = {k: v.detach().clone().requires_grad_(True) for k, v in start.items()}
+            optimizer = torch.optim.Adam(list(params.values()), lr=DEMO["lr"])
+            img = render_fused_bricked_ranks(train.merge_params(params, scene), opts)
+            loss = torch.sum((img - target) ** 2)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            optimizer.step()
+
+            def own(key, t):
+                return (_own_rows(t) if key in GRID_KEYS else t).detach().cpu()
+
+            res["fused"] = {"loss": float(loss.detach()),
+                            "grads": {k: own(k, p.grad) for k, p in params.items()},
+                            "params": {k: own(k, p) for k, p in params.items()}}
+        out[name] = res
+    if card:
+        out["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    return out
+
+
+def _replicated(result: dict, bricked: bool) -> Dict[str, object]:
+    """What every rank of the rehearsal must hold the same: the images, the
+    losses and every gradient and parameter but the bricks' grid parts."""
+    if not bricked:
+        steps = {"": result}
+    else:
+        steps = {f"{case} ": result[case] for case in BRICK_CASES}
+    out = {}
+    for prefix, res in steps.items():
+        out[f"{prefix}image"] = res["image"]
+        for name in ("plain", "fast", "fused", "grads"):
+            if name not in res:
+                continue
+            if "loss" in res[name]:
+                out[f"{prefix}{name} loss"] = res[name]["loss"]
+            for part in ("grads", "params"):
+                for key, value in res[name].get(part, {}).items():
+                    if not (bricked and key in GRID_KEYS):
+                        out[f"{prefix}{name} {part} {key}"] = value
+    return out
 
 
 def run_demo(num_processes: int = 2, device: Optional[str] = None,
-             backend: Optional[str] = None, timeout: float = 300.0) -> List[dict]:
+             backend: Optional[str] = None, timeout: float = 300.0,
+             bricks: Optional[BrickDemo] = None) -> List[dict]:
     """Runs the rehearsal in ``num_processes`` spawned processes, one rank
     each, on ``device`` (None or "cuda": rank r on card r modulo the cards,
-    as ``initialize`` picks; "cpu" asks for the CPU), and waits at most ``timeout`` seconds
-    for them: a rank still running then is terminated and the call raises
-    ``TimeoutError``. Checks that every rank has the same image, losses,
-    gradients and updated params, and returns each rank's results in rank
-    order (``_demo_worker``)."""
-    ctx = torch.multiprocessing.get_context("spawn")
+    as ``initialize`` picks; "cpu" asks for the CPU), and waits at most
+    ``timeout`` seconds for them: a rank still running then is terminated
+    and the call raises ``TimeoutError``; a rank that fails fails the call.
+    Without ``bricks`` it is the rays-DP rehearsal (``_dp_demo``); with a
+    ``BrickDemo`` the bricked one, a brick a rank (``_brick_demo``), whose
+    target images this process renders first (``brick_demo_cases`` on
+    ``device``, the first card for the cards), so that no rank holds a
+    whole grid. Checks that every rank holds the same images, losses, and
+    gradients and params of what is replicated, bit for bit, and returns
+    each rank's results in rank order (the bricked rehearsal's grid parts
+    are the rank's brick's: ``parallel.bricks.assemble`` joins them)."""
     with tempfile.TemporaryDirectory(prefix="vr_multihost_") as tmp:
         store = "file://" + os.path.join(tmp, "store")
+        if bricks is not None:
+            host = "cpu" if device == "cpu" else None
+            torch.save({name: case[2].cpu()
+                        for name, case in brick_demo_cases(host, bricks).items()},
+                       os.path.join(tmp, "targets.pt"))
+        ctx = torch.multiprocessing.get_context("spawn")
         procs = [ctx.Process(target=_demo_worker,
-                             args=(r, num_processes, store, tmp, device, backend))
+                             args=(r, num_processes, store, tmp, device, backend, bricks))
                  for r in range(num_processes)]
         for p in procs:
             p.start()
@@ -317,20 +839,35 @@ def run_demo(num_processes: int = 2, device: Optional[str] = None,
             raise RuntimeError(f"ranks {sorted(failed)} of the rehearsal failed "
                                f"(exit codes {failed}):\n{errors}")
         results = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(num_processes)]
-    checks = {"image": lambda r: r["image"]}
-    for name in ("plain", "fast"):
-        checks[f"{name} loss"] = lambda r, n=name: r[n]["loss"]
-        for key in results[0][name]["grads"]:
-            checks[f"{name} grad {key}"] = lambda r, n=name, k=key: r[n]["grads"][k]
-            checks[f"{name} param {key}"] = lambda r, n=name, k=key: r[n]["params"][k]
-    differ = [what for what, get in checks.items() if not _same(results, get)]
+    shared = [_replicated(r, bricks is not None) for r in results]
+    differ = [what for what, value in shared[0].items()
+              if not all(np.array_equal(np.asarray(other[what]), np.asarray(value))
+                         for other in shared[1:])]
     if differ:
         raise AssertionError(f"the ranks of the rehearsal differ in {differ}")
     return results
 
 
+def _bricked_times(results: List[dict], spec: BrickDemo) -> dict:
+    """The bricked rehearsal's times on the cards: each rank's forward and
+    step ms and peak MiB, beside ``one_process_ms`` of one process driving
+    the same bricks on the ranks' cards."""
+    mesh = [torch.device(name) for name in results[0]["mesh"]]
+    rec = {"ranks": len(results), "backend": results[0]["backend"], "mesh": results[0]["mesh"],
+           "config": f"{spec.volume}^3/{spec.width}x{spec.height}, noise {spec.noise}",
+           "rank_peak_mib": [r["peak_mib"] for r in results]}
+    for case, (scene, opts, target, start) in brick_demo_cases(mesh[0], spec).items():
+        cell = {"rank_forward_ms": [r[case]["forward_ms"] for r in results]}
+        if "step_ms" in results[0][case]:
+            cell["rank_step_ms"] = [r[case]["step_ms"] for r in results]
+        cell["one_process"] = one_process_ms(scene, opts, target, start, mesh)
+        rec[case] = cell
+    return rec
+
+
 if __name__ == "__main__":
     import argparse
+    import json
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--demo", action="store_true",
@@ -339,8 +876,23 @@ if __name__ == "__main__":
     ap.add_argument("--device", default=None,
                     help='"cpu" for a CPU rehearsal (default: the cards)')
     ap.add_argument("--backend", default=None, help="nccl or gloo (default: by device)")
+    ap.add_argument("--bricks", action="store_true",
+                    help="rehearse the z-brick relay (a brick a rank) instead of rays-DP")
+    ap.add_argument("--full", action="store_true",
+                    help="with --bricks: at this slice's full width (FULL, 256^3 / 512^2)")
     args = ap.parse_args()
-    if args.demo:
+    if args.demo and args.bricks:
+        spec = FULL if args.full else BrickDemo()
+        res = run_demo(args.num_processes, args.device, args.backend, timeout=600.0,
+                       bricks=spec)
+        losses = ", ".join(f"{case} {res[0][case]['fast']['loss']:.6f}"
+                           for case in BRICK_CASES if "fast" in res[0][case])
+        print(f"multihost bricked demo ({args.num_processes} processes, {res[0]['backend']} "
+              f"on {res[0]['mesh']}): kernel-step losses {losses}; the lookup scene's "
+              f"gradients refused; every rank equal")
+        if args.device != "cpu":
+            print(json.dumps(_bricked_times(res, spec)), flush=True)
+    elif args.demo:
         res = run_demo(args.num_processes, args.device, args.backend)
         print(f"multihost demo ({args.num_processes} processes, {res[0]['backend']} on "
               f"{res[0]['mesh']}): plain loss {res[0]['plain']['loss']:.6f}, "

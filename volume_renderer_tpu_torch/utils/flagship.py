@@ -14,12 +14,16 @@ from volume_renderer_tpu_torch.models.volume import Volume
 from volume_renderer_tpu_torch.ops.hg import henyey_greenstein_lut
 
 
-def flagship_scene(vol: int = 48, lighting: bool = True, device: DeviceLike = None) -> Scene:
+def flagship_scene(vol: int = 48, lighting: bool = True, device: DeviceLike = None,
+                   volume_device: DeviceLike = None) -> Scene:
     """The shell in a ``vol``^3 volume, emission, absorption and reflection
     each a volume of its own with the same values, under the camera
     ``rotate(125, 25, 0)``; with ``lighting`` the 32^3 Henyey-Greenstein LUT
-    and one white light. On ``device`` (default: the card)."""
+    and one white light. On ``device`` (default: the card), the volumes on
+    ``volume_device`` if one is named (the host, for a rank that moves only
+    its rows to the card)."""
     dev = resolve_device(device)
+    vdev = dev if volume_device is None else resolve_device(volume_device)
     z, y, x = np.mgrid[0:vol, 0:vol, 0:vol].astype(np.float32)
     c = (vol - 1) / 2.0
     r2 = ((x - c) ** 2 + (y - c) ** 2 + (z - c) ** 2) / (c * c)
@@ -30,8 +34,8 @@ def flagship_scene(vol: int = 48, lighting: bool = True, device: DeviceLike = No
                    light_positions=as_float32([[2.0, 3.0, -1.5]], dev),
                    light_colors=as_float32([[1.0, 1.0, 1.0]], dev))
     return Scene(
-        emission=Volume.create(em, device=dev), absorption=Volume.create(em, device=dev),
-        reflection=Volume.create(em, device=dev),
+        emission=Volume.create(em, device=vdev), absorption=Volume.create(em, device=vdev),
+        reflection=Volume.create(em, device=vdev),
         camera=Camera.create(focal_length=3.0, distance_to_object=6.0,
                              device=dev).rotate(125, 25, 0),
         settings=RenderSettings.create(factor_emission=1.0, factor_reflection=0.4,
