@@ -69,13 +69,15 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             volume of another shape than emission's; the records and the
             forward phases must equal their plain versions to the bit; the
             bricked image against the single-device kernel's. Then the lit
-            forms at 48^3 / 96x64 on a band of 32 rows (the plain lit passes
+            forms at 32^3 / 96x64 on a band of 32 rows (the plain lit passes
             cost thousands of launches a step): lit phase 2 equal to its
-            plain pass to the bit on an on-the-fly scene (two lights, rays of
-            both signs of dz), within K5's tolerance on a lookup one
-            (unpacked); the lit gradient segment's grids within 1e-5 of
-            scale, its other keys 1e-4; the bricked image and the slab sweep
-            against K4's and K5's.
+            plain pass to the bit on an on-the-fly scene (two lights, rays
+            of both signs of dz), within K5's tolerance on lookup ones (the
+            packed window, also equal to the unpacked form to the bit;
+            gradient volumes of another shape, unpacked, on the last brick);
+            the lit gradient segment's grids within 1e-5 of scale, its other
+            keys 1e-4; the bricked image and the slab sweep against K4's and
+            K5's.
 9. bricks_main_path: at 256^3 / 512^2 on the noisy K3 scene, the launch
             forms against their plain passes on a 64-row band; then, counted
             like phase 5, render_forward_bricked_fast with 4 and 8 bricks,
@@ -102,7 +104,12 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             and K6's voxel_grads_fast; lit phase 2 of both scenes and the
             lit segment of the K4 scene on the last brick against their plain
             passes on 32 rows through the middle, held as in phase 8; and
-            the lit forms over all bricks timed with their samples and bound.
+            the lit forms over all bricks timed with their samples and bound
+            (and the lit bricked forwards and Adam step), the lookup form's
+            window pack alone, the tail factors of lit phase 2's launches
+            and of K4's and K5's by block shape (tail_factor, from their
+            steps planes), and the lit segment's atomic adds a sample
+            (lit_corner_flushes).
 11. parent_vs_new, only with --parent DIR: DIR holds another version of
             the port's package (e.g. the parent commit's, unpacked with git
             archive). Timed in turns, DIR's, the checkout's, the checkout's,
@@ -120,7 +127,13 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             forward + backward and training step; the host's time in phase
             2's calls, in their record checks and in the bricked forward;
             the bricked images, every brick's exit opacity, and phase 1's
-            opacities and entry records on both scenes must be equal).
+            opacities and entry records on both scenes must be equal), and
+            the lit K7 forms with 4 bricks at 256^3 / 512^2 (lit phase 2 on
+            K6's noisy scene and on K5's, its pack included; the lit
+            gradient segment; the lit bricked forwards and training step;
+            every brick's lit contribution and exit opacity and the lit
+            bricked images must be equal, the lit segment's grids within
+            1e-5 of scale).
 12. dp_vs_single: rays-DP (parallel/pallas_dp.py) at 128^3 / 256x192
             with 5 bands on the one card, the last one shorter: the K1, K4
             and K5 band launches joined must equal the single launch's image
@@ -181,7 +194,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             cotangent of the sweep's own image; all timed.
 
 16. camera_grads (plain PyTorch on the card): render_fused(camera_grads=True)
-            on rows 112-143 of 256^2 at 64^3 on the noisy K3 scene and on
+            on rows 112-143 of 256^2 at 48^3 on the noisy K3 scene and on
             the noisy lit OTF scene, against
             torch.autograd of the fixed-trip march (render_rows(
             differentiable=True), its trip count cut to the band's longest
@@ -243,6 +256,7 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -400,12 +414,13 @@ class CarryCount:
         return int(self.flushes.sum()) + 8 * int(self.seen.sum())
 
 
-def carried_corners(brick, opts, w_in, entry, grid):
+def carried_corners(brick, opts, w_in, entry, grid, visit=None):
     """``(samples, count)``: the samples of a brick's walk from the entry
     opacity ``w_in`` (None: from zero, as phase 1) and phase 1's ``entry``
     record (None: from step 0), and CarryCount's total over the cells of
     ``grid``, one of the brick's padded grids, counted from the plain walk's
-    positions."""
+    positions. ``visit(pos, act, consts)`` also sees every step's positions
+    and the rays that composite there."""
     import torch
     from volume_renderer_tpu_torch.ops import brick_march
     from volume_renderer_tpu_torch.ops import raymarch_core as core
@@ -420,6 +435,8 @@ def carried_corners(brick, opts, w_in, entry, grid):
         def composite(pos, act, sw):
             s = core.to_sample_coords(pos, consts)
             carry.visit(s, act)
+            if visit is not None:
+                visit(pos, act, consts)
             ab = sample_ab(s)
             return 1.0 - torch.exp(-(consts.factor_absorption * ab) * consts.tstep)
 
@@ -436,6 +453,111 @@ def corner_flushes(brick, opts, w_in, entry):
     emission's; a grid of another shape is carried on cells of its own,
     which this does not count."""
     return carried_corners(brick, opts, w_in, entry, brick.scene.emission.data)
+
+
+def tap_window_adds(s, sp, sm, dims):
+    """Per ray, the atomic adds of the emission tap window's scatter
+    (``csrc/lit_replay.cuh``, scatter_em_taps) for samples at normalized
+    coordinates ``s`` whose plus and minus taps lie at ``sp`` and ``sm``
+    along each axis (F3s of (R,) tensors), in a grid of ``dims`` (x, y,
+    global z): a window voxel each (8 at the centre's slots 1, 2, a slot 0
+    or 3 a row more along a near axis whose tap reaches it: 20 where every
+    axis is near and the taps half a voxel out), and 16 for the two taps of
+    a far axis on their own. An upper bound: the kernel skips a total that
+    is exactly zero."""
+    import torch
+
+    def lower(c, n):
+        return torch.clamp(torch.floor(c * float(n) - 0.5), -1.0, float(n))
+
+    extra, far = [], 0
+    for c, cp, cm, n in zip(s, sp, sm, dims):
+        i = lower(c, n)
+        dp, dm = lower(cp, n) - i, lower(cm, n) - i
+        near = ((dp == 0) | (dp == 1)) & ((dm == 0) | (dm == -1))
+        extra.append((near & (dm < 0)).long() + (near & (dp > 0)).long())
+        far = far + (~near).long()
+    return 4 * (2 + extra[0]) + 4 * extra[1] + 4 * extra[2] + 16 * far
+
+
+def lit_carry_grids(scene) -> int:
+    """The grids that a carry of the lit gradient segment's corner sums
+    would take (measured on an H100 and dropped, PERF.md; csrc/brick_bwd.cu):
+    absorption and reflection, each unless aliased, where every one of them
+    has emission's shape (and so, in a brick or slab, its place); else
+    none."""
+    em = tuple(scene.emission.data.shape)
+    own = [getattr(scene, k).data for k, aliased in (("absorption", scene.absorption_aliased),
+                                                     ("reflection", scene.reflection_aliased))
+           if not aliased]
+    return len(own) if all(tuple(g.shape) == em for g in own) else 0
+
+
+def lit_corner_flushes(brick, opts, w_in, entry):
+    """corner_flushes for the lit gradient segment: from the plain walk's
+    positions, its samples, the atomic adds of the emission tap window
+    (tap_window_adds), 8 a sample for absorption and for reflection unless
+    aliased (the kernel's atomic adds a sample), and what a carry of those
+    two on the centre's cell would make instead (measured and dropped:
+    CarryCount's flushes into one carried grid, on the lit_carry_grids)."""
+    import torch
+    from volume_renderer_tpu_torch.ops import raymarch_core as core
+
+    em = brick.scene.emission.data
+    dims = (em.shape[2], em.shape[1], brick.slab_geometry(em)[1])
+    taps = [0]
+
+    def visit(pos, act, consts):
+        xp, xm, yp, ym, zp, zm = core.otf_tap_positions(pos, consts)
+        adds = tap_window_adds(core.to_sample_coords(pos, consts), (xp.x, yp.y, zp.z),
+                               (xm.x, ym.y, zm.z), dims)
+        taps[0] += int(torch.where(act, adds, 0).sum())
+
+    samples, flushes = carried_corners(brick, opts, w_in, entry, em, visit)
+    carry = lit_carry_grids(brick.scene)
+    roles = 2 - brick.scene.absorption_aliased - brick.scene.reflection_aliased
+    return {"samples": samples, "tap_adds": taps[0], "flushes_per_grid": flushes,
+            "carry_grids": carry,
+            "atomic_adds_per_sample": (taps[0] + 8 * roles * samples) / samples,
+            "atomic_adds_per_sample_carried": (taps[0] + carry * flushes
+                                               + 8 * (roles - carry) * samples) / samples}
+
+
+def tail_factor(steps, cols=16, rows=16):
+    """A launch's tail factor in blocks of ``cols`` x ``rows`` threads, from
+    its steps plane (H, W) (each ray's samples) or a list of them (a form's
+    launches over the bricks, summed): the sum over the blocks of their
+    threads times their largest count, over the sum of the counts. A block
+    keeps its threads until its longest ray ends, so this is the thread
+    time a launch holds per thread time of work; 1 where every ray of a
+    block takes as many samples. A block's threads are its pixels inside
+    the image; warps are 16 x 2 blocks of 16-wide ones. None without a
+    sample."""
+    import torch
+    import torch.nn.functional as F
+
+    held = work = 0
+    for plane in steps if isinstance(steps, (list, tuple)) else [steps]:
+        h, w = plane.shape
+        pad = (0, -w % cols, 0, -h % rows)
+        counts = F.pad(plane.to(torch.int64), pad)
+        inside = F.pad(torch.ones_like(plane, dtype=torch.int64), pad)
+        hb, wb = counts.shape[0] // rows, counts.shape[1] // cols
+        most = counts.reshape(hb, rows, wb, cols).amax(dim=(1, 3))
+        threads = inside.reshape(hb, rows, wb, cols).sum(dim=(1, 3))
+        held += int((threads * most).sum())
+        work += int(plane.to(torch.int64).sum())
+    return held / work if work else None
+
+
+# the block shapes the tails are taken for: phase 2's and K4's and K5's
+# blocks, the smaller ones tried for lit phase 2, and a warp
+TAIL_SHAPES = ((16, 16), (16, 8), (16, 4), (16, 2))
+
+
+def tail_factors(steps):
+    """tail_factor for each of TAIL_SHAPES, keyed "<cols>x<rows>"."""
+    return {f"{c}x{r}": tail_factor(steps, c, r) for c, r in TAIL_SHAPES}
 
 
 def corner_loads(brick, opts, w_in, entry):
@@ -606,24 +728,27 @@ KERNEL_PARAMS = {
     "march_bwd_scatter_kernel": ("AB_ALIASED", "AB_OWN_CELL"),
     "march_bwd_lit_scatter_kernel": ("AB_ALIASED", "RE_ALIASED"),
     "brick_fwd_kernel": ("SHADE", "AB_ALIASED"),
-    "brick_lit_fwd_kernel": ("LOOKUP", "AB_ALIASED", "RE_ALIASED"),
+    "brick_lit_fwd_kernel": ("LOOKUP", "AB_ALIASED", "RE_ALIASED", "PACKED"),
     "brick_bwd_kernel": ("AB_ALIASED", "AB_OWN_CELL"),
     "brick_lit_bwd_kernel": ("AB_ALIASED", "RE_ALIASED"),
 }
 # Threads a block by mode or kernel, where it is not 16x16 (K3, K6 and the
 # K7 gradient segment run in 16x8 blocks: csrc/march_bwd.cu,
-# csrc/brick_bwd.cu; K7 phase 1 and K2 in 16 rows of a constant of their
-# source: kernel_threads)
+# csrc/brick_bwd.cu; K7 phase 1, lit phase 2 and K2 in 16 rows of a
+# constant of their source: kernel_threads)
 KERNEL_THREADS = {"K3": 128, "K6": 128, "K7_scatter": 128, "K7_scatter_lit": 128}
 # the constants of 16 x ROWS blocks: kernel or mode -> (source, constant)
 BLOCK_ROWS = {"K7_transmittance": ("brick_fwd.cu", "kPhase1Rows"),
+              "K7_segment_lit": ("brick_fwd.cu", "kLitRows"),
+              "K7_segment_lit_lookup": ("brick_fwd.cu", "kLitLookupRows"),
               "march_bwd_params_kernel": ("march_bwd.cu", "kK2Rows"),
               "march_bwd_lit_params_kernel": ("march_bwd.cu", "kK2LitRows")}
 
 
 def kernel_threads(repo):
-    """KERNEL_THREADS with the blocks of K7 phase 1 and of K2 as the sources
-    under ``repo`` set them (16x16 where a source has no such constant)."""
+    """KERNEL_THREADS with the blocks of K7 phase 1, lit phase 2 and K2 as
+    the sources under ``repo`` set them (16x16 where a source has no such
+    constant)."""
     out = dict(KERNEL_THREADS)
     for key, (source, name) in BLOCK_ROWS.items():
         with open(os.path.join(repo, "volume_renderer_tpu_torch", "csrc", source)) as f:
@@ -633,7 +758,7 @@ def kernel_threads(repo):
 # 4 bricks, all on the one card; the rows of phase 8's plain passes
 BRICKS, BRICK_BAND = 4, 96
 # phase 8's lit scenes: the plain lit passes' time follows the march's steps
-LIT_BRICKS = dict(volume=48, width=96, height=64, band=32)
+LIT_BRICKS = dict(volume=32, width=96, height=64, band=32)
 
 
 def kernel_mode_of(kernel: str, args) -> str:
@@ -647,8 +772,8 @@ def kernel_mode_of(kernel: str, args) -> str:
         return "K6"
     if kernel == "brick_fwd_kernel":
         return "K7_segment" if args[0] else "K7_transmittance"
-    if kernel == "brick_lit_fwd_kernel":
-        return "K7_segment_lit"
+    if kernel == "brick_lit_fwd_kernel":  # lookup has blocks of its own
+        return "K7_segment_lit_lookup" if args[0] else "K7_segment_lit"
     if kernel == "brick_lit_bwd_kernel":
         return "K7_scatter_lit"
     return "K7_scatter"
@@ -704,9 +829,9 @@ def ptxas_by_kernel(log: str, strict: bool = True, threads=KERNEL_THREADS) -> di
 # The plain march and replay cost hundreds to thousands of launches a step
 # whatever the rays, so their time follows the steps, that is the volume's
 # edge: at full size only the K1 oracle band runs. The camera checks, unlit
-# and lit, and the lit oracle bands run at 64^3 / 256^2, the pose fit at
-# 12^3 / 24^2 (at 64^3 / 96^2 its 12 steps take a minute).
-CAMERA = dict(volume=64, image=256, first_row=112, rows=32)
+# and lit, run at 48^3 / 256^2, the lit oracle bands at 64^3 / 256^2, the
+# pose fit at 12^3 / 24^2 (at 64^3 / 96^2 its 12 steps take a minute).
+CAMERA = dict(volume=48, image=256, first_row=112, rows=32)
 POSE_FIT = dict(volume=12, image=24, steps=12, lr=5e-3)
 ORACLE = dict(first_row=224, rows=64, lit_volume=64, lit_image=256, lit_first_row=112,
               lit_rows=32, facade_volume=32, facade_image=(64, 16))
@@ -721,7 +846,7 @@ CAMERA_TOL = {"camera_rotation": 5e-3, "camera_focal": 2e-3, "camera_distance": 
 def camera_grads_phase(ctx) -> dict:
     """render_fused(camera_grads=True) on a band against autograd of the
     fixed-trip march (render_rows(differentiable=True)) on the same band, at
-    64^3 on the noisy unlit scene and on the lit OTF one; then
+    48^3 on the noisy unlit scene and on the lit OTF one; then
     a pose-and-intrinsics fit through it."""
     import torch
 
@@ -1222,7 +1347,8 @@ def main() -> None:
                              "checkout's (phase 11)")
     parser.add_argument("--turn", action="store_true",
                         help="phase 11's turns: build, then for each line read on stdin time "
-                             "K1-K7 and print one JSON line")
+                             "the parts it names (march: K1-K6, bricks: K7, lit: the lit K7 "
+                             "forms; turn: all three) and print one JSON line")
     parser.add_argument("--repo", metavar="DIR", default=REPO,
                         help="import the port from DIR instead of the checkout around this script")
     args = parser.parse_args()
@@ -1418,6 +1544,11 @@ def main() -> None:
         for t in tensors:
             h.update(t.cpu().numpy().tobytes())
         return h.hexdigest()
+
+    def cotangent(height, width, seed):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return torch.randn((height, width, 3), generator=gen, device=dev) * 1e-3
 
     def transfer_scene(scene, params):
         return scene.replace(settings=dataclasses.replace(scene.settings, **params))
@@ -1625,11 +1756,78 @@ def main() -> None:
         out["ms"] = ms
         return out
 
+    def lit_turn(grids_dir):
+        """The lit K7 forms with 4 bricks at 256^3 / 512^2, timed as phase 10
+        times them (CUDA events, warm, median of 5), each from phase 1's
+        outputs computed outside the timed calls: lit phase 2 over all bricks
+        on K6's noisy scene and on K5's (the lookup form, with its pack where
+        the port packs; the pack alone), the lit gradient segment, the lit
+        bricked forward of both scenes and the lit bricked training step; with
+        a digest of every brick's lit contribution and exit opacity on each
+        scene. The lit segment's per-brick grids go to a file under
+        ``grids_dir`` (its atomic adds land in any order, so another version's
+        are held within 1e-5 of scale, not to the bit)."""
+        size = MAIN["image"]
+        ms, out = {}, {"ptxas": {name: ptxas[name] for name in ("brick_fwd", "brick_bwd")}}
+        lit4 = flagship(MAIN["volume"], "K4", ab_aliased=False, noise=0.05)
+        lit5 = flagship(MAIN["volume"], "K5", ab_aliased=False)
+        opts = lit4.options(size, size)
+        g = cotangent(size, size, seed=31)
+        pack = getattr(cuda_bricks, "pack_window", None)
+        with torch.no_grad():
+            for name, scene in (("otf", lit4), ("lookup", lit5)):
+                split = bricks.split_bricks(scene, make_mesh(BRICKS))
+                fwd = bricks._forward(split, opts, 0.0, fast=True)
+                w_ins = [w.contiguous() for w in fwd.w_in]
+                states = list(zip(split.bricks, w_ins, fwd.entry))
+                out[f"{name}_segment_sha1"] = digest([
+                    t for b, w, e in states for t in cuda_bricks.brick_segment(b, opts, 0.0, w, e)])
+                out[f"{name}_image_sha1"] = digest([fwd.image])
+                ms[f"segment_lit_{name}"] = median_ms(lambda: [
+                    cuda_bricks.brick_segment(b, opts, 0.0, w, e) for b, w, e in states])[0]
+                ms[f"bricked_forward_{name}"] = median_ms(
+                    lambda: bricks.render_forward_bricked_fast(split, opts))[0]
+                if name == "lookup":
+                    if pack is not None:
+                        ms["pack_lookup"] = median_ms(lambda: [pack(b) for b in split.bricks])[0]
+                    continue
+                up = [u.contiguous() for u in bricks._upstream(
+                    [brick_march.own_dot(g, own) for own in fwd.own], fwd.ascending,
+                    torch.cumsum, 0.0)]
+                grads = [cuda_bricks.brick_gradients(b, opts, 0.0, g, fwd.image, w, u, e)
+                         for (b, w, e), u in zip(states, up)]
+                out["lit_grids"] = os.path.join(grids_dir, "lit_grids.pt")
+                torch.save([{k: grads[i][k].cpu() for k in ("emission", "absorption", "reflection")}
+                            for i in range(len(grads))], out["lit_grids"])
+                ms["scatter_lit"] = median_ms(lambda: [
+                    cuda_bricks.brick_gradients(b, opts, 0.0, g, fwd.image, w, u, e)
+                    for (b, w, e), u in zip(states, up)])[0]
+                del grads
+            target = render_forward_fast(lit4, opts)
+            bparams, bstatic = bricks.split_params_bricked(lit4, make_mesh(BRICKS))
+            for p in bparams["emission"]:
+                p.mul_(1.3).add_(0.05)
+        optimizer = torch.optim.Adam(bricks.param_leaves(bparams), lr=TRAIN_LR["K6"])
+        ms["bricked_train_step_lit"] = median_ms(lambda: bricks.train_step_fast_bricked(
+            bparams, optimizer, bstatic, opts, target))[0]
+        out["ms"] = ms
+        return out
+
     if args.turn:  # a turn for each line on stdin, until it closes
+        import tempfile
         emit({"phase": "ready"})
-        for _ in sys.stdin:
+        grids_dir = tempfile.mkdtemp(prefix="chip_smoke_turn_")
+        for line in sys.stdin:
+            # the line names the parts to time: "march", "bricks", "lit"; "turn" all three
+            parts = set(line.split()) or {"turn"}
             t_turn = time.perf_counter()
-            out = {"march": march_turn(), "bricks": brick_turn()}
+            out = {}
+            if parts & {"turn", "march"}:
+                out["march"] = march_turn()
+            if parts & {"turn", "bricks"}:
+                out["bricks"] = brick_turn()
+            if parts & {"turn", "lit"}:
+                out["lit"] = lit_turn(grids_dir)
             emit({"phase": "turn", "repo": os.path.abspath(args.repo), **out,
                   "seconds": time.perf_counter() - t_turn})
         return
@@ -1786,11 +1984,6 @@ def main() -> None:
             if err > limit:
                 raise RuntimeError(f"{name} {key}: the gradient is {err:.3e} of its scale off")
         return errs
-
-    def cotangent(height, width, seed):
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        return torch.randn((height, width, 3), generator=gen, device=dev) * 1e-3
 
     transfer_keys = ("factor_emission", "factor_absorption", "factor_reflection", "color",
                      "light_colors")
@@ -2276,10 +2469,11 @@ def main() -> None:
     # Lit scenes: the lit forms of phase 2 and of the gradient segment
     # against their plain passes on the same inputs, launched on the whole
     # image and compared on a band through the middle (the cotangent zero
-    # outside it), at 48^3 / 96x64: the plain lit passes cost thousands of
+    # outside it), at 32^3 / 96x64: the plain lit passes cost thousands of
     # launches a step whatever the rays. Lit phase 2 equals its plain pass to
     # the bit on the on-the-fly scene (K4's step) and within K5's tolerance
-    # on the lookup one (unpacked gradient volumes); the lit gradient
+    # on the lookup ones (the packed window; gradient volumes of another
+    # shape, unpacked, on the last brick); the lit gradient
     # segment's grids are held within 1e-5 of scale, its other keys within
     # GRAD_TOL. The bricked image and the slabbed sweep against the
     # single-device kernel.
@@ -2289,8 +2483,11 @@ def main() -> None:
     def lit_bricks_compare(name, scene, opts, g, band, held=None):
         """The lit forms of the bricks ``held`` (indices; None: all) against
         their plain passes on ``band`` rows through the middle; the record
-        has the plain passes' ms."""
+        has the plain passes' ms. Lookup: the packed form (where the port
+        packs the windows) also against the per-window form on the same
+        inputs, to the bit."""
         lookup = scene.has_gradient_volumes
+        packed = lookup and cuda_bricks.pack_window(split_first(scene)) is not None
         y0, rows = (opts.height - band) // 2, band
         g_band = torch.zeros_like(g)
         g_band[y0:y0 + rows] = g[y0:y0 + rows]
@@ -2310,6 +2507,12 @@ def main() -> None:
                 continue
             w_in, up = w_in.contiguous(), up.contiguous()
             own, w_out = cuda_bricks.brick_segment(brick, opts, 0.0, w_in, entry)
+            if packed:  # the two instantiations fetch the same floats
+                u_own, u_out = unpacked(lambda: cuda_bricks.brick_segment(brick, opts, 0.0, w_in,
+                                                                          entry))
+                if not (torch.equal(own, u_own) and torch.equal(w_out, u_out)):
+                    raise RuntimeError(f"{name} brick {brick.index}: packed and unpacked lit "
+                                       "phase 2 differ")
             band_entry = entry.rows(y0, rows)
             (p_own, p_out), ms = timed(lambda: brick_march.shaded_pass(
                 brick, opts, 0.0, cut(w_in), entry=band_entry, **band_kw))
@@ -2353,22 +2556,44 @@ def main() -> None:
         slabbed = cuda_slab.render_forward_slabbed_fast(scene, opts, n_slabs=BRICKS)
         return {"ascending_share": float(fwd.ascending.float().mean()),
                 "bricks_held": sorted(held) if held is not None else list(range(BRICKS)),
+                **({"packed": packed, "packed_equals_unpacked": packed} if lookup else {}),
                 "plain_ms": plain_ms, "plain_rows": rows,
                 "phase_2_max_abs_err": seg_err, "grad_err_of_scale": grad_errs,
                 "bricked_vs_single_device_kernel": image_tolerance(name, fwd.image, single),
                 "slabbed_vs_single_device_kernel_of_scale": of_scale(
                     f"{name} slabbed", slabbed, single)}
 
+    def unpacked(fn):
+        """``fn()`` with lit phase 2's windows left unpacked
+        (``cuda_bricks.pack_window`` giving None for the call), so that it
+        launches the per-window form on the same grids."""
+        pack = cuda_bricks.pack_window
+        cuda_bricks.pack_window = lambda brick: None
+        try:
+            return fn()
+        finally:
+            cuda_bricks.pack_window = pack
+
+    def split_first(scene):
+        """Brick 0 of ``scene`` cut in BRICKS."""
+        return bricks.split_bricks(scene, make_mesh(BRICKS)).bricks[0]
+
     lit_cases = {}
     lit_w, lit_h = LIT_BRICKS["width"], LIT_BRICKS["height"]
     for i, (name, mode, kw) in enumerate((
             ("otf_two_lights_dz_mixed", "K4",
              dict(ab_aliased=False, n_lights=2, noise=0.05, rotate=(88, 0, 0))),
-            ("lookup_unpacked", "K5", dict(ab_aliased=False)))):
+            ("lookup_packed", "K5", dict(ab_aliased=False)),
+            ("lookup_gradients_other_shape", "K5", dict(ab_aliased=False, grad_other_shape=True)))):
         scene = flagship(LIT_BRICKS["volume"], mode, **kw)
+        if mode == "K5":  # packed unless the gradient volumes have another shape
+            assert ((cuda_bricks.pack_window(split_first(scene)) is None)
+                    == ("grad_other_shape" in kw)), name
+        # the unpacked form on the last brick alone (its offsets are the largest)
+        held = {BRICKS - 1} if "grad_other_shape" in kw else None
         lit_cases[name] = lit_bricks_compare(name, scene, scene.options(lit_w, lit_h),
                                              cotangent(lit_h, lit_w, seed=20 + i),
-                                             LIT_BRICKS["band"])
+                                             LIT_BRICKS["band"], held)
         for form, ms in lit_cases[name]["plain_ms"].items():
             lit_plain_ms[form] += ms
         del scene
@@ -2381,6 +2606,7 @@ def main() -> None:
                     "plain_rows": LIT_BRICKS["band"], "cases": lit_cases,
                     "plain_ms": lit_plain_ms,
                     "tolerance": {"phase_2_otf": 0.0, "phase_2_lookup": tol["K5"],
+                                  "phase_2_lookup_packed_vs_unpacked": 0.0,
                                   "grids_of_scale": BRICK_GRAD_TOL, "others_of_scale": GRAD_TOL}}})
 
     # ---- 9. the z-brick main path at 256^3 / 512^2 ------------------------
@@ -2667,17 +2893,24 @@ def main() -> None:
 
     def lit_form_cells(split, lookup):
         """Lit phase 2 (and, on the on-the-fly scene, the lit gradient
-        segment) over all bricks: ms, samples, bytes and operations."""
+        segment) over all bricks: ms, samples, bytes and operations; the tail
+        factors of phase 2's launches by block shape, a brick's and the four's
+        (tail_factors); lookup, the windows' pack alone (its form's ms
+        includes it); the lit segment's atomic adds a sample
+        (lit_corner_flushes)."""
         fwd = bricks._forward(split, opts, 0.0, fast=True)
         w_ins = [w.contiguous() for w in fwd.w_in]
         up = [u.contiguous() for u in bricks._upstream(
             [brick_march.own_dot(g_lit, own) for own in fwd.own], fwd.ascending, torch.cumsum,
             0.0)]
-        samples = 0
+        samples, planes = 0, []
         for brick, w_in, entry in zip(split.bricks, w_ins, fwd.entry):
             steps = torch.zeros((size, size), dtype=torch.int32, device=dev)
             cuda_bricks.brick_segment(brick, opts, 0.0, w_in, entry, steps=steps)
             samples += int(steps.sum())
+            planes.append(steps)
+        tails = {"bricks": tail_factors(planes),
+                 **{f"brick_{b}": tail_factors(p) for b, p in enumerate(planes)}}
         scene0 = split.bricks[0].scene
         n_lights = scene0.light_positions.shape[0]
         roles = ["emission", "absorption", "reflection"] + (
@@ -2699,6 +2932,23 @@ def main() -> None:
                 2 * grid_bytes + BRICKS * (lut_bytes + pixels * (5 + 3 + 3 + 1 + 1 + 3
                                                                  + 3 * n_lights)))
         out = {}
+        extra = {"segment_lit": {"tail_factors": tails}}
+        if lookup:
+            extra["segment_lit"]["pack_ms"] = median_ms(
+                lambda: [cuda_bricks.pack_window(b) for b in split.bricks])[0]
+            extra["segment_lit"]["packed"] = cuda_bricks.pack_window(split.bricks[0]) is not None
+        else:
+            adds = [lit_corner_flushes(b, opts, w, e)
+                    for b, w, e in zip(split.bricks, w_ins, fwd.entry)]
+            n = sum(a["samples"] for a in adds)
+            if n != samples:
+                raise RuntimeError(f"lit phase 2 took {samples} samples, its plain walk {n}")
+            extra["scatter_lit"] = {"atomic_adds": {
+                "samples": n, "tap_adds": sum(a["tap_adds"] for a in adds),
+                "flushes_per_grid": sum(a["flushes_per_grid"] for a in adds),
+                "carry_grids": adds[0]["carry_grids"],
+                **{key: sum(a[key] * a["samples"] for a in adds) / n
+                   for key in ("atomic_adds_per_sample", "atomic_adds_per_sample_carried")}}}
         for form, ((ms, ms_all), per_sample, nbytes) in forms.items():
             flops = samples * per_sample
             bound = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
@@ -2710,12 +2960,18 @@ def main() -> None:
                          "plain_ms": lit_band["K5" if lookup else "K4"]["plain_ms"][form],
                          "plain_rows": LIT_BRICKS["band"],
                          "plain_cell": f"brick {BRICKS - 1} of {BRICKS}, {LIT_BRICKS['band']} "
-                                       f"rows of {size}^2 through the middle"}
+                                       f"rows of {size}^2 through the middle",
+                         **extra.get(form, {})}
         return out
 
     with torch.no_grad():
         lit_cells = lit_form_cells(split4, lookup=False)
         lit_cells["segment_lit_lookup"] = lit_form_cells(split5, lookup=True)["segment_lit"]
+        # the single-device kernels' one launch, for the same tails
+        for mode, scene in (("K4", lit4), ("K5", lit5)):
+            steps = torch.zeros((size, size), dtype=torch.int32, device=dev)
+            render_forward_fast(scene, opts, steps=steps)
+            lit_cells[f"single_{mode}_tail_factors"] = tail_factors(steps)
         lit_paths = {
             "single_K4_ms": median_ms(lambda: render_forward_fast(lit4, opts))[0],
             "single_K5_ms": median_ms(lambda: render_forward_fast(lit5, opts))[0],
@@ -2725,6 +2981,8 @@ def main() -> None:
                 split4, opts))[0],
             "bricked_forward_K5_ms": median_ms(lambda: bricks.render_forward_bricked_fast(
                 split5, opts))[0]}
+    lit_paths["bricked_train_step_K4_ms"] = median_ms(lambda: bricks.train_step_fast_bricked(
+        lit_params, lit_optimizer, lit_static, opts, want4, mesh=make_mesh(BRICKS)))[0]
     record({"phase": "bricks_lit_main_path", "volume": MAIN["volume"], "image": size,
             "bricks": BRICKS, "volume_noise_K4": 0.05, "launches": lit_brick_launches,
             "expected_launches": expected, **lit_main, "forms": lit_cells, "ms": lit_paths,
@@ -2818,6 +3076,37 @@ def main() -> None:
             **{metric: compare_turns(lambda t: t["bricks"]["ms"][metric],
                                      form_bounds.get(metric))
                for metric in turns["new"][0]["bricks"]["ms"]}}
+        # the lit forms keep their arithmetic: one lit contribution and exit
+        # opacity a brick and one lit bricked image on both scenes; the lit
+        # segment's grids within 1e-5 of scale of the parent's (atomic adds)
+        lit_names = ("otf_segment_sha1", "otf_image_sha1", "lookup_segment_sha1",
+                     "lookup_image_sha1")
+        for name in lit_names:
+            if len({t["lit"][name] for t in every}) != 1:
+                raise RuntimeError(f"lit K7: the parent's {name[:-5]} differs from the checkout's")
+        want_grids = torch.load(turns["parent"][-1]["lit"]["lit_grids"])
+        got_grids = torch.load(turns["new"][-1]["lit"]["lit_grids"])
+        lit_grid_err = {}
+        for key in want_grids[0]:
+            scale = max(max(float(w[key].abs().max()) for w in want_grids), 1e-30)
+            lit_grid_err[key] = max(float((a[key].double() - b[key].double()).abs().max())
+                                    for a, b in zip(got_grids, want_grids)) / scale
+            if lit_grid_err[key] > BRICK_GRAD_TOL:
+                raise RuntimeError(f"lit K7 {key}: the lit segment's grids are "
+                                   f"{lit_grid_err[key]:.3e} of scale off the parent's")
+        for t in every:
+            shutil.rmtree(os.path.dirname(t["lit"]["lit_grids"]), ignore_errors=True)
+        lit_bounds = {"segment_lit_otf": lit_cells["segment_lit"]["bound_ms"],
+                      "segment_lit_lookup": lit_cells["segment_lit_lookup"]["bound_ms"],
+                      "scatter_lit": lit_cells["scatter_lit"]["bound_ms"]}
+        lit_ms = turns["new"][0]["lit"]["ms"]
+        compared[f"K7_lit_{MAIN['volume']}_{MAIN['image']}_{BRICKS}_bricks"] = {
+            "equal": [name[:-5] for name in lit_names],
+            "grids_err_of_scale_vs_parent": lit_grid_err,
+            **{metric: compare_turns(lambda t: t["lit"]["ms"][metric], lit_bounds.get(metric))
+               for metric in lit_ms if metric in turns["parent"][0]["lit"]["ms"]},
+            **{f"{metric}_ms": [t["lit"]["ms"][metric] for t in turns["new"]]
+               for metric in lit_ms if metric not in turns["parent"][0]["lit"]["ms"]}}
         record({"phase": "parent_vs_new", "parent": args.parent, "order": "parent, new, new, parent",
                 "reps": 5,
                 "parent_ptxas": {**turns["parent"][0]["march"]["ptxas"],
@@ -3716,8 +4005,8 @@ def main() -> None:
                     f"(ms over all bricks)",
         })
     for form, source, what in (
-            ("segment_lit", "brick_fwd", "z-brick lit phase 2: K4's step (and K5's, unpacked) "
-                                         "on the brick's windows from the entry opacity"),
+            ("segment_lit", "brick_fwd", "z-brick lit phase 2: K4's step (and K5's on a packed "
+                                         "window) on the brick's windows from the entry opacity"),
             ("scatter_lit", "brick_bwd", "z-brick lit gradient segment: K6's sample replay on "
                                          "the brick's windows")):
         cell = lit_cells[form]
@@ -3730,8 +4019,11 @@ def main() -> None:
             "rank_launches": rank_launches(f"K7_{form}"),
             **({"max_err_of_scale": brick_grad_err[0]} if form == "scatter_lit" else {}),
             **({"lookup": {k: lit_cells["segment_lit_lookup"][k]
-                           for k in ("ms", "samples", "bound_ms", "bound_by")}}
+                           for k in ("ms", "samples", "bound_ms", "bound_by", "pack_ms")},
+                "tail_factors_4_bricks": cell["tail_factors"]["bricks"]}
                if form == "segment_lit" else {}),
+            **({"atomic_adds_per_sample": cell["atomic_adds"]["atomic_adds_per_sample"]}
+               if form == "scatter_lit" else {}),
             "ms": cell["ms"], "plain_ms": cell["plain_ms"], "plain_rows": cell["plain_rows"],
             "plain_cell": cell["plain_cell"],
             "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"], "library_ms": None,

@@ -154,21 +154,28 @@ def test_lit_phase_2_samples_the_windows_of_every_lit_role():
 
 
 def test_ptxas_report_of_the_lit_brick_kernels():
-    """chip_smoke's reading of ptxas: the lit forms map to their own modes,
-    lit phase 2 in 16x16 blocks, the lit gradient segment in 16x8 (K6's)."""
+    """chip_smoke's reading of ptxas: the lit forms map to their own modes
+    (lit phase 2 with its PACKED argument, the lookup form a mode of its own
+    for its blocks), lit phase 2 in 16 x kLitRows
+    blocks (16x4) and 16 x kLitLookupRows with lookup (16x8), the lit
+    gradient segment in 16x8 (K6's)."""
     log = "\n".join(
         f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{kernel}I{args}EEv{struct}' "
         "for 'sm_90a'\n    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         f"ptxas info    : Used {registers} registers, used 0 barriers, 640 bytes cmem[0]"
         for kernel, args, struct, registers in (
-            ("20brick_lit_fwd_kernel", "Lb1ELb0ELb1E", "9BrickArgs", 100),
+            ("20brick_lit_fwd_kernel", "Lb0ELb0ELb1ELb0E", "9BrickArgs", 128),
+            ("20brick_lit_fwd_kernel", "Lb1ELb0ELb1ELb1E", "9BrickArgs", 100),
             ("20brick_lit_bwd_kernel", "Lb0ELb0E", "13BrickGradArgs", 168)))
     got = chip_smoke.ptxas_by_kernel(log, threads=chip_smoke.kernel_threads(chip_smoke.REPO))
-    assert set(got) == {"K7_segment_lit brick_lit_fwd_kernel<1,0,1>",
+    assert set(got) == {"K7_segment_lit brick_lit_fwd_kernel<0,0,1,0>",
+                        "K7_segment_lit_lookup brick_lit_fwd_kernel<1,0,1,1>",
                         "K7_scatter_lit brick_lit_bwd_kernel<0,0>"}
-    fwd = got["K7_segment_lit brick_lit_fwd_kernel<1,0,1>"]
+    otf = got["K7_segment_lit brick_lit_fwd_kernel<0,0,1,0>"]
+    lookup = got["K7_segment_lit_lookup brick_lit_fwd_kernel<1,0,1,1>"]
     bwd = got["K7_scatter_lit brick_lit_bwd_kernel<0,0>"]
-    assert (fwd["threads"], fwd["blocks_per_sm"]) == (256, 2)
+    assert (otf["threads"], otf["blocks_per_sm"]) == (64, 8)
+    assert (lookup["threads"], lookup["blocks_per_sm"]) == (128, 4)
     assert (bwd["threads"], bwd["blocks_per_sm"]) == (128, 3)
 
 

@@ -35,9 +35,12 @@ bytes):
 - the grids the march samples, deduplicated (``scene_volume_bytes``);
 - ``"cuda"``: K5's float4 pack of emission and the three gradient volumes,
   four grids made for each render of a lit lookup scene whose four volumes
-  have one shape (``ops.cuda_march.pack_lookup``). K2's float2 pair of
-  emission and absorption is made by ``transfer_grads_fast`` alone, which
-  no tier calls, so it is not counted;
+  have one shape (``ops.cuda_march.pack_lookup``), at its peak: the four
+  stacked, then their packed copy, eight grids (``_pack_bytes``). The
+  sweeps and the bricks pack the windows likewise for each launch of lit
+  phase 2 (``ops.cuda_bricks.pack_window``): eight windows. K2's float2
+  pair of emission and absorption is made by ``transfer_grads_fast`` alone,
+  which no tier calls, so it is not counted;
 - per-ray planes: the kernels' image; the sweeps' and bricks' entry
   records (H, W) int32 and (H, W, 4), opacities, contributions, the carried
   image and their temporaries (``ray_state_bytes``);
@@ -197,14 +200,20 @@ def _trained_bytes(scene: Scene) -> int:
                for k in ("emission", "absorption") if getattr(scene, k) is not None)
 
 
-def _pack_bytes(scene: Scene) -> int:
-    """K5's float4 pack, made for each render of a lit lookup scene whose
-    emission and gradient volumes have one shape."""
+def _pack_bytes(scene: Scene, rows: Optional[int] = None) -> int:
+    """The float4 pack of a lit lookup scene whose emission and gradient
+    volumes have one shape, at its peak: ``ops.cuda_march.interleave``
+    stacks the four, then copies them packed, eight grids of ``rows`` rows
+    each (default: the whole depth). K5's is made for each render, lit
+    phase 2's of a window or brick for each launch."""
     if not (scene.has_lighting and scene.has_gradient_volumes):
         return 0
     shapes = {tuple(getattr(scene, k).data.shape)
               for k in ("emission", "gradient_x", "gradient_y", "gradient_z")}
-    return 4 * _nbytes(scene.emission.data.shape) if len(shapes) == 1 else 0
+    if len(shapes) != 1:
+        return 0
+    d, *plane = scene.emission.data.shape
+    return 8 * (d if rows is None else rows) * _nbytes(plane)
 
 
 def _lights(scene: Scene) -> int:
@@ -253,7 +262,9 @@ def tier_bytes(scene: Scene, opts: RenderOptions, path: str, *, n_slabs: int = 1
         brick = brick_grid_bytes(scene, n_devices)
         if brick is None:
             return None
-        est = brick + lut + sweep_rays + 2 * _F32 * opts.width * opts.height * n_devices
+        d = scene.emission.data.shape[0]
+        pack = _pack_bytes(scene, d // n_devices + 2 * HALO) if d > 1 else 0
+        est = brick + pack + lut + sweep_rays + 2 * _F32 * opts.width * opts.height * n_devices
         return est + ((1 + slots) * brick if training else 0)
     if path in ("slabbed", "streamed"):
         d = scene.emission.data.shape[0]
@@ -261,11 +272,12 @@ def tier_bytes(scene: Scene, opts: RenderOptions, path: str, *, n_slabs: int = 1
             return None
         win = sum((shape[0] // n_slabs + 2 * HALO) * _nbytes(shape[1:]) for _, shape in uniq)
         slab_grads = win if training else 0  # the backward's window-shaped gradients
+        pack = _pack_bytes(scene, d // n_slabs + 2 * HALO)  # lit phase 2's, a window a launch
         if path == "slabbed":  # the windows are views of the grids
-            return vol + grad_state + slab_grads + sweep_rays
+            return vol + pack + grad_state + slab_grads + sweep_rays
         # two windows a role; the grids, their gradients and the optimizer
         # stay in host memory
-        return 2 * win + lut + slab_grads + sweep_rays
+        return 2 * win + pack + lut + slab_grads + sweep_rays
     raise ValueError(f"unknown tier {path!r}")
 
 

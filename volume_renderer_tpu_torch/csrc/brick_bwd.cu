@@ -56,7 +56,15 @@
 //   clamped at the whole volume's faces, then shifted, so the taps, two rows
 //   beyond an owned sample at most, read and scatter the rows the halo holds.
 //   Its registers are capped as K6's are (kLitMaxRegisters), 16x8 blocks,
-//   the light sums in shared memory a column a thread.
+//   the light sums in shared memory a column a thread. It scatters
+//   absorption and reflection at their own corners, 36 atomic adds a sample
+//   with the tap window's 20. Carrying those two grids' corner sums on the
+//   centre's cell, as the unlit form carries its grids, cut that to 22.6
+//   (chip_smoke.py, lit_corner_flushes) and was measured on an H100 and
+//   dropped (PERF.md): with the 16 sums in shared memory, a column a
+//   thread, the segment ran 10 % slower; in registers, at the 168 cap or
+//   without it, 4 % slower. Its time is the replay's arithmetic, not its
+//   atomic adds.
 //
 // Build flags as for march_fwd.cu (-fmad=false, no fast math). Plain C
 // interface, loaded with ctypes (ops/cuda_bricks.py).
@@ -274,9 +282,7 @@ int vr_brick_bwd(const BrickGradArgs* args, int ab_aliased, int lit, int re_alia
   }
   if (ab_aliased) return (int)launch<true, false>(ga, s);
   // absorption shares emission's corners where it has its shape and place
-  const Vol &em = a.m.em, &ab = a.m.ab;
-  const bool same = ab.d == em.d && ab.h == em.h && ab.w == em.w &&
-                    a.ab_z_off == a.em_z_off && a.ab_d_global == a.em_d_global;
+  const bool same = same_place(a.m.ab, a.ab_z_off, a.ab_d_global, a);
   return (int)(same ? launch<false, false>(ga, s) : launch<false, true>(ga, s));
 }
 

@@ -35,6 +35,15 @@ struct BrickArgs {
 
 namespace {
 
+// Whether grid v, whose first padded row is global row z_off of a volume of
+// depth d_global, has the shape and place of the brick's emission grid: then
+// it shares emission's cells (a sample's corners and weights).
+__host__ __device__ __forceinline__ bool same_place(const Vol& v, int z_off, int d_global,
+                                                    const BrickArgs& a) {
+  return v.d == a.m.em.d && v.h == a.m.em.h && v.w == a.m.em.w && z_off == a.em_z_off &&
+         d_global == a.em_d_global;
+}
+
 // The entry record of a ray in a brick: the first step i that the brick
 // owns, with t and the position p there. i = -1: the ray misses the box or
 // never reaches the brick.

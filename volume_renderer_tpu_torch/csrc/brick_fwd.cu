@@ -8,9 +8,10 @@
 //            samples build up from zero; fetches absorption alone, lit or not
 //   phase 2  brick_fwd_kernel<SHADE=true>   the brick's contribution to the
 //            image from its entry opacity, and its exit opacity; unlit
-//   lit phase 2  brick_lit_fwd_kernel<LOOKUP>  the same for a lit scene, with
-//            on-the-fly gradient taps (K4's step) or lookup gradient volumes
-//            (K5's, unpacked), the HG LUT and the lights
+//   lit phase 2  brick_lit_fwd_kernel<LOOKUP, ..., PACKED>  the same for a lit
+//            scene, with on-the-fly gradient taps (K4's step) or lookup
+//            gradient volumes (K5's, packed where they have one shape), the HG
+//            LUT and the lights
 // It computes what ops/brick_march.py (transmittance_pass, shaded_pass, the
 // plain PyTorch versions) defines, with the same per-ray arithmetic in the
 // same order. The TPU mode marches unlit bricks only; the JAX package
@@ -50,8 +51,20 @@
 // clamped at the whole volume's faces, then shifted into the window, so a
 // sample's taps, two rows beyond it at most, are the whole volume's values
 // and the contribution is the plain pass's float for float. What bounds it
-// is K4's: the gathers of the taps and the LUT. Like K4 it runs in 16x16
-// blocks; its registers are reported by chip_smoke.py (ptxas -v).
+// is K4's: the gathers of the taps and the LUT. With lookup gradients, where
+// emission and the three gradient windows have one shape (and so one place),
+// the wrapper packs them into one (D_win, H, W, 4) grid for each brick and
+// render, or window and sweep step (ops/cuda_bricks.py, pack_window), and a
+// corner of the four is one 16-byte load placed in the window as slab_row
+// places it (corner_carry.cuh: fetch_packed with a ZSlab); one cell serves
+// the pack, and absorption and reflection where they have its shape and
+// place: K5's PACKED path on windows, 8 load instructions for the four
+// instead of 32. Gradient windows of another shape take PACKED=false.
+// Its blocks are 16 x kLitRows (16 x kLitLookupRows with lookup): a block
+// holds its SM slot until its longest segment in the brick ends
+// (chip_smoke.py measures the tails, tail_factor); the rows were chosen by
+// timing 16, 8 and 4 in turns (PERF.md). Registers and blocks an SM are
+// reported by chip_smoke.py (ptxas -v).
 //
 // Build flags as for march_fwd.cu (-fmad=false, no fast math). Plain C
 // interface, loaded with ctypes (ops/cuda_bricks.py).
@@ -63,6 +76,15 @@ namespace {
 // Phase 1's block: 16 x kPhase1Rows pixels (phase 2's is 16 x 16), chosen
 // by timing 16, 8 and 4 rows.
 constexpr int kPhase1Rows = 4;
+// Lit phase 2's blocks: 16 x kLitRows pixels with on-the-fly gradients,
+// 16 x kLitLookupRows with lookup gradient volumes, each chosen by timing
+// 16, 8 and 4 rows in turns (4 rows spilled in a lookup instantiation).
+constexpr int kLitRows = 4;
+constexpr int kLitLookupRows = 8;
+
+__host__ __device__ constexpr int lit_rows(bool lookup) {
+  return lookup ? kLitLookupRows : kLitRows;
+}
 
 __host__ __device__ constexpr int block_rows(bool shade) { return shade ? kBlock : kPhase1Rows; }
 
@@ -127,12 +149,14 @@ __global__ void __launch_bounds__(kBlock * block_rows(SHADE)) brick_fwd_kernel(c
 
 // Lit phase 2: the brick's contribution from its entry opacity for a lit
 // scene, K4's step (LOOKUP false: the emission taps) or K5's (LOOKUP true:
-// the three gradient volumes, each at its own cell) on the brick's windows.
-template <bool LOOKUP, bool AB_ALIASED, bool RE_ALIASED>
-__global__ void __launch_bounds__(kBlock * kBlock) brick_lit_fwd_kernel(const BrickArgs a) {
+// the three gradient volumes, each at its own cell, or with PACKED one cell
+// of the packed window m.packed) on the brick's windows.
+template <bool LOOKUP, bool AB_ALIASED, bool RE_ALIASED, bool PACKED>
+__global__ void __launch_bounds__(kBlock * lit_rows(LOOKUP))
+    brick_lit_fwd_kernel(const BrickArgs a) {
   const MarchArgs& m = a.m;
   const int px = blockIdx.x * kBlock + threadIdx.x;
-  const int py = blockIdx.y * kBlock + threadIdx.y;
+  const int py = blockIdx.y * lit_rows(LOOKUP) + threadIdx.y;
   if (px >= m.width || py >= m.height) return;
 
   const float* st = m.settings;
@@ -153,10 +177,20 @@ __global__ void __launch_bounds__(kBlock * kBlock) brick_lit_fwd_kernel(const Br
     const ZSlab re_z = {a.re_d_global, a.re_z_off};
     const ZSlab gx_z = {a.gx_d_global, a.gx_z_off}, gy_z = {a.gy_d_global, a.gy_z_off};
     const ZSlab gz_z = {a.gz_d_global, a.gz_z_off};
+    // PACKED: absorption and reflection of the pack's shape and place are
+    // fetched at its cell (the same corners and weights as their own)
+    const bool ab_cell = PACKED && !AB_ALIASED && same_place(m.ab, a.ab_z_off, a.ab_d_global, a);
+    const bool re_cell = PACKED && !RE_ALIASED && same_place(m.re, a.re_z_off, a.re_d_global, a);
     count = march_brick(a, e, step, tfar, threshold, sw, [&](V3 s, V3 p, float& w) {
       float em;
       V3 grad;
-      if (LOOKUP) {
+      Cell k = {0, 0, 0, 0.0f, 0.0f, 0.0f};  // the pack's cell (PACKED)
+      if (LOOKUP && PACKED) {
+        k = cell_of(m.em, em_z, s);
+        const float4 q = fetch_packed(m.packed, k, em_z);
+        em = q.x;
+        grad = {q.y, q.z, q.w};
+      } else if (LOOKUP) {
         em = z_sample(m.em, em_z, s);
         grad = {z_sample(m.gx, gx_z, s), z_sample(m.gy, gy_z, s),
                 z_sample(m.gz, gz_z, s)};
@@ -165,14 +199,18 @@ __global__ void __launch_bounds__(kBlock * kBlock) brick_lit_fwd_kernel(const Br
         em = t.c;
         grad = {(t.xp - t.xm) * 0.5f, (t.yp - t.ym) * 0.5f, (t.zp - t.zm) * 0.5f};
       }
-      const float ab = AB_ALIASED ? em : z_sample(m.ab, ab_z, s);
+      const float ab = AB_ALIASED ? em
+                       : PACKED   ? fetch_cell(m.ab, ab_z, ab_cell ? k : cell_of(m.ab, ab_z, s))
+                                  : z_sample(m.ab, ab_z, s);
       const float emission = fe * em;
       const float absorption = fa * ab;
       const float alpha = 1.0f - expf(-absorption * tstep);
       float ir = emission * tstep * color.x;
       float ig = emission * tstep * color.y;
       float ib = emission * tstep * color.z;
-      const float re = RE_ALIASED ? em : z_sample(m.re, re_z, s);
+      const float re = RE_ALIASED ? em
+                       : PACKED   ? fetch_cell(m.re, re_z, re_cell ? k : cell_of(m.re, re_z, s))
+                                  : z_sample(m.re, re_z, s);
       const V3 light = shade(m, p, grad, origin, re, fr, color);
       ir = ir + light.x;
       ig = ig + light.y;
@@ -200,23 +238,24 @@ cudaError_t launch(const BrickArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool LOOKUP, bool AB, bool RE>
+template <bool LOOKUP, bool AB, bool RE, bool PACKED>
 cudaError_t launch_lit(const BrickArgs& a, cudaStream_t stream) {
-  const dim3 block(kBlock, kBlock);
-  const dim3 grid((a.m.width + kBlock - 1) / kBlock, (a.m.height + kBlock - 1) / kBlock);
-  brick_lit_fwd_kernel<LOOKUP, AB, RE><<<grid, block, 0, stream>>>(a);
+  constexpr int rows = lit_rows(LOOKUP);
+  const dim3 block(kBlock, rows);
+  const dim3 grid((a.m.width + kBlock - 1) / kBlock, (a.m.height + rows - 1) / rows);
+  brick_lit_fwd_kernel<LOOKUP, AB, RE, PACKED><<<grid, block, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool LOOKUP>
+template <bool LOOKUP, bool PACKED = false>
 cudaError_t launch_lit_aliasing(const BrickArgs& a, bool ab_aliased, bool re_aliased,
                                 cudaStream_t stream) {
   if (ab_aliased) {
-    return re_aliased ? launch_lit<LOOKUP, true, true>(a, stream)
-                      : launch_lit<LOOKUP, true, false>(a, stream);
+    return re_aliased ? launch_lit<LOOKUP, true, true, PACKED>(a, stream)
+                      : launch_lit<LOOKUP, true, false, PACKED>(a, stream);
   }
-  return re_aliased ? launch_lit<LOOKUP, false, true>(a, stream)
-                    : launch_lit<LOOKUP, false, false>(a, stream);
+  return re_aliased ? launch_lit<LOOKUP, false, true, PACKED>(a, stream)
+                    : launch_lit<LOOKUP, false, false, PACKED>(a, stream);
 }
 
 }  // namespace
@@ -230,8 +269,10 @@ size_t vr_brick_args_size() { return sizeof(BrickArgs); }
 // shade: 0 phase 1 (opacity only, args->m.out and w_in unused; writes the
 // entry record; the same kernel lit or not), 1 phase 2 (reads the entry
 // record). lit: phase 2 shades with the lights, from the emission taps or,
-// with lookup, from the gradient volumes; re_aliased: reflection is
-// emission's grid.
+// with lookup, from the gradient volumes: from args->m.packed where the host
+// packed emission and the gradient windows (they have one shape, the packed
+// grid emission's shape by 4), else from the four windows; re_aliased:
+// reflection is emission's grid.
 int vr_brick_fwd(const BrickArgs* args, int shade, int ab_aliased, int lit, int lookup,
                  int re_aliased, void* stream) {
   const BrickArgs& a = *args;
@@ -244,6 +285,12 @@ int vr_brick_fwd(const BrickArgs* args, int shade, int ab_aliased, int lit, int 
     if (a.m.lut.data == nullptr || (!re_aliased && a.m.re.data == nullptr) ||
         (lookup && (a.m.gx.data == nullptr || a.m.gy.data == nullptr || a.m.gz.data == nullptr)))
       return (int)cudaErrorInvalidValue;
+    const Vol4& pk = a.m.packed;
+    if (lookup && pk.data != nullptr) {
+      if (pk.d != a.m.em.d || pk.h != a.m.em.h || pk.w != a.m.em.w)
+        return (int)cudaErrorInvalidValue;
+      return (int)launch_lit_aliasing<true, true>(a, ab_aliased, re_aliased, s);
+    }
     return (int)(lookup ? launch_lit_aliasing<true>(a, ab_aliased, re_aliased, s)
                         : launch_lit_aliasing<false>(a, ab_aliased, re_aliased, s));
   }

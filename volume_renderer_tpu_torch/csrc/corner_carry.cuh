@@ -1,13 +1,13 @@
 // corner_carry.cuh: a sample's cell, its fetch, and the carried scatter.
 //
-// What the unlit kernels share for the corners of a trilinear sample: the
-// cell (the lower corner before any clamp, and the weights), the fetch of
-// one or two volumes or of a packed grid (K5's four volumes, K2's two) at
-// its corners, and the carry that sums a ray's shares of a cell's corners
-// in registers before they go out as atomic adds. The z-brick kernels
-// address a halo-padded grid (ZSlab: its global depth and the global row of
-// its first row); a single-device kernel passes whole(v), for which
-// slab_row is clamp_index.
+// What the kernels share for the corners of a trilinear sample: the cell
+// (the lower corner before any clamp, and the weights), the fetch of one or
+// two volumes or of a packed grid (K5's four volumes, K2's two, lit K7
+// phase 2's four windows) at its corners, and the carry that sums a ray's
+// shares of a cell's corners in registers before they go out as atomic
+// adds. The z-brick kernels address a halo-padded grid
+// (ZSlab: its global depth and the global row of its first row); a
+// single-device kernel passes whole(v), for which slab_row is clamp_index.
 
 #pragma once
 
@@ -26,8 +26,10 @@ __device__ __forceinline__ ZSlab whole(const Vol& v) { return {v.d, 0}; }
 // A grid row for global row g: clamped against the whole depth, as the
 // single-device fetch clamps, then shifted into the grid. The second clamp
 // only keeps a stray index inside the allocation: with two halo rows no
-// owned sample of a brick reaches it.
-__device__ __forceinline__ int slab_row(int g, const Vol& v, ZSlab z) {
+// owned sample of a brick reaches it. v: a Vol, or a packed Vol4 of the
+// grid's shape.
+template <class V>
+__device__ __forceinline__ int slab_row(int g, const V& v, ZSlab z) {
   return min(max(clamp_index(g, z.d_global) - z.z_off, 0), v.d - 1);
 }
 
@@ -142,13 +144,22 @@ __device__ __forceinline__ float blend_cell(float q0, float q1, float q2, float 
   return c0 + k.fz * (c1 - c0);
 }
 
-// The 8 corners of cell k in a packed grid v (Vol4 or Vol2, whole along
-// z), c[a + 2 b + 4 c] at corner (x + a, y + b, z + c): one load a corner.
-template <class V, class T>
-__device__ __forceinline__ void load_corners(const V& v, const Cell& k, T (&c)[8]) {
+// A corner row of a packed grid at global row g: clamped to the grid
+// (whole along z) or, on a window, clamped to the whole volume and shifted
+// in (slab_row).
+template <class V>
+__device__ __forceinline__ int corner_row(int g, const V& v, WholeZ) { return clamp_index(g, v.d); }
+
+template <class V>
+__device__ __forceinline__ int corner_row(int g, const V& v, ZSlab z) { return slab_row(g, v, z); }
+
+// The 8 corners of cell k in a packed grid v (Vol4 or Vol2), placed along z
+// by zp, c[a + 2 b + 4 c] at corner (x + a, y + b, z + c): one load a corner.
+template <class V, class T, class ZP = WholeZ>
+__device__ __forceinline__ void load_corners(const V& v, const Cell& k, T (&c)[8], ZP zp = ZP()) {
   const int x0 = clamp_index(k.x, v.w), x1 = clamp_index(k.x + 1, v.w);
   const int y0 = clamp_index(k.y, v.h), y1 = clamp_index(k.y + 1, v.h);
-  const int z0 = clamp_index(k.z, v.d), z1 = clamp_index(k.z + 1, v.d);
+  const int z0 = corner_row(k.z, v, zp), z1 = corner_row(k.z + 1, v, zp);
   const size_t sy = (size_t)v.w;
   const size_t sz = (size_t)v.w * (size_t)v.h;
   const size_t r00 = y0 * sy + z0 * sz, r10 = y1 * sy + z0 * sz;
@@ -164,12 +175,14 @@ __device__ __forceinline__ void load_corners(const V& v, const Cell& k, T (&c)[8
   c[7] = __ldg(p + x1 + r11);
 }
 
-// The four volumes of a Vol4 at the corners of cell k (K5): one 16-byte
-// load a corner, each channel blended as sample() blends its volume, so
-// each is the float that sample() gives.
-__device__ __forceinline__ float4 fetch_packed(const Vol4& v, const Cell& k) {
+// The four volumes of a Vol4 at the corners of cell k (K5; lit K7 phase 2
+// on a window, zp a ZSlab): one 16-byte load a corner, each channel
+// blended as sample() (fetch_cell) blends its volume, so each is the float
+// that sample() gives.
+template <class ZP = WholeZ>
+__device__ __forceinline__ float4 fetch_packed(const Vol4& v, const Cell& k, ZP zp = ZP()) {
   float4 c[8];
-  load_corners(v, k, c);
+  load_corners(v, k, c, zp);
   return {blend_cell(c[0].x, c[1].x, c[2].x, c[3].x, c[4].x, c[5].x, c[6].x, c[7].x, k),
           blend_cell(c[0].y, c[1].y, c[2].y, c[3].y, c[4].y, c[5].y, c[6].y, c[7].y, k),
           blend_cell(c[0].z, c[1].z, c[2].z, c[3].z, c[4].z, c[5].z, c[6].z, c[7].z, k),

@@ -10,7 +10,8 @@ One brick's three passes, each a function of that brick's tensors:
 - ``brick_segment``: phase 2, the brick's contribution to the image from its
   entry opacity, and its exit opacity (same source, ``K7_segment``; lit,
   with on-the-fly gradient taps or lookup gradient volumes,
-  ``K7_segment_lit``);
+  ``K7_segment_lit``; lookup windows of one shape packed into one float4
+  grid for the launch, ``pack_window``);
 - ``brick_gradients``: the gradient segment with the scatter into the
   brick's halo-padded grids (``csrc/brick_bwd.cu``, ``K7_scatter``; lit,
   with the reflection grid and the light colors, ``K7_scatter_lit``).
@@ -187,6 +188,22 @@ def _set_entry(args: _BrickArgs, entry: Entry, dev: torch.device, opts: RenderOp
     args.entry_state = state.data_ptr()
 
 
+def pack_window(brick: Brick) -> Optional[torch.Tensor]:
+    """Lit phase 2's packed window of a lit lookup brick (or slab): its
+    emission and three gradient windows as one contiguous float32
+    (D_win, H, W, 4) tensor (``ops.cuda_march.interleave``, K5's pack), so
+    that the kernel loads a corner of the four at once; rows
+    ``[z_off, z_off + D_win)`` of the whole volume's pack, placed as the
+    emission window is. None for another scene, or where the four windows
+    differ in shape (the kernel then fetches each on its own). Made on the
+    brick's device and current stream, for each launch: after a streamed
+    window's copy, which that stream waits for."""
+    scene = brick.scene
+    if not (scene.has_lighting and scene.has_gradient_volumes):
+        return None
+    return cuda_march.pack_lookup(scene)
+
+
 def _launch_fwd(brick: Brick, opts: RenderOptions, camera_x_offset: float,
                 w_in: Optional[torch.Tensor], entry: Optional[Entry],
                 steps: Optional[torch.Tensor]):
@@ -209,6 +226,9 @@ def _launch_fwd(brick: Brick, opts: RenderOptions, camera_x_offset: float,
 
     scene = brick.scene
     lit = shade and scene.has_lighting
+    packed = pack_window(brick) if lit else None  # alive until enqueued
+    if packed is not None:
+        args.m.packed = cuda_march._Vol4(packed.data_ptr(), *packed.shape[:3])
     lib = _fwd_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -241,7 +261,9 @@ def brick_segment(brick: Brick, opts: RenderOptions, camera_x_offset: float,
     """Phase 2: the brick's contribution to the image (H, W, 3) from its
     entry opacity ``w_in`` (H, W), every ray resumed from phase 1's
     ``entry`` record, and its exit opacity (H, W). Lit scenes shade with
-    the lights, from the emission taps or the lookup gradient volumes."""
+    the lights, from the emission taps or the lookup gradient volumes; on a
+    CUDA brick those are packed with emission for the launch where the four
+    windows have one shape (``pack_window``)."""
     _require_entry(entry, brick, opts, camera_x_offset)
     if brick.device.type == "cpu":
         return brick_march.shaded_pass(brick, opts, camera_x_offset, w_in, steps, entry=entry)

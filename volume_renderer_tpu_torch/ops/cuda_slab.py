@@ -44,7 +44,10 @@ On a CUDA device each form is one kernel launch; on the CPU the wrappers run
 their plain passes (``ops/brick_march.py``), so the same sweep is tested
 here. Lit scenes take the lit forms of phase 2 and of the gradient segment,
 their windows those of reflection and, with lookup gradients, of the three
-gradient volumes too (``ops.slab._role_volumes``). A lit scene with lookup
+gradient volumes too (``ops.slab._role_volumes``), which phase 2 packs with
+emission's window for each launch (``cuda_bricks.pack_window``): on the
+stream that launches, so after a streamed window's copy, which that stream
+waits for (``_Streamed.slab``). A lit scene with lookup
 gradient volumes renders, but its gradients raise ``NotImplementedError``
 (``cuda_bricks.refuse_lit_lookup``); ``ops.slab.render_fused_slabbed``
 differentiates it in plain PyTorch.
