@@ -77,7 +77,14 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             gradient volumes of another shape, unpacked, on the last brick);
             the lit gradient segment's grids within 1e-5 of scale, its other
             keys 1e-4; the bricked image and the slab sweep against K4's and
-            K5's.
+            K5's. Then every form over a band (a rank of a rows x bricks
+            mesh marches one): two bands of 96 rows at 32^3 / 256x192, 4
+            bricks, on the four unlit cameras and on a lit on-the-fly (two
+            lights) and a lit lookup (packed) scene, each band equal to the
+            whole launch's rows to the bit (the gradient segments' bands
+            summed within 1e-5 of scale) and held against its plain band
+            pass, as the whole launches are, on every brick of one unlit
+            camera and on the lit scenes' last brick.
 9. bricks_main_path: at 256^3 / 512^2 on the noisy K3 scene, the launch
             forms against their plain passes on a 64-row band; then, counted
             like phase 5, render_forward_bricked_fast with 4 and 8 bricks,
@@ -227,11 +234,16 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             rank, the relay over the group; BRICK_WORLDS) in those two
             worlds at 12^3 / 16^2 and in four gloo ranks on the one card at
             256^3 / 512^2 (the flagship shell with 5 % seeded noise, unlit,
-            lit and lit lookup), each rank building only its own z-rows: a
-            bricked render and one train_step_fast_bricked_ranks step a
-            rank, with every rank's K7 launches, ms and peak MiB, against
-            the one-process bricked kernels on make_mesh(ranks), timed
-            alike (bricked_rehearsal_cells).
+            lit and lit lookup), and on rows x bricks meshes
+            (global_mesh_2d: rank (r, b) marches brick b over band r, the
+            bands joined over the brick's ranks), 2 x 1 at 12^3 / 16^2 and
+            2 x 2, four gloo ranks, at 256^3 / 512^2, every world at once,
+            each rank building only its own z-rows: a bricked render and
+            one train_step_fast_bricked_ranks step a rank, with every
+            rank's K7 launches (2 a render, 3 a step), ms and peak MiB,
+            against the one-process bricked kernels on make_mesh(B) over
+            the whole image (a rows x bricks image to the bit), timed alike
+            (bricked_rehearsal_cells).
 20. scaling_probe: utils/scaling_probe.measure at 256^3 / 512^2, the
             device time of render_forward_fast_sharded on 8 bands and of
             render_forward_bricked_fast on 8 bricks against 1, all on the
@@ -1156,31 +1168,36 @@ def utils_phase(ctx, trace_dir: str, checkpoint_dir: str) -> dict:
 
 
 # the bricked rehearsal's worlds of phase 19: (ranks, backend, at full
-# width); the last at this slice's full width (multihost.FULL), 4 ranks on
-# the one card
-BRICK_WORLDS = ((1, "nccl", False), (2, "gloo", False), (4, "gloo", True))
+# width, bands of image rows); a brick a rank over the whole image in the
+# first three, the third at full width (multihost.FULL), 4 ranks on the one
+# card; then rows x bricks worlds, rank (r, b) marching brick b over band r:
+# 2 x 1 at 12^3 and 2 x 2 at full width
+BRICK_WORLDS = ((1, "nccl", False, 1), (2, "gloo", False, 1), (4, "gloo", True, 1),
+                (2, "gloo", False, 2), (4, "gloo", True, 2))
 BRICK_FORMS = {"unlit": ("K7_transmittance", "K7_segment", "K7_scatter"),
                "lit": ("K7_transmittance", "K7_segment_lit", "K7_scatter_lit"),
                "lookup": ("K7_transmittance", "K7_segment_lit")}
-RANK_IMAGE_TOL = 1e-6    # of scale: the ranks' image against the one-process one's
+RANK_IMAGE_TOL = 1e-6    # of scale: the ranks' image against the one-process one's (1 x W)
 RANK_GRAD_TOL = 1e-5     # of scale: the gradient segment's atomic adds land in any order
 RANK_LOSS_TOL = 1e-6     # relative
 
 
 def bricked_rehearsal_cells(ctx, rehearsals) -> dict:
-    """Each bricked rehearsal (``multihost.run_demo(bricks=...)``, a brick a
-    rank) against the one-process bricked kernels on ``make_mesh(ranks)`` of
-    the same card, on the same cases (``multihost.brick_demo_cases``): every
-    rank's image within RANK_IMAGE_TOL of scale, its entry record equal to
-    phase 1's on the same brick, its gradients for the step's cotangent and
-    its kernel step's gradients within RANK_GRAD_TOL of scale, the loss
-    within RANK_LOSS_TOL; every rank launched each K7 form of its case
-    (``BRICK_FORMS``). Each rank held only its own rows (``rows``) and
-    reports its peak MiB. The ranks' forward and step ms beside the one
-    process's on the same bricks (``multihost.one_process_ms``; both
-    ``multihost.wall_ms``, the median of 5 warm calls): on one card that is
-    the collectives' cost (gloo's host copies) and the worlds' sharing of
-    the card, not scaling."""
+    """Each bricked rehearsal (``multihost.run_demo(bricks=..., bands=R)``,
+    rank (r, b) marching brick b of B over band r of R) against the
+    one-process bricked kernels on ``make_mesh(B)`` of the same card over
+    the whole image, on the same cases (``multihost.brick_demo_cases``):
+    every rank's image within RANK_IMAGE_TOL of scale, and to the bit on a
+    rows x bricks world (R > 1); its entry record equal to phase 1's on the
+    same brick and band; its gradients for the step's cotangent and its
+    kernel step's gradients within RANK_GRAD_TOL of scale, the loss within
+    RANK_LOSS_TOL; every rank launched each K7 form of its case
+    (``BRICK_FORMS``), 2 a forward and 3 a step. Each rank held only its
+    brick's rows (``rows``) and reports its peak MiB. The ranks' forward and
+    step ms beside the one process's on the same bricks
+    (``multihost.one_process_ms``; both ``multihost.wall_ms``, the median of
+    5 warm calls): on one card that is the collectives' cost (gloo's host
+    copies) and the worlds' sharing of the card, not scaling."""
     import torch
 
     from volume_renderer_tpu_torch import train
@@ -1196,7 +1213,9 @@ def bricked_rehearsal_cells(ctx, rehearsals) -> dict:
         return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
 
     def joined(results, case, step, key):
-        parts = [r[case][step]["grads"][key] for r in results]
+        """A key's gradient: a grid's parts joined over the first band's
+        ranks, one a brick (run_demo held every band's equal to them)."""
+        parts = [r[case][step]["grads"][key] for r in results[:len(results) // results[0]["bands"]]]
         return bricks.assemble(parts) if key in GRID_KEYS else parts[0]
 
     def grads_err(name, results, case, step, want):
@@ -1210,11 +1229,14 @@ def bricked_rehearsal_cells(ctx, rehearsals) -> dict:
         return errs
 
     cells = {}
-    for (ranks, backend, spec), (results, seconds) in rehearsals.items():
-        name = f"{ranks}_{backend}_{spec.volume}"
-        mesh = make_mesh(ranks, ctx.dev)
-        cell = {"backend": backend, "ranks": ranks, "mesh": results[0]["mesh"],
-                "volume": spec.volume, "image": [spec.width, spec.height], "noise": spec.noise,
+    for (ranks, backend, spec, n_bands), (results, seconds) in rehearsals.items():
+        n_bricks = ranks // n_bands
+        name = (f"{ranks}_{backend}_{spec.volume}" if n_bands == 1
+                else f"{n_bands}x{n_bricks}_{backend}_{spec.volume}")
+        mesh = make_mesh(n_bricks, ctx.dev)
+        cell = {"backend": backend, "ranks": ranks, "bands": n_bands, "bricks": n_bricks,
+                "mesh": results[0]["mesh"], "volume": spec.volume,
+                "image": [spec.width, spec.height], "noise": spec.noise,
                 "seconds": seconds, "rank_peak_mib": [r["peak_mib"] for r in results]}
         for case, (scene, opts, target, start) in multihost.brick_demo_cases(ctx.dev,
                                                                              spec).items():
@@ -1225,24 +1247,33 @@ def bricked_rehearsal_cells(ctx, rehearsals) -> dict:
                    "rank_forward_ms": [r[case]["forward_ms"] for r in results],
                    "image_err_of_scale": [],
                    **multihost.one_process_ms(scene, opts, target, start, mesh)}
+            band_rows = opts.height // n_bands
+            # a forward (phase 1, phase 2) and, but for lookup, a step (+ the segment)
+            launches = {k: (1 if case == "lookup" else (1 if k == BRICK_FORMS[case][2] else 2))
+                        for k in BRICK_FORMS[case]}
             for r in results:
-                rows = {k: spec.volume // ranks for k in r[case]["rows"]}
+                if (r["band"], r["brick"], r["bands"]) != (*divmod(r["rank"], n_bricks), n_bands):
+                    raise RuntimeError(f"{what}: rank {r['rank']} is band {r['band']} and brick "
+                                       f"{r['brick']} of {r['bands']} bands")
+                rows = {k: spec.volume // n_bricks for k in r[case]["rows"]}
                 if r[case]["rows"] != rows:
                     raise RuntimeError(f"{what}: rank {r['rank']} held {r[case]['rows']} rows, "
-                                       f"not its own {spec.volume // ranks}")
+                                       f"not its own {spec.volume // n_bricks}")
                 out["image_err_of_scale"].append(err_of_scale(r[case]["image"], image))
-                if out["image_err_of_scale"][-1] > RANK_IMAGE_TOL:
+                if (out["image_err_of_scale"][-1] > RANK_IMAGE_TOL
+                        or (n_bands > 1 and not torch.equal(r[case]["image"].to(ctx.dev), image))):
                     raise RuntimeError(f"{what}: rank {r['rank']}'s image is "
                                        f"{out['image_err_of_scale'][-1]:.3e} of scale off")
-                _, entry = cuda_bricks.brick_transmittance(split.bricks[r["rank"]], opts)
+                _, entry = cuda_bricks.brick_transmittance(
+                    split.bricks[r["brick"]], opts, y_offset=r["band"] * band_rows,
+                    n_rows=band_rows)
                 if not (torch.equal(r[case]["entry"]["step"].to(ctx.dev), entry.step)
                         and torch.equal(r[case]["entry"]["state"].to(ctx.dev), entry.state)):
                     raise RuntimeError(f"{what}: rank {r['rank']}'s entry record is not "
-                                       "phase 1's on its brick")
-                missing = [k for k in BRICK_FORMS[case] if not r[case]["launches"].get(k)]
-                if missing:
-                    raise RuntimeError(f"{what}: rank {r['rank']} launched no {missing}: "
-                                       f"{r[case]['launches']}")
+                                       "phase 1's on its brick and band")
+                if r[case]["launches"] != launches:
+                    raise RuntimeError(f"{what}: rank {r['rank']} launched "
+                                       f"{r[case]['launches']}, not {launches}")
             if case == "lookup":
                 if not all("render_fused_bricked" in r[case]["grads_refused"] for r in results):
                     raise RuntimeError(f"{what}: a rank's gradients did not refuse")
@@ -2597,6 +2628,147 @@ def main() -> None:
         for form, ms in lit_cases[name]["plain_ms"].items():
             lit_plain_ms[form] += ms
         del scene
+    # Band launches (a rank of a rows x bricks mesh marches one): every K7
+    # form over the two halves of the image, bands of BRICK_BAND rows, at
+    # 32^3 / 256x192 on 4 bricks. Each band against the whole launch's rows
+    # (phase 1's opacity and record, phase 2's contribution and exit opacity,
+    # lit phase 2 on the fly and packed: to the bit; the gradient segments'
+    # two bands summed: within 1e-5 of scale, as their atomic adds land in
+    # any order) on the four unlit cameras above and on two lit scenes; and
+    # against its plain band pass (ops/brick_march.py) on one unlit camera
+    # (every brick) and on the lit scenes' last brick, held as above.
+    band_counts = {f"K7_{form}": 0 for form in K7_FORMS + ("segment_lit", "scatter_lit")}
+
+    def band_launch(mode, launch):
+        """``launch()``, a band form of K7; its launches, read from the
+        kernels' own counts, are added to ``band_counts``, and it must have
+        launched ``mode`` once."""
+        before = dict(cuda_march.LAUNCHES_BY_MODE)
+        result = launch()
+        delta = {k: v - before[k] for k, v in cuda_march.LAUNCHES_BY_MODE.items()}
+        if delta[mode] != 1 or sum(delta.values()) != 1:
+            raise RuntimeError(f"a band's {mode} launched {delta}, not one {mode}")
+        for k, v in delta.items():
+            if k in band_counts:
+                band_counts[k] += v
+        return result
+    band_err = {"vs_whole_forward": 0.0, "vs_whole_gradients_of_scale": 0.0,
+                "vs_plain_forward": 0.0, "vs_plain_gradients_of_scale": 0.0}
+    band_plain_ms = {form: 0.0 for form in K7_FORMS + ("segment_lit", "scatter_lit")}
+
+    def band_compare(name, scene, opts, g, plain_bricks):
+        """Each K7 form of ``scene`` over two bands against the whole launch
+        and, on the bricks ``plain_bricks``, against its plain band pass."""
+        lit = scene.has_lighting
+        lookup = lit and scene.has_gradient_volumes
+        seg, scat = ("segment_lit", "scatter_lit") if lit else ("segment", "scatter")
+        split = bricks.split_bricks(scene, make_mesh(BRICKS))
+        fwd = bricks._forward(split, opts, 0.0, fast=True)
+        up_dots = bricks._upstream([brick_march.own_dot(g, own) for own in fwd.own],
+                                   fwd.ascending, torch.cumsum, 0.0)
+        bands_ = [(y0, BRICK_BAND) for y0 in range(0, opts.height, BRICK_BAND)]
+        assert bands_[-1][0] + BRICK_BAND == opts.height, name
+        out = {"bands": bands_, "grads_vs_whole_of_scale": {}, "grads_vs_plain_of_scale": {},
+               "plain_bricks": sorted(plain_bricks)}
+
+        def worst(key, what, err):
+            out[what][key] = max(out[what].get(key, 0.0), err)
+
+        for brick, w_in, up, entry in zip(split.bricks, fwd.w_in, up_dots, fwd.entry):
+            tag = f"{name} brick {brick.index}"
+            w_in, up = w_in.contiguous(), up.contiguous()
+            w_own, _ = cuda_bricks.brick_transmittance(brick, opts)
+            own, w_out = cuda_bricks.brick_segment(brick, opts, 0.0, w_in, entry)
+            whole = (None if lookup else
+                     cuda_bricks.brick_gradients(brick, opts, 0.0, g, fwd.image, w_in, up, entry))
+            summed = {}
+            for y0, rows in bands_:
+                def cut(t):
+                    return t[y0:y0 + rows].contiguous()
+
+                band_kw = dict(y_offset=y0, n_rows=rows)
+                b_w, b_entry = band_launch("K7_transmittance", lambda: cuda_bricks
+                                           .brick_transmittance(brick, opts, **band_kw))
+                b_own, b_out = band_launch(f"K7_{seg}", lambda: cuda_bricks.brick_segment(
+                    brick, opts, 0.0, cut(w_in), b_entry, **band_kw))
+                want_entry = entry.rows(y0, rows)
+                if not (torch.equal(b_w, cut(w_own)) and torch.equal(b_own, cut(own))
+                        and torch.equal(b_out, cut(w_out))
+                        and torch.equal(b_entry.step, want_entry.step)
+                        and torch.equal(b_entry.state, want_entry.state)
+                        and b_entry.made_for == want_entry.made_for):
+                    raise RuntimeError(f"{tag} rows {y0}-{y0 + rows - 1}: a band's phase 1 or "
+                                       f"{seg} is not the whole launch's rows")
+                b_grads = None
+                if not lookup:
+                    b_grads = band_launch(f"K7_{scat}", lambda: cuda_bricks.brick_gradients(
+                        brick, opts, 0.0, cut(g), cut(fwd.image), cut(w_in), cut(up), b_entry,
+                        **band_kw))
+                    for key, value in b_grads.items():
+                        summed[key] = value if key not in summed else summed[key] + value
+                if brick.index not in plain_bricks:
+                    continue
+                (p_w, p_entry), ms = timed(lambda: brick_march.transmittance_pass(
+                    brick, opts, 0.0, **band_kw))
+                band_plain_ms["transmittance"] += ms
+                (p_own, p_out), ms = timed(lambda: brick_march.shaded_pass(
+                    brick, opts, 0.0, cut(w_in), entry=b_entry, **band_kw))
+                band_plain_ms[seg] += ms
+                if not (torch.equal(b_w, p_w) and torch.equal(b_entry.step, p_entry.step)
+                        and torch.equal(b_entry.state, p_entry.state)):
+                    raise RuntimeError(f"{tag} rows {y0}-{y0 + rows - 1}: a band's phase 1 is "
+                                       "not its plain pass")
+                mode = "K5" if lookup else ("K4" if lit else "K1")
+                err = max(check(f"{tag} band {seg}", b_own, p_own, *tol[mode], None),
+                          check(f"{tag} band exit opacity", b_out, p_out, *tol[mode], None))
+                if not lookup and err:  # as the whole launches, exact but for lookup
+                    raise RuntimeError(f"{tag}: a band's {seg} is {err:.3e} off its plain pass")
+                band_err["vs_plain_forward"] = max(band_err["vs_plain_forward"], err)
+                if lookup:
+                    continue
+                want, ms = timed(lambda: brick_march.replay_pass(
+                    brick, opts, 0.0, cut(g), cut(fwd.image), cut(w_in), cut(up),
+                    angle_floor=True, entry=b_entry, **band_kw))
+                band_plain_ms[scat] += ms
+                for key, value in b_grads.items():
+                    value, ref = value.double(), want[key].double()
+                    err = float((value - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+                    limit = BRICK_GRAD_TOL if (key in ("emission", "absorption", "reflection")
+                                               or not lit) else GRAD_TOL
+                    if err > limit:
+                        raise RuntimeError(f"{tag} band {y0} {key}: {err:.3e} of scale off the "
+                                           "plain gradient segment")
+                    worst(key, "grads_vs_plain_of_scale", err)
+            for key, value in (whole or {}).items():
+                err = (float((summed[key].double() - value.double()).abs().max())
+                       / max(float(value.abs().max()), 1e-30))
+                if err > RANK_GRAD_TOL:
+                    raise RuntimeError(f"{tag} {key}: the bands' gradient segments summed are "
+                                       f"{err:.3e} of scale off the whole launch's")
+                worst(key, "grads_vs_whole_of_scale", err)
+        band_err["vs_whole_gradients_of_scale"] = max(
+            [band_err["vs_whole_gradients_of_scale"], *out["grads_vs_whole_of_scale"].values()])
+        band_err["vs_plain_gradients_of_scale"] = max(
+            [band_err["vs_plain_gradients_of_scale"], *out["grads_vs_plain_of_scale"].values()])
+        return out
+
+    band_cases = {}
+    for i, (name, scene, plain_bricks) in enumerate((
+            ("dz_positive", brick_scene(PLAIN["volume"], (10, 5, 0)), range(BRICKS)),
+            ("dz_negative_aliased", brick_scene(PLAIN["volume"], (180, 20, 0), ab_aliased=True),
+             ()),
+            ("dz_mixed", brick_scene(PLAIN["volume"], (88, 0, 0)), ()),
+            ("dz_positive_absorption_other_shape",
+             brick_scene(PLAIN["volume"], (10, 5, 0), ab_other_shape=True), ()),
+            ("lit_otf_two_lights", flagship(PLAIN["volume"], "K4", ab_aliased=False, n_lights=2,
+                                            noise=0.05), (BRICKS - 1,)),
+            ("lit_lookup_packed", flagship(PLAIN["volume"], "K5", ab_aliased=False),
+             (BRICKS - 1,)))):
+        band_cases[name] = band_compare(name, scene, scene.options(PLAIN["width"],
+                                                                   PLAIN["height"]),
+                                        cotangent(PLAIN["height"], PLAIN["width"], seed=30 + i),
+                                        set(plain_bricks))
+        del scene
     record({"phase": "bricks_vs_plain", "volume": PLAIN["volume"],
             "image": [PLAIN["width"], PLAIN["height"]], "bricks": BRICKS, "volume_noise": 0.05,
             "tolerance": {"atol": tol["K1"][0], "rtol": tol["K1"][1],
@@ -2607,7 +2779,12 @@ def main() -> None:
                     "plain_ms": lit_plain_ms,
                     "tolerance": {"phase_2_otf": 0.0, "phase_2_lookup": tol["K5"],
                                   "phase_2_lookup_packed_vs_unpacked": 0.0,
-                                  "grids_of_scale": BRICK_GRAD_TOL, "others_of_scale": GRAD_TOL}}})
+                                  "grids_of_scale": BRICK_GRAD_TOL, "others_of_scale": GRAD_TOL}},
+            "bands": {"rows": BRICK_BAND, "cases": band_cases, "max_err": band_err,
+                      "launches": band_counts, "plain_ms": band_plain_ms,
+                      "tolerance": {"vs_whole_forward": 0.0,
+                                    "vs_whole_gradients_of_scale": RANK_GRAD_TOL,
+                                    "vs_plain": "as the whole launches above"}}})
 
     # ---- 9. the z-brick main path at 256^3 / 512^2 ------------------------
     scene = brick_scene(MAIN["volume"], (125, 25, 0))      # the noisy K3 scene
@@ -3859,16 +4036,17 @@ def main() -> None:
     mp_scene, mp_opts, mp_target, mp_start = multihost.demo_problem(dev)
     mp_image = render_forward_fast(mp_scene, mp_opts)
     worlds = ((1, "nccl"), (2, "gloo"))
-    brick_worlds = tuple((ranks, backend, multihost.FULL if full else multihost.BrickDemo())
-                         for ranks, backend, full in BRICK_WORLDS)
+    brick_worlds = tuple((ranks, backend, multihost.FULL if full else multihost.BrickDemo(),
+                          bands) for ranks, backend, full, bands in BRICK_WORLDS)
     # every rehearsal at once, each in processes of its own: rays-DP and
-    # bricked in the two small worlds, and the bricked one at full width
+    # bricked in the small worlds, and the bricked ones at full width (1 x 4
+    # and 2 x 2), which share the card with each other and the small worlds
     with concurrent.futures.ThreadPoolExecutor(len(worlds) + len(brick_worlds)) as pool:
         started = {world: (time.perf_counter(), pool.submit(
             multihost.run_demo, world[0], "cuda", world[1], 300.0)) for world in worlds}
         started.update({world: (time.perf_counter(), pool.submit(
-            multihost.run_demo, world[0], "cuda", world[1], 300.0, bricks=world[2]))
-            for world in brick_worlds})
+            multihost.run_demo, world[0], "cuda", world[1], 300.0, bricks=world[2],
+            bands=world[3])) for world in brick_worlds})
         rehearsals = {world: (future.result(), time.perf_counter() - t0)
                       for world, (t0, future) in started.items()}
     for ranks, backend in worlds:
@@ -3995,6 +4173,7 @@ def main() -> None:
             "launches": brick_launches[form], "max_abs_err": brick_err[form],
             "slab_launches": {path: counts[f"K7_{form}"] for path, counts in slab_launches.items()},
             "rank_launches": rank_launches(f"K7_{form}"),
+            "band_check_launches": band_counts[f"K7_{form}"],
             **({"max_err_of_scale": brick_grad_err[0]} if form == "scatter" else {}),
             **({"corner_loads_per_sample": cell["corner_loads"]["loads_per_sample"]}
                if "corner_loads" in cell else {}),
@@ -4017,6 +4196,7 @@ def main() -> None:
             "launches": lit_brick_launches[f"K7_{form}"], "max_abs_err": brick_err[form],
             "slab_launches": {path: counts[f"K7_{form}"] for path, counts in lit_launches.items()},
             "rank_launches": rank_launches(f"K7_{form}"),
+            "band_check_launches": band_counts[f"K7_{form}"],
             **({"max_err_of_scale": brick_grad_err[0]} if form == "scatter_lit" else {}),
             **({"lookup": {k: lit_cells["segment_lit_lookup"][k]
                            for k in ("ms", "samples", "bound_ms", "bound_by", "pack_ms")},

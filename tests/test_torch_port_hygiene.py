@@ -45,7 +45,7 @@ def test_import_pulls_in_no_jax():
             "from volume_renderer_tpu_torch.parallel.multihost import (GroupRelay, BrickDemo,\n"
             "    split_brick_rank, render_forward_bricked_ranks, voxel_grads_bricked_ranks,\n"
             "    split_params_bricked_rank, train_step_fast_bricked_ranks,\n"
-            "    render_fused_bricked_ranks, run_demo)\n"
+            "    render_fused_bricked_ranks, run_demo, RankMesh, global_mesh_2d)\n"
             "import volume_renderer_tpu_torch.examples._data\n"
             + "".join(f"import volume_renderer_tpu_torch.examples.{name}\n" for name in EXAMPLES) +
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"

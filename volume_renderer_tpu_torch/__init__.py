@@ -24,7 +24,8 @@ picks the tier of a render or training step from the device's memory, for
 per-pixel reference march (the facade's ``backend="oracle"``), and
 ``utils`` holds the stopwatch, the profiler trace and the checkpoints.
 ``parallel.multihost`` runs rays-DP and the z-brick relay across processes
-over ``torch.distributed``, a band or a brick a rank. ``examples`` holds the
+over ``torch.distributed``, a band or a brick a rank, or a brick and a band
+a rank on a rows x bricks mesh (``global_mesh_2d``). ``examples`` holds the
 JAX package's example scripts, ported (``python -m
 volume_renderer_tpu_torch.examples.example1``).
 """

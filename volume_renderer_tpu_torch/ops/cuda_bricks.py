@@ -20,6 +20,14 @@ Phase 2 and the gradient segment resume every ray from phase 1's record and
 require it: nothing walks a ray from step 0 but phase 1, which fetches
 absorption alone and is one kernel lit or not.
 
+Each takes a band of image rows, ``n_rows`` from ``y_offset`` (default: the
+whole image), as the TPU kernel's ``_launch(band=...)`` does: the launch
+marches those rows alone (``MarchArgs.row0``, ``image_height``), every
+plane it takes or returns is (n_rows, W), and its rays are the whole
+launch's, so a band's results are the whole launch's rows bit for bit (the
+gradient segment's grids to the order of its atomic adds). The entry record
+is keyed with its band, and a pass refuses a record made for another.
+
 For a brick on a CUDA device each is one kernel launch; for a brick on the
 CPU the plain pass of ``ops/brick_march.py``. There is no fallback: on a
 CUDA brick a failed build, a tensor the kernel does not take or a refused
@@ -129,23 +137,24 @@ def _cuda_device(brick: Brick, what: str) -> torch.device:
     return dev
 
 
-def _plane(t: torch.Tensor, name: str, dev: torch.device, opts: RenderOptions,
+def _plane(t: torch.Tensor, name: str, dev: torch.device, opts: RenderOptions, rows: int,
            channels: Optional[int] = None) -> torch.Tensor:
-    shape = (opts.height, opts.width) + (() if channels is None else (channels,))
+    shape = (rows, opts.width) + (() if channels is None else (channels,))
     if tuple(_checked(t, name, dev, len(shape)).shape) != shape:
         raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     return t
 
 
-def _brick_args(brick: Brick, opts: RenderOptions, camera_x_offset: float
-                ) -> Tuple[_BrickArgs, torch.Tensor]:
-    """The kernels' arguments for a CUDA brick (outputs and ``w_in`` left
-    null), and the settings tensor they point into: keep it until the launch
-    is enqueued."""
+def _brick_args(brick: Brick, opts: RenderOptions, camera_x_offset: float, y_offset: int,
+                rows: int) -> Tuple[_BrickArgs, torch.Tensor]:
+    """The kernels' arguments for a CUDA brick over the band of ``rows``
+    image rows from ``y_offset`` (outputs and ``w_in`` left null), and the
+    settings tensor they point into: keep it until the launch is enqueued."""
     scene = brick.scene
     lookup = scene.has_lighting and scene.has_gradient_volumes
     args = _BrickArgs()
-    args.m, settings = cuda_march.march_args(scene, opts, camera_x_offset, lookup=lookup)
+    args.m, settings = cuda_march.march_args(scene, opts, camera_x_offset, lookup=lookup,
+                                             y_offset=y_offset, n_rows=rows)
     args.n_bricks, args.brick = brick.n, brick.index
     args.em_z_off, args.em_d_global = brick.slab_geometry(scene.emission.data)
     if not scene.absorption_aliased:
@@ -162,29 +171,32 @@ def _brick_args(brick: Brick, opts: RenderOptions, camera_x_offset: float
     return args, settings
 
 
-def _int_plane(t: Optional[torch.Tensor], name: str, dev: torch.device, opts: RenderOptions):
-    """The pointer of an int32 (H, W) tensor on the brick's device, or None."""
+def _int_plane(t: Optional[torch.Tensor], name: str, dev: torch.device, opts: RenderOptions,
+               rows: int):
+    """The pointer of an int32 (rows, W) tensor on the brick's device, or None."""
     if t is None:
         return None
     if (t.dtype != torch.int32 or t.device != dev or not t.is_contiguous()
-            or tuple(t.shape) != (opts.height, opts.width)):
-        raise ValueError(f"{name} must be a contiguous int32 (H, W) tensor on the brick's device")
+            or tuple(t.shape) != (rows, opts.width)):
+        raise ValueError(f"{name} must be a contiguous int32 ({rows}, {opts.width}) tensor on "
+                         "the brick's device")
     return t.data_ptr()
 
 
-def _require_entry(entry: Entry, brick: Brick, opts: RenderOptions,
-                   camera_x_offset: float) -> None:
+def _require_entry(entry: Entry, brick: Brick, opts: RenderOptions, camera_x_offset: float,
+                   y_offset: int, rows: int) -> None:
     if not isinstance(entry, Entry):
         raise TypeError("entry must be the brick_march.Entry that brick_transmittance returned "
                         f"for this brick, got {type(entry).__name__}")
-    entry.check(Entry.key(brick, opts, camera_x_offset))
+    entry.check(Entry.key(brick, opts, camera_x_offset, y_offset, rows))
 
 
-def _set_entry(args: _BrickArgs, entry: Entry, dev: torch.device, opts: RenderOptions) -> None:
-    state = _plane(entry.state, "entry.state", dev, opts, 4)
+def _set_entry(args: _BrickArgs, entry: Entry, dev: torch.device, opts: RenderOptions,
+               rows: int) -> None:
+    state = _plane(entry.state, "entry.state", dev, opts, rows, 4)
     if state.data_ptr() % 16:
         raise ValueError("entry.state must be 16-byte aligned (it is read as float4)")
-    args.entry_step = _int_plane(entry.step, "entry.step", dev, opts)
+    args.entry_step = _int_plane(entry.step, "entry.step", dev, opts, rows)
     args.entry_state = state.data_ptr()
 
 
@@ -206,23 +218,24 @@ def pack_window(brick: Brick) -> Optional[torch.Tensor]:
 
 def _launch_fwd(brick: Brick, opts: RenderOptions, camera_x_offset: float,
                 w_in: Optional[torch.Tensor], entry: Optional[Entry],
-                steps: Optional[torch.Tensor]):
+                steps: Optional[torch.Tensor], y_offset: int, rows: int):
     dev = _cuda_device(brick, "the brick march")
     shade = w_in is not None
-    args, settings = _brick_args(brick, opts, camera_x_offset)  # settings: alive until enqueued
-    w_out = torch.empty((opts.height, opts.width), dtype=torch.float32, device=dev)
+    # settings: alive until enqueued
+    args, settings = _brick_args(brick, opts, camera_x_offset, y_offset, rows)
+    w_out = torch.empty((rows, opts.width), dtype=torch.float32, device=dev)
     out = None
     if shade:
-        args.w_in = _plane(w_in, "w_in", dev, opts).data_ptr()
-        out = torch.empty((opts.height, opts.width, 3), dtype=torch.float32, device=dev)
+        args.w_in = _plane(w_in, "w_in", dev, opts, rows).data_ptr()
+        out = torch.empty((rows, opts.width, 3), dtype=torch.float32, device=dev)
         args.m.out = out.data_ptr()
     else:  # phase 1 writes the record
-        entry = Entry(torch.empty((opts.height, opts.width), dtype=torch.int32, device=dev),
-                      torch.empty((opts.height, opts.width, 4), dtype=torch.float32, device=dev),
-                      Entry.key(brick, opts, camera_x_offset))
-    _set_entry(args, entry, dev, opts)
+        entry = Entry(torch.empty((rows, opts.width), dtype=torch.int32, device=dev),
+                      torch.empty((rows, opts.width, 4), dtype=torch.float32, device=dev),
+                      Entry.key(brick, opts, camera_x_offset, y_offset, rows))
+    _set_entry(args, entry, dev, opts, rows)
     args.w_out = w_out.data_ptr()
-    args.m.steps = _int_plane(steps, "steps", dev, opts)
+    args.m.steps = _int_plane(steps, "steps", dev, opts, rows)
 
     scene = brick.scene
     lit = shade and scene.has_lighting
@@ -243,36 +256,46 @@ def _launch_fwd(brick: Brick, opts: RenderOptions, camera_x_offset: float,
 
 
 def brick_transmittance(brick: Brick, opts: RenderOptions, camera_x_offset: float = 0.0,
-                        steps: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Entry]:
+                        steps: Optional[torch.Tensor] = None, *, y_offset: int = 0,
+                        n_rows: Optional[int] = None) -> Tuple[torch.Tensor, Entry]:
     """Phase 1: the opacity (H, W) that the brick's own samples build up
     from zero, on the brick's device (its transmittance is one minus that),
     and every ray's entry record, which phase 2 and the gradient segment
     take. ``steps`` (int32, (H, W)) receives each ray's number of samples.
-    One kernel for every scene: the opacity reads absorption alone."""
+    One kernel for every scene: the opacity reads absorption alone. With
+    ``n_rows`` (None: to the last row) the band of image rows from
+    ``y_offset`` alone, every (H, W) above then (n_rows, W)."""
+    rows = cuda_march.band_rows(opts, y_offset, n_rows)
     if brick.device.type == "cpu":
-        return brick_march.transmittance_pass(brick, opts, camera_x_offset, steps)
-    _, w, entry = _launch_fwd(brick, opts, camera_x_offset, None, None, steps)
+        return brick_march.transmittance_pass(brick, opts, camera_x_offset, steps,
+                                              y_offset=y_offset, n_rows=rows)
+    _, w, entry = _launch_fwd(brick, opts, camera_x_offset, None, None, steps, y_offset, rows)
     return w, entry
 
 
 def brick_segment(brick: Brick, opts: RenderOptions, camera_x_offset: float,
-                  w_in: torch.Tensor, entry: Entry, steps: Optional[torch.Tensor] = None
+                  w_in: torch.Tensor, entry: Entry, steps: Optional[torch.Tensor] = None, *,
+                  y_offset: int = 0, n_rows: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Phase 2: the brick's contribution to the image (H, W, 3) from its
     entry opacity ``w_in`` (H, W), every ray resumed from phase 1's
     ``entry`` record, and its exit opacity (H, W). Lit scenes shade with
     the lights, from the emission taps or the lookup gradient volumes; on a
     CUDA brick those are packed with emission for the launch where the four
-    windows have one shape (``pack_window``)."""
-    _require_entry(entry, brick, opts, camera_x_offset)
+    windows have one shape (``pack_window``). A band as in
+    ``brick_transmittance``, whose record for that band it takes."""
+    rows = cuda_march.band_rows(opts, y_offset, n_rows)
+    _require_entry(entry, brick, opts, camera_x_offset, y_offset, rows)
     if brick.device.type == "cpu":
-        return brick_march.shaded_pass(brick, opts, camera_x_offset, w_in, steps, entry=entry)
-    return _launch_fwd(brick, opts, camera_x_offset, w_in, entry, steps)[:2]
+        return brick_march.shaded_pass(brick, opts, camera_x_offset, w_in, steps,
+                                       y_offset=y_offset, n_rows=rows, entry=entry)
+    return _launch_fwd(brick, opts, camera_x_offset, w_in, entry, steps, y_offset, rows)[:2]
 
 
 def brick_gradients(brick: Brick, opts: RenderOptions, camera_x_offset: float,
                     g: torch.Tensor, image: torch.Tensor, w_in: torch.Tensor,
-                    up_dot: torch.Tensor, entry: Entry) -> Dict[str, torch.Tensor]:
+                    up_dot: torch.Tensor, entry: Entry, *, y_offset: int = 0,
+                    n_rows: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The gradient segment: the brick's share of every gradient for the
     pixel cotangent ``g`` (H, W, 3), given the GLOBAL ``image``, the brick's
     entry opacity ``w_in``, ``up_dot``, the sum of ``g . contribution``
@@ -282,23 +305,28 @@ def brick_gradients(brick: Brick, opts: RenderOptions, camera_x_offset: float,
     parameters (``factor_emission``, ``factor_absorption``,
     ``factor_reflection``, ``color`` and, lit, ``light_colors``) as this
     brick's term of the sum over bricks: the keys of
-    ``ops.cuda_grads.voxel_grads_fast``. A lit scene with lookup gradient
+    ``ops.cuda_grads.voxel_grads_fast``. A band as in
+    ``brick_transmittance``: every (H, W) is the band's, and the grids and
+    parameters are the band's share. A lit scene with lookup gradient
     volumes raises ``NotImplementedError`` (``refuse_lit_lookup``)."""
     scene = brick.scene
     refuse_lit_lookup(scene)
-    _require_entry(entry, brick, opts, camera_x_offset)
+    rows = cuda_march.band_rows(opts, y_offset, n_rows)
+    _require_entry(entry, brick, opts, camera_x_offset, y_offset, rows)
     if brick.device.type == "cpu":
         grads = brick_march.replay_pass(brick, opts, camera_x_offset, g, image, w_in, up_dot,
-                                        angle_floor=True, entry=entry)
+                                        angle_floor=True, y_offset=y_offset, n_rows=rows,
+                                        entry=entry)
         return {k: v for k, v in grads.items() if not k.startswith("gradient_")}
     dev = _cuda_device(brick, "the brick gradient segment")
     args = _BrickGradArgs()
-    args.b, settings = _brick_args(brick, opts, camera_x_offset)  # settings: alive until enqueued
-    args.b.w_in = _plane(w_in, "w_in", dev, opts).data_ptr()
-    _set_entry(args.b, entry, dev, opts)
-    args.g = _plane(g, "g", dev, opts, 3).data_ptr()
-    args.image = _plane(image, "image", dev, opts, 3).data_ptr()
-    args.up_dot = _plane(up_dot, "up_dot", dev, opts).data_ptr()
+    # settings: alive until enqueued
+    args.b, settings = _brick_args(brick, opts, camera_x_offset, y_offset, rows)
+    args.b.w_in = _plane(w_in, "w_in", dev, opts, rows).data_ptr()
+    _set_entry(args.b, entry, dev, opts, rows)
+    args.g = _plane(g, "g", dev, opts, rows, 3).data_ptr()
+    args.image = _plane(image, "image", dev, opts, rows, 3).data_ptr()
+    args.up_dot = _plane(up_dot, "up_dot", dev, opts, rows).data_ptr()
     lit = scene.has_lighting
     lib = _bwd_library()
     n_lights = args.b.m.n_lights if lit else 0
@@ -310,7 +338,7 @@ def brick_gradients(brick: Brick, opts: RenderOptions, camera_x_offset: float,
         grids["absorption"] = torch.zeros_like(scene.absorption.data)
     if not scene.reflection_aliased:  # the lit form fills it; unlit it stays zero
         grids["reflection"] = torch.zeros_like(scene.reflection.data)
-    planes = torch.empty(((3 + 3 * n_lights) if lit else 2, opts.height, opts.width),
+    planes = torch.empty(((3 + 3 * n_lights) if lit else 2, rows, opts.width),
                          dtype=torch.float32, device=dev)
     args.d_em = grids["emission"].data_ptr()
     args.d_ab = grids["absorption"].data_ptr() if "absorption" in grids else None

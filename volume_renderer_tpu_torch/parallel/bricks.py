@@ -57,9 +57,11 @@ Entry points. ``render_forward_bricked`` and ``render_fused_bricked`` are
 plain PyTorch on any devices and take lit scenes. They also take a rows x
 bricks mesh (``parallel.mesh.make_mesh_2d``, the JAX package's ``ray_axis``):
 band r of the image rows is marched by the bricks of ``mesh[r]`` (the plain
-passes take a band), the bands are joined and the parameters' gradients
-summed over them; the image height must be divisible by the number of
-bands. ``render_forward_bricked_fast``,
+passes take a band), the bands are joined and the gradients summed over
+them; the image height must be divisible by the number of bands. The brick
+kernels take a band too (``_forward`` with ``n_rows``), which the rows x
+bricks ranks of ``parallel.multihost`` march; the one-process fast entry
+points take a list of devices alone. ``render_forward_bricked_fast``,
 ``voxel_grads_bricked_fast`` and ``train_step_fast_bricked`` run the brick
 kernels (``ops/cuda_bricks.py``) on CUDA bricks and the same plain passes on
 CPU bricks, lit scenes through the lit forms of phase 2 and of the gradient
@@ -127,6 +129,15 @@ class Relay:
         """Each key's per-brick terms summed over the bricks, on ``device``."""
         return {key: torch.stack([p.to(device) for p in terms]).sum(dim=0)
                 for key, terms in parts.items()}
+
+    def band(self, opts: RenderOptions) -> Tuple[int, Optional[int]]:
+        """(first row, rows) of the image rows that these bricks march; one
+        process marches the whole image (rows None)."""
+        return 0, None
+
+    def band_sum(self, tensors: List[torch.Tensor]) -> None:
+        """Sums each tensor over the bands of image rows, in place; one
+        process marches every row, so there is nothing to add."""
 
 
 ONE_PROCESS = Relay()
@@ -345,16 +356,13 @@ class _Forward(NamedTuple):
 
 def _forward(bricked: BrickedScene, opts: RenderOptions, camera_x_offset: float,
              fast: bool, y_offset: int = 0, n_rows: Optional[int] = None) -> _Forward:
-    """The bricked forward of the whole image or, with ``n_rows`` (plain
-    passes only), of the band of ``n_rows`` rows from ``y_offset``; every
-    (H, W) is then (n_rows, W)."""
+    """The bricked forward of the whole image or, with ``n_rows``, of the
+    band of ``n_rows`` rows from ``y_offset`` (the brick kernels and the
+    plain passes both take one); every (H, W) is then (n_rows, W)."""
     band = {} if n_rows is None else dict(y_offset=y_offset, n_rows=n_rows)
-    if fast:
-        assert not band, "the brick kernels march the whole image"
-        transmittance, segment = cuda_bricks.brick_transmittance, cuda_bricks.brick_segment
-    else:
-        transmittance = functools.partial(brick_march.transmittance_pass, **band)
-        segment = functools.partial(brick_march.shaded_pass, **band)
+    passes = ((cuda_bricks.brick_transmittance, cuda_bricks.brick_segment) if fast
+              else (brick_march.transmittance_pass, brick_march.shaded_pass))
+    transmittance, segment = (functools.partial(p, **band) for p in passes)
     relay = bricked.relay
     with torch.no_grad():
         ascending = _ascending(bricked, opts, camera_x_offset, **band)
@@ -382,8 +390,8 @@ def _backward(bricked: BrickedScene, opts: RenderOptions, camera_x_offset: float
         image_on = [fwd.image.to(brick.device) for brick in bricked.bricks]
         dots = [brick_march.own_dot(gb, own) for gb, own in zip(g_on, fwd.own)]
         up_dot = relay.upstream(dots, fwd.ascending, torch.cumsum, 0.0)
-        segment_grads = (cuda_bricks.brick_gradients if fast
-                         else functools.partial(brick_march.replay_pass, **fwd.band))
+        segment_grads = functools.partial(
+            cuda_bricks.brick_gradients if fast else brick_march.replay_pass, **fwd.band)
         per_brick = [segment_grads(brick, opts, camera_x_offset, gb, image, w, up, entry=e)
                      for brick, gb, image, w, up, e in zip(bricked.bricks, g_on, image_on,
                                                            fwd.w_in, up_dot, fwd.entry)]
@@ -538,6 +546,18 @@ def voxel_grads_bricked_fast(scene: Union[Scene, BrickedScene], opts: RenderOpti
     return fwd.image, _voxel_grads(bricked, opts, g, cam, fwd)
 
 
+def _fast_step(bricked: BrickedScene, opts: RenderOptions, target: torch.Tensor,
+               camera_x_offset: float, y_offset: int = 0, n_rows: Optional[int] = None
+               ) -> Tuple[torch.Tensor, Dict]:
+    """The sum-of-squares loss of the bricked image (or of its band of
+    ``n_rows`` rows from ``y_offset``) against the same rows of ``target``
+    (H, W, 3), and its gradients (``_voxel_grads``) at kernel speed."""
+    fwd = _forward(bricked, opts, camera_x_offset, fast=True, y_offset=y_offset, n_rows=n_rows)
+    rows = target[y_offset:y_offset + fwd.image.shape[0]]
+    resid = fwd.image - rows.to(fwd.image.device, torch.float32)
+    return torch.sum(resid ** 2), _voxel_grads(bricked, opts, 2.0 * resid, camera_x_offset, fwd)
+
+
 Params = Dict[str, Union[torch.Tensor, PerBrick]]
 
 
@@ -618,8 +638,10 @@ def train_step_fast_bricked(params: Params, optimizer: torch.optim.Optimizer,
                             camera_x_offset: float = 0.0) -> torch.Tensor:
     """One training step at kernel speed with the grids cut across the mesh
     (sum-of-squares loss): halo exchange, bricked forward, closed-form pixel
-    cotangent, gradient segments with the halo rows folded back, optimizer.
-    3 launches a brick. Updates ``params`` in place and returns the loss
+    cotangent, gradient segments with the halo rows folded back, the loss
+    and the gradients summed over the bands of the relay (``Relay.band``;
+    one process has one band, the whole image), optimizer. 3 launches a
+    brick. Updates ``params`` in place and returns the loss
     before the update, on ``mesh[0]``.
 
     With the ``BrickedScene`` of ``split_params_bricked`` and its params
@@ -643,10 +665,9 @@ def train_step_fast_bricked(params: Params, optimizer: torch.optim.Optimizer,
                                   mesh)
         else:
             merged = merge_params_bricked(params, scene)
-        fwd = _forward(merged, opts, cam, fast=True)
-        resid = fwd.image - target.to(fwd.image.device, torch.float32)
-        loss = torch.sum(resid ** 2)
-        grads = _voxel_grads(merged, opts, 2.0 * resid, cam, fwd)
+        loss, grads = _fast_step(merged, opts, target, cam, *merged.relay.band(opts))
+        merged.relay.band_sum([loss] + [t for key in params for t in (
+            grads[key] if isinstance(grads[key], list) else [grads[key]])])
         for key, value in params.items():
             if whole and key in GRID_KEYS:
                 value.grad = assemble(grads[key], value.device).reshape(value.shape)

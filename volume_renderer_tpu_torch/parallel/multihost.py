@@ -46,6 +46,19 @@ collectives are NCCL's between cards and gloo's on the CPU.
   ``split_brick_rank``, ``render_forward_bricked_ranks``,
   ``voxel_grads_bricked_ranks``, ``split_params_bricked_rank`` and
   ``train_step_fast_bricked_ranks``, ``render_fused_bricked_ranks``.
+- The rows x bricks mesh across ranks (the JAX package's bricked paths with
+  ``ray_axis=`` on a process-spanning mesh): every entry point above takes
+  ``mesh=global_mesh_2d(R, B)`` (a ``RankMesh``; None is 1 x W, the relay
+  above). Rank k is (r, b) = ``divmod(k, B)``; it holds brick b of B and
+  marches band r of the image rows, [r H / R, (r + 1) H / R), with the K7
+  kernels over that band alone. The bricks meet within the band's group
+  of B ranks (``GroupRelay(band_group, mesh)``: the halo rows, the band's
+  opacities, dots and contributions); the bands meet within the brick's
+  group of R ranks: the band images ``all_gather``ed and joined in band
+  order (every rank returns the whole image), the loss and every gradient
+  ``all_reduce``d (a grid's part summed over the bands, which the JAX
+  package's 2-D backward leaves out), so the R ranks of a brick hold the
+  same part and every rank the same parameters.
 - ``run_demo`` rehearses either: it spawns N processes
   (``torch.multiprocessing``, joined through a ``file://`` store in a
   temporary directory, so parallel test workers never share a port) that
@@ -56,11 +69,12 @@ collectives are NCCL's between cards and gloo's on the CPU.
 
       python -m volume_renderer_tpu_torch.parallel.multihost --demo --device cpu
       python -m volume_renderer_tpu_torch.parallel.multihost --demo --bricks \
-          --num-processes 4 [--backend gloo] [--full]
+          --num-processes 4 [--bands 2] [--backend gloo] [--full]
 
-  On the cards the bricked rehearsal also prints, as one JSON line, each
-  rank's forward and step ms and peak MiB beside one process driving the
-  same bricks (``one_process_ms``).
+  (``--bands R``: R x num-processes / R ranks, rank (r, b) marching brick b
+  over band r.) On the cards the bricked rehearsal also prints, as one JSON
+  line, each rank's forward and step ms and peak MiB beside one process
+  driving the same bricks over the whole image (``one_process_ms``).
 """
 
 from __future__ import annotations
@@ -142,23 +156,34 @@ def global_mesh(device: torch.device) -> List[torch.device]:
     return [torch.device(name) for name in names]
 
 
-def _on_host(t: torch.Tensor) -> bool:
+def _on_host(t: torch.Tensor, group=None) -> bool:
     """Whether a collective over ``t`` runs on a host copy: gloo reduces and
     gathers CPU tensors."""
-    return t.device.type == "cuda" and dist.get_backend() == "gloo"
+    return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
 
 
-def all_reduce_sum(tensors: List[torch.Tensor]) -> None:
-    """Sums each float32 tensor over the ranks, in place, in one collective."""
+def all_reduce_sum(tensors: List[torch.Tensor], group=None) -> None:
+    """Sums each float32 tensor over the ranks of ``group`` (None: every
+    rank), in place, in one collective."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    buf = flat.cpu() if _on_host(flat) else flat
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+    buf = flat.cpu() if _on_host(flat, group) else flat
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     if buf is not flat:
         flat.copy_(buf)
     offset = 0
     for t in tensors:
         t.copy_(flat[offset:offset + t.numel()].reshape(t.shape))
         offset += t.numel()
+
+
+def all_gather(t: torch.Tensor, group=None) -> List[torch.Tensor]:
+    """``t`` of every rank of ``group`` (None: every rank), in the group's
+    rank order, on ``t``'s device."""
+    buf = t.contiguous()
+    buf = buf.cpu() if _on_host(buf, group) else buf
+    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, buf, group=group)
+    return [p.to(t.device) for p in parts]
 
 
 def my_band(opts: RenderOptions) -> tuple:
@@ -255,10 +280,14 @@ def train_step_fast_dp(params: Params, optimizer: torch.optim.Optimizer, scene: 
 
 
 class GroupRelay(bricks.Relay):
-    """``bricks.Relay`` over the process group: rank r of W holds brick r of
-    W, and every step where the bricks meet is a collective (the JAX
-    package's ``ppermute``, ``all_gather`` and ``psum`` over the brick axis).
-    Its per-brick lists hold the rank's one brick.
+    """``bricks.Relay`` over a process group (``group``; None: every rank):
+    rank r of the group's W holds brick r of W, and every step where the
+    bricks meet is a collective over the group (the JAX package's
+    ``ppermute``, ``all_gather`` and ``psum`` over the brick axis). Its
+    per-brick lists hold the rank's one brick. On a rows x bricks mesh
+    the group is a band's ranks, and ``mesh`` (a ``RankMesh``) gives the
+    band's rows (``band``) and sums over the bands (``band_sum``:
+    ``all_reduce`` over the brick group).
 
     - the halo rows, in and back: send and receive with ranks r - 1 and
       r + 1 (``batch_isend_irecv``);
@@ -272,34 +301,30 @@ class GroupRelay(bricks.Relay):
 
     A gloo group moves a card's tensors through host copies."""
 
-    def __init__(self):
-        self.rank, self.world = dist.get_rank(), dist.get_world_size()
+    def __init__(self, group=None, mesh: Optional["RankMesh"] = None):
+        self.group, self.mesh = group, mesh
+        self.rank, self.world = dist.get_rank(group), dist.get_world_size(group)
 
-    def _gather(self, t: torch.Tensor) -> List[torch.Tensor]:
-        """``t`` of every rank, in rank order, on ``t``'s device."""
-        buf = t.contiguous()
-        buf = buf.cpu() if _on_host(buf) else buf
-        parts = [torch.empty_like(buf) for _ in range(self.world)]
-        dist.all_gather(parts, buf)
-        return [p.to(t.device) for p in parts]
+    def _peer(self, i: int) -> int:
+        """The global rank of the group's rank ``i``."""
+        return i if self.group is None else dist.get_global_rank(self.group, i)
 
     def _exchange(self, to_prev: torch.Tensor, to_next: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Sends ``to_prev`` to rank r - 1 and ``to_next`` to rank r + 1, and
-        returns what those two sent this rank (zeros where there is no such
-        rank)."""
+        """Sends ``to_prev`` to the group's rank r - 1 and ``to_next`` to its
+        rank r + 1, and returns what those two sent this rank (zeros where
+        there is no such rank)."""
         dev = to_next.device
-        host = _on_host(to_next)
+        host = _on_host(to_next, self.group)
         to_prev, to_next = (t.contiguous().cpu() if host else t.contiguous()
                             for t in (to_prev, to_next))
         from_prev, from_next = torch.zeros_like(to_next), torch.zeros_like(to_prev)
         ops = []
-        if self.rank > 0:
-            ops += [dist.P2POp(dist.isend, to_prev, self.rank - 1),
-                    dist.P2POp(dist.irecv, from_prev, self.rank - 1)]
-        if self.rank < self.world - 1:
-            ops += [dist.P2POp(dist.isend, to_next, self.rank + 1),
-                    dist.P2POp(dist.irecv, from_next, self.rank + 1)]
+        for peer, send, recv in ((self.rank - 1, to_prev, from_prev),
+                                 (self.rank + 1, to_next, from_next)):
+            if 0 <= peer < self.world:
+                ops += [dist.P2POp(dist.isend, send, self._peer(peer), self.group),
+                        dist.P2POp(dist.irecv, recv, self._peer(peer), self.group)]
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
@@ -323,37 +348,122 @@ class GroupRelay(bricks.Relay):
     def whole_sum(self, grads):
         (grad,) = grads
         total = grad.clone()
-        all_reduce_sum([total])
+        all_reduce_sum([total], self.group)
         return [total]
 
     def upstream(self, values, ascending, scan, identity):
         (value,) = values
-        return [bricks._upstream(self._gather(value), ascending, scan, identity)[self.rank]]
+        gathered = all_gather(value, self.group)
+        return [bricks._upstream(gathered, ascending, scan, identity)[self.rank]]
 
     def image(self, own, device):
         (contribution,) = own
-        return super().image(self._gather(contribution), device)
+        return super().image(all_gather(contribution, self.group), device)
 
     def param_sums(self, parts, device):
         total = {key: terms[0].to(device, torch.float32).clone() for key, terms in parts.items()}
-        all_reduce_sum(list(total.values()))
+        all_reduce_sum(list(total.values()), self.group)
         return total
+
+    def band(self, opts):
+        return (0, None) if self.mesh is None else self.mesh.rows(opts)
+
+    def band_sum(self, tensors):
+        if self.mesh is not None:
+            self.mesh.sum_bands(tensors)
 
     def whole(self, part: torch.Tensor) -> torch.Tensor:
         """The whole grid from every rank's part (a depth-1 volume is whole
         already)."""
-        return part if bricks._is_whole(part) else torch.cat(self._gather(part))
+        return part if bricks._is_whole(part) else torch.cat(all_gather(part, self.group))
 
 
-def split_brick_rank(scene: Scene, grids: Optional[Dict[str, torch.Tensor]] = None) -> Brick:
-    """This rank's brick of ``scene``: brick r of W, z-rows
-    [r * D / W, (r + 1) * D / W) of every grid, on the scene's device.
+class RankMesh(NamedTuple):
+    """The rows x bricks layout of the process group, the port's
+    process-spanning ``Mesh(devices.reshape(n_bands, n_bricks), ("rays",
+    "bricks"))``: rank k is (band, brick) = ``divmod(k, n_bricks)``, the
+    order of ``parallel.mesh.make_mesh_2d``. Rank (r, b) holds brick b of
+    ``n_bricks`` and marches band r of ``n_bands`` of the image rows
+    (``rows``). ``band_group`` holds band r's ``n_bricks`` ranks, over
+    which the bricks meet (``relay``); ``brick_group`` the ``n_bands`` ranks
+    that hold brick b, over which the bands are joined and the gradients
+    summed. ``global_mesh_2d`` makes it; a group of None is every rank."""
 
-    ``grids`` (key -> this rank's unpadded part, (D / W, H, W)) takes the
+    n_bands: int
+    n_bricks: int
+    band: int
+    brick: int
+    band_group: Optional[dist.ProcessGroup]
+    brick_group: Optional[dist.ProcessGroup]
+
+    def rows(self, opts: RenderOptions) -> Tuple[int, int]:
+        """(first row, rows) of this rank's band: [r H / R, (r + 1) H / R)."""
+        if opts.height % self.n_bands != 0:
+            raise ValueError(f"image height {opts.height} must be divisible by the ray axis "
+                             f"size {self.n_bands}")
+        rows = opts.height // self.n_bands
+        return self.band * rows, rows
+
+    def relay(self) -> GroupRelay:
+        """The relay of this rank's band, whose brick b of ``n_bricks`` it holds."""
+        return GroupRelay(self.band_group, self)
+
+    def join_bands(self, band_image: torch.Tensor) -> torch.Tensor:
+        """The whole image from every band's, on every rank: ``all_gather``
+        over the brick group, joined in band order."""
+        if self.n_bands == 1:
+            return band_image
+        return torch.cat(all_gather(band_image, self.brick_group))
+
+    def sum_bands(self, tensors: List[torch.Tensor]) -> None:
+        """Sums each float32 tensor over the bands, in place: ``all_reduce``
+        over the brick group."""
+        if self.n_bands > 1:
+            all_reduce_sum(tensors, self.brick_group)
+
+
+def global_mesh_2d(n_bands: int, n_bricks: int) -> RankMesh:
+    """The group's ``n_bands`` x ``n_bricks`` layout (``RankMesh``). Every
+    rank calls it with the same sizes: it makes every band's and every
+    brick's process group, in the same order on every rank. Raises
+    ``ValueError`` unless the group has ``n_bands * n_bricks`` ranks."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if n_bands < 1 or n_bricks < 1 or n_bands * n_bricks != world:
+        raise ValueError(f"a rows x bricks mesh of {n_bands} x {n_bricks} does not cover the "
+                         f"group's {world} ranks")
+    band, brick = divmod(rank, n_bricks)
+    band_groups = [dist.new_group([r * n_bricks + b for b in range(n_bricks)])
+                   for r in range(n_bands)]
+    brick_groups = [dist.new_group([r * n_bricks + b for r in range(n_bands)])
+                    for b in range(n_bricks)]
+    return RankMesh(n_bands, n_bricks, band, brick, band_groups[band], brick_groups[brick])
+
+
+def _layout(mesh: Optional[RankMesh]) -> RankMesh:
+    """``mesh``, checked against this rank; None is 1 x W over every rank: a
+    brick a rank, each marching the whole image."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if mesh is None:
+        return RankMesh(1, world, 0, rank, None, None)
+    if (mesh.n_bands * mesh.n_bricks != world
+            or divmod(rank, mesh.n_bricks) != (mesh.band, mesh.brick)):
+        raise ValueError(f"band {mesh.band} and brick {mesh.brick} of {mesh.n_bands} x "
+                         f"{mesh.n_bricks} are not rank {rank}'s of {world}")
+    return mesh
+
+
+def split_brick_rank(scene: Scene, grids: Optional[Dict[str, torch.Tensor]] = None, *,
+                     mesh: Optional[RankMesh] = None) -> Brick:
+    """This rank's brick of ``scene``: brick b of B (of ``mesh``; None: b
+    the rank, B the world), z-rows [b * D / B, (b + 1) * D / B) of every
+    grid, on the scene's device.
+
+    ``grids`` (key -> this rank's unpadded part, (D / B, H, W)) takes the
     place of the scene's own volumes of those keys, which then are not read.
-    The halo rows always come from the neighbouring ranks. Depth-1 volumes
-    are whole on every rank. Every rank calls it with the same keys."""
-    relay = GroupRelay()
+    The halo rows always come from the ranks of the neighbouring bricks in
+    this rank's band. Depth-1 volumes are whole on every rank. Every rank
+    calls it with the same keys."""
+    relay = _layout(mesh).relay()
     grids = dict(grids or {})
     bricks._check_divisible(scene, relay.world, skip=tuple(grids))
     dev = scene.device
@@ -372,117 +482,140 @@ def split_brick_rank(scene: Scene, grids: Optional[Dict[str, torch.Tensor]] = No
     return bricks.brick_of(scene, padded, relay.rank, relay.world, dev)
 
 
-def _rank_bricked(scene_or_brick: Union[Scene, Brick]) -> bricks.BrickedScene:
-    relay = GroupRelay()
+def _rank_bricked(scene_or_brick: Union[Scene, Brick], layout: RankMesh) -> bricks.BrickedScene:
     if not isinstance(scene_or_brick, Brick):
-        scene_or_brick = split_brick_rank(scene_or_brick)
-    if (scene_or_brick.index, scene_or_brick.n) != (relay.rank, relay.world):
+        scene_or_brick = split_brick_rank(scene_or_brick, mesh=layout)
+    if (scene_or_brick.index, scene_or_brick.n) != (layout.brick, layout.n_bricks):
         raise ValueError(f"brick {scene_or_brick.index} of {scene_or_brick.n} is not this "
-                         f"rank's: rank {relay.rank} of {relay.world} holds brick "
-                         f"{relay.rank} of {relay.world}")
-    return bricks.BrickedScene((scene_or_brick,), relay)
+                         f"rank's: rank {dist.get_rank()} of {dist.get_world_size()} holds "
+                         f"brick {layout.brick} of {layout.n_bricks}")
+    return bricks.BrickedScene((scene_or_brick,), layout.relay())
 
 
 def render_forward_bricked_ranks(scene_or_brick: Union[Scene, Brick], opts: RenderOptions,
-                                 camera_x_offset: float = 0.0) -> torch.Tensor:
+                                 camera_x_offset: float = 0.0, *,
+                                 mesh: Optional[RankMesh] = None) -> torch.Tensor:
     """``bricks.render_forward_bricked_fast`` across the ranks: this rank
-    marches its brick (2 launches of the brick kernels on a card, the plain
-    passes on the CPU) and every rank returns the image (H, W, 3). Takes a
-    ``Scene`` (cut on every call) or this rank's ``Brick``
-    (``split_brick_rank``)."""
-    return bricks._forward(_rank_bricked(scene_or_brick), opts, float(camera_x_offset),
-                           fast=True).image
+    marches its brick over its band (2 launches of the brick kernels on a
+    card, the plain passes on the CPU), the band's image is its bricks'
+    contributions gathered and summed in brick order, the bands are joined,
+    and every rank returns the image (H, W, 3). Takes a ``Scene`` (cut on
+    every call) or this rank's ``Brick`` (``split_brick_rank``); ``mesh`` a
+    ``RankMesh`` (None: a brick a rank, over the whole image)."""
+    layout = _layout(mesh)
+    fwd = bricks._forward(_rank_bricked(scene_or_brick, layout), opts, float(camera_x_offset),
+                          True, *layout.rows(opts))
+    return layout.join_bands(fwd.image)
 
 
 def voxel_grads_bricked_ranks(scene_or_brick: Union[Scene, Brick], opts: RenderOptions, g,
-                              camera_x_offset: float = 0.0) -> Tuple[torch.Tensor, Dict]:
+                              camera_x_offset: float = 0.0, *,
+                              mesh: Optional[RankMesh] = None) -> Tuple[torch.Tensor, Dict]:
     """``bricks.voxel_grads_bricked_fast`` across the ranks, 3 launches a
-    rank: ``(image, grads)``, the grid keys this rank's part (D / W, H, W),
-    the parameter keys summed over the ranks, on every rank. A lit scene
-    with lookup gradient volumes raises ``NotImplementedError``."""
-    bricked = _rank_bricked(scene_or_brick)
+    rank: ``(image, grads)`` for the cotangent ``g`` (H, W, 3) of the whole
+    image, of which the rank takes its band's rows. The grid keys are this
+    rank's part (D / B, H, W), the halo rows returned within the band, then
+    summed over the bands; the parameter keys are summed over the band's
+    bricks, then over the bands; the same on every rank of a brick. A lit
+    scene with lookup gradient volumes raises ``NotImplementedError``."""
+    layout = _layout(mesh)
+    bricked = _rank_bricked(scene_or_brick, layout)
     cuda_bricks.refuse_lit_lookup(bricked.bricks[0].scene)
     cam = float(camera_x_offset)
-    fwd = bricks._forward(bricked, opts, cam, fast=True)
-    grads = bricks._voxel_grads(bricked, opts, g, cam, fwd)
-    return fwd.image, {k: v[0] if k in GRID_KEYS else v for k, v in grads.items()}
+    y0, rows = layout.rows(opts)
+    fwd = bricks._forward(bricked, opts, cam, True, y0, rows)
+    image = layout.join_bands(fwd.image)
+    g = torch.as_tensor(g, dtype=torch.float32, device=image.device)
+    if tuple(g.shape) != tuple(image.shape):
+        raise ValueError(f"g must be {tuple(image.shape)}, got {tuple(g.shape)}")
+    grads = bricks._voxel_grads(bricked, opts, g[y0:y0 + rows], cam, fwd)
+    grads = {k: v[0] if k in GRID_KEYS else v for k, v in grads.items()}
+    layout.sum_bands(list(grads.values()))
+    return image, grads
 
 
-def split_params_bricked_rank(scene: Scene, grids: Optional[Dict[str, torch.Tensor]] = None
-                              ) -> Tuple[Params, Brick]:
+def split_params_bricked_rank(scene: Scene, grids: Optional[Dict[str, torch.Tensor]] = None, *,
+                              mesh: Optional[RankMesh] = None) -> Tuple[Params, Brick]:
     """``bricks.split_params_bricked`` for this rank: the emission grid and,
     unless aliased, the absorption grid as leaves of this rank's part
-    (D / W, H, W); the factors and the color as leaves of their own, the
-    same on every rank; and this rank's brick, which they go back into.
-    ``grids`` as in ``split_brick_rank``: with every grid key given, the
-    rank never holds more than its part."""
-    relay = GroupRelay()
+    (D / B, H, W; brick b of ``mesh``); the factors and the color as leaves
+    of their own, the same on every rank; and this rank's brick, which they
+    go back into. ``grids`` as in ``split_brick_rank``: with every grid key
+    given, the rank never holds more than its part."""
+    layout = _layout(mesh)
     dev = scene.device
     grids = dict(grids or {})
     params = {k: v[0] if k in GRID_KEYS else v for k, v in bricks.trainable_leaves(
-        scene, relay.world, [relay.rank], [dev],
+        scene, layout.n_bricks, [layout.brick], [dev],
         grids={k: [v] for k, v in grids.items()}).items()}
     brick = split_brick_rank(scene, grids={**grids, **{k: v for k, v in params.items()
-                                                       if k in GRID_KEYS}})
+                                                       if k in GRID_KEYS}}, mesh=layout)
     return params, brick
 
 
 def train_step_fast_bricked_ranks(params: Params, optimizer: torch.optim.Optimizer,
                                   brick: Brick, opts: RenderOptions, target: torch.Tensor,
-                                  camera_x_offset: float = 0.0) -> torch.Tensor:
+                                  camera_x_offset: float = 0.0, *,
+                                  mesh: Optional[RankMesh] = None) -> torch.Tensor:
     """``bricks.train_step_fast_bricked`` across the ranks, with the params
-    and brick of ``split_params_bricked_rank``: the halo rows exchanged, the
-    bricked forward, the cotangent of the sum-of-squares loss, this rank's
-    gradient segment with the halo rows returned, the parameters' gradients
-    summed over the ranks, then this rank's optimizer. Every rank takes the
-    same step on its replicated leaves, so they stay equal. 3 launches a
-    rank; lit scenes through the lit forms. Returns the image's loss before
-    the update, the same on every rank."""
+    and brick of ``split_params_bricked_rank``: the halo rows exchanged
+    within the band, the bricked forward of the band, the cotangent of the
+    sum-of-squares loss on the band's rows of ``target`` (H, W, 3), this
+    rank's gradient segment with the halo rows returned, the parameters'
+    gradients summed over the band's bricks, then the loss and every
+    gradient summed over the bands, then this rank's optimizer. Every rank
+    takes the same step on its replicated leaves and the ranks of a brick on
+    its part, so they stay equal. 3 launches a rank; lit scenes through the
+    lit forms. Returns the image's loss before the update, the same on every
+    rank."""
     cut = {k: [v] if k in GRID_KEYS else v for k, v in params.items()}
-    return bricks.train_step_fast_bricked(cut, optimizer, _rank_bricked(brick), opts, target,
-                                          camera_x_offset=camera_x_offset)
+    return bricks.train_step_fast_bricked(cut, optimizer, _rank_bricked(brick, _layout(mesh)),
+                                          opts, target, camera_x_offset=camera_x_offset)
 
 
 class _RenderFusedRanks(torch.autograd.Function):
-    """The bricked march forward, the per-brick replay backward, a brick a rank."""
+    """The bricked march forward, the per-brick replay backward, a brick
+    and band a rank."""
 
     @staticmethod
-    def forward(ctx, template, opts, cam_off, keys, *leaves):
-        bricked = _rank_bricked(merge_scene(template, dict(zip(keys, leaves))))
-        fwd = bricks._forward(bricked, opts, cam_off, fast=False)
-        ctx.static = (bricked, opts, cam_off, keys, fwd, [leaf.device for leaf in leaves])
-        return fwd.image
+    def forward(ctx, template, opts, cam_off, layout, keys, *leaves):
+        bricked = _rank_bricked(merge_scene(template, dict(zip(keys, leaves))), layout)
+        fwd = bricks._forward(bricked, opts, cam_off, False, *layout.rows(opts))
+        ctx.static = (bricked, opts, cam_off, layout, keys, fwd, [leaf.device for leaf in leaves])
+        return layout.join_bands(fwd.image)
 
     @staticmethod
     def backward(ctx, g):
-        bricked, opts, cam_off, keys, fwd, devices = ctx.static
-        grads = bricks._backward(bricked, opts, cam_off, g, fwd, fast=False)
-        out = []
-        for key, need, dev in zip(keys, ctx.needs_input_grad[4:], devices):
-            if not need:  # the same keys on every rank: the gathers stay matched
-                out.append(None)
-                continue
-            value = grads[key]
-            if key in GRID_KEYS:
-                value = bricked.relay.whole(value[0])
-            out.append(value.to(dev))
-        return (None,) * 4 + tuple(out)
+        bricked, opts, cam_off, layout, keys, fwd, devices = ctx.static
+        y0, rows = layout.rows(opts)
+        grads = bricks._backward(bricked, opts, cam_off, g[y0:y0 + rows], fwd, fast=False)
+        # the same keys on every rank: the collectives stay matched
+        wanted = [key for key, need in zip(keys, ctx.needs_input_grad[5:]) if need]
+        values = [grads[key][0] if key in GRID_KEYS else grads[key] for key in wanted]
+        layout.sum_bands(values)
+        got = {key: bricked.relay.whole(value) if key in GRID_KEYS else value
+               for key, value in zip(wanted, values)}
+        return (None,) * 5 + tuple(got[key].to(dev) if key in got else None
+                                   for key, dev in zip(keys, devices))
 
 
 def render_fused_bricked_ranks(scene: Scene, opts: RenderOptions,
-                               camera_x_offset: float = 0.0) -> torch.Tensor:
+                               camera_x_offset: float = 0.0, *,
+                               mesh: Optional[RankMesh] = None) -> torch.Tensor:
     """``bricks.render_fused_bricked`` across the ranks, in plain PyTorch: a
     ``torch.autograd.Function`` whose forward is the bricked march of this
-    rank's brick and whose backward is that brick's replay, with the relay
-    over the group. ``scene`` is the whole scene, the same on every rank;
-    the image (H, W, 3) is the same on every rank, and so must be the loss
-    of it. Gradients reach every leaf of ``split_scene(scene)`` that
-    requires grad, whole and the same on every rank (a grid's parts are
-    gathered), so the ranks' optimizers keep the leaves equal. Any loss;
-    unlit and lit scenes, lookup gradient volumes too."""
+    rank's brick over its band and whose backward is that brick's replay,
+    with the relay over the band's ranks. ``scene`` is the whole scene, the
+    same on every rank; the image (H, W, 3) is the same on every rank, and
+    so must be the loss of it. Gradients reach every leaf of
+    ``split_scene(scene)`` that requires grad, whole and the same on every
+    rank: summed over the bands (every band's, unlike the JAX package's
+    rows x bricks backward, whose grids are one band's), a grid's parts
+    then gathered over the band, so the ranks' optimizers keep the leaves
+    equal. Any loss; unlit and lit scenes, lookup gradient volumes too."""
     diff, template = split_scene(scene)
     keys = tuple(diff)
-    return _RenderFusedRanks.apply(template, opts, float(camera_x_offset), keys,
+    return _RenderFusedRanks.apply(template, opts, float(camera_x_offset), _layout(mesh), keys,
                                    *(diff[k] for k in keys))
 
 
@@ -589,11 +722,12 @@ def brick_demo_cases(device: DeviceLike, spec: BrickDemo = BrickDemo(),
 
 
 def _demo_worker(rank: int, world: int, store: str, out_dir: str, device: Optional[str],
-                 backend: Optional[str], spec: Optional[BrickDemo]) -> None:
+                 backend: Optional[str], spec: Optional[BrickDemo], bands: int) -> None:
     """One rank of the rehearsal: joins the group and runs the rays-DP
     rehearsal (``_dp_demo``) or, with ``spec``, the bricked one
-    (``_brick_demo``, its targets from ``out_dir/targets.pt``); saves what
-    it got to ``out_dir/rank<r>.pt`` (its traceback to ``rank<r>.err`` if it
+    (``_brick_demo`` on ``bands`` x world / ``bands`` ranks, its targets
+    from ``out_dir/targets.pt``); saves what it got to
+    ``out_dir/rank<r>.pt`` (its traceback to ``rank<r>.err`` if it
     fails)."""
     try:
         torch.set_num_threads(1)
@@ -603,7 +737,7 @@ def _demo_worker(rank: int, world: int, store: str, out_dir: str, device: Option
         out = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
                "mesh": [str(d) for d in global_mesh(dev)]}
         out.update(_dp_demo(dev) if spec is None else _brick_demo(
-            dev, spec, torch.load(os.path.join(out_dir, "targets.pt"))))
+            dev, spec, torch.load(os.path.join(out_dir, "targets.pt")), bands))
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     except BaseException:
         Path(out_dir, f"rank{rank}.err").write_text(traceback.format_exc())
@@ -657,7 +791,8 @@ def wall_ms(call, devices: List[torch.device], reps: int = REPS):
 def one_process_ms(scene: Scene, opts: RenderOptions, target: torch.Tensor, start: Params,
                    mesh: List[torch.device]) -> Dict[str, float]:
     """What a rank's times are held against: one process driving the same
-    bricks on ``mesh`` (a case of ``brick_demo_cases``), timed as
+    bricks on ``mesh`` (a case of ``brick_demo_cases``; every band's bricks,
+    over the whole image), timed as
     ``_brick_demo`` times a rank (``wall_ms``): ``forward_ms`` of
     ``bricks.render_forward_bricked_fast`` on bricks cut before the timer,
     and, where the scene has kernel gradients, ``step_ms`` of
@@ -680,25 +815,22 @@ def _grids(scene: Scene) -> Dict[str, torch.Tensor]:
             if getattr(scene, key) is not None}
 
 
-def _own_rows(t: torch.Tensor) -> torch.Tensor:
-    """This rank's z-rows of a whole grid."""
-    return t.chunk(dist.get_world_size(), dim=0)[dist.get_rank()]
-
-
-def _brick_demo(dev: torch.device, spec: BrickDemo, targets: Dict[str, torch.Tensor]) -> dict:
+def _brick_demo(dev: torch.device, spec: BrickDemo, targets: Dict[str, torch.Tensor],
+                bands: int) -> dict:
     """For each case of ``brick_demo_cases``, built with this rank's z-rows
-    alone (``part=``; ``targets``, the cases' target images, come as data):
-    the bricked render, this rank's brick's entry record, and
-    ``voxel_grads_bricked_ranks`` for the cotangent of the sum-of-squares
-    loss (every kernel is then loaded); then, counted from 0, the bricked
-    render and one Adam step of ``train_step_fast_bricked_ranks``; on a
-    card their ms (``wall_ms``: the median of ``REPS`` warm calls on the
-    brick, steps after the first) and, over the whole rehearsal, the peak
-    MiB that PyTorch allocated on the card (``peak_mib``). With
-    ``spec.fused``, from the same start one Adam step of
-    ``render_fused_bricked_ranks`` through autograd, whose grid leaves are
-    whole (the whole scene is built for it). A lookup scene has no kernel
-    step: its kernel gradients must raise, and the fused step
+    alone (``part=``; ``targets``, the cases' target images, come as data),
+    on ``bands`` x W / ``bands`` ranks (``global_mesh_2d``; one band: no
+    mesh, a brick a rank): the bricked render, this rank's brick's entry
+    record for its band, and ``voxel_grads_bricked_ranks`` for the
+    cotangent of the sum-of-squares loss (every kernel is then loaded);
+    then, counted from 0, the bricked render and one Adam step of
+    ``train_step_fast_bricked_ranks``; on a card their ms (``wall_ms``: the
+    median of ``REPS`` warm calls on the brick, steps after the first) and,
+    over the whole rehearsal, the peak MiB that PyTorch allocated on the
+    card (``peak_mib``). With ``spec.fused``, from the same start one Adam
+    step of ``render_fused_bricked_ranks`` through autograd, whose grid
+    leaves are whole (the whole scene is built for it). A lookup scene has
+    no kernel step: its kernel gradients must raise, and the fused step
     differentiates it. Grids are kept as this rank's rows."""
     from volume_renderer_tpu_torch import train
     from volume_renderer_tpu_torch.ops import cuda_march
@@ -706,37 +838,42 @@ def _brick_demo(dev: torch.device, spec: BrickDemo, targets: Dict[str, torch.Ten
     card = dev.type == "cuda"
     if card:
         torch.cuda.reset_peak_memory_stats(dev)
-    out = {}
+    mesh = global_mesh_2d(bands, dist.get_world_size() // bands) if bands > 1 else None
+    layout = _layout(mesh)
+    out = {"band": layout.band, "brick": layout.brick, "bands": layout.n_bands}
     whole = brick_demo_cases(dev, spec) if spec.fused else {}
     for name, (scene, opts, _, start) in brick_demo_cases(
-            dev, spec, part=(dist.get_rank(), dist.get_world_size())).items():
+            dev, spec, part=(layout.brick, layout.n_bricks)).items():
         target = targets[name].to(dev)
         res = {"rows": {key: int(data.shape[0]) for key, data in _grids(scene).items()}}
         lookup = scene.has_lighting and scene.has_gradient_volumes
-        brick = split_brick_rank(scene, grids=_grids(scene))
-        _, entry = cuda_bricks.brick_transmittance(brick, opts)
+        brick = split_brick_rank(scene, grids=_grids(scene), mesh=mesh)
+        y0, rows = layout.rows(opts)
+        _, entry = cuda_bricks.brick_transmittance(brick, opts, y_offset=y0, n_rows=rows)
         res["entry"] = {"step": entry.step.cpu(), "state": entry.state.cpu()}
-        g = 2.0 * (render_forward_bricked_ranks(brick, opts) - target)
+        g = 2.0 * (render_forward_bricked_ranks(brick, opts, mesh=mesh) - target)
         if lookup:
             try:
-                voxel_grads_bricked_ranks(brick, opts, g)
+                voxel_grads_bricked_ranks(brick, opts, g, mesh=mesh)
             except NotImplementedError as err:
                 res["grads_refused"] = str(err)
             else:
                 raise AssertionError("the gradients of a lit lookup scene did not raise")
         else:
-            _, grads = voxel_grads_bricked_ranks(brick, opts, g)
+            _, grads = voxel_grads_bricked_ranks(brick, opts, g, mesh=mesh)
             res["grads"] = {"grads": {k: v.cpu() for k, v in grads.items()}}
 
         cuda_march.reset_launch_counts()
-        res["image"] = render_forward_bricked_ranks(brick, opts).cpu()
+        res["image"] = render_forward_bricked_ranks(brick, opts, mesh=mesh).cpu()
         if not lookup:
             merged = train.merge_params(start, scene)
-            params, step_brick = split_params_bricked_rank(merged, grids=_grids(merged))
+            params, step_brick = split_params_bricked_rank(merged, grids=_grids(merged),
+                                                           mesh=mesh)
             optimizer = torch.optim.Adam(list(params.values()), lr=DEMO["lr"])
 
             def step():
-                return train_step_fast_bricked_ranks(params, optimizer, step_brick, opts, target)
+                return train_step_fast_bricked_ranks(params, optimizer, step_brick, opts, target,
+                                                     mesh=mesh)
 
             loss = step()
             res["fast"] = {"loss": float(loss),
@@ -744,7 +881,8 @@ def _brick_demo(dev: torch.device, spec: BrickDemo, targets: Dict[str, torch.Ten
                            "params": {k: p.detach().cpu().clone() for k, p in params.items()}}
         res["launches"] = {k: v for k, v in cuda_march.LAUNCHES_BY_MODE.items() if v}
         if card:
-            res["forward_ms"] = wall_ms(lambda: render_forward_bricked_ranks(brick, opts),
+            res["forward_ms"] = wall_ms(lambda: render_forward_bricked_ranks(brick, opts,
+                                                                             mesh=mesh),
                                         [dev])[1]
             if not lookup:
                 res["step_ms"] = wall_ms(step, [dev])[1]
@@ -753,14 +891,15 @@ def _brick_demo(dev: torch.device, spec: BrickDemo, targets: Dict[str, torch.Ten
             scene, _, _, start = whole[name]
             params = {k: v.detach().clone().requires_grad_(True) for k, v in start.items()}
             optimizer = torch.optim.Adam(list(params.values()), lr=DEMO["lr"])
-            img = render_fused_bricked_ranks(train.merge_params(params, scene), opts)
+            img = render_fused_bricked_ranks(train.merge_params(params, scene), opts, mesh=mesh)
             loss = torch.sum((img - target) ** 2)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
             optimizer.step()
 
-            def own(key, t):
-                return (_own_rows(t) if key in GRID_KEYS else t).detach().cpu()
+            def own(key, t):  # this rank's z-rows of a whole grid
+                part = t.chunk(layout.n_bricks, dim=0)[layout.brick] if key in GRID_KEYS else t
+                return part.detach().cpu()
 
             res["fused"] = {"loss": float(loss.detach()),
                             "grads": {k: own(k, p.grad) for k, p in params.items()},
@@ -771,31 +910,42 @@ def _brick_demo(dev: torch.device, spec: BrickDemo, targets: Dict[str, torch.Ten
     return out
 
 
-def _replicated(result: dict, bricked: bool) -> Dict[str, object]:
+def _replicated(result: dict, bricked: bool, grids: bool = False) -> Dict[str, object]:
     """What every rank of the rehearsal must hold the same: the images, the
-    losses and every gradient and parameter but the bricks' grid parts."""
+    losses and every gradient and parameter but the bricks' grid parts; with
+    ``grids``, those parts alone, which the ranks of one brick (one a band)
+    must hold the same."""
     if not bricked:
         steps = {"": result}
     else:
         steps = {f"{case} ": result[case] for case in BRICK_CASES}
     out = {}
     for prefix, res in steps.items():
-        out[f"{prefix}image"] = res["image"]
+        if not grids:
+            out[f"{prefix}image"] = res["image"]
         for name in ("plain", "fast", "fused", "grads"):
             if name not in res:
                 continue
-            if "loss" in res[name]:
+            if "loss" in res[name] and not grids:
                 out[f"{prefix}{name} loss"] = res[name]["loss"]
             for part in ("grads", "params"):
                 for key, value in res[name].get(part, {}).items():
-                    if not (bricked and key in GRID_KEYS):
+                    if (bricked and key in GRID_KEYS) == grids:
                         out[f"{prefix}{name} {part} {key}"] = value
     return out
 
 
+def _differ(results: List[dict], bricked: bool, grids: bool = False) -> List[str]:
+    """What ``results`` (some ranks') do not hold the same (``_replicated``)."""
+    shared = [_replicated(r, bricked, grids) for r in results]
+    return [what for what, value in shared[0].items()
+            if not all(np.array_equal(np.asarray(other[what]), np.asarray(value))
+                       for other in shared[1:])]
+
+
 def run_demo(num_processes: int = 2, device: Optional[str] = None,
              backend: Optional[str] = None, timeout: float = 300.0,
-             bricks: Optional[BrickDemo] = None) -> List[dict]:
+             bricks: Optional[BrickDemo] = None, bands: int = 1) -> List[dict]:
     """Runs the rehearsal in ``num_processes`` spawned processes, one rank
     each, on ``device`` (None or "cuda": rank r on card r modulo the cards,
     as ``initialize`` picks; "cpu" asks for the CPU), and waits at most
@@ -805,10 +955,22 @@ def run_demo(num_processes: int = 2, device: Optional[str] = None,
     ``BrickDemo`` the bricked one, a brick a rank (``_brick_demo``), whose
     target images this process renders first (``brick_demo_cases`` on
     ``device``, the first card for the cards), so that no rank holds a
-    whole grid. Checks that every rank holds the same images, losses, and
-    gradients and params of what is replicated, bit for bit, and returns
-    each rank's results in rank order (the bricked rehearsal's grid parts
-    are the rank's brick's: ``parallel.bricks.assemble`` joins them)."""
+    whole grid; ``bands`` > 1 lays the ranks out as ``bands`` x
+    ``num_processes / bands`` (``global_mesh_2d``: rank (r, b) marches
+    brick b over band r), and raises ``ValueError`` before it spawns a rank
+    unless ``bands`` divides the processes and the image height. Checks
+    that every rank holds the same images, losses, and gradients and params
+    of what is replicated, and that the ranks of one brick hold the same
+    grid parts, bit for bit, and returns each rank's results in rank order
+    (the bricked rehearsal's grid parts are the rank's brick's:
+    ``parallel.bricks.assemble`` joins one band's)."""
+    if bands > 1:
+        if bricks is None or num_processes % bands:
+            raise ValueError(f"{bands} bands need the bricked rehearsal on a multiple of "
+                             f"{bands} processes, not {num_processes}")
+        if bricks.height % bands:
+            raise ValueError(f"image height {bricks.height} must be divisible by the ray axis "
+                             f"size {bands}")
     with tempfile.TemporaryDirectory(prefix="vr_multihost_") as tmp:
         store = "file://" + os.path.join(tmp, "store")
         if bricks is not None:
@@ -818,7 +980,7 @@ def run_demo(num_processes: int = 2, device: Optional[str] = None,
                        os.path.join(tmp, "targets.pt"))
         ctx = torch.multiprocessing.get_context("spawn")
         procs = [ctx.Process(target=_demo_worker,
-                             args=(r, num_processes, store, tmp, device, backend, bricks))
+                             args=(r, num_processes, store, tmp, device, backend, bricks, bands))
                  for r in range(num_processes)]
         for p in procs:
             p.start()
@@ -839,21 +1001,25 @@ def run_demo(num_processes: int = 2, device: Optional[str] = None,
             raise RuntimeError(f"ranks {sorted(failed)} of the rehearsal failed "
                                f"(exit codes {failed}):\n{errors}")
         results = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(num_processes)]
-    shared = [_replicated(r, bricks is not None) for r in results]
-    differ = [what for what, value in shared[0].items()
-              if not all(np.array_equal(np.asarray(other[what]), np.asarray(value))
-                         for other in shared[1:])]
+    differ = _differ(results, bricks is not None)
     if differ:
         raise AssertionError(f"the ranks of the rehearsal differ in {differ}")
+    n_bricks = num_processes // bands
+    for b in range(n_bricks if bands > 1 else 0):
+        differ = _differ(results[b::n_bricks], True, grids=True)
+        if differ:
+            raise AssertionError(f"the ranks of brick {b} differ in {differ}")
     return results
 
 
 def _bricked_times(results: List[dict], spec: BrickDemo) -> dict:
     """The bricked rehearsal's times on the cards: each rank's forward and
     step ms and peak MiB, beside ``one_process_ms`` of one process driving
-    the same bricks on the ranks' cards."""
-    mesh = [torch.device(name) for name in results[0]["mesh"]]
-    rec = {"ranks": len(results), "backend": results[0]["backend"], "mesh": results[0]["mesh"],
+    the same bricks on the cards of the first band's ranks."""
+    n_bricks = len(results) // results[0]["bands"]
+    mesh = [torch.device(name) for name in results[0]["mesh"][:n_bricks]]
+    rec = {"ranks": len(results), "bands": results[0]["bands"], "bricks": n_bricks,
+           "backend": results[0]["backend"], "mesh": results[0]["mesh"],
            "config": f"{spec.volume}^3/{spec.width}x{spec.height}, noise {spec.noise}",
            "rank_peak_mib": [r["peak_mib"] for r in results]}
     for case, (scene, opts, target, start) in brick_demo_cases(mesh[0], spec).items():
@@ -880,15 +1046,19 @@ if __name__ == "__main__":
                     help="rehearse the z-brick relay (a brick a rank) instead of rays-DP")
     ap.add_argument("--full", action="store_true",
                     help="with --bricks: at this slice's full width (FULL, 256^3 / 512^2)")
+    ap.add_argument("--bands", type=int, default=1,
+                    help="with --bricks: the bands of image rows of a rows x bricks mesh "
+                         "(rank (r, b) marches brick b of num-processes / bands over band r)")
     args = ap.parse_args()
     if args.demo and args.bricks:
         spec = FULL if args.full else BrickDemo()
         res = run_demo(args.num_processes, args.device, args.backend, timeout=600.0,
-                       bricks=spec)
+                       bricks=spec, bands=args.bands)
         losses = ", ".join(f"{case} {res[0][case]['fast']['loss']:.6f}"
                            for case in BRICK_CASES if "fast" in res[0][case])
-        print(f"multihost bricked demo ({args.num_processes} processes, {res[0]['backend']} "
-              f"on {res[0]['mesh']}): kernel-step losses {losses}; the lookup scene's "
+        print(f"multihost bricked demo ({args.num_processes} processes, {args.bands} x "
+              f"{args.num_processes // args.bands} ranks, {res[0]['backend']} on "
+              f"{res[0]['mesh']}): kernel-step losses {losses}; the lookup scene's "
               f"gradients refused; every rank equal")
         if args.device != "cpu":
             print(json.dumps(_bricked_times(res, spec)), flush=True)
