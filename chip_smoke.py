@@ -8,11 +8,12 @@ Phases, one JSON line each; any failure raises and exits nonzero:
 1. device:  the card, its power limit, and the build of every kernel
             source (one nvcc each, started together), with the registers,
             spills and resulting blocks an SM that ptxas reports for each
-            kernel instantiation. No kernel may spill.
+            kernel instantiation (K2L, K6L and the lookup gradient segment
+            among them). No kernel may spill.
 2. goldens: the five tests/goldens scenes through VolumeRenderer on the
             card, held against the committed images.
 3. kernel_vs_plain: the forward march kernel against its plain PyTorch
-            version (ops/forward.py) on the card at 32^3 / 256x192, per
+            version (ops/forward.py) on the card at 24^3 / 256x192, per
             mode, unlit (K1) also with absorption of another shape, lit
             (K4) on an anisotropic (36, 24, 64) volume and on a 48^3 one
             seen near an axis (taps on faces and edges), and lookup (K5)
@@ -22,25 +23,29 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             versions exactly, here and wherever else they are compared.
 4. grads_vs_plain: the backward march kernel through voxel_grads_fast (K3
             unlit, K6 lit) and transfer_grads_fast (K2) against its plain
-            version (ops/vjp.py:replay_backward) at 32^3 / 256x192, K3
+            version (ops/vjp.py:replay_backward) at 24^3 / 256x192, K3
             also with absorption of another shape, K6 on the two lit
             scenes of phase 3, unlit K2 packed (absorption separate and of
-            emission's shape) and not (aliased, of another shape), every
-            gradient key (K3's grids within 1e-5 of scale, every other key
-            within 1e-4).
+            emission's shape) and not (aliased, of another shape), K6L and
+            K2L on K5's noisy scene (packed with absorption aliased, packed
+            with two lights and reflection aliased, unpacked with gradient
+            volumes of another shape), every gradient key (K3's grids
+            within 1e-5 of scale, every other key within 1e-4, the gradient
+            volumes' grids included).
 5. main_path: VolumeRenderer.render() at 256^3 / 512^2 for the unlit (K1),
             lit on-the-fly (K4) and lit lookup (K5) flagship scenes, with
             the launch counts set to 0 just before and read just after;
             each image is held against the plain version on the whole image.
 6. train_main_path: at 256^3 / 512^2, three Adam steps of
-            train.train_step_fast on the unlit scene (K1 + K3 a step) and on
-            the lit one (K4 + K6), and a three-step transfer-parameter fit
-            through transfer_grads_fast (K1 + K2), counted like phase 5.
-            The loss must fall. Before the counted steps, the first step's
-            gradients are held against the plain replay on a 64-row band
-            (rows 224-287), and lit K2 against the lit step's replay; K3 and
-            K6 are held there twice: launched over the whole image with the
-            cotangent zero outside the band, and over the band alone.
+            train.train_step_fast on the unlit scene (K1 + K3 a step), on
+            the lit one (K4 + K6) and on the lit lookup one (K5 + K6L), and
+            three-step transfer-parameter fits through transfer_grads_fast
+            (K1 + K2, K5 + K2L), counted like phase 5. The loss must fall.
+            Before the counted steps, the first step's gradients are held
+            against the plain replay on a 64-row band (rows 224-287), and lit
+            K2 and K2L against the lit steps' replays; K3, K6 and K6L are held there
+            twice: launched over the whole image with the cotangent zero
+            outside the band, and over the band alone.
 7. timing:  the forward kernel (CUDA events, warm, median of 5) and the
             plain version at 256^3 / 512^2 and 512^3 / 1024^2 (K1, K4, K5;
             at 512^3 the plain version on a 64-row band through the
@@ -52,13 +57,14 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             float4 corner loads against float32 ones on a 64-row band;
             then the forward + backward pair, the backward kernel
             alone and the whole training step (a transfer-fit step for K2)
-            for K3, K6, K2 and lit K2 at 256^3 / 512^2 and K3 and K2 at
-            512^3 / 1024^2 (K2 without a plain band), with the bound, K3's
-            atomic adds a sample at 256^3 / 512^2, counted from the plain
-            march's positions (march_flushes), and K2's pack alone and, at
+            for K3, K6, K2, lit K2, K6L and K2L at 256^3 / 512^2 and K3 and
+            K2 at 512^3 / 1024^2 (K2 without a plain band, K3's of 64 rows),
+            with the bound, K3's atomic adds a sample at 256^3 / 512^2,
+            counted from the plain march's positions (march_flushes), K6L's
+            (march_scatter_adds), and K2's pack alone and, at
             256^3 / 512^2, the gather model of its float2 corner loads.
 
-8. bricks_vs_plain: the z-brick kernels (K7) at 32^3 / 256x192, 4 bricks:
+8. bricks_vs_plain: the z-brick kernels (K7) at 24^3 / 256x192, 4 bricks:
             each launch form on every brick (phase 1 opacity and entry
             record, phase 2 contribution and exit opacity, the gradient
             segment's padded grids and parameter sums) against its plain
@@ -76,13 +82,15 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             packed window, also equal to the unpacked form to the bit;
             gradient volumes of another shape, unpacked, on the last brick);
             the lit gradient segment's grids within 1e-5 of scale, its other
-            keys 1e-4; the bricked image and the slab sweep against K4's and
-            K5's. Then every form over a band (a rank of a rows x bricks
-            mesh marches one): two bands of 96 rows at 32^3 / 256x192, 4
-            bricks, on the four unlit cameras and on a lit on-the-fly (two
-            lights) and a lit lookup (packed) scene, each band equal to the
-            whole launch's rows to the bit (the gradient segments' bands
-            summed within 1e-5 of scale) and held against its plain band
+            keys 1e-4, and so the lookup gradient segment's (packed and
+            unpacked, 5 % seeded noise) on the last brick; the bricked image
+            and the slab sweep against K4's and K5's. Then every form over a
+            band (a rank of a rows x bricks mesh marches one): two bands of
+            96 rows at 24^3 / 256x192, 4 bricks, on the four unlit cameras
+            and on a lit on-the-fly (two lights) and a lit lookup (packed)
+            scene, each band equal to the whole launch's rows to the bit
+            (the gradient segments' bands, the lookup segment's too, summed
+            within 1e-5 of scale) and held against its plain band
             pass, as the whole launches are, on every brick of one unlit
             camera and on the lit scenes' last brick.
 9. bricks_main_path: at 256^3 / 512^2 on the noisy K3 scene, the launch
@@ -105,14 +113,19 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             forms, phase 1's loads and the bricked forward on the dense
             scene too, where the walk to a brick was a larger share of a
             ray's work. Then bricks_lit_main_path, counted like phase 5: the
-            lit bricked render of the noisy K4 scene and of the K5 scene, a
-            lit bricked gradient call and a lit bricked Adam step (phase 1,
-            lit phase 2 and the lit gradient segment a brick), against K4, K5
-            and K6's voxel_grads_fast; lit phase 2 of both scenes and the
+            lit bricked render of the noisy K4 scene and of the noisy K5
+            scene, a lit bricked gradient call and a lit bricked Adam step
+            on each (phase 1, lit phase 2 and the lit or the lookup gradient
+            segment a brick), against K4, K5, K6's and K6L's
+            voxel_grads_fast (the lookup step's gradients within 1e-5 of
+            scale for the cotangent of its bricked image); lit phase 2 of
+            both scenes and the
             lit segment of the K4 scene on the last brick against their plain
             passes on 32 rows through the middle, held as in phase 8; and
             the lit forms over all bricks timed with their samples and bound
-            (and the lit bricked forwards and Adam step), the lookup form's
+            (the lookup gradient segment too, with its atomic adds a sample
+            from the plain walk, lookup_scatter_adds;
+            and the lit bricked forwards and Adam steps), the lookup form's
             window pack alone, the tail factors of lit phase 2's launches
             and of K4's and K5's by block shape (tail_factor, from their
             steps planes), and the lit segment's atomic adds a sample
@@ -144,17 +157,18 @@ Phases, one JSON line each; any failure raises and exits nonzero:
 12. dp_vs_single: rays-DP (parallel/pallas_dp.py) at 128^3 / 256x192
             with 5 bands on the one card, the last one shorter: the K1, K4
             and K5 band launches joined must equal the single launch's image
-            bit for bit, and the K3 and K6 gradients summed over the bands
-            its gradients (grids within 1e-5 of scale, other keys 1e-4; lit
-            factor_reflection nonzero), also for an unlit scene with a
+            bit for bit, and the K3, K6 and K6L gradients summed over the
+            bands its gradients (grids within 1e-5 of scale, other keys
+            1e-4; lit factor_reflection nonzero), also for an unlit scene with a
             reflection volume of its own, whose grid the bands share zeroed;
             the memory each DP backward call takes at its peak must stay
             within its grids and half a grid.
 13. dp_main_path: at 256^3 / 512^2 with make_mesh(4), counted like phase 5:
             render_forward_fast_sharded on the K1, K4 and K5 scenes (4
             launches a render, K5's pack made once a render), three Adam
-            steps of train_step_fast_sharded unlit (4 K1 + 4 K3 a step) and
-            lit (4 K4 + 4 K6), the loss falling and the first step's
+            steps of train_step_fast_sharded unlit (4 K1 + 4 K3 a step), lit
+            (4 K4 + 4 K6) and lit lookup (4 K5 + 4 K6L), the loss falling
+            and the first step's
             gradients held against voxel_grads_fast as in phase 12; one
             train_step_sharded step at 32^3 / 64^2 on 2 bands against
             train.train_step; a 2 x 2 rows x bricks render_forward_bricked
@@ -198,10 +212,15 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             Adam step each of train_step_streamed, train_step_slabbed and
             train_step_planned (streamed) on the noisy K4 scene: the loss
             against train_step_fast's, the gradients against K6's for the
-            cotangent of the sweep's own image; all timed.
+            cotangent of the sweep's own image; all timed. On the noisy K5
+            scene, one Adam step each of train_step_fast (K5 + K6L),
+            train_step_streamed and train_step_slabbed (the lookup gradient
+            segment a slab), the sweeps' against K6L for the cotangent of
+            their own image, timed, each step's peak within the planner's
+            estimate of its tier.
 
 16. camera_grads (plain PyTorch on the card): render_fused(camera_grads=True)
-            on rows 112-143 of 256^2 at 48^3 on the noisy K3 scene and on
+            on rows 112-143 of 256^2 at 32^3 on the noisy K3 scene and on
             the noisy lit OTF scene, against
             torch.autograd of the fixed-trip march (render_rows(
             differentiable=True), its trip count cut to the band's longest
@@ -234,7 +253,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             rank, the relay over the group; BRICK_WORLDS) in those two
             worlds at 12^3 / 16^2 and in four gloo ranks on the one card at
             256^3 / 512^2 (the flagship shell with 5 % seeded noise, unlit,
-            lit and lit lookup), and on rows x bricks meshes
+            lit and lit lookup, the last through the lookup gradient
+            segment), and on rows x bricks meshes
             (global_mesh_2d: rank (r, b) marches brick b over band r, the
             bands joined over the brick's ranks), 2 x 1 at 12^3 / 16^2 and
             2 x 2, four gloo ranks, at 256^3 / 512^2, every world at once,
@@ -283,7 +303,7 @@ COMPARE = dict(volume=128, width=256, height=192)
 # the kernels against their plain versions (phases 3, 4, 8): the plain march
 # costs hundreds to thousands of launches a step whatever the rays, so its
 # time follows the volume's edge, which the script's time limit sets
-PLAIN = dict(volume=32, width=256, height=192)
+PLAIN = dict(volume=24, width=256, height=192)
 MAIN = dict(volume=256, image=512)
 BIG = dict(volume=512, image=1024, band=64)
 # Training steps, the plain replay's band rows, and Adam's rates. Lit, the
@@ -296,7 +316,11 @@ TRAIN_STEPS, BAND = 3, 64
 # the plain train_step_sharded and the rows x bricks render at a small size
 DP_BANDS, DP_MAIN_BANDS = 5, 4
 DP_SMALL = dict(volume=32, image=64, brick_image=(64, 48))
-TRAIN_LR = {"K3": 2e-3, "K6": 2e-6, "K2": 1e-2}
+# With lookup gradient volumes the normals are volumes of their own, not
+# differences of emission, but the lit terms make K3's rate overshoot: at
+# 2e-3 the loss rose at the second step (K5's noisy scene at 256^3 / 512^2,
+# an H100), at 5e-4 it fell at every one.
+TRAIN_LR = {"K3": 2e-3, "K6": 2e-6, "K2": 1e-2, "K6L": 5e-4, "K2L": 1e-2}
 
 # Published peaks of one H100 SXM at its full 700 W power limit.
 PEAK_FP32_FLOPS = 67e12
@@ -349,18 +373,27 @@ _BWD_PER_LIGHT = 145      # forward terms, per-light sums, d contrib, d reflecti
 _BWD_LIT = _STEP_OTF_TAPS + 12 + 1 + 3 + 5 + 6 + 2  # taps, normal, light_in
 _BWD_PER_LIGHT_CHAIN = 26 + 1 + 3 * (54 + 2) + 10 + 30  # LUT derivatives, 3 angle adjoints, d n
 _BWD_D_GRADIENT = 20      # the taps' cotangents from the normal's
+# With lookup gradient volumes (K2L, K6L, the lookup gradient segment) the
+# replay fetches K5's three gradient volumes instead of the six taps, and
+# scatters emission's cotangent and the gradient's three components at the
+# sample's corners: four scatters of 8 products and 8 atomic adds.
+_BWD_LOOKUP = _STEP_LOOKUP_TAPS + 12 + 1 + 3 + 5 + 6 + 2
 
 
 def bwd_flops_per_step(lit: bool, scatter: bool, ab_aliased: bool, re_aliased: bool,
-                       n_lights: int) -> int:
+                       n_lights: int, lookup: bool = False) -> int:
     ops = _BWD_STEP + (0 if ab_aliased else _BLEND)
     if lit:
-        ops += (0 if re_aliased else _BLEND) + _BWD_LIT + n_lights * _BWD_PER_LIGHT
+        ops += ((0 if re_aliased else _BLEND) + (_BWD_LOOKUP if lookup else _BWD_LIT)
+                + n_lights * _BWD_PER_LIGHT)
     if scatter:
         # the eight weights, for every volume scattered as one sample
-        eight = not lit or not ab_aliased or not re_aliased
+        eight = not lit or lookup or not ab_aliased or not re_aliased
         ops += 7 + 1 + _CORNER_WEIGHTS + (_X_WEIGHTS if eight else 0)
-        ops += (_BWD_D_GRADIENT + _EM_TAPS_SCATTER) if lit else _SCATTER
+        if lit:
+            ops += _BWD_D_GRADIENT + (4 * _SCATTER if lookup else _EM_TAPS_SCATTER)
+        else:
+            ops += _SCATTER
         ops += 1 if ab_aliased else _SCATTER
         if lit:
             ops += n_lights * _BWD_PER_LIGHT_CHAIN + 1 + (1 if re_aliased else _SCATTER)
@@ -377,7 +410,8 @@ def brick_flops_per_sample(form: str, ab_aliased: bool, re_aliased: bool = False
                            lookup: bool = False, n_lights: int = 1) -> int:
     """form: transmittance (phase 1), segment (phase 2), scatter (the
     gradient segment), segment_lit or scatter_lit (the lit forms, with
-    on-the-fly taps or, ``lookup``, gradient volumes)."""
+    on-the-fly taps or, ``lookup``, gradient volumes: lit phase 2 and the
+    lookup gradient segment)."""
     if form == "transmittance":
         return _BRICK_WALK + _FETCH + 4 + 3
     if form in ("segment", "segment_lit"):
@@ -389,7 +423,54 @@ def brick_flops_per_sample(form: str, ab_aliased: bool, re_aliased: bool = False
     # the single-device backward step plus the owner (mul, floor, 2 clamps, test)
     lit = form == "scatter_lit"
     return bwd_flops_per_step(lit, True, ab_aliased, True if not lit else re_aliased,
-                              n_lights if lit else 0) + 5
+                              n_lights if lit else 0, lookup=lit and lookup) + 5
+
+
+def lookup_scatter_grids(scene, dims):
+    """The grids that K6L and the lookup gradient segment scatter into at a
+    sample's corners, by name, with ``dims(grid)`` (x, y, global z) of
+    each: emission, the three gradient volumes, and absorption and
+    reflection each unless aliased (an aliased role's cotangent is added to
+    emission's before the scatter)."""
+    keys = ["emission", "gradient_x", "gradient_y", "gradient_z"]
+    keys += [k for k, aliased in (("absorption", scene.absorption_aliased),
+                                  ("reflection", scene.reflection_aliased)) if not aliased]
+    return {k: dims(getattr(scene, k).data) for k in keys}
+
+
+class ScatterAdds:
+    """The atomic adds of a per-sample scatter without a carry into grids
+    of ``dims`` ({name: (x, y, global z)}), as ``csrc/lit_replay.cuh``
+    (scatter, scatter_packed) makes them: 8 into each grid at every sample
+    a ray composites, at its 8 clamped corners (two of them on one voxel
+    where a corner is clamped), and the distinct voxels those adds reach.
+    ``visit`` takes each step's normalized positions and the rays that
+    composite there; the tallies stay on the device until ``result``."""
+
+    def __init__(self, dims):
+        self.dims = dims
+        self.samples = None
+        self.reached = {}  # the voxels reached, by grid dims
+
+    def visit(self, s, act):
+        import torch
+        n = act.sum()
+        self.samples = n if self.samples is None else self.samples + n
+        for dims in set(self.dims.values()):
+            reach = torch.ones(act.shape, dtype=torch.int64, device=act.device)
+            for c, d in zip(s, dims):
+                i = torch.clamp(torch.floor(c * float(d) - 0.5), -1.0, float(d))
+                reach = reach * torch.where((i >= 0) & (i <= d - 2), 2, 1)
+            reached = torch.where(act, reach, 0).sum()
+            self.reached[dims] = reached + self.reached.get(dims, 0)
+
+    def result(self):
+        n = 0 if self.samples is None else int(self.samples)
+        adds = {name: 8 * n for name in self.dims}
+        voxels = {name: int(self.reached[d]) if n else 0 for name, d in self.dims.items()}
+        return {"samples": n, "adds": adds, "voxels": voxels,
+                "atomic_adds_per_sample": sum(adds.values()) / n if n else None,
+                "voxels_per_sample": sum(voxels.values()) / n if n else None}
 
 
 class CarryCount:
@@ -535,6 +616,23 @@ def lit_corner_flushes(brick, opts, w_in, entry):
                                                + 8 * (roles - carry) * samples) / samples}
 
 
+def lookup_scatter_adds(brick, opts, w_in, entry):
+    """ScatterAdds of the lookup gradient segment (``csrc/brick_bwd.cu``,
+    brick_lookup bwd kernels) on one brick, counted from the plain walk's
+    positions (carried_corners), the grids' z placed as the brick's."""
+    from volume_renderer_tpu_torch.ops import raymarch_core as core
+
+    count = ScatterAdds(lookup_scatter_grids(
+        brick.scene, lambda v: (v.shape[2], v.shape[1], brick.slab_geometry(v)[1])))
+    samples, _ = carried_corners(brick, opts, w_in, entry, brick.scene.emission.data,
+                                 lambda pos, act, consts: count.visit(
+                                     core.to_sample_coords(pos, consts), act))
+    out = count.result()
+    if out["samples"] != samples:
+        raise RuntimeError(f"the walk visited {out['samples']} samples of {samples}")
+    return out
+
+
 def tail_factor(steps, cols=16, rows=16):
     """A launch's tail factor in blocks of ``cols`` x ``rows`` threads, from
     its steps plane (H, W) (each ray's samples) or a list of them (a form's
@@ -629,6 +727,33 @@ def march_flushes(scene, opts):
                 carry.visit(s, steps > k)
             pos = pos + step
         return int(steps.sum()), {grid: carry.total() for grid, carry in carries.items()}
+
+
+def march_scatter_adds(scene, opts, steps=None):
+    """ScatterAdds of K6L (``csrc/march_bwd.cu``, march_bwd_lookup_scatter
+    kernels) on the whole image of a lit lookup scene, counted from the
+    plain march's positions over each ray's samples: the plain march's
+    count, or ``steps``, the (H, W) samples plane of K5's launch on the
+    scene, whose samples K6L replays."""
+    import torch
+    from volume_renderer_tpu_torch.ops import raymarch_core as core
+    from volume_renderer_tpu_torch.ops.forward import _init_rays
+
+    with torch.no_grad():
+        if steps is None:
+            consts, pos, step, steps = march_samples(scene, opts)
+        else:
+            consts, _, pos, step, _, _, _ = _init_rays(scene, opts, 0.0, 0, opts.height)
+            steps = steps.reshape(-1)
+        count = ScatterAdds(lookup_scatter_grids(
+            scene, lambda v: (v.shape[2], v.shape[1], v.shape[0])))
+        for k in range(int(steps.max())):
+            count.visit(core.to_sample_coords(pos, consts), steps > k)
+            pos = pos + step
+        out = count.result()
+        if out["samples"] != int(steps.sum()):
+            raise RuntimeError(f"the walk visited {out['samples']} samples of {int(steps.sum())}")
+        return out
 
 
 # A 128-byte line of the tiled layout that K1's gather model compares: 4 x 4 x 2 voxels.
@@ -743,18 +868,27 @@ KERNEL_PARAMS = {
     "brick_lit_fwd_kernel": ("LOOKUP", "AB_ALIASED", "RE_ALIASED", "PACKED"),
     "brick_bwd_kernel": ("AB_ALIASED", "AB_OWN_CELL"),
     "brick_lit_bwd_kernel": ("AB_ALIASED", "RE_ALIASED"),
+    "march_bwd_lookup_params_kernel": ("AB_ALIASED", "RE_ALIASED"),
+    "march_bwd_lookup_scatter_kernel": ("AB_ALIASED", "RE_ALIASED"),
+    "march_bwd_lookup_unpacked_params_kernel": ("AB_ALIASED", "RE_ALIASED"),
+    "march_bwd_lookup_unpacked_scatter_kernel": ("AB_ALIASED", "RE_ALIASED"),
+    "brick_lookup_bwd_kernel": ("AB_ALIASED", "RE_ALIASED"),
+    "brick_lookup_unpacked_bwd_kernel": ("AB_ALIASED", "RE_ALIASED"),
 }
-# Threads a block by mode or kernel, where it is not 16x16 (K3, K6 and the
-# K7 gradient segment run in 16x8 blocks: csrc/march_bwd.cu,
-# csrc/brick_bwd.cu; K7 phase 1, lit phase 2 and K2 in 16 rows of a
+# Threads a block by mode or kernel, where it is not 16x16 (K3, K6, K6L and
+# the K7 gradient segments run in 16x8 blocks: csrc/march_bwd.cu,
+# csrc/brick_bwd.cu; K7 phase 1, lit phase 2 and K2 (K2L) in 16 rows of a
 # constant of their source: kernel_threads)
-KERNEL_THREADS = {"K3": 128, "K6": 128, "K7_scatter": 128, "K7_scatter_lit": 128}
+KERNEL_THREADS = {"K3": 128, "K6": 128, "K6L": 128, "K7_scatter": 128, "K7_scatter_lit": 128,
+                  "K7_scatter_lookup": 128}
 # the constants of 16 x ROWS blocks: kernel or mode -> (source, constant)
 BLOCK_ROWS = {"K7_transmittance": ("brick_fwd.cu", "kPhase1Rows"),
               "K7_segment_lit": ("brick_fwd.cu", "kLitRows"),
               "K7_segment_lit_lookup": ("brick_fwd.cu", "kLitLookupRows"),
               "march_bwd_params_kernel": ("march_bwd.cu", "kK2Rows"),
-              "march_bwd_lit_params_kernel": ("march_bwd.cu", "kK2LitRows")}
+              "march_bwd_lit_params_kernel": ("march_bwd.cu", "kK2LitRows"),
+              "march_bwd_lookup_params_kernel": ("march_bwd.cu", "kK2LitRows"),
+              "march_bwd_lookup_unpacked_params_kernel": ("march_bwd.cu", "kK2LitRows")}
 
 
 def kernel_threads(repo):
@@ -778,6 +912,12 @@ def kernel_mode_of(kernel: str, args) -> str:
         return "K1" if not args[0] else ("K5" if args[1] else "K4")
     if kernel in ("march_bwd_params_kernel", "march_bwd_lit_params_kernel"):
         return "K2"
+    if kernel in ("march_bwd_lookup_params_kernel", "march_bwd_lookup_unpacked_params_kernel"):
+        return "K2L"
+    if kernel in ("march_bwd_lookup_scatter_kernel", "march_bwd_lookup_unpacked_scatter_kernel"):
+        return "K6L"
+    if kernel in ("brick_lookup_bwd_kernel", "brick_lookup_unpacked_bwd_kernel"):
+        return "K7_scatter_lookup"
     if kernel == "march_bwd_scatter_kernel":
         return "K3"
     if kernel == "march_bwd_lit_scatter_kernel":
@@ -841,9 +981,9 @@ def ptxas_by_kernel(log: str, strict: bool = True, threads=KERNEL_THREADS) -> di
 # The plain march and replay cost hundreds to thousands of launches a step
 # whatever the rays, so their time follows the steps, that is the volume's
 # edge: at full size only the K1 oracle band runs. The camera checks, unlit
-# and lit, run at 48^3 / 256^2, the lit oracle bands at 64^3 / 256^2, the
+# and lit, run at 32^3 / 256^2, the lit oracle bands at 64^3 / 256^2, the
 # pose fit at 12^3 / 24^2 (at 64^3 / 96^2 its 12 steps take a minute).
-CAMERA = dict(volume=48, image=256, first_row=112, rows=32)
+CAMERA = dict(volume=32, image=256, first_row=112, rows=32)
 POSE_FIT = dict(volume=12, image=24, steps=12, lr=5e-3)
 ORACLE = dict(first_row=224, rows=64, lit_volume=64, lit_image=256, lit_first_row=112,
               lit_rows=32, facade_volume=32, facade_image=(64, 16))
@@ -858,7 +998,7 @@ CAMERA_TOL = {"camera_rotation": 5e-3, "camera_focal": 2e-3, "camera_distance": 
 def camera_grads_phase(ctx) -> dict:
     """render_fused(camera_grads=True) on a band against autograd of the
     fixed-trip march (render_rows(differentiable=True)) on the same band, at
-    48^3 on the noisy unlit scene and on the lit OTF one; then
+    32^3 on the noisy unlit scene and on the lit OTF one; then
     a pose-and-intrinsics fit through it."""
     import torch
 
@@ -1176,7 +1316,7 @@ BRICK_WORLDS = ((1, "nccl", False, 1), (2, "gloo", False, 1), (4, "gloo", True, 
                 (2, "gloo", False, 2), (4, "gloo", True, 2))
 BRICK_FORMS = {"unlit": ("K7_transmittance", "K7_segment", "K7_scatter"),
                "lit": ("K7_transmittance", "K7_segment_lit", "K7_scatter_lit"),
-               "lookup": ("K7_transmittance", "K7_segment_lit")}
+               "lookup": ("K7_transmittance", "K7_segment_lit", "K7_scatter_lookup")}
 RANK_IMAGE_TOL = 1e-6    # of scale: the ranks' image against the one-process one's (1 x W)
 RANK_GRAD_TOL = 1e-5     # of scale: the gradient segment's atomic adds land in any order
 RANK_LOSS_TOL = 1e-6     # relative
@@ -1248,9 +1388,8 @@ def bricked_rehearsal_cells(ctx, rehearsals) -> dict:
                    "image_err_of_scale": [],
                    **multihost.one_process_ms(scene, opts, target, start, mesh)}
             band_rows = opts.height // n_bands
-            # a forward (phase 1, phase 2) and, but for lookup, a step (+ the segment)
-            launches = {k: (1 if case == "lookup" else (1 if k == BRICK_FORMS[case][2] else 2))
-                        for k in BRICK_FORMS[case]}
+            # a forward (phase 1, phase 2) and a step (+ the segment)
+            launches = {k: 1 if k == BRICK_FORMS[case][2] else 2 for k in BRICK_FORMS[case]}
             for r in results:
                 if (r["band"], r["brick"], r["bands"]) != (*divmod(r["rank"], n_bricks), n_bands):
                     raise RuntimeError(f"{what}: rank {r['rank']} is band {r['band']} and brick "
@@ -1274,11 +1413,6 @@ def bricked_rehearsal_cells(ctx, rehearsals) -> dict:
                 if r[case]["launches"] != launches:
                     raise RuntimeError(f"{what}: rank {r['rank']} launched "
                                        f"{r[case]['launches']}, not {launches}")
-            if case == "lookup":
-                if not all("render_fused_bricked" in r[case]["grads_refused"] for r in results):
-                    raise RuntimeError(f"{what}: a rank's gradients did not refuse")
-                cell[case] = out
-                continue
             g = 2.0 * (image - target)
             _, want = bricks.voxel_grads_bricked_fast(split, opts, g)
             out["grads_err_of_scale"] = grads_err(what, results, case, "grads", want)
@@ -1930,7 +2064,7 @@ def main() -> None:
         golden_err[name] = check(f"golden {name}", golden_render(name), golden, 1e-4, 1e-3, None)
     record({"phase": "goldens", "atol": 1e-4, "rtol": 1e-3, "max_abs_err": golden_err})
 
-    # ---- 3. kernel vs plain at 32^3 / 256x192 ---------------------------
+    # ---- 3. kernel vs plain at 24^3 / 256x192 ---------------------------
     compare = {}
     for name, mode, kw, offset in (
             ("K1_absorption_aliased", "K1", dict(ab_aliased=True), 0.0),
@@ -1961,7 +2095,7 @@ def main() -> None:
             "K1_K4_exact": True, "K5_packed_except": ["K5_gradients_other_shape"],
             "max_abs_err": compare})
 
-    # ---- 4. backward kernel vs plain replay at 32^3 / 256x192 -----------
+    # ---- 4. backward kernel vs plain replay at 24^3 / 256x192 -----------
     # Kernel and plain replay compute each sample's terms with the same
     # float32 arithmetic and differ in the order of their sums: the kernel's
     # atomic adds land in no fixed order, index_add_ and torch.sum have their
@@ -1980,8 +2114,11 @@ def main() -> None:
     # shape): they keep GRAD_TOL.
     BRICK_GRAD_TOL = 1e-5
     GRAD_TOLS = {"K3 grids": BRICK_GRAD_TOL, "others": GRAD_TOL}
-    grad_err = {"K2": 0.0, "K3": 0.0, "K6": 0.0}       # share of the scale
-    grad_abs_err = {"K2": 0.0, "K3": 0.0, "K6": 0.0}
+    grad_err = {"K2": 0.0, "K3": 0.0, "K6": 0.0, "K2L": 0.0, "K6L": 0.0}  # share of the scale
+    grad_abs_err = dict(grad_err)
+    # the grids of every gradient: held at BRICK_GRAD_TOL where summed in another order
+    GRID_NAMES = ("emission", "absorption", "reflection", "gradient_x", "gradient_y",
+                  "gradient_z")
 
     def check_grads(name, got, want, mode, keys=None):
         """Every key of ``got`` against ``want``; returns the errors by key."""
@@ -2011,13 +2148,17 @@ def main() -> None:
         other keys GRAD_TOL."""
         errs = check_grads(name, got, want, None, keys=want.keys())
         for key, err in errs.items():
-            limit = BRICK_GRAD_TOL if key in ("emission", "absorption", "reflection") else GRAD_TOL
+            limit = BRICK_GRAD_TOL if key in GRID_NAMES else GRAD_TOL
             if err > limit:
                 raise RuntimeError(f"{name} {key}: the gradient is {err:.3e} of its scale off")
         return errs
 
     transfer_keys = ("factor_emission", "factor_absorption", "factor_reflection", "color",
                      "light_colors")
+    # K6L and K2L (lit, lookup gradient volumes): K5's noisy scene packed with
+    # absorption aliased, separate with reflection aliased and two lights, and
+    # unpacked with gradient volumes of another shape; every key, the three
+    # gradient volumes' grids included, within GRAD_TOL
     grads_compare = {}
     for name, mode, kw, offset, reuse in (
             ("K3_absorption_aliased", "K1", dict(ab_aliased=True), 0.0, False),
@@ -2030,7 +2171,12 @@ def main() -> None:
              dict(n_lights=2, re_aliased=True), 0.0, True),
             ("K6_anisotropic_36x24x64", "K4", ANISOTROPIC, 0.0, False),
             ("K6_faces_and_edges_48", "K4", FACES, 0.0, False),
-            ("K2_absorption_separate_paired", "K1", dict(ab_aliased=False), 0.0, False)):
+            ("K2_absorption_separate_paired", "K1", dict(ab_aliased=False), 0.0, False),
+            ("K6L_packed_absorption_aliased", "K5", dict(ab_aliased=True), 0.0, False),
+            ("K6L_packed_two_lights_reflection_aliased_image_reuse", "K5",
+             dict(ab_aliased=False, re_aliased=True, n_lights=2), 0.0, True),
+            ("K6L_gradients_other_shape", "K5", dict(ab_aliased=False, grad_other_shape=True),
+             0.0, False)):
         scene = flagship(48 if kw is FACES else PLAIN["volume"], mode,
                          **{"noise": 0.05, **kw})
         # unlit K2 reads the packed pair where absorption is separate and of
@@ -2046,11 +2192,13 @@ def main() -> None:
         torch.cuda.synchronize()
         assert img0 is None or img is img0
         want = replay_backward(scene, opts, g, img, offset, angle_floor=True)
-        bmode = grad_mode(scene, scatter=True)
+        bmode, pmode = grad_mode(scene, scatter=True), grad_mode(scene, scatter=False)
+        if mode == "K5" and (cuda_march.pack_lookup(scene) is None) != ("grad_other_shape" in kw):
+            raise RuntimeError(f"{name}: K6L's pack made where it should not be, or not made")
         grads_compare[name] = {
             "mode": bmode, "K2_paired": paired,
             "err_of_scale": check_grads(name, got, want, bmode, keys=want.keys()),
-            "K2_err_of_scale": check_grads(name + " K2", got_transfer, want, "K2",
+            "K2_err_of_scale": check_grads(name + " K2", got_transfer, want, pmode,
                                            keys=[k for k in want if k in transfer_keys])}
         del scene, got, want
     record({"phase": "grads_vs_plain", "volume": PLAIN["volume"],
@@ -2107,38 +2255,40 @@ def main() -> None:
     # ---- 6. the training main path at 256^3 / 512^2 ---------------------
     size = MAIN["image"]
 
-    def band_check(name, scene, opts, g, img, scatter, also_k2=False):
-        """The kernel on the whole image, with g zero outside a 64-row band,
-        against the plain replay of that band alone. ``also_k2``: K2 too,
-        against the same replay (the plain version of every backward mode),
-        under the key "K2"."""
-        band0 = (opts.height - BAND) // 2
+    def band_check(name, scene, opts, g, img, scatter, also_k2=False, band=BAND):
+        """The kernel on the whole image, with g zero outside a band of
+        ``band`` rows through the middle, against the plain replay of that
+        band alone. ``also_k2``: K2 (K2L) too, against the same replay (the
+        plain version of every backward mode), under the key "K2"."""
+        band0 = (opts.height - band) // 2
         g_band = torch.zeros_like(g)
-        g_band[band0:band0 + BAND] = g[band0:band0 + BAND]
+        g_band[band0:band0 + band] = g[band0:band0 + band]
         entry = voxel_grads_fast if scatter else transfer_grads_fast
         _, got = entry(scene, opts, g_band, image=img)
         got_k2 = transfer_grads_fast(scene, opts, g_band, image=img)[1] if also_k2 else None
-        cut = slice(band0, band0 + BAND)
+        cut = slice(band0, band0 + band)
         # K3 and K6 also over the band alone, as rays-DP launches them
         got_alone = voxel_grads_fast(scene, opts, g[cut].contiguous(), image=img[cut].contiguous(),
-                                     y_offset=band0, n_rows=BAND)[1] if scatter else None
+                                     y_offset=band0, n_rows=band)[1] if scatter else None
         torch.cuda.synchronize()
         want, plain_ms = timed(lambda: replay_backward(
             scene, opts, g[cut].contiguous(), img[cut].contiguous(),
-            y_offset=band0, n_rows=BAND, angle_floor=True))
+            y_offset=band0, n_rows=band, angle_floor=True))
         mode = grad_mode(scene, scatter)
-        out = {"mode": mode, "band_rows": BAND, "band_first_row": band0, "plain_ms": plain_ms,
+        out = {"mode": mode, "band_rows": band, "band_first_row": band0, "plain_ms": plain_ms,
                "err_of_scale": check_grads(name, got, want, mode)}
         if scatter:
             out["band_alone_err_of_scale"] = check_grads(name + " band alone", got_alone, want,
                                                          mode)
         if also_k2:
-            out["K2"] = {"mode": "K2", "band_rows": BAND, "plain_ms": plain_ms,
-                         "err_of_scale": check_grads(name + " K2", got_k2, want, "K2")}
+            k2 = grad_mode(scene, scatter=False)
+            out["K2"] = {"mode": k2, "band_rows": band, "plain_ms": plain_ms,
+                         "err_of_scale": check_grads(name + " " + k2, got_k2, want, k2)}
         return out
 
     train_scenes = {"K3": flagship(MAIN["volume"], "K1", ab_aliased=False, noise=0.05),
-                    "K6": flagship(MAIN["volume"], "K4", ab_aliased=False, noise=0.05)}
+                    "K6": flagship(MAIN["volume"], "K4", ab_aliased=False, noise=0.05),
+                    "K6L": flagship(MAIN["volume"], "K5", ab_aliased=False, noise=0.05)}
     runs, first_step = {}, {}
     for mode, scene in train_scenes.items():
         opts = scene.options(size, size)
@@ -2150,7 +2300,7 @@ def main() -> None:
         merged = train.merge_params(params, static_scene)
         img = render_forward_fast(merged, opts)
         first_step[mode] = band_check(f"first step {mode}", merged, opts, 2.0 * (img - target),
-                                      img, scatter=True, also_k2=mode == "K6")
+                                      img, scatter=True, also_k2=mode in ("K6", "K6L"))
         runs[mode] = (lambda p=params, o=optimizer, sc=static_scene, op=opts, t=target:
                       train.train_step_fast(p, o, sc, op, t))
     # the transfer fit: the unlit scene's factors and color, the grids fixed
@@ -2164,6 +2314,12 @@ def main() -> None:
     runs["K2"] = lambda: transfer_step(tparams, toptimizer, scene, opts, target)
     # lit K2 against the replay of the lit first step's band (phase 7 times it)
     first_step["K2_lit"] = first_step["K6"].pop("K2")
+    # the lookup transfer fit (K5 + K2L): K2L held against the replay of
+    # K6L's first-step band above
+    first_step["K2L"] = first_step["K6L"].pop("K2")
+    lscene = train_scenes["K6L"]
+    lparams, loptimizer, ltarget = transfer_fit(lscene, opts)
+    runs["K2L"] = lambda: transfer_step(lparams, loptimizer, lscene, opts, ltarget)
     del merged, img
 
     torch.cuda.synchronize()
@@ -2176,16 +2332,20 @@ def main() -> None:
             raise RuntimeError(f"the training path launched {mode} {train_launches[mode]} times")
         if not (all(np.isfinite(values)) and all(b < a for a, b in zip(values, values[1:]))):
             raise RuntimeError(f"the {mode} loss did not fall: {values}")
-    if train_launches["K1"] < 2 * TRAIN_STEPS or train_launches["K4"] < TRAIN_STEPS:
+    if (train_launches["K1"] < 2 * TRAIN_STEPS or train_launches["K4"] < TRAIN_STEPS
+            or train_launches["K5"] < 2 * TRAIN_STEPS):
         raise RuntimeError(f"the training path skipped a forward kernel: {train_launches}")
     record({"phase": "train_main_path",
             "entry": {"K3": "train.train_step_fast (unlit)", "K6": "train.train_step_fast (lit)",
-                      "K2": "transfer_grads_fast fit"},
+                      "K2": "transfer_grads_fast fit",
+                      "K6L": "train.train_step_fast (lit, lookup gradient volumes)",
+                      "K2L": "transfer_grads_fast fit (lit, lookup gradient volumes)"},
             "volume": MAIN["volume"], "image": size, "steps": TRAIN_STEPS, "optimizer": "Adam",
             "lr": TRAIN_LR, "volume_noise": 0.05,
             "launches": train_launches, "losses": losses, "first_step_vs_plain_band": first_step,
             "tolerance_of_scale": GRAD_TOLS})
     del runs, train_scenes, params, optimizer, static_scene, target, tparams, toptimizer
+    del lscene, lparams, loptimizer, ltarget
     torch.cuda.empty_cache()
 
     # ---- 7. timing at 256^3 / 512^2 and 512^3 / 1024^2 -------------------
@@ -2277,7 +2437,7 @@ def main() -> None:
                 torch.cuda.empty_cache()
 
     # ---- forward + backward at 256^3 / 512^2 and 512^3 / 1024^2 ---------
-    def time_train_cell(scene, size, scatter, plain=None, band=True):
+    def time_train_cell(scene, size, scatter, plain=None, band=True, rows=BAND):
         """The first training step's state (emission x 1.3 + 0.05 against a
         target of the true scene): the backward kernel alone, the forward +
         backward pair and the whole training step: train_step_fast with
@@ -2287,7 +2447,7 @@ def main() -> None:
         counts the gather model (gather_footprint) of its float2 corner
         loads against float32 ones on a band of 64 rows."""
         mode, fmode = grad_mode(scene, scatter), kernel_mode(scene)
-        lit = scene.has_lighting
+        lit, lookup = scene.has_lighting, fmode == "K5"
         opts = scene.options(size, size)
         entry = voxel_grads_fast if scatter else transfer_grads_fast
         with torch.no_grad():
@@ -2299,7 +2459,8 @@ def main() -> None:
             img = render_forward_fast(merged, opts, steps=steps)
             g = 2.0 * (img - target)
             if plain is None and band:
-                plain = band_check(f"timing cell {mode} {size}", merged, opts, g, img, scatter)
+                plain = band_check(f"timing cell {mode} {size}", merged, opts, g, img, scatter,
+                                   band=rows)
             extra = {}
             pair = cuda_grads.pack_pair(merged) if mode == "K2" and not lit else None
             if pair is not None:
@@ -2318,6 +2479,11 @@ def main() -> None:
                 adds = {"samples": n, "flushes": flushes,
                         "atomic_adds_per_sample": sum(flushes.values()) / n,
                         "atomic_adds_per_sample_uncarried": 8 * len(flushes)}
+            if mode == "K6L" and size == MAIN["image"]:
+                # every sample adds at its corners, a grid at a time: K5's
+                # samples at the plain march's positions (march_scatter_adds)
+                adds = {**march_scatter_adds(merged, opts, steps),
+                        "packed": cuda_march.pack_lookup(merged) is not None}
             bwd_ms, bwd_all = median_ms(
                 lambda: march_backward(merged, opts, g, img, scatter=scatter))
 
@@ -2341,13 +2507,14 @@ def main() -> None:
         n_lights = scene.light_positions.shape[0] if lit else 0
         samples = int(steps.sum())
         flops = samples * bwd_flops_per_step(lit, scatter, scene.absorption_aliased,
-                                             scene.reflection_aliased, n_lights)
+                                             scene.reflection_aliased, n_lights, lookup=lookup)
         # each volume read once, each gradient grid written once, g and the
         # image read once, the per-ray planes written once
         grids = 0
         if scatter:
             grids = scene.emission.data.numel() * 4 * (
-                1 + (not scene.absorption_aliased) + (lit and not scene.reflection_aliased))
+                1 + (not scene.absorption_aliased) + (lit and not scene.reflection_aliased)
+                + 3 * lookup)
         nbytes = (volume_bytes(scene, fmode) + grids + 2 * size * size * 3 * 4
                   + (3 + 3 * n_lights) * size * size * 4)
         bound = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
@@ -2362,21 +2529,24 @@ def main() -> None:
         return out
 
     # K2 at 512^3 / 1024^2: the kernel and its pack, no plain band (the run's time)
-    for cfg, modes in ((MAIN, ("K3", "K6", "K2", "K2_lit")), (BIG, ("K3", "K2"))):
+    # K6L and K2L on K5's noisy scene, their bands held in phase 6 (64 rows)
+    fwd_of = {"K6": "K4", "K2_lit": "K4", "K6L": "K5", "K2L": "K5"}
+    for cfg, modes in ((MAIN, ("K3", "K6", "K2", "K2_lit", "K6L", "K2L")), (BIG, ("K3", "K2"))):
         for mode in modes:
             key = f"{mode}_{cfg['volume']}_{cfg['image']}"
-            scene = flagship(cfg["volume"], "K4" if mode in ("K6", "K2_lit") else "K1",
-                             ab_aliased=False, noise=0.05)
+            scene = flagship(cfg["volume"], fwd_of.get(mode, "K1"), ab_aliased=False, noise=0.05)
             # at 256^3 the band was held against the plain replay in phase 6
             plain = first_step[mode] if cfg is MAIN else None
-            cells[key] = time_train_cell(scene, cfg["image"], scatter=mode in ("K3", "K6"),
-                                         plain=plain, band=mode != "K2")
+            cells[key] = time_train_cell(scene, cfg["image"],
+                                         scatter=mode in ("K3", "K6", "K6L"),
+                                         plain=plain, band=mode != "K2",
+                                         rows=BIG["band"] if cfg is BIG else BAND)
             record({"phase": "timing", "cell": key, "volume": cfg["volume"], **cells[key]})
             del scene
             torch.cuda.empty_cache()
 
 
-    # ---- 8. the z-brick kernels vs their plain passes at 32^3 / 256x192 ---
+    # ---- 8. the z-brick kernels vs their plain passes at 24^3 / 256x192 ---
     K7_FORMS = ("transmittance", "segment", "scatter")
     brick_err = {form: 0.0 for form in K7_FORMS}  # max abs error against the plain pass
     brick_grad_err = [0.0]                        # share of the gradient's scale
@@ -2508,16 +2678,20 @@ def main() -> None:
     # segment's grids are held within 1e-5 of scale, its other keys within
     # GRAD_TOL. The bricked image and the slabbed sweep against the
     # single-device kernel.
-    brick_err.update(segment_lit=0.0, scatter_lit=0.0)
-    lit_plain_ms = {"segment_lit": 0.0, "scatter_lit": 0.0}
+    brick_err.update(segment_lit=0.0, scatter_lit=0.0, scatter_lookup=0.0)
+    lit_plain_ms = {"segment_lit": 0.0, "scatter_lit": 0.0, "scatter_lookup": 0.0}
 
-    def lit_bricks_compare(name, scene, opts, g, band, held=None):
+    def lit_bricks_compare(name, scene, opts, g, band, held=None, grad_held=None, grads=True):
         """The lit forms of the bricks ``held`` (indices; None: all) against
-        their plain passes on ``band`` rows through the middle; the record
-        has the plain passes' ms. Lookup: the packed form (where the port
-        packs the windows) also against the per-window form on the same
-        inputs, to the bit."""
+        their plain passes on ``band`` rows through the middle, the gradient
+        segment (lookup: its lookup form) on the bricks ``grad_held`` (None:
+        ``held``) unless not ``grads``; the record has the plain passes' ms.
+        Lookup: the packed form of lit phase 2 (where the port packs the
+        windows) also against the per-window form on the same inputs, to the
+        bit."""
         lookup = scene.has_gradient_volumes
+        scat = "scatter_lookup" if lookup else "scatter_lit"
+        grad_held = held if grad_held is None else grad_held
         packed = lookup and cuda_bricks.pack_window(split_first(scene)) is not None
         y0, rows = (opts.height - band) // 2, band
         g_band = torch.zeros_like(g)
@@ -2532,7 +2706,7 @@ def main() -> None:
                                    fwd.ascending, torch.cumsum, 0.0)
         band_kw = dict(y_offset=y0, n_rows=rows)
         seg_err, got_grads, want_grads = 0.0, [], []
-        plain_ms = {"segment_lit": 0.0, "scatter_lit": 0.0}
+        plain_ms = {"segment_lit": 0.0, scat: 0.0}
         for brick, w_in, up, entry in zip(split.bricks, fwd.w_in, up_dots, fwd.entry):
             if held is not None and brick.index not in held:
                 continue
@@ -2557,15 +2731,15 @@ def main() -> None:
                                 None))
             if not lookup and seg_err:
                 raise RuntimeError(f"{tag}: lit phase 2 is {seg_err:.3e} off its plain pass")
-            if lookup:
+            if not grads or (grad_held is not None and brick.index not in grad_held):
                 continue
             got_grads.append(cuda_bricks.brick_gradients(brick, opts, 0.0, g_band, fwd.image,
                                                          w_in, up, entry))
             want, ms = timed(lambda: brick_march.replay_pass(
                 brick, opts, 0.0, cut(g_band), cut(fwd.image), cut(w_in), cut(up),
                 angle_floor=True, entry=band_entry, **band_kw))
-            plain_ms["scatter_lit"] += ms
-            want_grads.append({k: v for k, v in want.items() if not k.startswith("gradient_")})
+            plain_ms[scat] += ms
+            want_grads.append(want)
         brick_err["segment_lit"] = max(brick_err["segment_lit"], seg_err)
         grad_errs = {}
         for key in (want_grads[0] if want_grads else {}):
@@ -2574,9 +2748,8 @@ def main() -> None:
                 assert got[key].shape == want[key].shape, (name, key)
                 abs_err = float((got[key].double() - want[key].double()).abs().max())
                 grad_errs[key] = max(grad_errs.get(key, 0.0), abs_err / scale)
-                brick_err["scatter_lit"] = max(brick_err["scatter_lit"], abs_err)
-            limit = (BRICK_GRAD_TOL if key in ("emission", "absorption", "reflection")
-                     else GRAD_TOL)
+                brick_err[scat] = max(brick_err[scat], abs_err)
+            limit = BRICK_GRAD_TOL if key in GRID_NAMES else GRAD_TOL
             if grad_errs[key] > limit:
                 raise RuntimeError(f"{name} {key}: the lit gradient segment is "
                                    f"{grad_errs[key]:.3e} of its scale off its plain pass")
@@ -2587,6 +2760,8 @@ def main() -> None:
         slabbed = cuda_slab.render_forward_slabbed_fast(scene, opts, n_slabs=BRICKS)
         return {"ascending_share": float(fwd.ascending.float().mean()),
                 "bricks_held": sorted(held) if held is not None else list(range(BRICKS)),
+                "gradient_bricks_held": ([] if not grads else sorted(grad_held)
+                                         if grad_held is not None else list(range(BRICKS))),
                 **({"packed": packed, "packed_equals_unpacked": packed} if lookup else {}),
                 "plain_ms": plain_ms, "plain_rows": rows,
                 "phase_2_max_abs_err": seg_err, "grad_err_of_scale": grad_errs,
@@ -2614,30 +2789,33 @@ def main() -> None:
     for i, (name, mode, kw) in enumerate((
             ("otf_two_lights_dz_mixed", "K4",
              dict(ab_aliased=False, n_lights=2, noise=0.05, rotate=(88, 0, 0))),
-            ("lookup_packed", "K5", dict(ab_aliased=False)),
-            ("lookup_gradients_other_shape", "K5", dict(ab_aliased=False, grad_other_shape=True)))):
+            ("lookup_packed", "K5", dict(ab_aliased=False, noise=0.05)),
+            ("lookup_gradients_other_shape", "K5",
+             dict(ab_aliased=False, grad_other_shape=True, noise=0.05)))):
         scene = flagship(LIT_BRICKS["volume"], mode, **kw)
         if mode == "K5":  # packed unless the gradient volumes have another shape
             assert ((cuda_bricks.pack_window(split_first(scene)) is None)
                     == ("grad_other_shape" in kw)), name
-        # the unpacked form on the last brick alone (its offsets are the largest)
+        # the unpacked form on the last brick alone (its offsets are the
+        # largest), and the lookup gradient segment there alone on both
         held = {BRICKS - 1} if "grad_other_shape" in kw else None
-        lit_cases[name] = lit_bricks_compare(name, scene, scene.options(lit_w, lit_h),
-                                             cotangent(lit_h, lit_w, seed=20 + i),
-                                             LIT_BRICKS["band"], held)
+        lit_cases[name] = lit_bricks_compare(
+            name, scene, scene.options(lit_w, lit_h), cotangent(lit_h, lit_w, seed=20 + i),
+            LIT_BRICKS["band"], held, grad_held={BRICKS - 1} if mode == "K5" else None)
         for form, ms in lit_cases[name]["plain_ms"].items():
             lit_plain_ms[form] += ms
         del scene
     # Band launches (a rank of a rows x bricks mesh marches one): every K7
     # form over the two halves of the image, bands of BRICK_BAND rows, at
-    # 32^3 / 256x192 on 4 bricks. Each band against the whole launch's rows
+    # 24^3 / 256x192 on 4 bricks. Each band against the whole launch's rows
     # (phase 1's opacity and record, phase 2's contribution and exit opacity,
     # lit phase 2 on the fly and packed: to the bit; the gradient segments'
     # two bands summed: within 1e-5 of scale, as their atomic adds land in
     # any order) on the four unlit cameras above and on two lit scenes; and
     # against its plain band pass (ops/brick_march.py) on one unlit camera
     # (every brick) and on the lit scenes' last brick, held as above.
-    band_counts = {f"K7_{form}": 0 for form in K7_FORMS + ("segment_lit", "scatter_lit")}
+    LIT_FORMS = ("segment_lit", "scatter_lit", "scatter_lookup")
+    band_counts = {f"K7_{form}": 0 for form in K7_FORMS + LIT_FORMS}
 
     def band_launch(mode, launch):
         """``launch()``, a band form of K7; its launches, read from the
@@ -2654,14 +2832,15 @@ def main() -> None:
         return result
     band_err = {"vs_whole_forward": 0.0, "vs_whole_gradients_of_scale": 0.0,
                 "vs_plain_forward": 0.0, "vs_plain_gradients_of_scale": 0.0}
-    band_plain_ms = {form: 0.0 for form in K7_FORMS + ("segment_lit", "scatter_lit")}
+    band_plain_ms = {form: 0.0 for form in K7_FORMS + LIT_FORMS}
 
     def band_compare(name, scene, opts, g, plain_bricks):
         """Each K7 form of ``scene`` over two bands against the whole launch
         and, on the bricks ``plain_bricks``, against its plain band pass."""
         lit = scene.has_lighting
         lookup = lit and scene.has_gradient_volumes
-        seg, scat = ("segment_lit", "scatter_lit") if lit else ("segment", "scatter")
+        seg, scat = ("segment_lit", "scatter_lookup" if lookup else "scatter_lit") if lit else (
+            "segment", "scatter")
         split = bricks.split_bricks(scene, make_mesh(BRICKS))
         fwd = bricks._forward(split, opts, 0.0, fast=True)
         up_dots = bricks._upstream([brick_march.own_dot(g, own) for own in fwd.own],
@@ -2679,8 +2858,7 @@ def main() -> None:
             w_in, up = w_in.contiguous(), up.contiguous()
             w_own, _ = cuda_bricks.brick_transmittance(brick, opts)
             own, w_out = cuda_bricks.brick_segment(brick, opts, 0.0, w_in, entry)
-            whole = (None if lookup else
-                     cuda_bricks.brick_gradients(brick, opts, 0.0, g, fwd.image, w_in, up, entry))
+            whole = cuda_bricks.brick_gradients(brick, opts, 0.0, g, fwd.image, w_in, up, entry)
             summed = {}
             for y0, rows in bands_:
                 def cut(t):
@@ -2699,13 +2877,11 @@ def main() -> None:
                         and b_entry.made_for == want_entry.made_for):
                     raise RuntimeError(f"{tag} rows {y0}-{y0 + rows - 1}: a band's phase 1 or "
                                        f"{seg} is not the whole launch's rows")
-                b_grads = None
-                if not lookup:
-                    b_grads = band_launch(f"K7_{scat}", lambda: cuda_bricks.brick_gradients(
-                        brick, opts, 0.0, cut(g), cut(fwd.image), cut(w_in), cut(up), b_entry,
-                        **band_kw))
-                    for key, value in b_grads.items():
-                        summed[key] = value if key not in summed else summed[key] + value
+                b_grads = band_launch(f"K7_{scat}", lambda: cuda_bricks.brick_gradients(
+                    brick, opts, 0.0, cut(g), cut(fwd.image), cut(w_in), cut(up), b_entry,
+                    **band_kw))
+                for key, value in b_grads.items():
+                    summed[key] = value if key not in summed else summed[key] + value
                 if brick.index not in plain_bricks:
                     continue
                 (p_w, p_entry), ms = timed(lambda: brick_march.transmittance_pass(
@@ -2724,8 +2900,6 @@ def main() -> None:
                 if not lookup and err:  # as the whole launches, exact but for lookup
                     raise RuntimeError(f"{tag}: a band's {seg} is {err:.3e} off its plain pass")
                 band_err["vs_plain_forward"] = max(band_err["vs_plain_forward"], err)
-                if lookup:
-                    continue
                 want, ms = timed(lambda: brick_march.replay_pass(
                     brick, opts, 0.0, cut(g), cut(fwd.image), cut(w_in), cut(up),
                     angle_floor=True, entry=b_entry, **band_kw))
@@ -2733,13 +2907,12 @@ def main() -> None:
                 for key, value in b_grads.items():
                     value, ref = value.double(), want[key].double()
                     err = float((value - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
-                    limit = BRICK_GRAD_TOL if (key in ("emission", "absorption", "reflection")
-                                               or not lit) else GRAD_TOL
+                    limit = BRICK_GRAD_TOL if (key in GRID_NAMES or not lit) else GRAD_TOL
                     if err > limit:
                         raise RuntimeError(f"{tag} band {y0} {key}: {err:.3e} of scale off the "
                                            "plain gradient segment")
                     worst(key, "grads_vs_plain_of_scale", err)
-            for key, value in (whole or {}).items():
+            for key, value in whole.items():
                 err = (float((summed[key].double() - value.double()).abs().max())
                        / max(float(value.abs().max()), 1e-30))
                 if err > RANK_GRAD_TOL:
@@ -2762,7 +2935,7 @@ def main() -> None:
              brick_scene(PLAIN["volume"], (10, 5, 0), ab_other_shape=True), ()),
             ("lit_otf_two_lights", flagship(PLAIN["volume"], "K4", ab_aliased=False, n_lights=2,
                                             noise=0.05), (BRICKS - 1,)),
-            ("lit_lookup_packed", flagship(PLAIN["volume"], "K5", ab_aliased=False),
+            ("lit_lookup_packed", flagship(PLAIN["volume"], "K5", ab_aliased=False, noise=0.05),
              (BRICKS - 1,)))):
         band_cases[name] = band_compare(name, scene, scene.options(PLAIN["width"],
                                                                    PLAIN["height"]),
@@ -3024,33 +3197,49 @@ def main() -> None:
     # scenes, the lit segment of the K4 scene (phase 8's tolerances; the plain
     # passes cost thousands of launches a step, so one brick). Last, the two
     # lit forms over all bricks (CUDA events, warm, median of 5), with their
-    # samples and bound.
+    # samples and bound. The K5 scene (5 % seeded noise) also takes a lookup
+    # bricked gradient call and a lookup bricked Adam step (the lookup
+    # gradient segment a brick), against K6L's voxel_grads_fast: the call
+    # for the same cotangent, the step for the cotangent of its bricked
+    # image; the lookup segment is timed over all bricks (its plain pass is
+    # held in phase 8, at 32^3).
     t_phase = time.perf_counter()
     lit4 = flagship(MAIN["volume"], "K4", ab_aliased=False, noise=0.05)
-    lit5 = flagship(MAIN["volume"], "K5", ab_aliased=False)
+    lit5 = flagship(MAIN["volume"], "K5", ab_aliased=False, noise=0.05)
     opts = lit4.options(size, size)
     with torch.no_grad():
         want4, want5 = render_forward_fast(lit4, opts), render_forward_fast(lit5, opts)
         g_lit = cotangent(size, size, seed=31)
         _, want_lit = voxel_grads_fast(lit4, opts, g_lit, image=want4)
+        _, want_lookup = voxel_grads_fast(lit5, opts, g_lit, image=want5)
         split4 = bricks.split_bricks(lit4, make_mesh(BRICKS))
         split5 = bricks.split_bricks(lit5, make_mesh(BRICKS))
     lit_params, lit_static = train.split_params(lit4)
+    lookup_params, lookup_static = train.split_params(lit5)
     with torch.no_grad():
         lit_params["emission"].mul_(1.3).add_(0.05)
+        lookup_params["emission"].mul_(1.3).add_(0.05)
+        lmerged = train.merge_params(lookup_params, lookup_static)
+        limg = bricks.render_forward_bricked_fast(lmerged, opts, mesh=make_mesh(BRICKS))
+        _, want_lookup_step = voxel_grads_fast(lmerged, opts, 2.0 * (limg - want5))
+        del lmerged, limg
     lit_optimizer = torch.optim.Adam(list(lit_params.values()), lr=TRAIN_LR["K6"])
+    lookup_optimizer = torch.optim.Adam(list(lookup_params.values()), lr=TRAIN_LR["K6L"])
     torch.cuda.synchronize()
     cuda_march.reset_launch_counts()
     img4 = bricks.render_forward_bricked_fast(split4, opts)
     img5 = bricks.render_forward_bricked_fast(split5, opts)
     img_g, got_lit = bricks.voxel_grads_bricked_fast(split4, opts, g_lit)
+    img_g5, got_lookup = bricks.voxel_grads_bricked_fast(split5, opts, g_lit)
     lit_step_loss = float(bricks.train_step_fast_bricked(
         lit_params, lit_optimizer, lit_static, opts, want4, mesh=make_mesh(BRICKS)))
+    lookup_step_loss = float(bricks.train_step_fast_bricked(
+        lookup_params, lookup_optimizer, lookup_static, opts, want5, mesh=make_mesh(BRICKS)))
     torch.cuda.synchronize()
     lit_brick_launches = {k: v for k, v in cuda_march.LAUNCHES_BY_MODE.items() if v}
-    # 2 launches a brick and render, the gradient call and the step 3 each
-    expected = {"K7_transmittance": 4 * BRICKS, "K7_segment_lit": 4 * BRICKS,
-                "K7_scatter_lit": 2 * BRICKS}
+    # 2 launches a brick and render, each gradient call and step 3
+    expected = {"K7_transmittance": 6 * BRICKS, "K7_segment_lit": 6 * BRICKS,
+                "K7_scatter_lit": 2 * BRICKS, "K7_scatter_lookup": 2 * BRICKS}
     if lit_brick_launches != expected:
         raise RuntimeError(f"the lit brick path launched {lit_brick_launches}, expected {expected}")
     lit_main = {
@@ -3060,11 +3249,24 @@ def main() -> None:
         "grads_vs_voxel_grads_fast_K6_of_scale": dp_grads_check(
             "lit bricked gradients", {k: bricks.assemble(v) if isinstance(v, list) else v
                                       for k, v in got_lit.items()}, want_lit),
-        "train_step_fast_bricked_loss": lit_step_loss}
-    if not (np.isfinite(lit_step_loss) and lit_step_loss > 0.0):
-        raise RuntimeError(f"the lit bricked step's loss is {lit_step_loss}")
+        "train_step_fast_bricked_loss": lit_step_loss,
+        "lookup_grads_image_vs_K5": image_tolerance("lookup bricked gradients' image", img_g5,
+                                                    want5),
+        "lookup_grads_vs_voxel_grads_fast_K6L_of_scale": dp_grads_check(
+            "lookup bricked gradients", {k: bricks.assemble(v) if isinstance(v, list) else v
+                                         for k, v in got_lookup.items()}, want_lookup),
+        "lookup_train_step_fast_bricked_loss": lookup_step_loss,
+        "lookup_step_grads_vs_K6L_of_scale": dp_grads_check(
+            "lookup bricked step", {k: p.grad for k, p in lookup_params.items()},
+            {k: want_lookup_step[k] for k in lookup_params})}
+    for what, loss in (("lit", lit_step_loss), ("lookup", lookup_step_loss)):
+        if not (np.isfinite(loss) and loss > 0.0):
+            raise RuntimeError(f"the {what} bricked step's loss is {loss}")
+    # the lookup segment's plain pass is held in phase 8 (at 32^3): here it
+    # would take about 0.7 s a row
     lit_band = {mode: lit_bricks_compare(f"main shapes {mode}", scene, opts, g_lit,
-                                         LIT_BRICKS["band"], held={BRICKS - 1})
+                                         LIT_BRICKS["band"], held={BRICKS - 1},
+                                         grads=mode == "K4")
                 for mode, scene in (("K4", lit4), ("K5", lit5))}
     lit_main["kernels_vs_plain_band"] = lit_band
 
@@ -3100,20 +3302,29 @@ def main() -> None:
                                for b, w, e in zip(split.bricks, w_ins, fwd.entry)]),
             brick_flops_per_sample("segment_lit", False, lookup=lookup, n_lights=n_lights),
             grid_bytes + BRICKS * (lut_bytes + pixels * (5 + 1 + 3 + 1)))}
-        if not lookup:
-            forms["scatter_lit"] = (
-                median_ms(lambda: [cuda_bricks.brick_gradients(b, opts, 0.0, g_lit, fwd.image, w,
-                                                               u, e)
-                                   for b, w, u, e in zip(split.bricks, w_ins, up, fwd.entry)]),
-                brick_flops_per_sample("scatter_lit", False, n_lights=n_lights),
-                2 * grid_bytes + BRICKS * (lut_bytes + pixels * (5 + 3 + 3 + 1 + 1 + 3
-                                                                 + 3 * n_lights)))
+        forms["scatter_lookup" if lookup else "scatter_lit"] = (
+            median_ms(lambda: [cuda_bricks.brick_gradients(b, opts, 0.0, g_lit, fwd.image, w,
+                                                           u, e)
+                               for b, w, u, e in zip(split.bricks, w_ins, up, fwd.entry)]),
+            brick_flops_per_sample("scatter_lit", False, lookup=lookup, n_lights=n_lights),
+            2 * grid_bytes + BRICKS * (lut_bytes + pixels * (5 + 3 + 3 + 1 + 1 + 3
+                                                             + 3 * n_lights)))
         out = {}
         extra = {"segment_lit": {"tail_factors": tails}}
         if lookup:
             extra["segment_lit"]["pack_ms"] = median_ms(
                 lambda: [cuda_bricks.pack_window(b) for b in split.bricks])[0]
             extra["segment_lit"]["packed"] = cuda_bricks.pack_window(split.bricks[0]) is not None
+            adds = [lookup_scatter_adds(b, opts, w, e)
+                    for b, w, e in zip(split.bricks, w_ins, fwd.entry)]
+            n = sum(a["samples"] for a in adds)
+            if n != samples:
+                raise RuntimeError(f"lit phase 2 took {samples} samples, its plain walk {n}")
+            extra["scatter_lookup"] = {"atomic_adds": {
+                "samples": n, **{key: {k: sum(a[key][k] for a in adds) for k in adds[0][key]}
+                                 for key in ("adds", "voxels")},
+                **{key: sum(a[key] * a["samples"] for a in adds) / n
+                   for key in ("atomic_adds_per_sample", "voxels_per_sample")}}}
         else:
             adds = [lit_corner_flushes(b, opts, w, e)
                     for b, w, e in zip(split.bricks, w_ins, fwd.entry)]
@@ -3131,19 +3342,26 @@ def main() -> None:
             bound = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
                      "operations": flops / PEAK_FP32_FLOPS * 1e3}
             bound_by = max(bound, key=bound.get)
-            out[form] = {"ms": ms, "ms_all": ms_all, "launches_timed": BRICKS,
-                         "samples": samples, "flops": flops, "bytes": nbytes,
-                         "bound_ms": bound[bound_by], "bound_by": bound_by,
-                         "plain_ms": lit_band["K5" if lookup else "K4"]["plain_ms"][form],
+            plain = {"plain_ms": lit_band["K5" if lookup else "K4"]["plain_ms"].get(form),
+                     "plain_rows": LIT_BRICKS["band"],
+                     "plain_cell": f"brick {BRICKS - 1} of {BRICKS}, {LIT_BRICKS['band']} "
+                                   f"rows of {size}^2 through the middle"}
+            if form == "scatter_lookup":  # held in phase 8
+                plain = {"plain_ms": lit_cases["lookup_packed"]["plain_ms"][form],
                          "plain_rows": LIT_BRICKS["band"],
                          "plain_cell": f"brick {BRICKS - 1} of {BRICKS}, {LIT_BRICKS['band']} "
-                                       f"rows of {size}^2 through the middle",
+                                       f"rows of {lit_w}x{lit_h} at {LIT_BRICKS['volume']}^3"}
+            out[form] = {"ms": ms, "ms_all": ms_all, "launches_timed": BRICKS,
+                         "samples": samples, "flops": flops, "bytes": nbytes,
+                         "bound_ms": bound[bound_by], "bound_by": bound_by, **plain,
                          **extra.get(form, {})}
         return out
 
     with torch.no_grad():
         lit_cells = lit_form_cells(split4, lookup=False)
-        lit_cells["segment_lit_lookup"] = lit_form_cells(split5, lookup=True)["segment_lit"]
+        lookup_cells = lit_form_cells(split5, lookup=True)
+        lit_cells["segment_lit_lookup"] = lookup_cells["segment_lit"]
+        lit_cells["scatter_lookup"] = lookup_cells["scatter_lookup"]
         # the single-device kernels' one launch, for the same tails
         for mode, scene in (("K4", lit4), ("K5", lit5)):
             steps = torch.zeros((size, size), dtype=torch.int32, device=dev)
@@ -3154,18 +3372,26 @@ def main() -> None:
             "single_K5_ms": median_ms(lambda: render_forward_fast(lit5, opts))[0],
             "single_K6_backward_ms": median_ms(lambda: voxel_grads_fast(lit4, opts, g_lit,
                                                                         image=want4))[0],
+            "single_K6L_backward_ms": median_ms(lambda: voxel_grads_fast(lit5, opts, g_lit,
+                                                                         image=want5))[0],
+            "bricked_grads_K5_ms": median_ms(lambda: bricks.voxel_grads_bricked_fast(
+                split5, opts, g_lit))[0],
             "bricked_forward_K4_ms": median_ms(lambda: bricks.render_forward_bricked_fast(
                 split4, opts))[0],
             "bricked_forward_K5_ms": median_ms(lambda: bricks.render_forward_bricked_fast(
                 split5, opts))[0]}
     lit_paths["bricked_train_step_K4_ms"] = median_ms(lambda: bricks.train_step_fast_bricked(
         lit_params, lit_optimizer, lit_static, opts, want4, mesh=make_mesh(BRICKS)))[0]
+    lit_paths["bricked_train_step_K5_ms"] = median_ms(lambda: bricks.train_step_fast_bricked(
+        lookup_params, lookup_optimizer, lookup_static, opts, want5, mesh=make_mesh(BRICKS)))[0]
     record({"phase": "bricks_lit_main_path", "volume": MAIN["volume"], "image": size,
-            "bricks": BRICKS, "volume_noise_K4": 0.05, "launches": lit_brick_launches,
+            "bricks": BRICKS, "volume_noise_K4": 0.05, "volume_noise_K5": 0.05,
+            "launches": lit_brick_launches,
             "expected_launches": expected, **lit_main, "forms": lit_cells, "ms": lit_paths,
             "seconds": time.perf_counter() - t_phase})
     del lit4, lit5, split4, split5, want4, want5, want_lit, got_lit, img4, img5, img_g
-    del lit_params, lit_static, lit_optimizer
+    del lit_params, lit_static, lit_optimizer, lookup_params, lookup_static, lookup_optimizer
+    del want_lookup, want_lookup_step, got_lookup, img_g5
     torch.cuda.empty_cache()
 
     # ---- 11. another version's K1-K7 against the checkout's -----------------
@@ -3316,9 +3542,12 @@ def main() -> None:
                                f"{float((got - single).abs().max()):.3e} off the single launch's")
         dp_compare[mode] = {"max_abs_err": 0.0, "bit_equal": True}
     # K3 also on an unlit scene with a reflection volume of its own: its
-    # zeroed grid is one of the set the bands share, not one a band
-    for case, fwd_mode in (("K3", "K1"), ("K3_own_reflection", "K1"), ("K6", "K4")):
-        mode = case[:2]
+    # zeroed grid is one of the set the bands share, not one a band; K6L's
+    # bands (the lookup scene's pack made once for them) scatter into the
+    # three gradient volumes' grids too
+    for case, fwd_mode in (("K3", "K1"), ("K3_own_reflection", "K1"), ("K6", "K4"),
+                           ("K6L", "K5")):
+        mode = "K3" if fwd_mode == "K1" else "K6"
         scene = flagship(COMPARE["volume"], fwd_mode, ab_aliased=False, noise=0.05)
         if case == "K3_own_reflection":
             scene = scene.replace(reflection=Volume.create(scene.emission.data * 0.8))
@@ -3333,16 +3562,21 @@ def main() -> None:
         peak = torch.cuda.max_memory_allocated() - base
         if not torch.equal(dp_img, img):
             raise RuntimeError(f"rays-DP {case}: the bands' image differs")
-        # one set of grids however many bands; the rest (the image, the
-        # per-ray planes, the parameters' sums) is under a megabyte here
+        # one set of grids however many bands, and for K6L one pack of four
+        # grids (eight at its peak: api/planner.py, _pack_bytes); the rest
+        # (the image, the per-ray planes, the parameters' sums) is under a
+        # megabyte here
         grid = scene.emission.data.numel() * 4
         n_grids = len(cuda_grads.zero_grids(scene))
-        if peak > (n_grids + 0.5) * grid:
+        pack_grids = 8 if case == "K6L" else 0
+        if peak > (n_grids + pack_grids + 0.5) * grid:
             raise RuntimeError(f"rays-DP {case}: the backward took {peak / 2 ** 20:.1f} MiB at "
                                f"its peak, more than its {n_grids} grids of "
-                               f"{grid / 2 ** 20:.1f} MiB and half a grid")
+                               f"{grid / 2 ** 20:.1f} MiB, {pack_grids} of the pack and half "
+                               "a grid")
         cell = {"err_of_scale": dp_grads_check(f"rays-DP {case}", got, want),
-                "peak_mib": peak / 2 ** 20, "grids": n_grids, "grid_mib": grid / 2 ** 20}
+                "peak_mib": peak / 2 ** 20, "grids": n_grids, "pack_grids": pack_grids,
+                "grid_mib": grid / 2 ** 20}
         if case == "K3_own_reflection" and bool(got["reflection"].any()):
             raise RuntimeError("the unlit rays-DP reflection gradient is not zero")
         if mode == "K6":
@@ -3396,7 +3630,7 @@ def main() -> None:
     # the training steps: the first step's gradients against the single kernels
     dp_runs, dp_first, dp_timing = {}, {}, {}
     dp_train = {}
-    for mode, fwd_mode in (("K3", "K1"), ("K6", "K4")):
+    for mode, fwd_mode in (("K3", "K1"), ("K6", "K4"), ("K6L", "K5")):
         scene = flagship(MAIN["volume"], fwd_mode, ab_aliased=False, noise=0.05)
         target = render_forward_fast(scene, opts)
         params, static_scene = train.split_params(scene)
@@ -3410,7 +3644,7 @@ def main() -> None:
         if not torch.equal(dp_img, img):
             raise RuntimeError(f"rays-DP {mode}: the first step's image differs")
         dp_first[mode] = dp_grads_check(f"rays-DP first step {mode}", got, want)
-        if mode == "K6" and not float(got["factor_reflection"]) != 0.0:
+        if mode != "K3" and not float(got["factor_reflection"]) != 0.0:
             raise RuntimeError("the lit rays-DP step has no factor_reflection gradient")
         dp_train[mode] = (params, torch.optim.Adam(list(params.values()), lr=TRAIN_LR[mode]),
                           static_scene, target)
@@ -3424,7 +3658,8 @@ def main() -> None:
     torch.cuda.synchronize()
     dp_train_launches = dict(cuda_march.LAUNCHES_BY_MODE)
     per_step = DP_MAIN_BANDS * TRAIN_STEPS
-    expected = {k: per_step if k in ("K1", "K3", "K4", "K6") else 0 for k in dp_train_launches}
+    expected = {k: per_step if k in ("K1", "K3", "K4", "K6", "K5", "K6L") else 0
+                for k in dp_train_launches}
     if dp_train_launches != expected:
         raise RuntimeError(f"the rays-DP steps launched {dp_train_launches}, expected {expected}")
     for mode, values in dp_losses.items():
@@ -3960,6 +4195,67 @@ def main() -> None:
     del want_grads, want_sweep
     torch.cuda.empty_cache()
 
+    # (c3) the lookup scene (K5's, 5 % seeded noise): one Adam step each of
+    # train_step_fast (K5 + K6L), train_step_streamed and train_step_slabbed
+    # (the lookup gradient segment a slab), counted; the sweeps' loss and
+    # gradients against K6L's for the cotangent of the sweep's own image (as
+    # above); each step timed, and its peak device memory above what was
+    # allocated before it held within the planner's estimate of its tier
+    look = flagship(MAIN["volume"], "K5", ab_aliased=False, noise=0.05)
+    look_target = render_forward_fast(look, opts)
+    look_dev_params, look_static = train.split_params(look)
+    look_host_static = look_static.replace(**{
+        k: getattr(look_static, k).replace(data=getattr(look_static, k).data.cpu().pin_memory())
+        for k in ("reflection", "gradient_x", "gradient_y", "gradient_z")})
+    with torch.no_grad():
+        look_dev_params["emission"].mul_(1.3).add_(0.05)
+        merged = train.merge_params(look_dev_params, look_static)
+        img_sweep = cuda_slab.render_forward_slabbed_fast(merged, opts, n_slabs=n_main)
+        _, want_look = voxel_grads_fast(merged, opts, 2.0 * (img_sweep - look_target))
+        want_look_loss = float(torch.sum((img_sweep - look_target) ** 2))
+        del merged, img_sweep
+    look_steps = {
+        "train_step_fast": (False, "cuda", lambda p, o: train.train_step_fast(
+            p, o, look_static, opts, look_target)),
+        "train_step_streamed": (True, "streamed", lambda p, o: train.train_step_streamed(
+            p, o, look_host_static, opts, look_target, n_slabs=n_main)),
+        "train_step_slabbed": (False, "slabbed", lambda p, o: train.train_step_slabbed(
+            p, o, look_static, opts, look_target, n_slabs=n_main))}
+    lookup_train = {}
+    for name, (host, tier, step) in look_steps.items():
+        params = {k: (v.detach().cpu().pin_memory() if host else v.detach().clone())
+                  .requires_grad_(True) for k, v in look_dev_params.items()}
+        optimizer = torch.optim.Adam(list(params.values()), lr=TRAIN_LR["K6L"])
+        est = planner.tier_bytes(
+            train.merge_params(params, look_host_static if host else look_static), opts, tier,
+            n_slabs=n_main, training=True, optimizer=optimizer)
+        (loss, counts), peak = peak_of(lambda: counted(lambda: step(params, optimizer)))
+        grads = {k: p.grad.to(dev) for k, p in params.items()}
+        cell = {"loss": float(loss), "launches": counts, "tier": tier,
+                "peak_bytes": peak, "tier_bytes": est}
+        if peak > est:  # what the step allocated above its start, in the tier's estimate
+            raise RuntimeError(f"the lookup {name} took {peak / 2 ** 20:.1f} MiB at its peak, "
+                               f"more than its tier's estimate, {est / 2 ** 20:.1f} MiB")
+        if name == "train_step_fast":
+            if {k: v for k, v in counts.items() if v} != {"K5": 1, "K6L": 1}:
+                raise RuntimeError(f"the lookup train_step_fast launched {counts}")
+        else:
+            k7_only(f"lookup {name}", counts,
+                    ("K7_transmittance", "K7_segment_lit", "K7_scatter_lookup"))
+            cell["loss_vs_sweep_image_of_it"] = abs(float(loss) - want_look_loss) / want_look_loss
+            if cell["loss_vs_sweep_image_of_it"] > 1e-6:
+                raise RuntimeError(f"lookup {name}: loss {float(loss)} against "
+                                   f"{want_look_loss} (the sweep's image)")
+            cell["grads_vs_K6L_same_cotangent_of_scale"] = dp_grads_check(
+                f"lookup {name} first step", grads, {k: want_look[k] for k in grads})
+            lit_launches[f"lookup_{name}"] = counts
+        cell["ms"] = median_ms(lambda: step(params, optimizer))[0]
+        cell["host_ms"] = host_ms(lambda: step(params, optimizer))
+        lookup_train[name] = cell
+    del look, look_target, look_dev_params, look_static, look_host_static, params, optimizer
+    del grads, want_look
+    torch.cuda.empty_cache()
+
     # (d) the facade with make_mesh(4) on the one card: rays-DP, and bricks
     # under a budget that the whole grids do not fit
     em = shell(MAIN["volume"])
@@ -4002,7 +4298,7 @@ def main() -> None:
                       "train_step_planned", "train_step_slabbed (timed; lit counted)"],
             "nvidia_smi": smi_line, "streamed_facade": streamed_facade,
             "slabbed": slabbed_main, "training": train_cells, "mesh_facade": mesh_facade,
-            "lit_facade": lit_facade, "lit_training": lit_train,
+            "lit_facade": lit_facade, "lit_training": lit_train, "lookup_training": lookup_train,
             "lit_sweep_image_vs_K4_of_scale": sweep_image_vs_k4,
             "steps": TRAIN_STEPS, "optimizer": "Adam", "lr": TRAIN_LR["K3"],
             "volume_noise": 0.05, "ms": slab_timing, "seconds": time.perf_counter() - t_phase})
@@ -4161,6 +4457,25 @@ def main() -> None:
             lit = cells[f"K2_lit_{MAIN['volume']}_{MAIN['image']}"]
             kernels[-1].update({f"lit_{k}": lit[k] for k in ("ms", "bound_ms", "bound_by",
                                                               "plain_ms", "fwd_bwd_ms")})
+    for mode, what in (("K6L", "lit voxel-gradient scatter, lookup gradient volumes"),
+                       ("K2L", "lit transfer-parameter replay, lookup gradient volumes")):
+        cell = cells[f"{mode}_{MAIN['volume']}_{MAIN['image']}"]
+        kernels.append({
+            "name": f"march_bwd[{mode}]", "route": "cuda",
+            "source": "volume_renderer_tpu_torch/csrc/march_bwd.cu",
+            "replaces": "volume_renderer_tpu/ops/pallas_march.py:688 (the TPU kernel sends "
+                        "lookup gradients to the XLA replay, pallas_march.py:2066-2068)",
+            "launches": train_launches[mode], "max_abs_err": grad_abs_err[mode],
+            "dp_launches": dp_train_launches.get(mode, 0),
+            "max_err_of_scale": grad_err[mode],
+            "ms": cell["ms"], "plain_ms": cell["plain_ms"], "plain_rows": cell["plain_rows"],
+            "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"], "library_ms": None,
+            "fwd_bwd_ms": cell["fwd_bwd_ms"], "train_step_ms": cell["train_step_ms"],
+            "mode": what,
+            **({"atomic_adds_per_sample": cell["atomic_adds"]["atomic_adds_per_sample"]}
+               if "atomic_adds" in cell else {}),
+            "cell": f"{MAIN['volume']}^3 volume, {MAIN['image']}^2 image, K5's noisy scene",
+        })
     for form, source, what in (
             ("transmittance", "brick_fwd", "z-brick phase 1: opacity of the brick's own samples"),
             ("segment", "brick_fwd", "z-brick phase 2: shaded segment from the entry opacity"),
@@ -4187,7 +4502,9 @@ def main() -> None:
             ("segment_lit", "brick_fwd", "z-brick lit phase 2: K4's step (and K5's on a packed "
                                          "window) on the brick's windows from the entry opacity"),
             ("scatter_lit", "brick_bwd", "z-brick lit gradient segment: K6's sample replay on "
-                                         "the brick's windows")):
+                                         "the brick's windows"),
+            ("scatter_lookup", "brick_bwd", "z-brick lit lookup gradient segment: K6L's sample "
+                                            "replay on the brick's windows (the packed window)")):
         cell = lit_cells[form]
         kernels.append({
             "name": f"{source}[K7 {form}]", "route": "cuda",
@@ -4197,19 +4514,20 @@ def main() -> None:
             "slab_launches": {path: counts[f"K7_{form}"] for path, counts in lit_launches.items()},
             "rank_launches": rank_launches(f"K7_{form}"),
             "band_check_launches": band_counts[f"K7_{form}"],
-            **({"max_err_of_scale": brick_grad_err[0]} if form == "scatter_lit" else {}),
+            **({"max_err_of_scale": brick_grad_err[0]} if form != "segment_lit" else {}),
             **({"lookup": {k: lit_cells["segment_lit_lookup"][k]
                            for k in ("ms", "samples", "bound_ms", "bound_by", "pack_ms")},
                 "tail_factors_4_bricks": cell["tail_factors"]["bricks"]}
                if form == "segment_lit" else {}),
             **({"atomic_adds_per_sample": cell["atomic_adds"]["atomic_adds_per_sample"]}
-               if form == "scatter_lit" else {}),
+               if form != "segment_lit" else {}),
             "ms": cell["ms"], "plain_ms": cell["plain_ms"], "plain_rows": cell["plain_rows"],
             "plain_cell": cell["plain_cell"],
             "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"], "library_ms": None,
             "mode": what,
             "cell": f"{MAIN['volume']}^3 volume, {MAIN['image']}^2 image, {BRICKS} bricks "
-                    f"(ms over all bricks), the noisy lit K4 scene",
+                    f"(ms over all bricks), the noisy lit "
+                    f"{'K5' if form == 'scatter_lookup' else 'K4'} scene",
         })
     for name, cell in cells.items():
         if "finite" in cell and not (cell["finite"] and cell["nonzero_frac"] > 0.05):

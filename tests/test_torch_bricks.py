@@ -32,6 +32,7 @@ from volume_renderer_tpu_torch.convert import params_from_arrays
 from volume_renderer_tpu_torch.models.scene import RenderOptions
 from volume_renderer_tpu_torch.ops import brick_march, cuda_bricks, cuda_march
 from volume_renderer_tpu_torch.ops import raymarch_core as core
+from volume_renderer_tpu_torch.ops.cuda_grads import voxel_grads_fast
 from volume_renderer_tpu_torch.ops.cuda_march import render_forward_fast
 from volume_renderer_tpu_torch.ops.float3 import F3
 from volume_renderer_tpu_torch.ops.forward import render_forward
@@ -227,27 +228,34 @@ def test_make_mesh_without_a_card_raises(monkeypatch):
 @pytest.mark.parametrize("gradient_volumes", [False, True])
 def test_fast_entry_points_refuse_lit_scenes(gradient_volumes):
     """What the fast entry points refuse of a lit scene: since the lit forms
-    of phase 2 and of the gradient segment, only the gradients of a scene
-    with lookup gradient volumes (no backward kernel takes one), on every
-    device, naming the plain path that serves them. The render of either
-    scene, and the gradients of an on-the-fly one, go through."""
+    of phase 2 and of the gradient segment, and the lookup form of the
+    segment, nothing. The render of either scene goes through, and so do
+    the gradients of both, the lookup scene's with the three gradient
+    volumes' grids (cut like emission's), within 1e-5 of scale of
+    single-device ``voxel_grads_fast``."""
     _, tscene = make_scenes(vol_shape=VOL, lighting=True, gradient_volumes=gradient_volumes)
     opts = tscene.options(16, 16)
     mesh = make_mesh(4, "cpu")
     img = bricks.render_forward_bricked_fast(tscene, opts, mesh=mesh)
     np.testing.assert_allclose(img.numpy(), render_forward(tscene, opts).numpy(),
                                rtol=0, atol=1e-7)
-    g = np.zeros((16, 16, 3), np.float32)
+    g = (np.random.RandomState(3).randn(16, 16, 3) * 1e-3).astype(np.float32)
     brick = bricks.split_bricks(tscene, mesh).bricks[1]
     w, entry = cuda_bricks.brick_transmittance(brick, opts)
-    if not gradient_volumes:
-        _, grads = bricks.voxel_grads_bricked_fast(tscene, opts, g, mesh=mesh)
-        assert "light_colors" in grads and "reflection" in grads
-        return
-    with pytest.raises(NotImplementedError, match="render_fused_bricked"):
-        bricks.voxel_grads_bricked_fast(tscene, opts, g, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="render_fused_bricked"):
-        cuda_bricks.brick_gradients(brick, opts, 0.0, torch.from_numpy(g), img, w, w, entry)
+    _, grads = bricks.voxel_grads_bricked_fast(tscene, opts, g, mesh=mesh)
+    assert "light_colors" in grads and "reflection" in grads
+    lookup_keys = {"gradient_x", "gradient_y", "gradient_z"}
+    assert (lookup_keys <= set(grads)) == gradient_volumes
+    _, want = voxel_grads_fast(tscene, opts, g)
+    assert set(grads) == set(want)
+    for key, value in want.items():
+        got = bricks.assemble(grads[key]) if isinstance(grads[key], list) else grads[key]
+        err = float((got - value).abs().max()) / max(float(value.abs().max()), 1e-30)
+        assert err <= 1e-5, f"{key}: {err:.3e} of scale"
+    padded = cuda_bricks.brick_gradients(brick, opts, 0.0, torch.from_numpy(g), img, w, w,
+                                         entry)
+    for key in lookup_keys & set(padded):
+        assert padded[key].shape == brick.scene.emission.data.shape
 
 
 # ---- the fast entry points' CPU path ---------------------------------------

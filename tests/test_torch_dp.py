@@ -355,20 +355,43 @@ def test_train_step_fast_sharded_follows_the_single_device_step(lighting, optimi
 
 
 def test_lit_lookup_scene_raises_from_the_fast_dp_path():
-    """No backward kernel takes lookup gradient volumes lit: the DP path
-    raises where ``voxel_grads_fast`` does, before any band is marched."""
+    """Lit lookup gradient volumes, which no backward kernel took before
+    K6L: the DP path on 4 bands gives every key of single-device
+    ``voxel_grads_fast`` (the three gradient volumes' grids among them,
+    shared zeroed grids a device) within ``GRAD_TOL`` of scale, every key
+    of the JAX package's single-device gradients within the lit tolerance,
+    and ``train_step_fast_sharded`` the single-device step's loss and
+    parameters."""
     _, tscene = scenes("lit_lookup")
     opts = tscene.options(W, H)
-    with pytest.raises(NotImplementedError, match="lookup gradient volumes"):
-        voxel_grads_fast(tscene, opts, cotangent())
-    with pytest.raises(NotImplementedError, match="lookup gradient volumes"):
-        pallas_dp.voxel_grads_fast_sharded(tscene, opts, cotangent(), mesh=make_mesh(4, "cpu"))
-    params, static = train.split_params(tscene)
-    opt = torch.optim.SGD(list(params.values()), lr=1.0)
-    with pytest.raises(NotImplementedError, match="lookup gradient volumes"):
-        pallas_dp.train_step_fast_sharded(params, opt, static, opts, torch.zeros(H, W, 3),
-                                          mesh=make_mesh(4, "cpu"))
-    assert all(p.grad is None for p in params.values())
+    g = cotangent()
+    img, want = voxel_grads_fast(tscene, opts, g)
+    dp_img, got = pallas_dp.voxel_grads_fast_sharded(tscene, opts, g, mesh=make_mesh(4, "cpu"))
+    assert torch.equal(dp_img, img)
+    assert set(got) == set(want) == set(jax_grads("lit_lookup"))
+    assert {"gradient_x", "gradient_y", "gradient_z"} <= set(zero_grids(tscene))
+    for key, value in want.items():
+        scale = float(value.abs().max())
+        err = float((got[key] - value).abs().max())
+        assert err <= GRAD_TOL * max(scale, 1e-30), f"{key}: {err:.3e} of scale {scale:.3e}"
+    for key, value in jax_grads("lit_lookup").items():
+        err = float(np.abs(got[key].numpy() - value).max()) / max(float(np.abs(value).max()),
+                                                                   1e-12)
+        assert err <= JAX_GRAD_TOL[True], f"{key}: {err:.3e} of the JAX scale"
+    target = render_forward_fast(tscene, opts)
+    runs = []
+    for step in (functools.partial(pallas_dp.train_step_fast_sharded, mesh=make_mesh(4, "cpu")),
+                 train.train_step_fast):
+        params, static = train.split_params(tscene)
+        with torch.no_grad():
+            params["emission"].mul_(1.2).add_(0.05)
+        opt = torch.optim.SGD(list(params.values()), lr=1e-3)
+        runs.append((float(step(params, opt, static, opts, target)), params))
+    (l_dp, p_dp), (l_one, p_one) = runs
+    np.testing.assert_allclose(l_dp, l_one, rtol=1e-6)
+    for key, want_p in p_one.items():
+        np.testing.assert_allclose(p_dp[key].detach().numpy(), want_p.detach().numpy(),
+                                   rtol=2e-6, atol=3e-7, err_msg=key)
 
 
 def test_rays_dp_refusals():

@@ -168,10 +168,28 @@ def test_cpu_path_is_the_replay_with_the_floored_angle_adjoint():
 
 @pytest.mark.parametrize("entry", [voxel_grads_fast, transfer_grads_fast])
 def test_lit_lookup_scene_raises(entry):
-    _, tscene = make_scenes(vol_shape=VOL, lighting=True, gradient_volumes=True)
+    """A lit scene with lookup gradient volumes (refused before K2L and
+    K6L): the plain version is the replay with the floored angle adjoint,
+    to the bit, the three gradient volumes' keys among the voxel grads, and
+    within the lit tolerance of ``jax.vjp`` of the JAX ``render_fused``."""
+    jscene, tscene = make_scenes(vol_shape=VOL, lighting=True, gradient_volumes=True)
     opts = tscene.options(16, 16)
-    with pytest.raises(NotImplementedError, match="render_fused"):
-        entry(tscene, opts, np.zeros((16, 16, 3), np.float32))
+    g = (np.random.RandomState(7).randn(16, 16, 3) * 1e-3).astype(np.float32)
+    img, grads = entry(tscene, opts, g)
+    want = replay_backward(tscene, opts, torch.from_numpy(g), img, angle_floor=True)
+    if entry is voxel_grads_fast:
+        assert {"gradient_x", "gradient_y", "gradient_z"} <= set(grads)
+        assert set(grads) == set(want)
+    else:
+        assert set(grads) == set(TRANSFER_KEYS)
+    for key, value in grads.items():
+        np.testing.assert_array_equal(value.numpy(), want[key].numpy(), err_msg=key)
+    diff, template = jax_split_scene(jscene)
+    _, vjp_fn = jax.vjp(
+        lambda d: jax_render_fused(jax_merge_scene(template, d), jscene.options(16, 16)), diff)
+    jgrads = vjp_fn(jnp.asarray(g))[0]
+    for key, value in grads.items():
+        assert rel_err(value.numpy(), np.asarray(jgrads[key])) <= TOL[True], key
 
 
 def test_march_backward_refuses_cpu_scenes():
@@ -188,6 +206,11 @@ def test_grad_mode():
     assert cuda_grads.grad_mode(lit, scatter=True) == "K6"
     assert cuda_grads.grad_mode(unlit, scatter=False) == "K2"
     assert cuda_grads.grad_mode(lit, scatter=False) == "K2"
+    lookup = make_scenes(vol_shape=VOL, lighting=True, gradient_volumes=True)[1]
+    unlit_lookup = make_scenes(vol_shape=VOL, gradient_volumes=True)[1]
+    assert cuda_grads.grad_mode(lookup, scatter=True) == "K6L"
+    assert cuda_grads.grad_mode(lookup, scatter=False) == "K2L"
+    assert cuda_grads.grad_mode(unlit_lookup, scatter=True) == "K3"
     assert set(cuda_march.LAUNCHES_BY_MODE) == {
-        "K1", "K2", "K3", "K4", "K5", "K6", "K7_transmittance", "K7_segment", "K7_scatter",
-        "K7_segment_lit", "K7_scatter_lit"}
+        "K1", "K2", "K3", "K4", "K5", "K6", "K2L", "K6L", "K7_transmittance", "K7_segment",
+        "K7_scatter", "K7_segment_lit", "K7_scatter_lit", "K7_scatter_lookup"}

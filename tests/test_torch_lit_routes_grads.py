@@ -29,7 +29,7 @@ from test_torch_lit_routes import (
     CASES, GRAD_CASES, H, IMAGE_TOL, N, TOL_JAX_OF_SCALE, TOL_JAX_SWEEP_OF_SCALE, TOL_SINGLE, W,
     cotangent, of_scale, scenes, whole)
 from volume_renderer_tpu_torch import train
-from volume_renderer_tpu_torch.ops import cuda_bricks, cuda_slab
+from volume_renderer_tpu_torch.ops import brick_march, cuda_bricks, cuda_slab
 from volume_renderer_tpu_torch.ops.cuda_grads import voxel_grads_fast
 from volume_renderer_tpu_torch.ops.forward import render_forward
 from volume_renderer_tpu_torch.ops.vjp import merge_scene, split_scene
@@ -150,19 +150,33 @@ def test_lit_bricked_train_step_matches_train_step_fast():
 
 
 def test_lit_lookup_gradient_segment_refuses():
-    """A lit scene with lookup gradient volumes has no gradient segment, as
-    it has no single-device backward kernel: every entry point that would
-    launch one raises on every device and names the plain routes."""
+    """The lookup gradient segment, which these entry points refused before
+    it existed: on a CPU brick ``brick_gradients`` is the plain pass with the
+    kernels' angle adjoint, to the bit, the three gradient windows' grids
+    among its keys; the bricked and the card sweep's backward through it
+    hold every key, the gradient volumes' too, within ``TOL_SINGLE`` of
+    single-device ``voxel_grads_fast`` and within ``TOL_JAX_OF_SCALE`` of the
+    JAX package's single-device replay."""
     _, tscene = scenes("lit_lookup")
     opts = tscene.options(W, H)
     g = torch.from_numpy(cotangent())
     brick = bricks.split_bricks(tscene, make_mesh(N, "cpu")).bricks[1]
-    _, entry = cuda_bricks.brick_transmittance(brick, opts)
-    w = torch.zeros((H, W))
-    for call in (
-            lambda: cuda_bricks.brick_gradients(brick, opts, 0.0, g, g, w, w, entry),
-            lambda: bricks.voxel_grads_bricked_fast(tscene, opts, g, mesh=make_mesh(N, "cpu")),
-            lambda: cuda_slab.voxel_grads_slabbed_fast(tscene, opts, g, n_slabs=N),
-            lambda: cuda_slab.streamed_grads_fast(tscene, opts, g, n_slabs=N, device="cuda")):
-        with pytest.raises(NotImplementedError, match="render_fused_bricked"):
-            call()
+    w, entry = cuda_bricks.brick_transmittance(brick, opts)
+    image = render_forward(tscene, opts)
+    got = cuda_bricks.brick_gradients(brick, opts, 0.0, g, image, w, w, entry)
+    want = brick_march.replay_pass(brick, opts, 0.0, g, image, w, w, angle_floor=True,
+                                   entry=entry)
+    assert set(got) == set(want) and {"gradient_x", "gradient_y", "gradient_z"} <= set(got)
+    for key, value in want.items():
+        np.testing.assert_array_equal(got[key].numpy(), value.numpy(), err_msg=key)
+    want_img, want = single_device_grads("lit_lookup")
+    jwant = jax_single_device_grads("lit_lookup")
+    for img, grads in (
+            bricks.voxel_grads_bricked_fast(tscene, opts, g, mesh=make_mesh(N, "cpu")),
+            cuda_slab.voxel_grads_slabbed_fast(tscene, opts, g, n_slabs=N)):
+        np.testing.assert_allclose(img.numpy(), want_img.numpy(), rtol=0, atol=1e-7)
+        assert set(grads) == set(want) == set(jwant)
+        errs = {k: of_scale(whole(v).numpy(), want[k].numpy()) for k, v in grads.items()}
+        assert max(errs.values()) < TOL_SINGLE, errs
+        errs = {k: of_scale(whole(grads[k]).numpy(), jwant[k]) for k in jwant}
+        assert max(errs.values()) < TOL_JAX_OF_SCALE, errs

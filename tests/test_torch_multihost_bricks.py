@@ -6,8 +6,8 @@ rank builds only its own z-rows of the unlit, lit and lit-lookup flagship
 cases (the whole scene only for the fused step, whose grid leaves are
 whole), gets the target images from the parent, renders, keeps its brick's
 entry record, takes one Adam step of ``train_step_fast_bricked_ranks``,
-calls ``voxel_grads_bricked_ranks`` for the step's cotangent (both refused
-on the lookup case) and takes one Adam step of
+calls ``voxel_grads_bricked_ranks`` for the step's cotangent (the lookup
+case through the lookup gradient segment) and takes one Adam step of
 ``render_fused_bricked_ranks``. ``run_demo`` itself checks that
 every rank holds the same images, losses and replicated values, bit for bit.
 
@@ -51,7 +51,7 @@ torch.set_num_threads(1)
 
 RANKS = 4
 SPEC = multihost.BrickDemo(volume=16, width=32, height=32, rotate=(180.0, 0.0, 0.0))
-STEPPED = ("unlit", "lit")
+STEPPED = multihost.BRICK_CASES
 TOL_SCALE = 1e-6   # the parameters' gradients: all_reduce sums in its own order
 TOL_JAX = 3e-4     # tests/test_torch_bricks_grads.py: the port against the JAX kernel path
 
@@ -147,7 +147,7 @@ def test_rank_step_is_the_one_process_step(demo, case):
 def test_fused_rank_step_is_render_fused_bricked(demo, case):
     """``render_fused_bricked_ranks`` through autograd against
     ``render_fused_bricked`` on one process, from the same start; the
-    lookup scene too, whose kernel gradients raise."""
+    lookup scene too."""
     scene, opts, target, start = cases()[case]
     params = {k: v.detach().clone().requires_grad_(True) for k, v in start.items()}
     optimizer = torch.optim.Adam(list(params.values()), lr=multihost.DEMO["lr"])
@@ -163,11 +163,22 @@ def test_fused_rank_step_is_render_fused_bricked(demo, case):
 
 
 def test_lit_lookup_scene_renders_and_its_gradients_raise(demo):
+    """The lookup case (whose gradients raised before the lookup gradient
+    segment) on every rank: rendered, its gradients with the three gradient
+    volumes' parts, its kernel and fused steps; the joined gradients within
+    1e-5 of scale of the single-device plain replay (``voxel_grads_fast``)
+    for the ranks' cotangent, as the lit case's are."""
+    scene, opts, target, _ = cases()["lookup"]
+    g = 2.0 * (demo[0]["lookup"]["image"] - target)
+    _, want = voxel_grads_fast(scene, opts, g)
+    assert {"gradient_x", "gradient_y", "gradient_z"} <= set(want)
     for r in demo:
-        assert "render_fused_bricked" in r["lookup"]["grads_refused"]
-        assert "fast" not in r["lookup"] and "grads" not in r["lookup"]
-        assert "fused" in r["lookup"]
         assert float(r["lookup"]["image"].max()) > 0.0
+        assert {"fast", "fused"} <= set(r["lookup"])
+        assert set(r["lookup"]["grads"]["grads"]) == set(want)
+    for key, value in want.items():
+        err = rel_err(joined(demo, "lookup", "grads", "grads", key), value.numpy())
+        assert err <= 1e-5, f"{key}: {err:.3e} of the gradient's scale"
 
 
 def test_halo_rows_return_to_their_owners(demo):

@@ -102,6 +102,39 @@ def test_slabbed_saves_the_lookup_pack():
     assert (plan.path, plan.n_slabs) == ("slabbed", 2)
 
 
+def test_training_budgets_the_lookup_gradient_grids():
+    """A lit lookup scene's training step scatters into the three gradient
+    volumes' grids too (K6L, the lookup gradient segment): on every tier its
+    estimate exceeds the same scene's with on-the-fly gradients, above what
+    rendering adds, by those grids (or the windows the tier holds of them).
+    Under a budget just below the whole-grid step the card's planner picks
+    the slabbed sweep, which holds no pack and no whole-grid state."""
+    _, otf = make_scenes(vol_shape=VOL, lighting=True)
+    _, lookup = make_scenes(vol_shape=VOL, lighting=True, gradient_volumes=True)
+    opts = lookup.options(W, H)
+    d, h, w = VOL
+    grid = d * h * w * 4
+    slots = planner.optimizer_slots()
+
+    def added(scene, path, **kw):
+        return (tier_bytes(scene, opts, path, training=True, **kw)
+                - tier_bytes(scene, opts, path, **kw))
+
+    window = (d // 2 + 2 * HALO) * h * w * 4
+    brick = (d // 4 + 2 * HALO) * h * w * 4
+    want = {("cuda", ()): 3 * grid, ("cuda_dp", ()): 3 * grid,
+            ("bricked", (("n_devices", 4),)): (1 + slots) * 3 * brick,
+            ("slabbed", (("n_slabs", 2),)): 3 * grid + 3 * window,
+            ("streamed", (("n_slabs", 2),)): 3 * window}
+    for (path, kw), extra in want.items():
+        assert added(lookup, path, **dict(kw)) - added(otf, path, **dict(kw)) == extra, path
+    whole = tier_bytes(lookup, opts, "cuda", training=True)
+    plan = plan_render(lookup, opts, budget_bytes=whole - 1, training=True, device="cuda", **ONE)
+    assert plan.path == "slabbed" and plan.est_bytes <= plan.budget_bytes, plan
+    assert plan.est_bytes == tier_bytes(lookup, opts, "slabbed", n_slabs=plan.n_slabs,
+                                        training=True)
+
+
 def test_ladder_on_the_cpu():
     _, scene = make_scenes(vol_shape=VOL)
     opts = scene.options(W, H)

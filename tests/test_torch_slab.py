@@ -27,7 +27,9 @@ from volume_renderer_tpu.ops.slab import render_forward_streamed as jax_streamed
 from test_torch_helpers import make_scenes
 from volume_renderer_tpu_torch.ops import cuda_slab, slab
 from volume_renderer_tpu_torch.ops.brick_march import HALO, Slab
+from volume_renderer_tpu_torch.ops.cuda_grads import voxel_grads_fast
 from volume_renderer_tpu_torch.ops.forward import render_forward
+from volume_renderer_tpu_torch.ops.vjp import merge_scene, split_scene
 
 torch.set_num_threads(1)
 
@@ -185,21 +187,32 @@ def test_card_sweep_stops_where_the_rays_do():
 
 def test_card_sweep_refuses_lit_scenes():
     """What the card's sweep refuses of a lit scene: since the lit forms of
-    the brick kernels, only the gradients of a scene with lookup gradient
-    volumes, naming the plain sweep that differentiates it; it renders one
-    (the lit sweeps' results are in test_torch_lit_routes.py)."""
+    the brick kernels and the lookup form of the gradient segment, nothing.
+    It renders a scene with lookup gradient volumes, and its backward (the
+    gradients of the three gradient volumes among its grids, through
+    autograd too) is within 1e-5 of scale of single-device
+    ``voxel_grads_fast`` (the other lit sweeps' results are in
+    test_torch_lit_routes.py)."""
     _, tscene, n = scenes("lit_lookup")
     opts = tscene.options(W, H)
     np.testing.assert_allclose(
         cuda_slab.render_forward_slabbed_fast(tscene, opts, n_slabs=n).numpy(),
         render_forward(tscene, opts).numpy(), rtol=0, atol=1e-7)
-    g = torch.zeros((H, W, 3))
-    for call in (lambda: cuda_slab.voxel_grads_slabbed_fast(tscene, opts, g, n_slabs=n),
-                 lambda: cuda_slab.render_fused_slabbed_fast(tscene, opts, n_slabs=n),
-                 lambda: cuda_slab.streamed_grads_fast(tscene, opts, g, n_slabs=n,
-                                                       device="cuda")):
-        with pytest.raises(NotImplementedError, match="render_fused_slabbed"):
-            call()
+    g = torch.from_numpy((np.random.default_rng(2).standard_normal((H, W, 3)) * 0.1)
+                         .astype(np.float32))
+    _, want = voxel_grads_fast(tscene, opts, g)
+    assert {"gradient_x", "gradient_y", "gradient_z"} <= set(want)
+    _, got = cuda_slab.voxel_grads_slabbed_fast(tscene, opts, g, n_slabs=n)
+    diff, template = split_scene(tscene)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in diff.items()}
+    out = cuda_slab.render_fused_slabbed_fast(merge_scene(template, leaves), opts, n_slabs=n)
+    (out * g).sum().backward()
+    assert set(got) == set(want) and set(leaves) <= set(want)
+    for grads in (got, {k: v.grad for k, v in leaves.items()}):
+        for key, value in grads.items():
+            err = float((value - want[key]).abs().max()) / max(float(want[key].abs().max()),
+                                                               1e-30)
+            assert err <= 1e-5, f"{key}: {err:.3e} of scale"
 
 
 def test_streamed_fast_needs_a_card():

@@ -45,8 +45,9 @@ bytes):
   records (H, W) int32 and (H, W, 4), opacities, contributions, the carried
   image and their temporaries (``ray_state_bytes``);
 - with ``training``: the gradient grids (emission, absorption and
-  reflection, each unless aliased, as the scatter kernels add into them)
-  and the optimizer's grid-sized state, read from ``optimizer`` when one is
+  reflection, each unless aliased, and a lit lookup scene's three gradient
+  volumes', as the scatter kernels add into them; K6L reads K5's pack,
+  counted above, made once a call) and the optimizer's grid-sized state, read from ``optimizer`` when one is
   passed, else two a parameter (Adam's moments); the backward's per-ray
   planes;
 - for the sweeps: one window (a slab and ``2 * HALO`` halo rows) a role;
@@ -77,6 +78,7 @@ import torch
 from volume_renderer_tpu_torch._device import DeviceLike
 from volume_renderer_tpu_torch.models.scene import RenderOptions, Scene
 from volume_renderer_tpu_torch.ops.brick_march import HALO
+from volume_renderer_tpu_torch.ops.cuda_march import is_lookup
 from volume_renderer_tpu_torch.parallel.mesh import check_mesh
 
 _F32 = 4
@@ -100,7 +102,7 @@ def _unique_volumes(scene: Scene) -> List[Tuple[str, Tuple[int, ...]]]:
         vols.append(("absorption", scene.absorption.data))
     if scene.has_lighting and not scene.reflection_aliased:
         vols.append(("reflection", scene.reflection.data))
-    if scene.has_lighting and scene.has_gradient_volumes:
+    if is_lookup(scene):
         vols.append(("gradient_x", scene.gradient_x.data))
         vols.append(("gradient_y", scene.gradient_y.data))
         vols.append(("gradient_z", scene.gradient_z.data))
@@ -188,9 +190,12 @@ def _divisors(n: int) -> List[int]:
 
 def _grad_grid_bytes(scene: Scene) -> int:
     """The scatter kernels' gradient grids: emission, absorption and
-    reflection, each unless aliased (``ops.cuda_grads.zero_grids``)."""
-    return sum(_nbytes(getattr(scene, k).data.shape)
-               for k in ("emission", "absorption", "reflection") if getattr(scene, k) is not None)
+    reflection, each unless aliased, and a lit lookup scene's three gradient
+    volumes' (``ops.cuda_grads.zero_grids``)."""
+    keys = ("emission", "absorption", "reflection")
+    if is_lookup(scene):
+        keys += ("gradient_x", "gradient_y", "gradient_z")
+    return sum(_nbytes(getattr(scene, k).data.shape) for k in keys if getattr(scene, k) is not None)
 
 
 def _trained_bytes(scene: Scene) -> int:
@@ -206,7 +211,7 @@ def _pack_bytes(scene: Scene, rows: Optional[int] = None) -> int:
     stacks the four, then copies them packed, eight grids of ``rows`` rows
     each (default: the whole depth). K5's is made for each render, lit
     phase 2's of a window or brick for each launch."""
-    if not (scene.has_lighting and scene.has_gradient_volumes):
+    if not is_lookup(scene):
         return 0
     shapes = {tuple(getattr(scene, k).data.shape)
               for k in ("emission", "gradient_x", "gradient_y", "gradient_z")}

@@ -23,12 +23,15 @@
 //                         brick's windows): also the reflection grid, and
 //     plane 2      rac = sum d reflection * re   -> factor_reflection
 //     plane 3+3l+c P   = the light sums          -> light_colors, color
+//   brick_lookup_bwd_kernel  lit with lookup gradient volumes (K6L's step
+//                         over the brick's windows; unpacked:
+//                         brick_lookup_unpacked_bwd_kernel): also the three
+//                         gradient volumes' grids, the same planes
 // Halo rows of the padded grids collect what belongs to the neighbouring
 // bricks; parallel/bricks.py folds them back, and the slab sweep adds a
 // window's rows into the whole grid (ops/cuda_slab.py). The TPU mode has no
-// lit form; the JAX package differentiates a lit brick in XLA. A lit scene
-// with lookup gradient volumes has no gradient segment, as it has no K6
-// (ops/cuda_grads.py, refuse_lookup).
+// lit form; the JAX package differentiates a lit brick in XLA, and a lit
+// lookup scene's gradients anywhere in XLA (pallas_march.py:2066-2068).
 //
 // What bounds it on this card: as march_bwd.cu, the gathers and the atomic
 // adds into L2 (8 a sample and grid if each sample adds its shares alone).
@@ -65,6 +68,13 @@
 //   thread, the segment ran 10 % slower; in registers, at the 168 cap or
 //   without it, 4 % slower. Its time is the replay's arithmetic, not its
 //   atomic adds.
+// - Lit with lookup gradient volumes, the sample's replay and scatter are
+//   K6L's, on the brick's windows, the gradient volumes' windows placed as
+//   emission's: where the four windows have one shape the kernel reads lit
+//   phase 2's packed window (ops/cuda_bricks.py, pack_window; PACKED) and
+//   scatters the four cotangents at its one cell (scatter_packed), else
+//   each window at its own corners. Same cap and blocks (the unpacked
+//   form a higher cap, kUnpackedMaxRegisters, which it needs not to spill).
 //
 // Build flags as for march_fwd.cu (-fmad=false, no fast math). Plain C
 // interface, loaded with ctypes (ops/cuda_bricks.py).
@@ -81,6 +91,9 @@ struct BrickGradArgs {
   float* d_em;          // zero-initialised padded gradient grids;
   float* d_ab;          // null when absorption is aliased to emission,
   float* d_re;          // reflection aliased or the scene unlit
+  float* d_gx;          // the gradient volumes' padded grids: lookup only,
+  float* d_gy;          // else null
+  float* d_gz;
   float* planes;        // (2, height, width); lit (3 + 3 n_lights, height, width)
 };
 
@@ -88,9 +101,6 @@ namespace {
 
 constexpr int kScatterCols = kBlock, kScatterRows = 8;
 constexpr int kScatterThreads = kScatterCols * kScatterRows;
-// The lit form's register cap: K6's (march_bwd.cu, kMaxRegisters), whose
-// sample replay it shares.
-constexpr int kLitMaxRegisters = 168;
 
 // AB_OWN_CELL: absorption has another shape or place than emission, so it
 // keeps its own cell and carry; otherwise it shares emission's.
@@ -178,10 +188,11 @@ __global__ void __launch_bounds__(kScatterThreads) brick_bwd_kernel(const BrickG
   ga.planes[plane + pix] = acc_f;
 }
 
-// The lit gradient segment (on-the-fly gradients): the brick's own samples
-// replayed with K6's sample replay (lit_replay_sample) over its windows.
-template <bool AB_ALIASED, bool RE_ALIASED>
-__global__ void __maxnreg__(kLitMaxRegisters) brick_lit_bwd_kernel(const BrickGradArgs ga) {
+// The lit gradient segment of one ray: the brick's own samples replayed with
+// K6's sample replay (lit_replay_sample), or with LOOKUP K6L's, over its
+// windows.
+template <bool LOOKUP, bool PACKED, bool AB_ALIASED, bool RE_ALIASED>
+__device__ __forceinline__ void brick_lit_bwd_ray(const BrickGradArgs& ga) {
   constexpr int kT = kScatterThreads;
   extern __shared__ float light_sums[];  // [3 n_lights][kT], a column per thread
   const BrickArgs& a = ga.b;
@@ -209,12 +220,13 @@ __global__ void __maxnreg__(kLitMaxRegisters) brick_lit_bwd_kernel(const BrickGr
     float tfar;
     ray_step(m, px, py, step, tfar, r.origin);
     const LitConsts c = lit_consts(m, true);  // the fast entry points' angle adjoint
-    const LitGrids d = {ga.d_em, ga.d_ab, ga.d_re};
-    const ZSlab em_z = {a.em_d_global, a.em_z_off}, ab_z = {a.ab_d_global, a.ab_z_off};
-    const ZSlab re_z = {a.re_d_global, a.re_z_off};
+    const LitGrids d = {ga.d_em, ga.d_ab, ga.d_re, ga.d_gx, ga.d_gy, ga.d_gz};
+    const LitPlaces<ZSlab> z = {{a.em_d_global, a.em_z_off}, {a.ab_d_global, a.ab_z_off},
+                                {a.re_d_global, a.re_z_off}, {a.gx_d_global, a.gx_z_off},
+                                {a.gy_d_global, a.gy_z_off}, {a.gz_d_global, a.gz_z_off}};
     march_brick(a, e, step, tfar, threshold, sw, [&](V3 s, V3 p, float& w) {
-      lit_replay_sample<true, AB_ALIASED, RE_ALIASED>(m, c, d, em_z, ab_z, re_z, p, s, w, r,
-                                                      sums, kT);
+      lit_replay_sample<true, LOOKUP, PACKED, AB_ALIASED, RE_ALIASED>(m, c, d, z, p, s, w, r,
+                                                                      sums, kT);
     });
   }
 
@@ -223,6 +235,30 @@ __global__ void __maxnreg__(kLitMaxRegisters) brick_lit_bwd_kernel(const BrickGr
   ga.planes[plane + pix] = r.acc_f;
   ga.planes[2 * plane + pix] = r.acc_rac;
   for (int k = 0; k < 3 * n_lights; ++k) ga.planes[(3 + k) * plane + pix] = sums[k * kT];
+}
+
+// The lit gradient segment (on-the-fly gradients).
+template <bool AB_ALIASED, bool RE_ALIASED>
+__global__ void __maxnreg__(kLitMaxRegisters) brick_lit_bwd_kernel(const BrickGradArgs ga) {
+  brick_lit_bwd_ray<false, false, AB_ALIASED, RE_ALIASED>(ga);
+}
+
+// The lit gradient segment with lookup gradient volumes, from lit phase 2's
+// packed window.
+template <bool AB_ALIASED, bool RE_ALIASED>
+__global__ void __maxnreg__(kLitMaxRegisters) brick_lookup_bwd_kernel(const BrickGradArgs ga) {
+  brick_lit_bwd_ray<true, true, AB_ALIASED, RE_ALIASED>(ga);
+}
+
+// The same with gradient windows of another shape than emission's, each
+// fetched at its own corners: under the cap ptxas spilled 12 bytes in one
+// of them, so they get K2L's and K6L's unpacked cap (lit_replay.cuh; two
+// 16x8 blocks an SM, where the packed form fits three).
+
+template <bool AB_ALIASED, bool RE_ALIASED>
+__global__ void __maxnreg__(kUnpackedMaxRegisters)
+    brick_lookup_unpacked_bwd_kernel(const BrickGradArgs ga) {
+  brick_lit_bwd_ray<true, false, AB_ALIASED, RE_ALIASED>(ga);
 }
 
 template <bool AB, bool OWN>
@@ -235,15 +271,32 @@ cudaError_t launch(const BrickGradArgs& ga, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool AB, bool RE>
+template <bool LOOKUP, bool PACKED, bool AB, bool RE>
 cudaError_t launch_lit(const BrickGradArgs& ga, cudaStream_t stream) {
   const MarchArgs& m = ga.b.m;
   const dim3 block(kScatterCols, kScatterRows);
   const dim3 grid((m.width + kScatterCols - 1) / kScatterCols,
                   (m.height + kScatterRows - 1) / kScatterRows);
   const size_t shared = sizeof(float) * 3 * m.n_lights * kScatterThreads;
-  brick_lit_bwd_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
+  if constexpr (LOOKUP && PACKED) {
+    brick_lookup_bwd_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
+  } else if constexpr (LOOKUP) {
+    brick_lookup_unpacked_bwd_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
+  } else {
+    brick_lit_bwd_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
+  }
   return cudaGetLastError();
+}
+
+template <bool LOOKUP, bool PACKED = false>
+cudaError_t launch_lit_aliasing(const BrickGradArgs& ga, bool ab_aliased, bool re_aliased,
+                                cudaStream_t stream) {
+  if (ab_aliased) {
+    return re_aliased ? launch_lit<LOOKUP, PACKED, true, true>(ga, stream)
+                      : launch_lit<LOOKUP, PACKED, true, false>(ga, stream);
+  }
+  return re_aliased ? launch_lit<LOOKUP, PACKED, false, true>(ga, stream)
+                    : launch_lit<LOOKUP, PACKED, false, false>(ga, stream);
 }
 
 }  // namespace
@@ -260,10 +313,12 @@ int vr_brick_bwd_max_lights() {
 }
 
 // Launches the gradient segment on ``stream``; returns the launch's
-// cudaError_t. lit: the lit form (on-the-fly gradients; planes 3 + 3 n_lights,
-// d_re unless re_aliased).
-int vr_brick_bwd(const BrickGradArgs* args, int ab_aliased, int lit, int re_aliased,
-                 void* stream) {
+// cudaError_t. lit: the lit form (planes 3 + 3 n_lights, d_re unless
+// re_aliased), from the emission taps or, with lookup, from the gradient
+// windows (d_gx, d_gy, d_gz; from args->b.m.packed where the host packed
+// emission and the gradient windows, the packed grid emission's shape by 4).
+int vr_brick_bwd(const BrickGradArgs* args, int ab_aliased, int lit, int lookup,
+                 int re_aliased, void* stream) {
   const BrickGradArgs& ga = *args;
   const BrickArgs& a = ga.b;
   if (a.m.width <= 0 || a.m.height <= 0) return (int)cudaSuccess;
@@ -275,10 +330,19 @@ int vr_brick_bwd(const BrickGradArgs* args, int ab_aliased, int lit, int re_alia
     if (a.m.n_lights > vr_brick_bwd_max_lights() || a.m.lut.data == nullptr ||
         (!re_aliased && (a.m.re.data == nullptr || ga.d_re == nullptr)))
       return (int)cudaErrorInvalidValue;
-    if (ab_aliased) {
-      return (int)(re_aliased ? launch_lit<true, true>(ga, s) : launch_lit<true, false>(ga, s));
-    }
-    return (int)(re_aliased ? launch_lit<false, true>(ga, s) : launch_lit<false, false>(ga, s));
+    if (!lookup) return (int)launch_lit_aliasing<false>(ga, ab_aliased, re_aliased, s);
+    const MarchArgs& m = a.m;
+    if (m.gx.data == nullptr || m.gy.data == nullptr || m.gz.data == nullptr ||
+        ga.d_gx == nullptr || ga.d_gy == nullptr || ga.d_gz == nullptr)
+      return (int)cudaErrorInvalidValue;
+    const Vol4& pk = m.packed;
+    if (pk.data == nullptr) return (int)launch_lit_aliasing<true>(ga, ab_aliased, re_aliased, s);
+    if (pk.d != m.em.d || pk.h != m.em.h || pk.w != m.em.w ||
+        !same_place(m.gx, a.gx_z_off, a.gx_d_global, a) ||
+        !same_place(m.gy, a.gy_z_off, a.gy_d_global, a) ||
+        !same_place(m.gz, a.gz_z_off, a.gz_d_global, a))
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_lit_aliasing<true, true>(ga, ab_aliased, re_aliased, s);
   }
   if (ab_aliased) return (int)launch<true, false>(ga, s);
   // absorption shares emission's corners where it has its shape and place

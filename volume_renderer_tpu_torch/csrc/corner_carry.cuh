@@ -23,6 +23,10 @@ struct ZSlab {
 // A grid that is the whole volume.
 __device__ __forceinline__ ZSlab whole(const Vol& v) { return {v.d, 0}; }
 
+// The ZSlab of grid v placed as zp places it (a cell's z is taken against it).
+__device__ __forceinline__ ZSlab as_slab(const Vol& v, WholeZ) { return whole(v); }
+__device__ __forceinline__ ZSlab as_slab(const Vol&, ZSlab z) { return z; }
+
 // A grid row for global row g: clamped against the whole depth, as the
 // single-device fetch clamps, then shifted into the grid. The second clamp
 // only keeps a stray index inside the allocation: with two halo rows no

@@ -8,21 +8,28 @@
 // sample's fetches, its shading chain and its scatters are the same code, so
 // the brick segment's arithmetic is K6's, rounding for rounding.
 //
+// The emission gradient that shades a sample comes from the six emission
+// taps (on-the-fly, K4's step) or, LOOKUP, from the three gradient volumes
+// (K5's step: each fetched at its own corners, or with PACKED one cell of
+// the float4 grid that packs emission and the three, fetch_packed).
+//
 // Per sample, given the pixel cotangent g, the saved image's g . out and the
 // carried prefix = sum T (g . s) and opacity:
 //   d s     = g T
 //   d alpha = -(g . out - prefix) / (1 - alpha)      (0 where alpha = 1)
 // and the closed-form adjoint of the step: the shading chain backwards per
-// light (d shade -> d LUT coordinates -> d angles -> d normal -> d six
-// emission taps), the taps' cotangents scattered through the window's adjoint
-// (scatter_em_taps), absorption and reflection scattered at their own corners
-// (scatter), and the per-ray sums of the transfer parameters:
+// light (d shade -> d LUT coordinates -> d angles -> d normal -> d gradient),
+// the gradient's cotangent to the six emission taps, scattered through the
+// window's adjoint (scatter_em_taps), or LOOKUP to the three gradient
+// volumes at their own corners (scatter; the lookup gradient is the sampled
+// value itself, no tap difference); emission's own cotangent at its 8
+// corners (LOOKUP), absorption and reflection at their own (scatter); and
+// the per-ray sums of the transfer parameters:
 //   E   = sum T alpha em          -> factor_emission, color
 //   F   = sum d absorption * ab   -> factor_absorption
 //   rac = sum d reflection * re   -> factor_reflection
 //   P   = sum (d illuminated)_c * contrib_l, per light in shared memory
 //                                 -> light_colors, color
-
 #pragma once
 
 #include "corner_carry.cuh"
@@ -31,6 +38,18 @@ namespace {
 
 constexpr float kAnglePoleEps = 1e-6f;
 constexpr float kAngleFloor = 1e-6f;
+
+// Register caps of the kernels that replay lit samples (__maxnreg__), in
+// march_bwd.cu and brick_bwd.cu alike. kLitMaxRegisters: K6's, K6L's and
+// the lit and lookup gradient segments'; at 168 a 16x8 block takes 21504
+// registers, and an SM holds three. kUnpackedMaxRegisters: the lookup
+// forms whose gradient volumes have another shape than emission's, each
+// fetched at its own corners; ptxas spilled 12 bytes in some of them under
+// 168, under K2's launch bounds (128) and with caps of 176-216, none at
+// 232 (nvcc 12.9 for sm_90a, one build a cap); at 232 a 16x8 block takes
+// 29696 registers, and an SM holds two, a block fewer than at 168.
+constexpr int kLitMaxRegisters = 168;
+constexpr int kUnpackedMaxRegisters = 232;
 
 __device__ __forceinline__ V3 scale(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
 
@@ -216,11 +235,45 @@ __device__ __forceinline__ void angle_bwd(V3 a, V3 b, float d_ang, bool floor_, 
   db = {d_r * (a.x * inv - rb * b.x), d_r * (a.y * inv - rb * b.y), d_r * (a.z * inv - rb * b.z)};
 }
 
+// Adjoint of fetch_packed: c.x, c.y, c.z, c.w times the 8 trilinear weights
+// of cell k into the emission and the three gradient grids of a lookup
+// replay, all of the pack's shape v and placed as zp places it: one set of
+// offsets and weights for the four, 32 atomic adds.
+template <class ZP>
+__device__ __forceinline__ void scatter_packed(float* const (&grids)[4], const Vol& v,
+                                               const Cell& k, float4 c, ZP zp) {
+  const int x0 = clamp_index(k.x, v.w), x1 = clamp_index(k.x + 1, v.w);
+  const int y0 = clamp_index(k.y, v.h), y1 = clamp_index(k.y + 1, v.h);
+  const int z0 = corner_row(k.z, v, zp), z1 = corner_row(k.z + 1, v, zp);
+  const size_t sy = (size_t)v.w;
+  const size_t sz = (size_t)v.w * (size_t)v.h;
+  const size_t r00 = y0 * sy + z0 * sz, r10 = y1 * sy + z0 * sz;
+  const size_t r01 = y0 * sy + z1 * sz, r11 = y1 * sy + z1 * sz;
+  const size_t off[8] = {x0 + r00, x1 + r00, x0 + r10, x1 + r10,
+                         x0 + r01, x1 + r01, x0 + r11, x1 + r11};
+  float w[8];
+  corner_weights(k, w);
+  const float d[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) atomicAdd(grids[n] + off[j], w[j] * d[n]);
+  }
+}
+
 // The gradient grids a lit replay scatters into; null where the role is
-// aliased to emission (its cotangent is added to emission's), or where the
-// replay does not scatter (lit K2).
+// aliased to emission (its cotangent is added to emission's), where the
+// replay does not scatter (lit K2), or, for the gradient volumes' (gx, gy,
+// gz), without lookup gradients.
 struct LitGrids {
-  float *em, *ab, *re;
+  float *em, *ab, *re, *gx, *gy, *gz;
+};
+
+// Where each grid a lit replay reads lies along z: all WholeZ for the
+// single-device kernels, the brick's ZSlab windows for the gradient segment.
+template <class ZP>
+struct LitPlaces {
+  ZP em, ab, re, gx, gy, gz;
 };
 
 // What a lit replay reads once a ray: the transfer settings, and whether the
@@ -249,20 +302,33 @@ struct LitRay {
 // Replays the sample at position p (s = to_sample(a, p)) that a ray takes
 // with the opacity sw carried into it, adds its adjoint (the grids with
 // SCATTER, the per-ray sums in r, the per-light sums at sums[k * stride],
-// k = 3 l + c), and updates sw past it. em_z, ab_z, re_z place the emission,
-// absorption and reflection grids along z.
-template <bool SCATTER, bool AB_ALIASED, bool RE_ALIASED, class ZP>
+// k = 3 l + c), and updates sw past it. z places every grid along z. LOOKUP:
+// the gradient volumes shade the sample, from a.packed with PACKED (the
+// four volumes of one shape, emission's).
+template <bool SCATTER, bool LOOKUP, bool PACKED, bool AB_ALIASED, bool RE_ALIASED, class ZP>
 __device__ __forceinline__ void lit_replay_sample(const MarchArgs& a, const LitConsts& c,
-                                                  const LitGrids& d, ZP em_z, ZP ab_z,
-                                                  ZP re_z, V3 p, V3 s, float& sw, LitRay& r,
+                                                  const LitGrids& d, const LitPlaces<ZP>& z,
+                                                  V3 p, V3 s, float& sw, LitRay& r,
                                                   float* sums, int stride) {
+  static_assert(LOOKUP || !PACKED, "only the lookup gradient volumes are packed");
   const float fe = c.fe, fa = c.fa, fr = c.fr, tstep = c.tstep;
   const V3 color = c.color, g = r.g, origin = r.origin;
   // ---- the step's forward values, as march_fwd.cu has them ----
-  const EmTaps e = fetch_em_taps(a, p, tap_geom(a, p, s, em_z), em_z);
-  const float em = e.c;
-  const V3 grad = {(e.xp - e.xm) * 0.5f, (e.yp - e.ym) * 0.5f, (e.zp - e.zm) * 0.5f};
-  const float ab = AB_ALIASED ? em : z_sample(a.ab, ab_z, s);
+  float em;
+  V3 grad;
+  if constexpr (LOOKUP && PACKED) {
+    const float4 q = fetch_packed(a.packed, cell_of(a.em, as_slab(a.em, z.em), s), z.em);
+    em = q.x;
+    grad = {q.y, q.z, q.w};
+  } else if constexpr (LOOKUP) {
+    em = z_sample(a.em, z.em, s);
+    grad = {z_sample(a.gx, z.gx, s), z_sample(a.gy, z.gy, s), z_sample(a.gz, z.gz, s)};
+  } else {
+    const EmTaps e = fetch_em_taps(a, p, tap_geom(a, p, s, z.em), z.em);
+    em = e.c;
+    grad = {(e.xp - e.xm) * 0.5f, (e.yp - e.ym) * 0.5f, (e.zp - e.zm) * 0.5f};
+  }
+  const float ab = AB_ALIASED ? em : z_sample(a.ab, z.ab, s);
   const float emission = fe * em;
   const float absorption = fa * ab;
   const float transmit = expf(-absorption * tstep);
@@ -276,7 +342,7 @@ __device__ __forceinline__ void lit_replay_sample(const MarchArgs& a, const LitC
   float d_refl = 0.0f;
   V3 d_grad = {0.0f, 0.0f, 0.0f};
   {
-    const float re = RE_ALIASED ? em : z_sample(a.re, re_z, s);
+    const float re = RE_ALIASED ? em : z_sample(a.re, z.re, s);
     const float g2 = dot(grad, grad);
     const float inv = g2 > kGradEps2 ? rsqrtf(g2) : 0.0f;
     const V3 n = {grad.x * -inv, grad.y * -inv, grad.z * -inv};
@@ -352,7 +418,7 @@ __device__ __forceinline__ void lit_replay_sample(const MarchArgs& a, const LitC
   r.acc_f = r.acc_f + d_absorption * ab;
   r.acc_e = r.acc_e + tw * alpha * em;
   if (SCATTER) {
-    // the sample's coordinates and window are rebuilt from p here, not
+    // the sample's coordinates (and window) are rebuilt from p here, not
     // kept live through the lights
     const V3 q = opaque(p);
     const V3 sq = to_sample(a, q);
@@ -361,16 +427,27 @@ __device__ __forceinline__ void lit_replay_sample(const MarchArgs& a, const LitC
     if (AB_ALIASED) {
       d_at_em = d_at_em + d_ab;
     } else {
-      scatter(d.ab, a.ab, sq, d_ab, ab_z);
+      scatter(d.ab, a.ab, sq, d_ab, z.ab);
     }
     const float d_re = d_refl * fr;
     if (RE_ALIASED) {
       d_at_em = d_at_em + d_re;
     } else {
-      scatter(d.re, a.re, sq, d_re, re_z);
+      scatter(d.re, a.re, sq, d_re, z.re);
     }
-    scatter_em_taps(d.em, a, q, tap_geom(a, q, sq, em_z), d_at_em,
-                    {d_grad.x * 0.5f, d_grad.y * 0.5f, d_grad.z * 0.5f}, em_z);
+    if constexpr (LOOKUP && PACKED) {
+      float* const grids[4] = {d.em, d.gx, d.gy, d.gz};
+      scatter_packed(grids, a.em, cell_of(a.em, as_slab(a.em, z.em), sq),
+                     make_float4(d_at_em, d_grad.x, d_grad.y, d_grad.z), z.em);
+    } else if constexpr (LOOKUP) {
+      scatter(d.em, a.em, sq, d_at_em, z.em);
+      scatter(d.gx, a.gx, sq, d_grad.x, z.gx);
+      scatter(d.gy, a.gy, sq, d_grad.y, z.gy);
+      scatter(d.gz, a.gz, sq, d_grad.z, z.gz);
+    } else {
+      scatter_em_taps(d.em, a, q, tap_geom(a, q, sq, z.em), d_at_em,
+                      {d_grad.x * 0.5f, d_grad.y * 0.5f, d_grad.z * 0.5f}, z.em);
+    }
   }
 
   sw = tw * alpha + sw;

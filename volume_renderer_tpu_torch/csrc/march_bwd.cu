@@ -8,6 +8,16 @@
 //                            march_bwd_lit_params_kernel (lit)
 //   K3  scatter              march_bwd_scatter_kernel (unlit)
 //   K6  scatter + lighting   march_bwd_lit_scatter_kernel
+//   K2L grad_mode, lit with lookup gradient volumes
+//                            march_bwd_lookup_params_kernel (packed),
+//                            march_bwd_lookup_unpacked_params_kernel
+//   K6L scatter + lighting, lookup gradient volumes
+//                            march_bwd_lookup_scatter_kernel (packed),
+//                            march_bwd_lookup_unpacked_scatter_kernel
+// The TPU kernel takes no lookup gradients when differentiating: the JAX
+// package sends a lit lookup scene's gradients to its XLA replay
+// (pallas_march.py:2066-2068, ops/vjp.py); K2L and K6L are the port's
+// kernels for that replay.
 // A launch replays a band of image rows (MarchArgs.row0, height), as
 // march_fwd.cu marches one; under rays-DP the bands of one device scatter
 // into one set of grids (parallel/pallas_dp.py).
@@ -27,10 +37,11 @@
 //   plane 2      rac = sum d reflection * re   -> factor_reflection
 //   plane 3+3l+c P   = sum (d illuminated)_c * contrib_l
 //                                              -> light_colors, color
-// Lit (on-the-fly gradients only), the shading chain runs backwards per
-// light: d shade -> d LUT coordinates -> d angles -> d normal -> d six
-// emission taps; that replay of a sample is lit_replay.cuh's, shared with the
-// lit z-brick gradient segment (brick_bwd.cu). The angle adjoint floors 1 - r^2 at 1e-6 when
+// Lit, the shading chain runs backwards per light: d shade -> d LUT
+// coordinates -> d angles -> d normal -> d six emission taps, or with
+// lookup gradient volumes (K2L, K6L) d the three gradient volumes; that
+// replay of a sample is lit_replay.cuh's, shared with the lit z-brick
+// gradient segment (brick_bwd.cu). The angle adjoint floors 1 - r^2 at 1e-6 when
 // angle_floor is set (the fast entry points' convention) and is zero
 // beyond |r| >= 1 - 1e-6 otherwise (what autograd of the angle gives).
 //
@@ -63,6 +74,18 @@
 //   (corner_carry.cuh, CornerCarry, as the K7 gradient segment does): a
 //   corner goes out as one atomic add when the ray leaves it, about 2 a
 //   sample for both grids instead of 16 (chip_smoke.py, march_flushes).
+// - Lit with lookup gradient volumes, K2L and K6L replay K5's step: where
+//   emission and the three gradient volumes have one shape they read the
+//   float4 grid that the wrapper packs once a call (ops/cuda_march.py,
+//   pack_lookup; PACKED), one 16-byte load a corner, and K6L scatters the
+//   four cotangents at that one cell (scatter_packed: one set of offsets
+//   and weights, 32 atomic adds); otherwise each volume is fetched and
+//   scattered at its own corners. With absorption and reflection in volumes
+//   of their own that is 48 atomic adds a sample (chip_smoke.py counts
+//   them from the plain walk, march_scatter_adds). K6L keeps K6's register
+//   cap and 16x8 blocks (three an SM), K2L lit K2's 16 x kK2LitRows; their
+//   unpacked forms get more registers (kUnpackedMaxRegisters, two blocks an
+//   SM), which they need not to spill.
 // - Lit, the replay fetches the centre and the six taps through the shared
 //   window of march_common.cuh (20 loads instead of 56), and the scatter of
 //   their cotangents is the window's adjoint (scatter_em_taps): each window
@@ -94,6 +117,9 @@ struct GradArgs {
   float* d_em;         // zero-initialised gradient grids, SCATTER only;
   float* d_ab;         // null when the role is aliased to emission
   float* d_re;         // or unlit
+  float* d_gx;         // the gradient volumes' grids: K6L only, else null
+  float* d_gy;
+  float* d_gz;
   float* planes;       // (3 + 3 n_lights, height, width)
   int angle_floor;
 };
@@ -103,10 +129,12 @@ namespace {
 // at least the threads of a lit block: the lights' sums live in its shared memory
 constexpr int kThreads = kBlock * kBlock;
 
-// The lit backward march of one ray (lit K2, and K6 with SCATTER): the pixel
-// of this thread of a COLS x ROWS block, its samples replayed by
-// lit_replay_sample (lit_replay.cuh) over the whole volumes.
-template <bool SCATTER, bool AB_ALIASED, bool RE_ALIASED, int COLS, int ROWS>
+// The lit backward march of one ray (lit K2, and K6 with SCATTER; K2L and
+// K6L with LOOKUP): the pixel of this thread of a COLS x ROWS block, its
+// samples replayed by lit_replay_sample (lit_replay.cuh) over the whole
+// volumes.
+template <bool SCATTER, bool LOOKUP, bool PACKED, bool AB_ALIASED, bool RE_ALIASED, int COLS,
+          int ROWS>
 __device__ __forceinline__ void march_bwd_ray(const GradArgs& ga) {
   constexpr int kT = COLS * ROWS;
   extern __shared__ float light_sums[];  // [3 n_lights][kT], a column per thread
@@ -133,15 +161,14 @@ __device__ __forceinline__ void march_bwd_ray(const GradArgs& ga) {
 
   if (hit && !(r.g.x == 0.0f && r.g.y == 0.0f && r.g.z == 0.0f)) {
     const LitConsts c = lit_consts(a, ga.angle_floor != 0);
-    const LitGrids d = {ga.d_em, ga.d_ab, ga.d_re};
+    const LitGrids d = {ga.d_em, ga.d_ab, ga.d_re, ga.d_gx, ga.d_gy, ga.d_gz};
     float sw = 0.0f;
     float t = tnear;
     V3 p = {r.origin.x + dir.x * tnear, r.origin.y + dir.y * tnear, r.origin.z + dir.z * tnear};
     const V3 step = {dir.x * tstep, dir.y * tstep, dir.z * tstep};
     for (int i = 0; i < a.n_steps; ++i) {
-      lit_replay_sample<SCATTER, AB_ALIASED, RE_ALIASED>(a, c, d, WholeZ(), WholeZ(), WholeZ(),
-                                                         p, to_sample(a, p), sw, r,
-                                                         light_sums + tid, kT);
+      lit_replay_sample<SCATTER, LOOKUP, PACKED, AB_ALIASED, RE_ALIASED>(
+          a, c, d, LitPlaces<WholeZ>{}, p, to_sample(a, p), sw, r, light_sums + tid, kT);
       // ---- advance exactly like the forward march ----
       t = t + tstep;
       if (!(sw <= threshold) || !(t <= tfar)) break;
@@ -166,21 +193,53 @@ constexpr int kK2LitRows = 8;
 template <bool AB_ALIASED, bool RE_ALIASED>
 __global__ void __launch_bounds__(kBlock * kK2LitRows)
     march_bwd_lit_params_kernel(const GradArgs ga) {
-  march_bwd_ray<false, AB_ALIASED, RE_ALIASED, kBlock, kK2LitRows>(ga);
+  march_bwd_ray<false, false, false, AB_ALIASED, RE_ALIASED, kBlock, kK2LitRows>(ga);
+}
+
+// K2L: lit K2 with lookup gradient volumes, from the packed grid, in lit K2's
+// blocks.
+template <bool AB_ALIASED, bool RE_ALIASED>
+__global__ void __launch_bounds__(kBlock * kK2LitRows)
+    march_bwd_lookup_params_kernel(const GradArgs ga) {
+  march_bwd_ray<false, true, true, AB_ALIASED, RE_ALIASED, kBlock, kK2LitRows>(ga);
 }
 
 // K6 in a kernel of its own, in 16x8 blocks (a warp is two rows of 16
 // neighbouring rays, as in a 16x16 block). It needs up to 174 registers
 // without spilling; left to itself, ptxas held one variant (every role
-// aliased) at 128 and spilled. Capped at 168 none spills, and an SM holds
-// three of these blocks: 12 warps, where one 16x16 block gave 8. Capped at
-// 128 (16 warps) every K6 variant spilled and ran slower in trial builds.
-constexpr int kMaxRegisters = 168;
+// aliased) at 128 and spilled. Capped at 168 (kLitMaxRegisters,
+// lit_replay.cuh) none spills, and an SM holds three of these blocks: 12
+// warps, where one 16x16 block gave 8. Capped at 128 (16 warps) every K6
+// variant spilled and ran slower in trial builds.
 constexpr int kK6Cols = 16, kK6Rows = 8;
 
 template <bool AB_ALIASED, bool RE_ALIASED>
-__global__ void __maxnreg__(kMaxRegisters) march_bwd_lit_scatter_kernel(const GradArgs ga) {
-  march_bwd_ray<true, AB_ALIASED, RE_ALIASED, kK6Cols, kK6Rows>(ga);
+__global__ void __maxnreg__(kLitMaxRegisters) march_bwd_lit_scatter_kernel(const GradArgs ga) {
+  march_bwd_ray<true, false, false, AB_ALIASED, RE_ALIASED, kK6Cols, kK6Rows>(ga);
+}
+
+// K6L: K6 with lookup gradient volumes, from the packed grid, under K6's
+// register cap and in its blocks.
+template <bool AB_ALIASED, bool RE_ALIASED>
+__global__ void __maxnreg__(kLitMaxRegisters) march_bwd_lookup_scatter_kernel(const GradArgs ga) {
+  march_bwd_ray<true, true, true, AB_ALIASED, RE_ALIASED, kK6Cols, kK6Rows>(ga);
+}
+
+// K2L and K6L with gradient volumes of another shape than emission's (no
+// pack): each volume fetched at its own corners, under the higher cap
+// kUnpackedMaxRegisters (lit_replay.cuh), which they need not to spill: two
+// 16x8 blocks an SM, where K6L's packed form fits three.
+
+template <bool AB_ALIASED, bool RE_ALIASED>
+__global__ void __maxnreg__(kUnpackedMaxRegisters)
+    march_bwd_lookup_unpacked_params_kernel(const GradArgs ga) {
+  march_bwd_ray<false, true, false, AB_ALIASED, RE_ALIASED, kBlock, kK2LitRows>(ga);
+}
+
+template <bool AB_ALIASED, bool RE_ALIASED>
+__global__ void __maxnreg__(kUnpackedMaxRegisters)
+    march_bwd_lookup_unpacked_scatter_kernel(const GradArgs ga) {
+  march_bwd_ray<true, true, false, AB_ALIASED, RE_ALIASED, kK6Cols, kK6Rows>(ga);
 }
 
 // K3 in a kernel of its own: the unlit replay with the carried scatter.
@@ -411,31 +470,65 @@ cudaError_t launch_unlit_scatter(const GradArgs& ga, bool ab_aliased, cudaStream
   return cudaGetLastError();
 }
 
-// Lit K2 (SCATTER false) and K6, by which roles are aliased to emission.
-template <bool SCATTER, bool AB, bool RE>
+// Lit K2 (SCATTER false) and K6, with LOOKUP K2L and K6L (from the packed
+// grid with PACKED), by which roles are aliased to emission.
+template <bool SCATTER, bool LOOKUP, bool PACKED, bool AB, bool RE>
 cudaError_t launch_lit(const GradArgs& ga, cudaStream_t stream) {
   const MarchArgs& a = ga.m;
   constexpr int cols = SCATTER ? kK6Cols : kBlock, rows = SCATTER ? kK6Rows : kK2LitRows;
   const dim3 block(cols, rows);
   const dim3 grid((a.width + cols - 1) / cols, (a.height + rows - 1) / rows);
   const size_t shared = sizeof(float) * 3 * a.n_lights * cols * rows;
-  if constexpr (SCATTER) {
+  if constexpr (SCATTER && LOOKUP && PACKED) {
+    march_bwd_lookup_scatter_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
+  } else if constexpr (SCATTER && LOOKUP) {
+    march_bwd_lookup_unpacked_scatter_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
+  } else if constexpr (SCATTER) {
     march_bwd_lit_scatter_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
+  } else if constexpr (LOOKUP && PACKED) {
+    march_bwd_lookup_params_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
+  } else if constexpr (LOOKUP) {
+    march_bwd_lookup_unpacked_params_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
   } else {
     march_bwd_lit_params_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
   }
   return cudaGetLastError();
 }
 
-template <bool SCATTER>
+template <bool SCATTER, bool LOOKUP = false, bool PACKED = false>
 cudaError_t launch_lit_aliasing(const GradArgs& ga, bool ab_aliased, bool re_aliased,
                                 cudaStream_t stream) {
   if (ab_aliased) {
-    return re_aliased ? launch_lit<SCATTER, true, true>(ga, stream)
-                      : launch_lit<SCATTER, true, false>(ga, stream);
+    return re_aliased ? launch_lit<SCATTER, LOOKUP, PACKED, true, true>(ga, stream)
+                      : launch_lit<SCATTER, LOOKUP, PACKED, true, false>(ga, stream);
   }
-  return re_aliased ? launch_lit<SCATTER, false, true>(ga, stream)
-                    : launch_lit<SCATTER, false, false>(ga, stream);
+  return re_aliased ? launch_lit<SCATTER, LOOKUP, PACKED, false, true>(ga, stream)
+                    : launch_lit<SCATTER, LOOKUP, PACKED, false, false>(ga, stream);
+}
+
+inline bool same_shape(const Vol& a, int d, int h, int w) {
+  return a.d == d && a.h == h && a.w == w;
+}
+
+// K2L and K6L: from the packed grid where the host packed one (emission and
+// the three gradient volumes of one shape), else from the four volumes.
+template <bool SCATTER>
+cudaError_t launch_lookup(const GradArgs& ga, bool ab_aliased, bool re_aliased,
+                          cudaStream_t stream) {
+  const MarchArgs& a = ga.m;
+  if (a.gx.data == nullptr || a.gy.data == nullptr || a.gz.data == nullptr)
+    return cudaErrorInvalidValue;
+  if (SCATTER && (ga.d_gx == nullptr || ga.d_gy == nullptr || ga.d_gz == nullptr))
+    return cudaErrorInvalidValue;
+  const Vol4& pk = a.packed;
+  if (pk.data == nullptr) {
+    return launch_lit_aliasing<SCATTER, true, false>(ga, ab_aliased, re_aliased, stream);
+  }
+  const int d = a.em.d, h = a.em.h, w = a.em.w;
+  if (pk.d != d || pk.h != h || pk.w != w || !same_shape(a.gx, d, h, w) ||
+      !same_shape(a.gy, d, h, w) || !same_shape(a.gz, d, h, w))
+    return cudaErrorInvalidValue;
+  return launch_lit_aliasing<SCATTER, true, true>(ga, ab_aliased, re_aliased, stream);
 }
 
 }  // namespace
@@ -450,14 +543,20 @@ size_t vr_grad_args_size() { return sizeof(GradArgs); }
 int vr_march_bwd_max_lights() { return (48 * 1024) / (int)(sizeof(float) * 3 * kThreads); }
 
 // Launches the backward march on ``stream``; returns the launch's
-// cudaError_t. lit: on-the-fly lighting; scatter: also the voxel grids
-// (K3 unlit, K6 lit), else only the per-ray planes (K2).
-int vr_march_bwd(const GradArgs* args, int lit, int scatter, int ab_aliased, int re_aliased,
-                 void* stream) {
+// cudaError_t. lit: lighting, from the emission taps or, with lookup, from
+// the gradient volumes (args->m.gx, gy, gz, and args->m.packed where the
+// host packed them with emission); scatter: also the voxel grids (K3 unlit,
+// K6 lit, K6L lookup), else only the per-ray planes (K2, K2L).
+int vr_march_bwd(const GradArgs* args, int lit, int scatter, int lookup, int ab_aliased,
+                 int re_aliased, void* stream) {
   const GradArgs& ga = *args;
   if (ga.m.width <= 0 || ga.m.height <= 0) return (int)cudaSuccess;
   if (lit && ga.m.n_lights > vr_march_bwd_max_lights()) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lit && lookup) {
+    return (int)(scatter ? launch_lookup<true>(ga, ab_aliased, re_aliased, s)
+                         : launch_lookup<false>(ga, ab_aliased, re_aliased, s));
+  }
   if (lit) {
     return (int)(scatter ? launch_lit_aliasing<true>(ga, ab_aliased, re_aliased, s)
                          : launch_lit_aliasing<false>(ga, ab_aliased, re_aliased, s));

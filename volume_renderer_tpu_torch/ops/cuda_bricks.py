@@ -14,7 +14,10 @@ One brick's three passes, each a function of that brick's tensors:
   grid for the launch, ``pack_window``);
 - ``brick_gradients``: the gradient segment with the scatter into the
   brick's halo-padded grids (``csrc/brick_bwd.cu``, ``K7_scatter``; lit,
-  with the reflection grid and the light colors, ``K7_scatter_lit``).
+  with the reflection grid and the light colors, ``K7_scatter_lit``; lit
+  with lookup gradient volumes, also into their three grids,
+  ``K7_scatter_lookup``, reading phase 2's packed window where the four
+  windows have one shape).
 
 Phase 2 and the gradient segment resume every ray from phase 1's record and
 require it: nothing walks a ray from step 0 but phase 1, which fetches
@@ -31,12 +34,7 @@ is keyed with its band, and a pass refuses a record made for another.
 For a brick on a CUDA device each is one kernel launch; for a brick on the
 CPU the plain pass of ``ops/brick_march.py``. There is no fallback: on a
 CUDA brick a failed build, a tensor the kernel does not take or a refused
-launch raises. A lit scene with lookup gradient volumes renders, but has no
-gradient segment, as it has no single-device backward kernel
-(``ops.cuda_grads.refuse_lookup``): ``brick_gradients`` raises
-``NotImplementedError`` for it on every device, and
-``parallel.bricks.render_fused_bricked`` / ``ops.slab.render_fused_slabbed``
-differentiate it.
+launch raises.
 """
 
 from __future__ import annotations
@@ -49,7 +47,7 @@ import torch
 from volume_renderer_tpu_torch.models.scene import RenderOptions, Scene
 from volume_renderer_tpu_torch.ops import _build, brick_march, cuda_march
 from volume_renderer_tpu_torch.ops.brick_march import Brick, Entry
-from volume_renderer_tpu_torch.ops.cuda_grads import parameter_grads
+from volume_renderer_tpu_torch.ops.cuda_grads import is_lookup, parameter_grads
 from volume_renderer_tpu_torch.ops.cuda_march import _MarchArgs, _checked
 
 
@@ -89,6 +87,9 @@ class _BrickGradArgs(ctypes.Structure):
         ("d_em", ctypes.c_void_p),
         ("d_ab", ctypes.c_void_p),
         ("d_re", ctypes.c_void_p),
+        ("d_gx", ctypes.c_void_p),
+        ("d_gy", ctypes.c_void_p),
+        ("d_gz", ctypes.c_void_p),
         ("planes", ctypes.c_void_p),
     ]
 
@@ -114,20 +115,10 @@ def _fwd_library() -> ctypes.CDLL:
 
 
 def _bwd_library() -> ctypes.CDLL:
-    lib = _typed(_build.load("brick_bwd"), "vr_brick_bwd", _BrickGradArgs, 3,
+    lib = _typed(_build.load("brick_bwd"), "vr_brick_bwd", _BrickGradArgs, 4,
                  "vr_brick_grad_args_size", "csrc/brick_bwd.cu")
     lib.vr_brick_bwd_max_lights.restype = ctypes.c_int
     return lib
-
-
-def refuse_lit_lookup(scene: Scene) -> None:
-    """Raises for a lit scene with lookup gradient volumes: no gradient
-    segment takes it, as no single-device backward kernel does."""
-    if scene.has_lighting and scene.has_gradient_volumes:
-        raise NotImplementedError(
-            "no gradient segment for a lit scene with lookup gradient volumes (no backward "
-            "kernel takes one): differentiate it through parallel.bricks.render_fused_bricked "
-            "or ops.slab.render_fused_slabbed")
 
 
 def _cuda_device(brick: Brick, what: str) -> torch.device:
@@ -151,7 +142,7 @@ def _brick_args(brick: Brick, opts: RenderOptions, camera_x_offset: float, y_off
     image rows from ``y_offset`` (outputs and ``w_in`` left null), and the
     settings tensor they point into: keep it until the launch is enqueued."""
     scene = brick.scene
-    lookup = scene.has_lighting and scene.has_gradient_volumes
+    lookup = is_lookup(scene)
     args = _BrickArgs()
     args.m, settings = cuda_march.march_args(scene, opts, camera_x_offset, lookup=lookup,
                                              y_offset=y_offset, n_rows=rows)
@@ -201,7 +192,8 @@ def _set_entry(args: _BrickArgs, entry: Entry, dev: torch.device, opts: RenderOp
 
 
 def pack_window(brick: Brick) -> Optional[torch.Tensor]:
-    """Lit phase 2's packed window of a lit lookup brick (or slab): its
+    """Lit phase 2's and the lookup gradient segment's packed window of a
+    lit lookup brick (or slab): its
     emission and three gradient windows as one contiguous float32
     (D_win, H, W, 4) tensor (``ops.cuda_march.interleave``, K5's pack), so
     that the kernel loads a corner of the four at once; rows
@@ -211,14 +203,28 @@ def pack_window(brick: Brick) -> Optional[torch.Tensor]:
     brick's device and current stream, for each launch: after a streamed
     window's copy, which that stream waits for."""
     scene = brick.scene
-    if not (scene.has_lighting and scene.has_gradient_volumes):
+    if not is_lookup(scene):
         return None
     return cuda_march.pack_lookup(scene)
 
 
+def _set_window_pack(args: _MarchArgs, brick: Brick, packed: Optional[torch.Tensor]) -> None:
+    """Points ``args.packed`` at ``packed`` (``pack_window(brick)``),
+    checked as the emission window's shape by 4 on the brick's device;
+    leaves it null for None."""
+    if packed is None:
+        return
+    want = tuple(brick.scene.emission.data.shape) + (4,)
+    _checked(packed, "packed window", brick.device, 4)
+    if tuple(packed.shape) != want:
+        raise ValueError(f"the packed window must be {want}, got {tuple(packed.shape)}")
+    args.packed = cuda_march._Vol4(packed.data_ptr(), *packed.shape[:3])
+
+
 def _launch_fwd(brick: Brick, opts: RenderOptions, camera_x_offset: float,
                 w_in: Optional[torch.Tensor], entry: Optional[Entry],
-                steps: Optional[torch.Tensor], y_offset: int, rows: int):
+                steps: Optional[torch.Tensor], y_offset: int, rows: int,
+                packed: Optional[torch.Tensor] = None):
     dev = _cuda_device(brick, "the brick march")
     shade = w_in is not None
     # settings: alive until enqueued
@@ -239,9 +245,8 @@ def _launch_fwd(brick: Brick, opts: RenderOptions, camera_x_offset: float,
 
     scene = brick.scene
     lit = shade and scene.has_lighting
-    packed = pack_window(brick) if lit else None  # alive until enqueued
-    if packed is not None:
-        args.m.packed = cuda_march._Vol4(packed.data_ptr(), *packed.shape[:3])
+    if lit:  # the pack stays referenced until the launch is enqueued
+        _set_window_pack(args.m, brick, pack_window(brick) if packed is None else packed)
     lib = _fwd_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -275,27 +280,31 @@ def brick_transmittance(brick: Brick, opts: RenderOptions, camera_x_offset: floa
 
 def brick_segment(brick: Brick, opts: RenderOptions, camera_x_offset: float,
                   w_in: torch.Tensor, entry: Entry, steps: Optional[torch.Tensor] = None, *,
-                  y_offset: int = 0, n_rows: Optional[int] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  y_offset: int = 0, n_rows: Optional[int] = None,
+                  packed: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Phase 2: the brick's contribution to the image (H, W, 3) from its
     entry opacity ``w_in`` (H, W), every ray resumed from phase 1's
     ``entry`` record, and its exit opacity (H, W). Lit scenes shade with
     the lights, from the emission taps or the lookup gradient volumes; on a
     CUDA brick those are packed with emission for the launch where the four
-    windows have one shape (``pack_window``). A band as in
-    ``brick_transmittance``, whose record for that band it takes."""
+    windows have one shape (``pack_window``; ``packed``: that pack, made
+    once by a caller that launches the gradient segment on the brick too;
+    None packs here). A band as in ``brick_transmittance``, whose record
+    for that band it takes."""
     rows = cuda_march.band_rows(opts, y_offset, n_rows)
     _require_entry(entry, brick, opts, camera_x_offset, y_offset, rows)
     if brick.device.type == "cpu":
         return brick_march.shaded_pass(brick, opts, camera_x_offset, w_in, steps,
                                        y_offset=y_offset, n_rows=rows, entry=entry)
-    return _launch_fwd(brick, opts, camera_x_offset, w_in, entry, steps, y_offset, rows)[:2]
+    return _launch_fwd(brick, opts, camera_x_offset, w_in, entry, steps, y_offset, rows,
+                       packed)[:2]
 
 
 def brick_gradients(brick: Brick, opts: RenderOptions, camera_x_offset: float,
                     g: torch.Tensor, image: torch.Tensor, w_in: torch.Tensor,
                     up_dot: torch.Tensor, entry: Entry, *, y_offset: int = 0,
-                    n_rows: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                    n_rows: Optional[int] = None,
+                    packed: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """The gradient segment: the brick's share of every gradient for the
     pixel cotangent ``g`` (H, W, 3), given the GLOBAL ``image``, the brick's
     entry opacity ``w_in``, ``up_dot``, the sum of ``g . contribution``
@@ -308,15 +317,20 @@ def brick_gradients(brick: Brick, opts: RenderOptions, camera_x_offset: float,
     ``ops.cuda_grads.voxel_grads_fast``. A band as in
     ``brick_transmittance``: every (H, W) is the band's, and the grids and
     parameters are the band's share. A lit scene with lookup gradient
-    volumes raises ``NotImplementedError`` (``refuse_lit_lookup``)."""
+    volumes also gets ``gradient_x``, ``gradient_y`` and ``gradient_z``,
+    halo-padded like its windows (on a CUDA brick from the packed window,
+    ``pack_window``, where the four windows have one shape; ``packed`` as
+    in ``brick_segment``)."""
     scene = brick.scene
-    refuse_lit_lookup(scene)
+    lookup = is_lookup(scene)
     rows = cuda_march.band_rows(opts, y_offset, n_rows)
     _require_entry(entry, brick, opts, camera_x_offset, y_offset, rows)
     if brick.device.type == "cpu":
         grads = brick_march.replay_pass(brick, opts, camera_x_offset, g, image, w_in, up_dot,
                                         angle_floor=True, y_offset=y_offset, n_rows=rows,
                                         entry=entry)
+        if lookup:
+            return grads
         return {k: v for k, v in grads.items() if not k.startswith("gradient_")}
     dev = _cuda_device(brick, "the brick gradient segment")
     args = _BrickGradArgs()
@@ -338,20 +352,29 @@ def brick_gradients(brick: Brick, opts: RenderOptions, camera_x_offset: float,
         grids["absorption"] = torch.zeros_like(scene.absorption.data)
     if not scene.reflection_aliased:  # the lit form fills it; unlit it stays zero
         grids["reflection"] = torch.zeros_like(scene.reflection.data)
+    if lookup:
+        for key in ("gradient_x", "gradient_y", "gradient_z"):
+            grids[key] = torch.zeros_like(getattr(scene, key).data)
     planes = torch.empty(((3 + 3 * n_lights) if lit else 2, rows, opts.width),
                          dtype=torch.float32, device=dev)
     args.d_em = grids["emission"].data_ptr()
     args.d_ab = grids["absorption"].data_ptr() if "absorption" in grids else None
     args.d_re = grids["reflection"].data_ptr() if lit and "reflection" in grids else None
+    args.d_gx, args.d_gy, args.d_gz = (grids[k].data_ptr() if k in grids else None
+                                       for k in ("gradient_x", "gradient_y", "gradient_z"))
     args.planes = planes.data_ptr()
+    packed = pack_window(brick) if packed is None else packed  # alive until enqueued
+    _set_window_pack(args.b.m, brick, packed)
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.vr_brick_bwd(ctypes.byref(args), int(scene.absorption_aliased), int(lit),
-                               int(scene.reflection_aliased), ctypes.c_void_p(stream))
+                               int(lookup), int(scene.reflection_aliased),
+                               ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"brick_bwd launch failed: {lib.vr_cuda_error_string(err).decode()}")
-    cuda_march.count_launch("K7_scatter_lit" if lit else "K7_scatter")
+    cuda_march.count_launch("K7_scatter_lookup" if lookup
+                            else "K7_scatter_lit" if lit else "K7_scatter")
 
     grids.update(parameter_grads(scene, opts, g, planes))
     return grids

@@ -12,12 +12,14 @@ For a scene on a CUDA device both run ``csrc/march_bwd.cu``: one launch per
 call, after one launch of the forward kernel unless ``image=`` hands its
 output in. Unlit with grids is mode K3, lit (on-the-fly gradients) with
 grids K6, parameters only K2; unlit K2 reads emission and absorption of one
-shape from one grid packed for the call (``pack_pair``). For a scene on the
-CPU they run the plain version, ``ops.vjp.replay_backward``. There is no
-fallback: on a CUDA scene a failed build, a tensor the kernel does not take
-or a refused launch raises. A lit scene with lookup gradient volumes has no
-backward kernel and raises on every device; ``ops.vjp.render_fused``
-differentiates it.
+shape from one grid packed for the call (``pack_pair``). A lit scene with
+lookup gradient volumes takes K6L with grids (``gradient_x``, ``gradient_y``
+and ``gradient_z`` among them) and K2L without: K5's step replayed, from
+K5's float4 grid (``ops.cuda_march.pack_lookup``) made once a call where the
+four volumes have one shape. For a scene on the CPU they run the plain
+version, ``ops.vjp.replay_backward``. There is no fallback: on a CUDA scene
+a failed build, a tensor the kernel does not take or a refused launch
+raises.
 
 Both follow the kernel's angle adjoint (``angle_floor=True``, see
 ``ops.vjp.angle_backward``), on the CPU too, so the two devices agree; the
@@ -35,7 +37,7 @@ import torch
 from volume_renderer_tpu_torch.models.scene import RenderOptions, Scene
 from volume_renderer_tpu_torch.ops import _build, cuda_march
 from volume_renderer_tpu_torch.ops.cuda_march import (
-    _MarchArgs, _Vol2, _checked, band_rows, interleave, render_rows_fast)
+    _MarchArgs, _Vol2, _checked, band_rows, interleave, is_lookup, render_rows_fast)
 from volume_renderer_tpu_torch.ops.vjp import replay_backward
 
 PARAM_KEYS = ("factor_emission", "factor_absorption", "factor_reflection", "color",
@@ -53,6 +55,9 @@ class _GradArgs(ctypes.Structure):
         ("d_em", ctypes.c_void_p),
         ("d_ab", ctypes.c_void_p),
         ("d_re", ctypes.c_void_p),
+        ("d_gx", ctypes.c_void_p),
+        ("d_gy", ctypes.c_void_p),
+        ("d_gz", ctypes.c_void_p),
         ("planes", ctypes.c_void_p),
         ("angle_floor", ctypes.c_int),
     ]
@@ -62,7 +67,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("march_bwd")
     if not getattr(lib, "_vr_typed", False):
         lib.vr_march_bwd.argtypes = [ctypes.POINTER(_GradArgs), ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.vr_march_bwd.restype = ctypes.c_int
         lib.vr_grad_args_size.restype = ctypes.c_size_t
         lib.vr_march_bwd_max_lights.restype = ctypes.c_int
@@ -86,7 +91,10 @@ def pack_pair(scene: Scene) -> Optional[torch.Tensor]:
 
 
 def grad_mode(scene: Scene, scatter: bool) -> str:
-    """Which backward mode a call needs: K2, K3 or K6."""
+    """Which backward mode a call needs: K2, K3 or K6; K2L or K6L for a lit
+    lookup scene."""
+    if is_lookup(scene):
+        return "K6L" if scatter else "K2L"
     if not scatter:
         return "K2"
     return "K6" if scene.has_lighting else "K3"
@@ -94,42 +102,51 @@ def grad_mode(scene: Scene, scatter: bool) -> str:
 
 def _grid_volumes(scene: Scene) -> Dict[str, torch.Tensor]:
     """The volumes that have a gradient grid beside the scatter kernels'
-    (K3, K6): emission, absorption and reflection, each unless aliased.
-    Only K6 fills reflection's; an unlit scene's stays zero."""
+    (K3, K6, K6L): emission, absorption and reflection, each unless aliased,
+    and a lit lookup scene's three gradient volumes. Only the lit kernels
+    fill reflection's; an unlit scene's stays zero."""
     roles = ("emission", "absorption", "reflection")
+    if is_lookup(scene):
+        roles += ("gradient_x", "gradient_y", "gradient_z")
     return {k: getattr(scene, k).data for k in roles if getattr(scene, k) is not None}
 
 
 def zero_grids(scene: Scene) -> Dict[str, torch.Tensor]:
-    """The zeroed gradient grids that the scatter kernels (K3, K6) add into
-    (an unlit scene's reflection grid among them, left at zero)."""
+    """The zeroed gradient grids that the scatter kernels (K3, K6, K6L) add
+    into (an unlit scene's reflection grid among them, left at zero)."""
     return {k: torch.zeros_like(v) for k, v in _grid_volumes(scene).items()}
 
 
 def march_backward(scene: Scene, opts: RenderOptions, g: torch.Tensor, image: torch.Tensor,
                    camera_x_offset: float = 0.0, scatter: bool = True,
                    angle_floor: bool = True, y_offset: int = 0, n_rows: Optional[int] = None,
-                   grids: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+                   grids: Optional[Dict[str, torch.Tensor]] = None,
+                   packed: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """One launch of the backward kernel on a CUDA ``scene``: the gradients
     for the cotangent ``g`` and the forward kernel's ``image``, both
     (n_rows, W, 3), of the band of ``n_rows`` image rows from ``y_offset``
     (default: the whole image). ``scatter=False`` leaves the grids out.
     ``grids`` (``zero_grids(scene)``, shared by several bands' calls on one
-    device) receives the scatter and is returned; None makes new ones."""
+    device) receives the scatter and is returned; None makes new ones.
+    ``packed`` (K2L, K6L): ``ops.cuda_march.pack_lookup(scene)``, made once
+    by a caller that launches several bands or the forward too; None packs
+    here."""
     dev = scene.device
     if dev.type != "cuda":
         raise ValueError(f"march_backward launches a CUDA kernel; the scene is on {dev}")
-    refuse_lookup(scene)
     n_rows = band_rows(opts, y_offset, n_rows)
     shape = (n_rows, opts.width, 3)
     for name, t in (("g", g), ("image", image)):
         if tuple(_checked(t, name, dev, 3).shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    lit = scene.has_lighting
+    lit, lookup = scene.has_lighting, is_lookup(scene)
     lib = _library()
     args = _GradArgs()
-    args.m, settings = cuda_march.march_args(scene, opts, camera_x_offset, lookup=False,
+    args.m, settings = cuda_march.march_args(scene, opts, camera_x_offset, lookup=lookup,
                                              y_offset=y_offset, n_rows=n_rows)
+    if lookup:  # the pack stays referenced until the launch is enqueued
+        packed = cuda_march.pack_lookup(scene) if packed is None else packed
+        cuda_march.set_packed(args.m, scene, packed)
     n_lights = args.m.n_lights if lit else 0
     if n_lights > lib.vr_march_bwd_max_lights():
         raise ValueError(f"the backward kernel takes at most {lib.vr_march_bwd_max_lights()} "
@@ -158,11 +175,13 @@ def march_backward(scene: Scene, opts: RenderOptions, g: torch.Tensor, image: to
                             for k in ("emission", "absorption"))
     # K3 has no reflection term: an unlit scene's reflection grid stays zero
     args.d_re = grids["reflection"].data_ptr() if lit and "reflection" in grids else None
+    args.d_gx, args.d_gy, args.d_gz = (grids[k].data_ptr() if k in grids else None
+                                       for k in ("gradient_x", "gradient_y", "gradient_z"))
     args.angle_floor = int(angle_floor)
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.vr_march_bwd(ctypes.byref(args), int(lit), int(scatter),
+        err = lib.vr_march_bwd(ctypes.byref(args), int(lit), int(scatter), int(lookup),
                                int(scene.absorption_aliased), int(scene.reflection_aliased),
                                ctypes.c_void_p(stream))
     if err != 0:
@@ -203,35 +222,28 @@ def parameter_grads(scene: Scene, opts: RenderOptions, g: torch.Tensor,
         return {k: v.float() for k, v in out.items()}
 
 
-def refuse_lookup(scene: Scene) -> None:
-    """Raises for a lit scene with lookup gradient volumes: no backward
-    kernel takes it."""
-    if scene.has_lighting and scene.has_gradient_volumes:
-        raise NotImplementedError(
-            "no fast backward for a lit scene with lookup gradient volumes: differentiate "
-            "ops.vjp.render_fused instead")
-
-
 def _grads_fast(scene: Scene, opts: RenderOptions, g, camera_x_offset: float,
                 image: Optional[torch.Tensor], scatter: bool, y_offset: int = 0,
-                n_rows: Optional[int] = None, grids: Optional[Dict[str, torch.Tensor]] = None):
-    refuse_lookup(scene)
+                n_rows: Optional[int] = None, grids: Optional[Dict[str, torch.Tensor]] = None,
+                packed: Optional[torch.Tensor] = None):
     dev = scene.device
     n_rows = band_rows(opts, y_offset, n_rows)
     g = torch.as_tensor(g, dtype=torch.float32, device=dev).contiguous()
+    if packed is None:
+        packed = cuda_march.lookup_pack(scene)  # once for the forward and the backward
     if image is None:
-        image = render_rows_fast(scene, opts, camera_x_offset, y_offset, n_rows)
+        image = render_rows_fast(scene, opts, camera_x_offset, y_offset, n_rows, packed=packed)
     if dev.type == "cpu":
         grads = replay_backward(scene, opts, g, image, camera_x_offset, y_offset, n_rows,
                                 angle_floor=True)
-        # gradient volumes of an unlit scene are unused: the kernel has no such keys
-        grads = {k: v for k, v in grads.items() if not k.startswith("gradient_")}
+        if not is_lookup(scene):  # an unlit scene's gradient volumes are not sampled
+            grads = {k: v for k, v in grads.items() if not k.startswith("gradient_")}
         if scatter and grids is not None:  # add into the caller's grids, as the kernel does
             for key, acc in grids.items():
                 grads[key] = acc.add_(grads[key])
     else:
         grads = march_backward(scene, opts, g, image, camera_x_offset, scatter=scatter,
-                               y_offset=y_offset, n_rows=n_rows, grids=grids)
+                               y_offset=y_offset, n_rows=n_rows, grids=grids, packed=packed)
     if not scatter:
         grads = {k: v for k, v in grads.items() if k in PARAM_KEYS}
     return image, grads
@@ -241,6 +253,7 @@ def voxel_grads_fast(scene: Scene, opts: RenderOptions, g, camera_x_offset: floa
                      image: Optional[torch.Tensor] = None, *, y_offset: int = 0,
                      n_rows: Optional[int] = None,
                      grids: Optional[Dict[str, torch.Tensor]] = None,
+                     packed: Optional[torch.Tensor] = None,
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full backward, pixel -> voxel grids and transfer parameters.
 
@@ -248,8 +261,9 @@ def voxel_grads_fast(scene: Scene, opts: RenderOptions, g, camera_x_offset: floa
     ``ops.vjp.split_scene``: ``emission``, ``absorption`` (if not aliased),
     ``reflection`` (if not aliased; zeros for an unlit scene),
     ``factor_emission``, ``factor_absorption``, ``factor_reflection``,
-    ``color`` and, lit, ``light_colors``. The geometry is not
-    differentiated.
+    ``color`` and, lit, ``light_colors``; a lit scene with lookup gradient
+    volumes also ``gradient_x``, ``gradient_y`` and ``gradient_z``. The
+    geometry is not differentiated.
 
     Pass ``image`` to reuse a forward render. It must be
     ``render_forward_fast``'s own output for this scene and offset: the
@@ -260,9 +274,12 @@ def voxel_grads_fast(scene: Scene, opts: RenderOptions, g, camera_x_offset: floa
     and ``image`` are then (n_rows, W, 3), and the gradients are the band's
     share. ``grids`` (``zero_grids(scene)``) receives the grids' scatter,
     on every device, so that the bands of one device share one set.
+    ``packed``: a lit lookup scene's ``ops.cuda_march.pack_lookup``, made
+    once by a caller of several bands (None: one pack a call, on a CUDA
+    scene).
     """
     return _grads_fast(scene, opts, g, camera_x_offset, image, scatter=True,
-                       y_offset=y_offset, n_rows=n_rows, grids=grids)
+                       y_offset=y_offset, n_rows=n_rows, grids=grids, packed=packed)
 
 
 def transfer_grads_fast(scene: Scene, opts: RenderOptions, g, camera_x_offset: float = 0.0,

@@ -27,14 +27,15 @@ from volume_renderer_tpu_torch.ops import _build
 from volume_renderer_tpu_torch.ops.forward import render_rows
 
 # launches of the kernels since the last reset, in all and by mode: the
-# forward march (K1, K4, K5), the backward march (K2, K3, K6) and the launch
-# forms of the z-brick march (K7: phase 1 opacity, phase 2 shaded segment
-# unlit and lit, gradient segment unlit and lit; ops/cuda_bricks.py)
+# forward march (K1, K4, K5), the backward march (K2, K3, K6; K2L and K6L
+# with lookup gradient volumes) and the launch forms of the z-brick march
+# (K7: phase 1 opacity, phase 2 shaded segment unlit and lit, gradient
+# segment unlit, lit and lit with lookup gradients; ops/cuda_bricks.py)
 LAUNCHES = 0
 LAUNCHES_BY_MODE: Dict[str, int] = {
-    "K1": 0, "K4": 0, "K5": 0, "K2": 0, "K3": 0, "K6": 0,
+    "K1": 0, "K4": 0, "K5": 0, "K2": 0, "K3": 0, "K6": 0, "K2L": 0, "K6L": 0,
     "K7_transmittance": 0, "K7_segment": 0, "K7_scatter": 0,
-    "K7_segment_lit": 0, "K7_scatter_lit": 0}
+    "K7_segment_lit": 0, "K7_scatter_lit": 0, "K7_scatter_lookup": 0}
 
 _MODE_IDS = {"K1": 0, "K4": 1, "K5": 2}
 
@@ -115,11 +116,18 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def is_lookup(scene: Scene) -> bool:
+    """A lit scene shaded from lookup gradient volumes: forward mode K5,
+    backward modes K2L and K6L (and the lookup gradient segment), whose
+    gradients include the three volumes'."""
+    return scene.has_lighting and scene.has_gradient_volumes
+
+
 def kernel_mode(scene: Scene) -> str:
     """Which forward mode the scene needs: K1, K4 or K5."""
     if not scene.has_lighting:
         return "K1"
-    return "K5" if scene.has_gradient_volumes else "K4"
+    return "K5" if is_lookup(scene) else "K4"
 
 
 def _checked(t: torch.Tensor, name: str, device: torch.device, ndim: int) -> torch.Tensor:
@@ -244,6 +252,26 @@ def pack_lookup(scene: Scene) -> Optional[torch.Tensor]:
                                         scene.gradient_z)])
 
 
+def lookup_pack(scene: Scene) -> Optional[torch.Tensor]:
+    """``pack_lookup(scene)`` for a lit lookup scene on a CUDA device, made
+    once by a caller that launches K5 and K6L (or K2L), or several bands,
+    on it; None for any other scene."""
+    return pack_lookup(scene) if scene.device.type == "cuda" and is_lookup(scene) else None
+
+
+def set_packed(args: _MarchArgs, scene: Scene, packed: Optional[torch.Tensor]) -> None:
+    """Points ``args.packed`` at ``packed`` (``pack_lookup(scene)``), checked
+    as emission's shape by 4; leaves it null for None (four volumes of more
+    than one shape)."""
+    if packed is None:
+        return
+    d, h, w, c = _checked(packed, "packed lookup grid", scene.device, 4).shape
+    if (d, h, w, c) != tuple(scene.emission.data.shape) + (4,):
+        raise ValueError(f"the packed lookup grid must be the emission's shape by 4, got "
+                         f"{tuple(packed.shape)}")
+    args.packed = _Vol4(packed.data_ptr(), d, h, w)
+
+
 def render_rows_fast(scene: Scene, opts: RenderOptions, camera_x_offset: float = 0.0,
                      y_offset: int = 0, n_rows: Optional[int] = None,
                      steps: Optional[torch.Tensor] = None,
@@ -269,14 +297,9 @@ def render_rows_fast(scene: Scene, opts: RenderOptions, camera_x_offset: float =
     # settings and packed stay referenced until the launch is enqueued
     args, settings = march_args(scene, opts, camera_x_offset, lookup=mode == "K5",
                                 y_offset=y_offset, n_rows=n_rows)
-    if mode == "K5" and packed is None:
-        packed = pack_lookup(scene)
-    if mode == "K5" and packed is not None:
-        d, h, w, c = _checked(packed, "packed lookup grid", dev, 4).shape
-        if (d, h, w, c) != tuple(scene.emission.data.shape) + (4,):
-            raise ValueError(f"the packed lookup grid must be the emission's shape by 4, got "
-                             f"{tuple(packed.shape)}")
-        args.packed = _Vol4(packed.data_ptr(), d, h, w)
+    if mode == "K5":
+        packed = pack_lookup(scene) if packed is None else packed
+        set_packed(args, scene, packed)
     out = torch.empty((n_rows, opts.width, 3), dtype=torch.float32, device=dev)
     if steps is not None:
         if (steps.dtype != torch.int32 or steps.device != dev or not steps.is_contiguous()

@@ -47,10 +47,10 @@ their windows those of reflection and, with lookup gradients, of the three
 gradient volumes too (``ops.slab._role_volumes``), which phase 2 packs with
 emission's window for each launch (``cuda_bricks.pack_window``): on the
 stream that launches, so after a streamed window's copy, which that stream
-waits for (``_Streamed.slab``). A lit scene with lookup
-gradient volumes renders, but its gradients raise ``NotImplementedError``
-(``cuda_bricks.refuse_lit_lookup``); ``ops.slab.render_fused_slabbed``
-differentiates it in plain PyTorch.
+waits for (``_Streamed.slab``). The backward sweep of such a scene takes the
+lookup gradient segment, which reads the same packed window and returns the
+three gradient windows' gradients beside emission's; they are added into
+the whole grids as the others are (in host memory on the streamed tier).
 """
 
 from __future__ import annotations
@@ -94,7 +94,7 @@ class SweepStats:
 LAST_SWEEP: Optional[SweepStats] = None
 
 # the keys of a slab's gradients that are window-shaped grids
-_GRID_KEYS = ("emission", "absorption", "reflection")
+_GRID_KEYS = tuple(_NAME_OF.values())
 
 
 class _Ranges:
@@ -270,12 +270,17 @@ def _sweep(windows, ranges: _Ranges, scene: Scene, opts: RenderOptions,
             visited.append(s)
             _, entry = cuda_bricks.brick_transmittance(slab, opts, camera_x_offset)
             w_in = torch.where(mask, w, 1.0).contiguous()
-            contrib, w_out = cuda_bricks.brick_segment(slab, opts, camera_x_offset, w_in, entry)
+            # a lit lookup window's pack on the card, once for phase 2 and the
+            # gradient segment
+            packed = (cuda_bricks.pack_window(slab) if g is not None and dev.type == "cuda"
+                      else None)
+            contrib, w_out = cuda_bricks.brick_segment(slab, opts, camera_x_offset, w_in, entry,
+                                                       packed=packed)
             if g is None:
                 out += torch.where(mask[..., None], contrib, 0.0)
             else:
                 grads = cuda_bricks.brick_gradients(slab, opts, camera_x_offset, g_dir, image,
-                                                    w_in, up, entry)
+                                                    w_in, up, entry, packed=packed)
                 # the grids of the windows; a role the march does not sample
                 # (an unlit scene's reflection) has a placeholder's zeros
                 sampled = {_NAME_OF[role] for role in _role_volumes(slab.scene)}
@@ -284,6 +289,9 @@ def _sweep(windows, ranges: _Ranges, scene: Scene, opts: RenderOptions,
                     if key not in _GRID_KEYS:
                         params[key] = value if key not in params else params[key] + value
                 up = (up + own_dot(g_dir, contrib)).contiguous()
+                # freed before the next slab's pack and gradient windows are
+                # made (the planner counts one set: api/planner.py, tier_bytes)
+                del packed, grads
             windows.release()
             w = torch.where(mask, w_out, w)
             if not ranges.any_left(mask, w, threshold, s, ascending):
@@ -343,8 +351,8 @@ def voxel_grads_slabbed_fast(scene: Scene, opts: RenderOptions, g, camera_x_offs
     device. 3 launches a slab visited and direction (phase 1 and 2 again, the
     gradient segment) after the forward's 2, or without it when ``image``
     (``render_forward_slabbed_fast``'s own) is given. Lit scenes take the lit
-    forms (on-the-fly gradients only: ``cuda_bricks.refuse_lit_lookup``)."""
-    cuda_bricks.refuse_lit_lookup(scene)
+    forms, with lookup gradient volumes the lookup gradient segment (their
+    three gradients among the grids)."""
     _check_divisible(scene, n_slabs)
     cam = float(camera_x_offset)
     if image is None:
@@ -405,11 +413,10 @@ def streamed_grads_fast(scene: Scene, opts: RenderOptions, g, *, n_slabs: int,
                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """``ops.slab.streamed_grads`` on the card: the streamed forward, then the
     backward sweep, a slab at a time; ``(grads, image)``, the sampled grids'
-    gradients (emission and, unless aliased, absorption and, lit, reflection)
-    as CPU tensors, the parameters' and the image on ``device``. Each window
-    is copied to the card twice (forward and backward). Lit scenes with
-    lookup gradient volumes raise (``cuda_bricks.refuse_lit_lookup``)."""
-    cuda_bricks.refuse_lit_lookup(scene)
+    gradients (emission and, unless aliased, absorption and, lit, reflection
+    and any lookup gradient volume) as CPU tensors, the parameters' and the
+    image on ``device``. Each window is copied to the card twice (forward and
+    backward)."""
     dev = _stream_device(scene, device)
     _check_divisible(scene, n_slabs)
     cam = float(camera_x_offset)
@@ -461,9 +468,8 @@ def render_fused_slabbed_fast(scene: Scene, opts: RenderOptions, camera_x_offset
     """Differentiable slabbed sweep through the K7 launch forms (the kernel
     route of ``ops.slab.render_fused_slabbed``): ``render_forward_slabbed_fast``
     forward, ``voxel_grads_slabbed_fast`` backward. Gradients reach every
-    leaf of ``split_scene(scene)`` that requires grad. A lit scene with lookup
-    gradient volumes raises (``cuda_bricks.refuse_lit_lookup``)."""
-    cuda_bricks.refuse_lit_lookup(scene)
+    leaf of ``split_scene(scene)`` that requires grad, a lit lookup scene's
+    gradient volumes among them."""
     _check_divisible(scene, n_slabs)
     diff, template = split_scene(scene)
     keys = tuple(diff)

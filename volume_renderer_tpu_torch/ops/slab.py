@@ -385,8 +385,8 @@ def streamed_grads(scene: Scene, opts: RenderOptions, g: Optional[torch.Tensor],
 
     ``device=None`` is the CUDA card: the K7 sweep
     (``ops.cuda_slab.streamed_grads_fast``, lit scenes through the lit
-    gradient segment; lit lookup scenes raise there). On the CPU it is the
-    plain replay, which takes every scene.
+    gradient segment, lit lookup scenes through its lookup form). On the CPU
+    it is the plain replay; both take every scene.
     """
     dev = resolve_device(device)
     _check_divisible(scene, n_slabs)

@@ -65,9 +65,8 @@ points take a list of devices alone. ``render_forward_bricked_fast``,
 ``voxel_grads_bricked_fast`` and ``train_step_fast_bricked`` run the brick
 kernels (``ops/cuda_bricks.py``) on CUDA bricks and the same plain passes on
 CPU bricks, lit scenes through the lit forms of phase 2 and of the gradient
-segment; a lit scene with lookup gradient volumes renders, and its gradients
-raise ``NotImplementedError`` (no backward kernel takes it;
-``render_fused_bricked`` differentiates it). All take a ``Scene`` (split on
+segment (its lookup form for lookup gradient volumes, whose three grids get
+the halo return emission gets). All take a ``Scene`` (split on
 every call) or a ``BrickedScene`` (split once, ``split_bricks``;
 ``train_step_fast_bricked``
 also a ``Scene`` with whole params, cut for each step), return the image on
@@ -535,12 +534,11 @@ def voxel_grads_bricked_fast(scene: Union[Scene, BrickedScene], opts: RenderOpti
     ``reflection`` (if not aliased; zeros) are lists of per-brick tensors
     (D / B, H, W) on the bricks' devices (``assemble`` joins them); the
     parameters' gradients are summed over the bricks, on ``mesh[0]``; lit,
-    ``reflection`` is filled and ``light_colors`` added. A lit scene with
-    lookup gradient volumes raises ``NotImplementedError``, and
-    ``render_fused_bricked`` differentiates it.
+    ``reflection`` is filled and ``light_colors`` added; with lookup
+    gradient volumes ``gradient_x``, ``gradient_y`` and ``gradient_z`` too,
+    cut like emission (the lookup gradient segment).
     """
     bricked = _as_bricked(scene, mesh)
-    cuda_bricks.refuse_lit_lookup(bricked.bricks[0].scene)
     cam = float(camera_x_offset)
     fwd = _forward(bricked, opts, cam, fast=True)
     return fwd.image, _voxel_grads(bricked, opts, g, cam, fwd)
@@ -649,9 +647,7 @@ def train_step_fast_bricked(params: Params, optimizer: torch.optim.Optimizer,
     end. With a ``Scene`` and the whole params of ``train.split_params``
     (the memory planner's bricked tier) the grids are cut for the step
     over ``mesh`` and their gradients joined on each leaf's device. Lit
-    scenes train through the lit forms (on-the-fly gradients; lookup ones
-    raise, as in ``voxel_grads_bricked_fast``)."""
-    cuda_bricks.refuse_lit_lookup(scene if isinstance(scene, Scene) else scene.bricks[0].scene)
+    scenes train through the lit forms, with on-the-fly or lookup gradients."""
     cam = float(camera_x_offset)
     whole = not isinstance(scene, BrickedScene)
     if whole:

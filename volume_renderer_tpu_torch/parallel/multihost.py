@@ -94,7 +94,7 @@ from volume_renderer_tpu_torch._device import DeviceLike, resolve_device
 from volume_renderer_tpu_torch.models.scene import RenderOptions, Scene
 from volume_renderer_tpu_torch.ops import cuda_bricks
 from volume_renderer_tpu_torch.ops.brick_march import HALO, Brick
-from volume_renderer_tpu_torch.ops.cuda_grads import refuse_lookup, voxel_grads_fast
+from volume_renderer_tpu_torch.ops.cuda_grads import voxel_grads_fast
 from volume_renderer_tpu_torch.ops.cuda_march import render_rows_fast
 from volume_renderer_tpu_torch.ops.vjp import GRID_KEYS, merge_scene, split_scene
 from volume_renderer_tpu_torch.parallel import bricks
@@ -255,14 +255,14 @@ def train_step_fast_dp(params: Params, optimizer: torch.optim.Optimizer, scene: 
                        camera_x_offset: float = 0.0) -> torch.Tensor:
     """``parallel.pallas_dp.train_step_fast_sharded`` across the ranks: the
     forward kernel and the scatter kernel over this rank's band (K1 + K3
-    unlit, K4 + K6 lit; their plain versions on the CPU), the closed-form
+    unlit, K4 + K6 lit, K5 + K6L lit with lookup gradient volumes; their
+    plain versions on the CPU), the closed-form
     cotangent ``2 (img - target)``, the loss and gradients summed over the
     ranks, one optimizer step on every rank. Returns the image's loss
     before the update."""
     y0, rows = my_band(opts)
     with torch.no_grad():
         merged = merge_params(params, scene)
-        refuse_lookup(merged)
         img = _band_image(merged, opts, camera_x_offset)
         resid = img - target[y0:y0 + rows].to(img.device, torch.float32)
         loss = torch.sum(resid ** 2)
@@ -517,10 +517,10 @@ def voxel_grads_bricked_ranks(scene_or_brick: Union[Scene, Brick], opts: RenderO
     rank's part (D / B, H, W), the halo rows returned within the band, then
     summed over the bands; the parameter keys are summed over the band's
     bricks, then over the bands; the same on every rank of a brick. A lit
-    scene with lookup gradient volumes raises ``NotImplementedError``."""
+    scene with lookup gradient volumes also gets the three gradient grids'
+    parts (the lookup gradient segment)."""
     layout = _layout(mesh)
     bricked = _rank_bricked(scene_or_brick, layout)
-    cuda_bricks.refuse_lit_lookup(bricked.bricks[0].scene)
     cam = float(camera_x_offset)
     y0, rows = layout.rows(opts)
     fwd = bricks._forward(bricked, opts, cam, True, y0, rows)
@@ -795,18 +795,16 @@ def one_process_ms(scene: Scene, opts: RenderOptions, target: torch.Tensor, star
     over the whole image), timed as
     ``_brick_demo`` times a rank (``wall_ms``): ``forward_ms`` of
     ``bricks.render_forward_bricked_fast`` on bricks cut before the timer,
-    and, where the scene has kernel gradients, ``step_ms`` of
-    ``bricks.train_step_fast_bricked`` from ``start``."""
+    and ``step_ms`` of ``bricks.train_step_fast_bricked`` from ``start``."""
     from volume_renderer_tpu_torch import train
 
     split = bricks.split_bricks(scene, mesh)
     out = {"forward_ms": wall_ms(lambda: bricks.render_forward_bricked_fast(split, opts),
                                  mesh)[1]}
-    if not (scene.has_lighting and scene.has_gradient_volumes):
-        params, static = bricks.split_params_bricked(train.merge_params(start, scene), mesh)
-        optimizer = torch.optim.Adam(bricks.param_leaves(params), lr=DEMO["lr"])
-        out["step_ms"] = wall_ms(lambda: bricks.train_step_fast_bricked(
-            params, optimizer, static, opts, target), mesh)[1]
+    params, static = bricks.split_params_bricked(train.merge_params(start, scene), mesh)
+    optimizer = torch.optim.Adam(bricks.param_leaves(params), lr=DEMO["lr"])
+    out["step_ms"] = wall_ms(lambda: bricks.train_step_fast_bricked(
+        params, optimizer, static, opts, target), mesh)[1]
     return out
 
 
@@ -829,9 +827,8 @@ def _brick_demo(dev: torch.device, spec: BrickDemo, targets: Dict[str, torch.Ten
     over the whole rehearsal, the peak MiB that PyTorch allocated on the
     card (``peak_mib``). With ``spec.fused``, from the same start one Adam
     step of ``render_fused_bricked_ranks`` through autograd, whose grid
-    leaves are whole (the whole scene is built for it). A lookup scene has
-    no kernel step: its kernel gradients must raise, and the fused step
-    differentiates it. Grids are kept as this rank's rows."""
+    leaves are whole (the whole scene is built for it). The lookup scene
+    takes the lookup gradient segment. Grids are kept as this rank's rows."""
     from volume_renderer_tpu_torch import train
     from volume_renderer_tpu_torch.ops import cuda_march
 
@@ -846,46 +843,34 @@ def _brick_demo(dev: torch.device, spec: BrickDemo, targets: Dict[str, torch.Ten
             dev, spec, part=(layout.brick, layout.n_bricks)).items():
         target = targets[name].to(dev)
         res = {"rows": {key: int(data.shape[0]) for key, data in _grids(scene).items()}}
-        lookup = scene.has_lighting and scene.has_gradient_volumes
         brick = split_brick_rank(scene, grids=_grids(scene), mesh=mesh)
         y0, rows = layout.rows(opts)
         _, entry = cuda_bricks.brick_transmittance(brick, opts, y_offset=y0, n_rows=rows)
         res["entry"] = {"step": entry.step.cpu(), "state": entry.state.cpu()}
         g = 2.0 * (render_forward_bricked_ranks(brick, opts, mesh=mesh) - target)
-        if lookup:
-            try:
-                voxel_grads_bricked_ranks(brick, opts, g, mesh=mesh)
-            except NotImplementedError as err:
-                res["grads_refused"] = str(err)
-            else:
-                raise AssertionError("the gradients of a lit lookup scene did not raise")
-        else:
-            _, grads = voxel_grads_bricked_ranks(brick, opts, g, mesh=mesh)
-            res["grads"] = {"grads": {k: v.cpu() for k, v in grads.items()}}
+        _, grads = voxel_grads_bricked_ranks(brick, opts, g, mesh=mesh)
+        res["grads"] = {"grads": {k: v.cpu() for k, v in grads.items()}}
 
         cuda_march.reset_launch_counts()
         res["image"] = render_forward_bricked_ranks(brick, opts, mesh=mesh).cpu()
-        if not lookup:
-            merged = train.merge_params(start, scene)
-            params, step_brick = split_params_bricked_rank(merged, grids=_grids(merged),
-                                                           mesh=mesh)
-            optimizer = torch.optim.Adam(list(params.values()), lr=DEMO["lr"])
+        merged = train.merge_params(start, scene)
+        params, step_brick = split_params_bricked_rank(merged, grids=_grids(merged), mesh=mesh)
+        optimizer = torch.optim.Adam(list(params.values()), lr=DEMO["lr"])
 
-            def step():
-                return train_step_fast_bricked_ranks(params, optimizer, step_brick, opts, target,
-                                                     mesh=mesh)
+        def step():
+            return train_step_fast_bricked_ranks(params, optimizer, step_brick, opts, target,
+                                                 mesh=mesh)
 
-            loss = step()
-            res["fast"] = {"loss": float(loss),
-                           "grads": {k: p.grad.detach().cpu().clone() for k, p in params.items()},
-                           "params": {k: p.detach().cpu().clone() for k, p in params.items()}}
+        loss = step()
+        res["fast"] = {"loss": float(loss),
+                       "grads": {k: p.grad.detach().cpu().clone() for k, p in params.items()},
+                       "params": {k: p.detach().cpu().clone() for k, p in params.items()}}
         res["launches"] = {k: v for k, v in cuda_march.LAUNCHES_BY_MODE.items() if v}
         if card:
             res["forward_ms"] = wall_ms(lambda: render_forward_bricked_ranks(brick, opts,
                                                                              mesh=mesh),
                                         [dev])[1]
-            if not lookup:
-                res["step_ms"] = wall_ms(step, [dev])[1]
+            res["step_ms"] = wall_ms(step, [dev])[1]
 
         if spec.fused:
             scene, _, _, start = whole[name]
@@ -1023,9 +1008,8 @@ def _bricked_times(results: List[dict], spec: BrickDemo) -> dict:
            "config": f"{spec.volume}^3/{spec.width}x{spec.height}, noise {spec.noise}",
            "rank_peak_mib": [r["peak_mib"] for r in results]}
     for case, (scene, opts, target, start) in brick_demo_cases(mesh[0], spec).items():
-        cell = {"rank_forward_ms": [r[case]["forward_ms"] for r in results]}
-        if "step_ms" in results[0][case]:
-            cell["rank_step_ms"] = [r[case]["step_ms"] for r in results]
+        cell = {"rank_forward_ms": [r[case]["forward_ms"] for r in results],
+                "rank_step_ms": [r[case]["step_ms"] for r in results]}
         cell["one_process"] = one_process_ms(scene, opts, target, start, mesh)
         rec[case] = cell
     return rec
@@ -1055,11 +1039,10 @@ if __name__ == "__main__":
         res = run_demo(args.num_processes, args.device, args.backend, timeout=600.0,
                        bricks=spec, bands=args.bands)
         losses = ", ".join(f"{case} {res[0][case]['fast']['loss']:.6f}"
-                           for case in BRICK_CASES if "fast" in res[0][case])
+                           for case in BRICK_CASES)
         print(f"multihost bricked demo ({args.num_processes} processes, {args.bands} x "
               f"{args.num_processes // args.bands} ranks, {res[0]['backend']} on "
-              f"{res[0]['mesh']}): kernel-step losses {losses}; the lookup scene's "
-              f"gradients refused; every rank equal")
+              f"{res[0]['mesh']}): kernel-step losses {losses}; every rank equal")
         if args.device != "cpu":
             print(json.dumps(_bricked_times(res, spec)), flush=True)
     elif args.demo:

@@ -34,7 +34,7 @@ import torch
 from volume_renderer_tpu_torch._device import DeviceLike, resolve_device
 from volume_renderer_tpu_torch.models.scene import RenderOptions, Scene
 from volume_renderer_tpu_torch.ops.cuda_grads import voxel_grads_fast
-from volume_renderer_tpu_torch.ops.cuda_march import render_forward_fast
+from volume_renderer_tpu_torch.ops.cuda_march import lookup_pack, render_rows_fast
 from volume_renderer_tpu_torch.ops.forward import render_rows
 from volume_renderer_tpu_torch.ops.vjp import render_fused
 from volume_renderer_tpu_torch.parallel.mesh import check_mesh
@@ -159,8 +159,10 @@ def train_step_fast(params: Params, optimizer: torch.optim.Optimizer, scene: Sce
 
     The loss ``sum((img - target)**2)`` has the closed-form pixel cotangent
     ``2 * (img - target)``, so nothing is traced: forward kernel, backward
-    kernel on its image (``voxel_grads_fast``), optimizer. Lit scenes need
-    on-the-fly gradients; for other losses use ``train_step``.
+    kernel on its image (``voxel_grads_fast``), optimizer: K1 + K3 unlit,
+    K4 + K6 lit with on-the-fly gradients, K5 + K6L lit with lookup gradient
+    volumes (K5's pack made once for both). For other losses use
+    ``train_step``.
 
     A lit loss feels the emission grid through the normals, differences of
     neighbouring voxels: keep the optimizer's step per voxel far below
@@ -168,10 +170,12 @@ def train_step_fast(params: Params, optimizer: torch.optim.Optimizer, scene: Sce
     """
     with torch.no_grad():
         merged = merge_params(params, scene)
-        img = render_forward_fast(merged, opts, camera_x_offset)
+        packed = lookup_pack(merged)
+        img = render_rows_fast(merged, opts, camera_x_offset, packed=packed)
         resid = img - target.to(torch.float32)
         loss = torch.sum(resid ** 2)
-        _, grads = voxel_grads_fast(merged, opts, 2.0 * resid, camera_x_offset, image=img)
+        _, grads = voxel_grads_fast(merged, opts, 2.0 * resid, camera_x_offset, image=img,
+                                    packed=packed)
         for key, p in params.items():
             p.grad = grads[key].reshape(p.shape)
     optimizer.step()
