@@ -42,16 +42,18 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             three-step transfer-parameter fits through transfer_grads_fast
             (K1 + K2, K5 + K2L), counted like phase 5. The loss must fall.
             Before the counted steps, the first step's gradients are held
-            against the plain replay on a 64-row band (rows 224-287), and lit
-            K2 and K2L against the lit steps' replays; K3, K6 and K6L are held there
+            against the plain replay on a 64-row band (rows 224-287), and K2,
+            lit K2 and K2L against the replays of the K3, K6 and K6L steps' bands
+            (one plain replay a scene); K3, K6 and K6L are held there
             twice: launched over the whole image with the cotangent zero
             outside the band, and over the band alone.
-7. timing:  the forward kernel (CUDA events, warm, median of 5) and the
-            plain version at 256^3 / 512^2 and 512^3 / 1024^2 (K1, K4, K5;
-            at 512^3 the plain version on a 64-row band through the
-            middle), with rays/s, the march samples the rays took and the
-            bound, the kernel over a band of 64 rows alone (rows 384-447
-            at 512^2, the plain band at 1024^2) against the same plain rows,
+7. timing:  the forward kernel (CUDA events, warm, median of 5) at
+            256^3 / 512^2 and 512^3 / 1024^2 (K1, K4, K5; the plain version
+            as phase 5 ran it at 256^3, at 512^3 on a 64-row band through
+            the middle for K1 and K5), with rays/s, the march samples the
+            rays took and the bound, the kernel over a band of 64 rows
+            alone (rows 384-447 at 512^2, against the whole launch's rows
+            to the bit; the plain band at 1024^2, against its plain rows),
             K5's pack alone (its forward includes it) and, at
             256^3 / 512^2, the gather model (gather_footprint) of its
             float4 corner loads against float32 ones on a 64-row band;
@@ -61,7 +63,9 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             K2 at 512^3 / 1024^2 (K2 without a plain band, K3's of 64 rows),
             with the bound, K3's atomic adds a sample at 256^3 / 512^2,
             counted from the plain march's positions (march_flushes), K6L's
-            (march_scatter_adds), and K2's pack alone and, at
+            (march_scatter_adds: the values added a sample, the reductions
+            by width, float4, float2 and scalar, and the 32-byte sectors
+            they reach), and K2's pack alone and, at
             256^3 / 512^2, the gather model of its float2 corner loads.
 
 8. bricks_vs_plain: the z-brick kernels (K7) at 24^3 / 256x192, 4 bricks:
@@ -94,7 +98,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             pass, as the whole launches are, on every brick of one unlit
             camera and on the lit scenes' last brick.
 9. bricks_main_path: at 256^3 / 512^2 on the noisy K3 scene, the launch
-            forms against their plain passes on a 64-row band; then, counted
+            forms on the last brick against their plain passes on a 64-row
+            band (every brick at 24^3 in phase 8); then, counted
             like phase 5, render_forward_bricked_fast with 4 and 8 bricks,
             also on a dense scene with opacity threshold 0.3 (rays die
             mid-volume), one voxel_grads_bricked_fast call and three Adam
@@ -124,7 +129,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             passes on 32 rows through the middle, held as in phase 8; and
             the lit forms over all bricks timed with their samples and bound
             (the lookup gradient segment too, with its atomic adds a sample
-            from the plain walk, lookup_scatter_adds;
+            from the plain walk, by width and with their sectors,
+            lookup_scatter_adds;
             and the lit bricked forwards and Adam steps), the lookup form's
             window pack alone, the tail factors of lit phase 2's launches
             and of K4's and K5's by block shape (tail_factor, from their
@@ -153,7 +159,15 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             gradient segment; the lit bricked forwards and training step;
             every brick's lit contribution and exit opacity and the lit
             bricked images must be equal, the lit segment's grids within
-            1e-5 of scale).
+            1e-5 of scale), and K6L and the lookup gradient segment on K5's
+            noisy scene (K6L's backward alone, forward + backward and
+            train_step_fast at 256^3 / 512^2; the lookup segment over 4
+            bricks and the lookup bricked training step; every turn's
+            grids within 1e-5 of scale of the parent's first turn's). The
+            lookup part alone, a process a version, with a reference the
+            first writes:
+              for d in P N N P; do echo lookup | python3 chip_smoke.py \
+                  --turn --repo $d --grids-ref lookup_ref.pt; done
 12. dp_vs_single: rays-DP (parallel/pallas_dp.py) at 128^3 / 256x192
             with 5 bands on the one card, the last one shorter: the K1, K4
             and K5 band launches joined must equal the single launch's image
@@ -162,7 +176,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             1e-4; lit factor_reflection nonzero), also for an unlit scene with a
             reflection volume of its own, whose grid the bands share zeroed;
             the memory each DP backward call takes at its peak must stay
-            within its grids and half a grid.
+            within its grids and half a grid (K6L's: with its pack and its
+            accumulators).
 13. dp_main_path: at 256^3 / 512^2 with make_mesh(4), counted like phase 5:
             render_forward_fast_sharded on the K1, K4 and K5 scenes (4
             launches a render, K5's pack made once a render), three Adam
@@ -217,7 +232,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             train_step_streamed and train_step_slabbed (the lookup gradient
             segment a slab), the sweeps' against K6L for the cotangent of
             their own image, timed, each step's peak within the planner's
-            estimate of its tier.
+            estimate of its tier; train_step_planned likewise, under the
+            budget of the streamed tier's estimate (streamed, 8 slabs).
 
 16. camera_grads (plain PyTorch on the card): render_fused(camera_grads=True)
             on rows 112-143 of 256^2 at 32^3 on the noisy K3 scene and on
@@ -321,6 +337,10 @@ DP_SMALL = dict(volume=32, image=64, brick_image=(64, 48))
 # 2e-3 the loss rose at the second step (K5's noisy scene at 256^3 / 512^2,
 # an H100), at 5e-4 it fell at every one.
 TRAIN_LR = {"K3": 2e-3, "K6": 2e-6, "K2": 1e-2, "K6L": 5e-4, "K2L": 1e-2}
+# A scatter kernel's grids in one turn against another's (the lookup turn):
+# atomic adds land in no fixed order, so within this share of each grid's
+# scale, not to the bit.
+TURN_GRID_TOL = 1e-5
 
 # Published peaks of one H100 SXM at its full 700 W power limit.
 PEAK_FP32_FLOPS = 67e12
@@ -438,19 +458,84 @@ def lookup_scatter_grids(scene, dims):
     return {k: dims(getattr(scene, k).data) for k in keys}
 
 
+# the grids whose cotangents go out together as one vector reduction a
+# corner (csrc/lit_replay.cuh, scatter_packed): into an accumulator laid out
+# as K5's pack where the pack exists, and beside it absorption's and
+# reflection's into a float2 one where both lie as emission does
+LOOKUP_PACK = ("emission", "gradient_x", "gradient_y", "gradient_z")
+LOOKUP_PAIR = ("absorption", "reflection")
+
+
+def lookup_scatter_packs(scene, place):
+    """The groups of grids that K6L and the lookup gradient segment reduce
+    into together, a vector a corner: the pack's four where emission and the
+    gradient volumes have one shape (the kernels read the pack), else none
+    (each volume scattered at its own corners); with the pack, absorption
+    and reflection where neither is aliased and both have emission's shape
+    and ``place(grid)`` (a brick's slab geometry: where the grid lies)."""
+    def same(keys):
+        return len({(tuple(getattr(scene, k).data.shape), place(getattr(scene, k).data))
+                    for k in keys}) == 1
+
+    if not same(LOOKUP_PACK):
+        return ()
+    pair = not (scene.absorption_aliased or scene.reflection_aliased)
+    return (LOOKUP_PACK, LOOKUP_PAIR) if pair and same(("emission",) + LOOKUP_PAIR) else (
+        LOOKUP_PACK,)
+
+
+def corner_sectors(s, dims, elem):
+    """Per sample, the distinct 32-byte sectors among the 8 clamped corners
+    of normalized position ``s`` (x, y, z) in a grid of ``dims`` (x, y, z)
+    and ``elem`` bytes a voxel (4: a float32 grid; 8: a float2
+    accumulator; 16: a float4 one), x fastest: each distinct (y, z) row of
+    the corners has sectors of its own (a row of the grids timed is a whole
+    number of sectors, and a window's rows start on one), one where the x
+    pair lies in one sector, else two."""
+    import torch
+
+    if dims[0] * elem % 32:
+        raise ValueError(f"a row of {dims[0]} voxels of {elem} bytes is no whole number of "
+                         "32-byte sectors")
+    pairs = []
+    for c, n in zip(s, dims):
+        i = torch.clamp(torch.floor(c * float(n) - 0.5), -1.0, float(n))
+        pairs.append((torch.clamp(i, 0, n - 1), torch.clamp(i + 1, 0, n - 1)))
+    (x0, x1), (y0, y1), (z0, z1) = pairs
+    per = 32 // elem  # voxels a sector
+    return ((1 + (y0 != y1).long()) * (1 + (z0 != z1).long())
+            * (1 + (torch.div(x0, per, rounding_mode="floor")
+                    != torch.div(x1, per, rounding_mode="floor")).long()))
+
+
 class ScatterAdds:
     """The atomic adds of a per-sample scatter without a carry into grids
     of ``dims`` ({name: (x, y, global z)}), as ``csrc/lit_replay.cuh``
-    (scatter, scatter_packed) makes them: 8 into each grid at every sample
-    a ray composites, at its 8 clamped corners (two of them on one voxel
-    where a corner is clamped), and the distinct voxels those adds reach.
-    ``visit`` takes each step's normalized positions and the rays that
-    composite there; the tallies stay on the device until ``result``."""
+    (scatter, scatter_packed) makes them: 8 values into each grid at every
+    sample a ray composites, at its 8 clamped corners (two of them on one
+    voxel where a corner is clamped), and the distinct voxels those adds
+    reach. The grids of a group in ``packs`` (of one shape) go out together,
+    one vector reduction of their values a corner (float4 for four, float2
+    for two) into an accumulator of that layout; every other grid's as 8
+    scalar ones. ``reductions`` counts them by width and ``sectors`` the
+    32-byte sectors they reach a sample (corner_sectors), by target (a
+    grid, or a group's names joined by "+"), beside those that 8 scalar
+    adds into each grid would reach (``sectors_scalar``). ``visit`` takes
+    each step's normalized positions and the rays that composite there;
+    the tallies stay on the device until ``result``."""
 
-    def __init__(self, dims):
+    WIDTHS = {1: "scalar", 2: "float2", 4: "float4"}
+
+    def __init__(self, dims, packs=()):
         self.dims = dims
         self.samples = None
         self.reached = {}  # the voxels reached, by grid dims
+        packed = {k for group in packs for k in group}
+        # target -> (dims, bytes a voxel, values a reduction)
+        self.targets = {"+".join(group): (dims[group[0]], 4 * len(group), len(group))
+                        for group in packs}
+        self.targets.update({k: (d, 4, 1) for k, d in dims.items() if k not in packed})
+        self.sectors = {}  # by (dims, bytes a voxel)
 
     def visit(self, s, act):
         import torch
@@ -463,14 +548,29 @@ class ScatterAdds:
                 reach = reach * torch.where((i >= 0) & (i <= d - 2), 2, 1)
             reached = torch.where(act, reach, 0).sum()
             self.reached[dims] = reached + self.reached.get(dims, 0)
+        scalar = {(d, 4) for d in self.dims.values()}
+        for key in {t[:2] for t in self.targets.values()} | scalar:
+            sectors = torch.where(act, corner_sectors(s, *key), 0).sum()
+            self.sectors[key] = sectors + self.sectors.get(key, 0)
 
     def result(self):
         n = 0 if self.samples is None else int(self.samples)
         adds = {name: 8 * n for name in self.dims}
         voxels = {name: int(self.reached[d]) if n else 0 for name, d in self.dims.items()}
-        return {"samples": n, "adds": adds, "voxels": voxels,
+        reductions = dict.fromkeys(self.WIDTHS.values(), 0)
+        for _, _, width in self.targets.values():
+            reductions[self.WIDTHS[width]] += 8 * n
+        sectors = {t: int(self.sectors[(d, e)]) if n else 0
+                   for t, (d, e, _) in self.targets.items()}
+        scalar = {name: int(self.sectors[(d, 4)]) if n else 0 for name, d in self.dims.items()}
+        return {"samples": n, "adds": adds, "voxels": voxels, "reductions": reductions,
+                "sectors": sectors, "sectors_scalar": scalar,
                 "atomic_adds_per_sample": sum(adds.values()) / n if n else None,
-                "voxels_per_sample": sum(voxels.values()) / n if n else None}
+                "voxels_per_sample": sum(voxels.values()) / n if n else None,
+                "reductions_per_sample": {k: v / n if n else None
+                                          for k, v in reductions.items()},
+                "sectors_per_sample": sum(sectors.values()) / n if n else None,
+                "sectors_per_sample_scalar": sum(scalar.values()) / n if n else None}
 
 
 class CarryCount:
@@ -622,8 +722,11 @@ def lookup_scatter_adds(brick, opts, w_in, entry):
     positions (carried_corners), the grids' z placed as the brick's."""
     from volume_renderer_tpu_torch.ops import raymarch_core as core
 
-    count = ScatterAdds(lookup_scatter_grids(
-        brick.scene, lambda v: (v.shape[2], v.shape[1], brick.slab_geometry(v)[1])))
+    def dims(v):
+        return v.shape[2], v.shape[1], brick.slab_geometry(v)[1]
+
+    count = ScatterAdds(lookup_scatter_grids(brick.scene, dims),
+                        lookup_scatter_packs(brick.scene, brick.slab_geometry))
     samples, _ = carried_corners(brick, opts, w_in, entry, brick.scene.emission.data,
                                  lambda pos, act, consts: count.visit(
                                      core.to_sample_coords(pos, consts), act))
@@ -745,8 +848,10 @@ def march_scatter_adds(scene, opts, steps=None):
         else:
             consts, _, pos, step, _, _, _ = _init_rays(scene, opts, 0.0, 0, opts.height)
             steps = steps.reshape(-1)
-        count = ScatterAdds(lookup_scatter_grids(
-            scene, lambda v: (v.shape[2], v.shape[1], v.shape[0])))
+        def dims(v):
+            return v.shape[2], v.shape[1], v.shape[0]
+
+        count = ScatterAdds(lookup_scatter_grids(scene, dims), lookup_scatter_packs(scene, dims))
         for k in range(int(steps.max())):
             count.visit(core.to_sample_coords(pos, consts), steps > k)
             pos = pos + step
@@ -869,10 +974,10 @@ KERNEL_PARAMS = {
     "brick_bwd_kernel": ("AB_ALIASED", "AB_OWN_CELL"),
     "brick_lit_bwd_kernel": ("AB_ALIASED", "RE_ALIASED"),
     "march_bwd_lookup_params_kernel": ("AB_ALIASED", "RE_ALIASED"),
-    "march_bwd_lookup_scatter_kernel": ("AB_ALIASED", "RE_ALIASED"),
+    "march_bwd_lookup_scatter_kernel": ("AB_ALIASED", "RE_ALIASED", "PAIRED"),
     "march_bwd_lookup_unpacked_params_kernel": ("AB_ALIASED", "RE_ALIASED"),
     "march_bwd_lookup_unpacked_scatter_kernel": ("AB_ALIASED", "RE_ALIASED"),
-    "brick_lookup_bwd_kernel": ("AB_ALIASED", "RE_ALIASED"),
+    "brick_lookup_bwd_kernel": ("AB_ALIASED", "RE_ALIASED", "PAIRED"),
     "brick_lookup_unpacked_bwd_kernel": ("AB_ALIASED", "RE_ALIASED"),
 }
 # Threads a block by mode or kernel, where it is not 16x16 (K3, K6, K6L and
@@ -1508,12 +1613,17 @@ def main() -> None:
     parser.add_argument("--out", help="also write every JSON line to this file")
     parser.add_argument("--parent", metavar="DIR",
                         help="a directory holding another version of volume_renderer_tpu_torch/ "
-                             "(e.g. the parent commit's): its K1-K7 are timed in turns with the "
-                             "checkout's (phase 11)")
+                             "(e.g. the parent commit's): its K1-K7, K6L and the lookup segment "
+                             "are timed in turns with the checkout's (phase 11)")
     parser.add_argument("--turn", action="store_true",
                         help="phase 11's turns: build, then for each line read on stdin time "
                              "the parts it names (march: K1-K6, bricks: K7, lit: the lit K7 "
-                             "forms; turn: all three) and print one JSON line")
+                             "forms, lookup: K6L and the lookup gradient segment; turn: all "
+                             "four) and print one JSON line")
+    parser.add_argument("--grids-ref", metavar="FILE",
+                        help="with --turn: the lookup part's grids of the first turn that "
+                             "finds no FILE are written there, and every other turn's are held "
+                             "against them (default: a file of this process's own)")
     parser.add_argument("--repo", metavar="DIR", default=REPO,
                         help="import the port from DIR instead of the checkout around this script")
     args = parser.parse_args()
@@ -1978,12 +2088,98 @@ def main() -> None:
         out["ms"] = ms
         return out
 
+    def grids_err(got, want):
+        """max |got - want| over a key's grids (a dict, or a list of dicts,
+        one a brick) as a share of the largest |want|, by key."""
+        got, want = ([got], [want]) if isinstance(want, dict) else (got, want)
+        out = {}
+        for key in want[0]:
+            scale = max(max(float(w[key].abs().max()) for w in want), 1e-30)
+            out[key] = max(float((a[key].double() - b[key].double()).abs().max())
+                           for a, b in zip(got, want)) / scale
+        return out
+
+    def lookup_turn(grids_ref):
+        """K6L and the lookup gradient segment on K5's noisy scene from the
+        first training step's state (emission x 1.3 + 0.05 against the true
+        scene), timed as phases 7 and 10 time them (CUDA events, warm, median
+        of 5): at 256^3 / 512^2 K6L's backward alone, forward + backward and
+        train_step_fast; with 4 bricks the lookup gradient segment over all
+        bricks, from phase 1's outputs computed outside the timed calls, and
+        the lookup bricked training step. K6L's grids and the segment's
+        per-brick grids are written to ``grids_ref`` by the first turn that
+        finds no file there, and every other turn's are held against them
+        within TURN_GRID_TOL of scale (its atomic adds land in any order)."""
+        size = MAIN["image"]
+        scene = flagship(MAIN["volume"], "K5", ab_aliased=False, noise=0.05)
+        opts = scene.options(size, size)
+        ms = {}
+        with torch.no_grad():
+            target = render_forward_fast(scene, opts)
+            params, static_scene = train.split_params(scene)
+            params["emission"].mul_(1.3).add_(0.05)
+            merged = train.merge_params(params, static_scene)
+            img = render_forward_fast(merged, opts)
+            g = 2.0 * (img - target)
+            grids = {"K6L": {k: v.cpu() for k, v in march_backward(merged, opts, g, img).items()
+                             if v.dim() == 3}}
+
+            def fwd_bwd():
+                image = render_forward_fast(merged, opts)
+                return voxel_grads_fast(merged, opts, 2.0 * (image - target), image=image)
+
+            ms["K6L_backward"] = median_ms(lambda: march_backward(merged, opts, g, img))[0]
+            ms["K6L_fwd_bwd"] = median_ms(fwd_bwd)[0]
+            split = bricks.split_bricks(merged, make_mesh(BRICKS))
+            fwd = bricks._forward(split, opts, 0.0, fast=True)
+            gb = 2.0 * (fwd.image - target)
+            up = [u.contiguous() for u in bricks._upstream(
+                [brick_march.own_dot(gb, own) for own in fwd.own], fwd.ascending,
+                torch.cumsum, 0.0)]
+            states = [(b, w.contiguous(), u, e)
+                      for b, w, u, e in zip(split.bricks, fwd.w_in, up, fwd.entry)]
+
+            def segment():
+                return [cuda_bricks.brick_gradients(b, opts, 0.0, gb, fwd.image, w, u, e)
+                        for b, w, u, e in states]
+
+            grids["segment"] = [{k: v.cpu() for k, v in part.items() if v.dim() == 3}
+                                for part in segment()]
+            ms["scatter_lookup"] = median_ms(segment)[0]
+            del split, fwd, states
+        optimizer = torch.optim.Adam(list(params.values()), lr=TRAIN_LR["K6L"])
+        ms["train_step_fast"] = median_ms(
+            lambda: train.train_step_fast(params, optimizer, static_scene, opts, target))[0]
+        bparams, bstatic = bricks.split_params_bricked(scene, make_mesh(BRICKS))
+        with torch.no_grad():
+            for p in bparams["emission"]:
+                p.mul_(1.3).add_(0.05)
+        boptimizer = torch.optim.Adam(bricks.param_leaves(bparams), lr=TRAIN_LR["K6L"])
+        ms["bricked_train_step"] = median_ms(lambda: bricks.train_step_fast_bricked(
+            bparams, boptimizer, bstatic, opts, target))[0]
+        out = {"ptxas": {name: ptxas[name] for name in ("march_bwd", "brick_bwd")}, "ms": ms}
+        if not os.path.exists(grids_ref):
+            torch.save(grids, grids_ref)
+            out["grids_written"] = grids_ref
+            return out
+        want = torch.load(grids_ref)
+        err = {part: grids_err(grids[part], want[part]) for part in want}
+        out["grids_err_of_scale_vs_ref"] = err
+        bad = {f"{part} {k}": e for part, es in err.items() for k, e in es.items()
+               if not e <= TURN_GRID_TOL}
+        if bad:
+            raise RuntimeError(f"lookup turn: grids off the reference's beyond "
+                               f"{TURN_GRID_TOL:g} of scale: {bad}")
+        return out
+
     if args.turn:  # a turn for each line on stdin, until it closes
         import tempfile
         emit({"phase": "ready"})
         grids_dir = tempfile.mkdtemp(prefix="chip_smoke_turn_")
+        grids_ref = args.grids_ref or os.path.join(grids_dir, "lookup_grids.pt")
         for line in sys.stdin:
-            # the line names the parts to time: "march", "bricks", "lit"; "turn" all three
+            # the line names the parts to time: "march", "bricks", "lit",
+            # "lookup"; "turn" all four
             parts = set(line.split()) or {"turn"}
             t_turn = time.perf_counter()
             out = {}
@@ -1993,6 +2189,8 @@ def main() -> None:
                 out["bricks"] = brick_turn()
             if parts & {"turn", "lit"}:
                 out["lit"] = lit_turn(grids_dir)
+            if parts & {"turn", "lookup"}:
+                out["lookup"] = lookup_turn(grids_ref)
             emit({"phase": "turn", "repo": os.path.abspath(args.repo), **out,
                   "seconds": time.perf_counter() - t_turn})
         return
@@ -2300,17 +2498,15 @@ def main() -> None:
         merged = train.merge_params(params, static_scene)
         img = render_forward_fast(merged, opts)
         first_step[mode] = band_check(f"first step {mode}", merged, opts, 2.0 * (img - target),
-                                      img, scatter=True, also_k2=mode in ("K6", "K6L"))
+                                      img, scatter=True, also_k2=True)
         runs[mode] = (lambda p=params, o=optimizer, sc=static_scene, op=opts, t=target:
                       train.train_step_fast(p, o, sc, op, t))
-    # the transfer fit: the unlit scene's factors and color, the grids fixed
+    # the transfer fit: the unlit scene's factors and color, the grids fixed;
+    # unlit K2 held against the replay of K3's first-step band above
+    first_step["K2"] = first_step["K3"].pop("K2")
     scene = train_scenes["K3"]
     opts = scene.options(size, size)
     tparams, toptimizer, target = transfer_fit(scene, opts)
-    merged = transfer_scene(scene, tparams)
-    img = render_forward_fast(merged, opts)
-    first_step["K2"] = band_check("first step K2", merged, opts, 2.0 * (img - target), img,
-                                  scatter=False)
     runs["K2"] = lambda: transfer_step(tparams, toptimizer, scene, opts, target)
     # lit K2 against the replay of the lit first step's band (phase 7 times it)
     first_step["K2_lit"] = first_step["K6"].pop("K2")
@@ -2363,7 +2559,17 @@ def main() -> None:
         assert all(v.shape == vols[0].shape for v in vols if v is not scene.illumination)
         return sum(v.numel() * 4 for v in vols)
 
-    def time_cell(scene, size, band_rows=None, reps=5):
+    def time_cell(scene, size, band_rows=None, reps=5, held=None):
+        """The forward kernel's ms (CUDA events, median of ``reps``), its
+        samples and bound, the kernel over a band alone against the same
+        rows; the plain version on ``band_rows`` rows through the middle
+        (None: the whole image) against the kernel's image. ``held``
+        ({"plain_ms", "max_abs_err", "plain_cell"}): where this mode at this
+        size was already held against the plain version (phase 5 holds the
+        facade's image on the whole image; ``plain_ms`` None where no plain
+        version runs at this size), reported instead of marching the plain
+        version again; the band alone is then held against the whole
+        launch's rows to the bit."""
         mode = kernel_mode(scene)
         opts = scene.options(size, size)
         steps = torch.zeros((size, size), dtype=torch.int32, device=dev)
@@ -2380,17 +2586,27 @@ def main() -> None:
         ms = float(np.median(times))
         y0 = 0 if band_rows is None else (size - band_rows) // 2
         rows = size if band_rows is None else band_rows
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        plain = render_rows(scene, opts, 0.0, y0, rows)
-        end.record()
-        end.synchronize()
-        err = check(f"timing cell {mode} {size}", img[y0:y0 + rows], plain, *tol[mode], mode)
-        # the kernel over a band alone, as rays-DP launches it, against the same plain rows
+        # the kernel over a band alone, as rays-DP launches it
         by0, brows = (y0, rows) if band_rows else (3 * size // 4, BAND)
-        band_err = check(f"timing cell {mode} {size} band alone",
-                         render_rows_fast(scene, opts, 0.0, by0, brows),
-                         plain[by0 - y0:by0 - y0 + brows], *tol[mode], mode)
+        band = render_rows_fast(scene, opts, 0.0, by0, brows)
+        if held is None:
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            plain = render_rows(scene, opts, 0.0, y0, rows)
+            end.record()
+            end.synchronize()
+            held = {"plain_ms": start.elapsed_time(end),
+                    "max_abs_err": check(f"timing cell {mode} {size}", img[y0:y0 + rows], plain,
+                                         *tol[mode], mode),
+                    "plain_cell": f"{rows} rows from {y0}"}
+            band_err = check(f"timing cell {mode} {size} band alone", band,
+                             plain[by0 - y0:by0 - y0 + brows], *tol[mode], mode)
+        else:  # against the same rows of the whole launch
+            if not torch.equal(band, img[by0:by0 + brows]):
+                raise RuntimeError(f"timing cell {mode} {size}: the band alone differs from "
+                                   "the whole launch's rows")
+            band_err = 0.0
         samples = int(steps.sum())
         n_lights = 0 if mode == "K1" else scene.light_positions.shape[0]
         flops = samples * flops_per_step(mode, scene.absorption_aliased,
@@ -2418,19 +2634,30 @@ def main() -> None:
         return {**extra, "mode": mode, "image": size, "ms": ms, "ms_all": times,
                 "rays_per_s": size * size / (ms * 1e-3), "samples": samples,
                 "samples_per_ray": samples / (size * size), "flops": flops, "bytes": nbytes,
-                "bound_ms": bound[bound_by], "bound_by": bound_by,
-                "plain_ms": start.elapsed_time(end), "plain_rows": rows, "max_abs_err": err,
+                "bound_ms": bound[bound_by], "bound_by": bound_by, "plain_rows": rows, **held,
                 "band_alone": {"first_row": by0, "rows": brows, "max_abs_err": band_err},
                 "finite": bool(torch.isfinite(img).all()),
                 "nonzero_frac": float((img.amax(-1) > 0).float().mean())}
 
+    # The plain version at 256^3 / 512^2 ran in phase 5, on the whole image
+    # of each mode's facade scene (the instantiation timed here: absorption
+    # and reflection separate, one light); it is not marched again. At
+    # 512^3 / 1024^2 K1 and K5 are held on a band; K4 is not (its volumes
+    # are K1's, indexed by the same code; its plain band cost 50-67 s).
+    held = {(MAIN["volume"], mode): {"plain_ms": main[mode]["plain_ms"],
+                                     "max_abs_err": main[mode]["max_abs_err"],
+                                     "plain_cell": "phase 5: the facade's scene, whole image"}
+            for mode in ("K1", "K4", "K5")}
+    held[BIG["volume"], "K4"] = {"plain_ms": None, "max_abs_err": None,
+                                 "plain_cell": "not run at this size (K4 held at 256^3)"}
     cells = {}
     for cfg, modes, band in ((MAIN, ("K1", "K4", "K5"), None),
                              (BIG, ("K1", "K4", "K5"), BIG["band"])):
         for mode in modes:
             key = f"{mode}_{cfg['volume']}_{cfg['image']}"
             scene = flagship(cfg["volume"], mode, ab_aliased=False)
-            cells[key] = time_cell(scene, cfg["image"], band_rows=band)
+            cells[key] = time_cell(scene, cfg["image"], band_rows=band,
+                                   held=held.get((cfg["volume"], mode)))
             record({"phase": "timing", "cell": key, "volume": cfg["volume"], **cells[key]})
             del scene
             if DEVICE == "cuda":
@@ -2480,10 +2707,16 @@ def main() -> None:
                         "atomic_adds_per_sample": sum(flushes.values()) / n,
                         "atomic_adds_per_sample_uncarried": 8 * len(flushes)}
             if mode == "K6L" and size == MAIN["image"]:
-                # every sample adds at its corners, a grid at a time: K5's
-                # samples at the plain march's positions (march_scatter_adds)
+                # the reductions at every sample's corners: K5's samples at
+                # the plain march's positions (march_scatter_adds); and the
+                # unpack of the accumulators into the grids alone (the
+                # backward's ms includes it)
                 adds = {**march_scatter_adds(merged, opts, steps),
                         "packed": cuda_march.pack_lookup(merged) is not None}
+                accs, grids = cuda_grads.zero_accumulators(merged), cuda_grads.zero_grids(merged)
+                extra["unpack_ms"] = median_ms(
+                    lambda: [cuda_grads.unpack_accumulator(a, grids) for a in accs])[0]
+                del accs, grids
             bwd_ms, bwd_all = median_ms(
                 lambda: march_backward(merged, opts, g, img, scatter=scatter))
 
@@ -2568,11 +2801,11 @@ def main() -> None:
                                f"(scale {scale:.3e}), {off:.2e} of the values beyond 1e-5")
         return {"max_abs_err": err, "scale": scale, "share_beyond_1e-5_of_scale": off}
 
-    def bricks_compare(name, scene, opts, g, band=None):
-        """Every K7 launch form on every brick, on the whole image, against
-        its plain pass on the same inputs; the plain passes march the whole
-        image or, with ``band``, that many rows through the middle (g is
-        then zero outside them)."""
+    def bricks_compare(name, scene, opts, g, band=None, held=None):
+        """Every K7 launch form on every brick ``held`` (indices; None: all),
+        on the whole image, against its plain pass on the same inputs; the
+        plain passes march the whole image or, with ``band``, that many rows
+        through the middle (g is then zero outside them)."""
         y0, rows = (0, opts.height) if band is None else ((opts.height - band) // 2, band)
         if band is not None:
             g_band = torch.zeros_like(g)
@@ -2590,6 +2823,8 @@ def main() -> None:
         plain_ms = {form: 0.0 for form in K7_FORMS}
         got_grads, want_grads = [], []
         for brick, w_in, up in zip(split.bricks, fwd.w_in, up_dots):
+            if held is not None and brick.index not in held:
+                continue
             w_in, up = w_in.contiguous(), up.contiguous()
             w_own, entry = cuda_bricks.brick_transmittance(brick, opts)
             own, w_out = cuda_bricks.brick_segment(brick, opts, 0.0, w_in, entry)
@@ -2644,7 +2879,10 @@ def main() -> None:
         brick_grad_err[0] = max(brick_grad_err[0], max(grad_errs.values()))
         return {"ascending_share": float(fwd.ascending.float().mean()),
                 "max_abs_err": errs, "entry_records_equal": True, "grad_err_of_scale": grad_errs,
-                "plain_ms": plain_ms, "plain_rows": rows, "image": fwd.image}
+                "plain_ms": plain_ms, "plain_rows": rows, "image": fwd.image,
+                "plain_cell": (f"every brick of {BRICKS}" if held is None else
+                               f"brick {', '.join(map(str, held))} of {BRICKS}")
+                + f", {rows} rows"}
 
     bricks_cases = {}
     for i, (name, rot, kw) in enumerate((
@@ -2981,7 +3219,10 @@ def main() -> None:
         img0 = render_forward_fast(merged, opts)
         g0 = 2.0 * (img0 - single)
         _, want_grads = voxel_grads_fast(merged, opts, g0, image=img0)
-        main_compare = bricks_compare("main shapes", merged, opts, g0, band=BAND)
+        # the plain passes on the last brick (every brick at 24^3 in phase 8):
+        # a plain pass costs a launch a step whatever the rows
+        main_compare = bricks_compare("main shapes", merged, opts, g0, band=BAND,
+                                      held=(BRICKS - 1,))
         main_compare.pop("image")
     boptimizer = torch.optim.Adam(bricks.param_leaves(bparams), lr=TRAIN_LR["K3"])
     bmerged = bricks.merge_params_bricked(bparams, bstatic)
@@ -3127,7 +3368,8 @@ def main() -> None:
                 "samples": samples[form], "flops": flops, "bytes": form_bytes[form],
                 "bound_ms": bound[bound_by], "bound_by": bound_by}
             if plain is not None:
-                out[form].update(plain_ms=plain["plain_ms"][form], plain_rows=plain["plain_rows"])
+                out[form].update(plain_ms=plain["plain_ms"][form], plain_rows=plain["plain_rows"],
+                                 plain_cell=plain["plain_cell"])
         return out
 
     with torch.no_grad():
@@ -3320,11 +3562,14 @@ def main() -> None:
             n = sum(a["samples"] for a in adds)
             if n != samples:
                 raise RuntimeError(f"lit phase 2 took {samples} samples, its plain walk {n}")
+            totals = {key: {k: sum(a[key][k] for a in adds) for k in adds[0][key]}
+                      for key in ("adds", "voxels", "reductions", "sectors", "sectors_scalar")}
             extra["scatter_lookup"] = {"atomic_adds": {
-                "samples": n, **{key: {k: sum(a[key][k] for a in adds) for k in adds[0][key]}
-                                 for key in ("adds", "voxels")},
+                "samples": n, **totals,
                 **{key: sum(a[key] * a["samples"] for a in adds) / n
-                   for key in ("atomic_adds_per_sample", "voxels_per_sample")}}}
+                   for key in ("atomic_adds_per_sample", "voxels_per_sample",
+                               "sectors_per_sample", "sectors_per_sample_scalar")},
+                "reductions_per_sample": {k: v / n for k, v in totals["reductions"].items()}}}
         else:
             adds = [lit_corner_flushes(b, opts, w, e)
                     for b, w, e in zip(split.bricks, w_ins, fwd.entry)]
@@ -3398,11 +3643,16 @@ def main() -> None:
     if args.parent:
         t_phase = time.perf_counter()
         turns = {"parent": [], "new": []}
+        # the parent's first lookup turn writes the grids every other turn's
+        # are held against
+        import tempfile
+        ref_dir = tempfile.mkdtemp(prefix="chip_smoke_ref_")
         # one process a version, started once; each runs a turn when asked,
         # so only one of them uses the card at a time
         procs = {who: subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--turn", "--repo",
-             os.path.abspath(args.parent if who == "parent" else args.repo)],
+             os.path.abspath(args.parent if who == "parent" else args.repo),
+             "--grids-ref", os.path.join(ref_dir, "lookup_grids.pt")],
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for who in turns}
 
@@ -3429,6 +3679,7 @@ def main() -> None:
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
+            shutil.rmtree(ref_dir, ignore_errors=True)
 
         def compare_turns(get, bound_ms):
             parent_ms = [get(t) for t in turns["parent"]]
@@ -3487,13 +3738,9 @@ def main() -> None:
         for name in lit_names:
             if len({t["lit"][name] for t in every}) != 1:
                 raise RuntimeError(f"lit K7: the parent's {name[:-5]} differs from the checkout's")
-        want_grids = torch.load(turns["parent"][-1]["lit"]["lit_grids"])
-        got_grids = torch.load(turns["new"][-1]["lit"]["lit_grids"])
-        lit_grid_err = {}
-        for key in want_grids[0]:
-            scale = max(max(float(w[key].abs().max()) for w in want_grids), 1e-30)
-            lit_grid_err[key] = max(float((a[key].double() - b[key].double()).abs().max())
-                                    for a, b in zip(got_grids, want_grids)) / scale
+        lit_grid_err = grids_err(torch.load(turns["new"][-1]["lit"]["lit_grids"]),
+                                 torch.load(turns["parent"][-1]["lit"]["lit_grids"]))
+        for key in lit_grid_err:
             if lit_grid_err[key] > BRICK_GRAD_TOL:
                 raise RuntimeError(f"lit K7 {key}: the lit segment's grids are "
                                    f"{lit_grid_err[key]:.3e} of scale off the parent's")
@@ -3510,6 +3757,16 @@ def main() -> None:
                for metric in lit_ms if metric in turns["parent"][0]["lit"]["ms"]},
             **{f"{metric}_ms": [t["lit"]["ms"][metric] for t in turns["new"]]
                for metric in lit_ms if metric not in turns["parent"][0]["lit"]["ms"]}}
+        # K6L and the lookup segment: their grids held against the parent's
+        # first turn's within TURN_GRID_TOL of scale in each turn (raised there)
+        lookup_bounds = {"K6L_backward": cells["K6L_256_512"]["bound_ms"],
+                         "scatter_lookup": lit_cells["scatter_lookup"]["bound_ms"]}
+        compared[f"lookup_{MAIN['volume']}_{MAIN['image']}_{BRICKS}_bricks"] = {
+            "grids_err_of_scale_vs_parent": [t["lookup"].get("grids_err_of_scale_vs_ref")
+                                             for t in every],
+            **{metric: compare_turns(lambda t: t["lookup"]["ms"][metric],
+                                     lookup_bounds.get(metric))
+               for metric in turns["new"][0]["lookup"]["ms"]}}
         record({"phase": "parent_vs_new", "parent": args.parent, "order": "parent, new, new, parent",
                 "reps": 5,
                 "parent_ptxas": {**turns["parent"][0]["march"]["ptxas"],
@@ -3563,17 +3820,20 @@ def main() -> None:
         if not torch.equal(dp_img, img):
             raise RuntimeError(f"rays-DP {case}: the bands' image differs")
         # one set of grids however many bands, and for K6L one pack of four
-        # grids (eight at its peak: api/planner.py, _pack_bytes); the rest
-        # (the image, the per-ray planes, the parameters' sums) is under a
-        # megabyte here
+        # grids (eight while it is made, before the grids: api/planner.py,
+        # _pack_bytes) and beside it the bands' accumulators, one set a
+        # device (ops/cuda_grads.py, zero_accumulators: four grids, two more
+        # with absorption and reflection of emission's shape, as here); the
+        # rest (the image, the per-ray planes, the parameters' sums) is
+        # under a megabyte here
         grid = scene.emission.data.numel() * 4
         n_grids = len(cuda_grads.zero_grids(scene))
-        pack_grids = 8 if case == "K6L" else 0
+        pack_grids = 4 + 4 + 2 * cuda_grads.has_pair(scene) if case == "K6L" else 0
         if peak > (n_grids + pack_grids + 0.5) * grid:
             raise RuntimeError(f"rays-DP {case}: the backward took {peak / 2 ** 20:.1f} MiB at "
                                f"its peak, more than its {n_grids} grids of "
-                               f"{grid / 2 ** 20:.1f} MiB, {pack_grids} of the pack and half "
-                               "a grid")
+                               f"{grid / 2 ** 20:.1f} MiB, {pack_grids} of the pack and the "
+                               "accumulators and half a grid")
         cell = {"err_of_scale": dp_grads_check(f"rays-DP {case}", got, want),
                 "peak_mib": peak / 2 ** 20, "grids": n_grids, "pack_grids": pack_grids,
                 "grid_mib": grid / 2 ** 20}
@@ -4214,13 +4474,25 @@ def main() -> None:
         _, want_look = voxel_grads_fast(merged, opts, 2.0 * (img_sweep - look_target))
         want_look_loss = float(torch.sum((img_sweep - look_target) ** 2))
         del merged, img_sweep
+    def look_planned(p, o):
+        """train_step_planned under the budget of the streamed tier's
+        estimate (the headroom taken off): the streamed sweep, n_main slabs."""
+        loss, plan = train.train_step_planned(
+            p, o, look_host_static, opts, look_target, budget_bytes=int(planner.tier_bytes(
+                train.merge_params(p, look_host_static), opts, "streamed", n_slabs=n_main,
+                training=True, optimizer=o) / 0.7) + 1)
+        if (plan.path, plan.n_slabs) != ("streamed", n_main):
+            raise RuntimeError(f"the lookup planned step took {plan}")
+        return loss
+
     look_steps = {
         "train_step_fast": (False, "cuda", lambda p, o: train.train_step_fast(
             p, o, look_static, opts, look_target)),
         "train_step_streamed": (True, "streamed", lambda p, o: train.train_step_streamed(
             p, o, look_host_static, opts, look_target, n_slabs=n_main)),
         "train_step_slabbed": (False, "slabbed", lambda p, o: train.train_step_slabbed(
-            p, o, look_static, opts, look_target, n_slabs=n_main))}
+            p, o, look_static, opts, look_target, n_slabs=n_main)),
+        "train_step_planned_streamed": (True, "streamed", look_planned)}
     lookup_train = {}
     for name, (host, tier, step) in look_steps.items():
         params = {k: (v.detach().cpu().pin_memory() if host else v.detach().clone())
@@ -4427,8 +4699,8 @@ def main() -> None:
             "launches": launches[mode], "max_abs_err": max_err[mode],
             "dp_launches": dp_render_launches[mode],
             "dp_forward_ms": dp_timing[f"{mode}_forward"]["dp_ms"],
-            "ms": cell["ms"], "plain_ms": cell["plain_ms"], "bound_ms": cell["bound_ms"],
-            "bound_by": cell["bound_by"], "library_ms": None,
+            "ms": cell["ms"], "plain_ms": cell["plain_ms"], "plain_cell": cell["plain_cell"],
+            "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"], "library_ms": None,
             "mode": what, "cell": f"{MAIN['volume']}^3 volume, {MAIN['image']}^2 image",
             "ms_big": cells.get(f"{mode}_{BIG['volume']}_{BIG['image']}", {}).get("ms"),
             **({"pack_ms": cell["pack_ms"]} if "pack_ms" in cell else {}),
@@ -4472,7 +4744,10 @@ def main() -> None:
             "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"], "library_ms": None,
             "fwd_bwd_ms": cell["fwd_bwd_ms"], "train_step_ms": cell["train_step_ms"],
             "mode": what,
-            **({"atomic_adds_per_sample": cell["atomic_adds"]["atomic_adds_per_sample"]}
+            **({k: cell["atomic_adds"][k] for k in ("atomic_adds_per_sample",
+                                                     "reductions_per_sample",
+                                                     "sectors_per_sample",
+                                                     "sectors_per_sample_scalar")}
                if "atomic_adds" in cell else {}),
             "cell": f"{MAIN['volume']}^3 volume, {MAIN['image']}^2 image, K5's noisy scene",
         })
@@ -4493,6 +4768,7 @@ def main() -> None:
             **({"corner_loads_per_sample": cell["corner_loads"]["loads_per_sample"]}
                if "corner_loads" in cell else {}),
             "ms": cell["ms"], "plain_ms": cell["plain_ms"], "plain_rows": cell["plain_rows"],
+            "plain_cell": cell["plain_cell"],
             "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"], "library_ms": None,
             "mode": what,
             "cell": f"{MAIN['volume']}^3 volume, {MAIN['image']}^2 image, {BRICKS} bricks "
@@ -4519,8 +4795,11 @@ def main() -> None:
                            for k in ("ms", "samples", "bound_ms", "bound_by", "pack_ms")},
                 "tail_factors_4_bricks": cell["tail_factors"]["bricks"]}
                if form == "segment_lit" else {}),
-            **({"atomic_adds_per_sample": cell["atomic_adds"]["atomic_adds_per_sample"]}
-               if form != "segment_lit" else {}),
+            **({k: cell["atomic_adds"][k] for k in ("atomic_adds_per_sample",
+                                                     "reductions_per_sample",
+                                                     "sectors_per_sample",
+                                                     "sectors_per_sample_scalar")
+                if k in cell["atomic_adds"]} if form != "segment_lit" else {}),
             "ms": cell["ms"], "plain_ms": cell["plain_ms"], "plain_rows": cell["plain_rows"],
             "plain_cell": cell["plain_cell"],
             "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"], "library_ms": None,

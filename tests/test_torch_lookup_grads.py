@@ -8,10 +8,12 @@ planned step, and bands of image rows.
 Scenes are 16^3 (the seeded blobs of ``make_scenes``, times 5 % seeded
 noise, as every gradient cell of ``chip_smoke.py``: on a smooth volume the
 lit angle adjoint amplifies rounding, tests/test_torch_smooth_shell.py),
-24 x 20 images, in three forms: emission and the gradient volumes of one
+24 x 20 images, in four forms: emission and the gradient volumes of one
 shape with absorption aliased (the kernels' packed form), the same with
-absorption separate, reflection aliased and two lights, and gradient
-volumes of another shape (the unpacked form).
+absorption separate, reflection aliased and two lights, gradient
+volumes of another shape (the unpacked form), and the packed form with
+absorption and reflection both of emission's shape (the kernels add their
+cotangents as one float2).
 
 Tolerances: the fast entry points equal ``replay_backward(angle_floor=True)``
 to the bit (it is their plain version); ``jax.vjp`` of the JAX package's
@@ -62,6 +64,8 @@ CASES = {
     "packed_absorption_aliased": dict(alias_absorption=True),
     "packed_reflection_aliased_two_lights": dict(alias_reflection=True, n_lights=2),
     "unpacked_other_shape": dict(other_shape=True),
+    # absorption and reflection of emission's shape: the kernels' float2 pair
+    "packed_both_own": dict(),
 }
 TOL_JAX = 1e-3       # of scale: tests/test_torch_grads.py's lit tolerance
 TOL_ROUTE = 1e-5     # of scale: the same samples, summed in another order
@@ -318,17 +322,19 @@ def test_bands_of_rows_sum_to_the_whole_launch():
 
 def test_chip_smoke_reads_the_lookup_kernels():
     """chip_smoke's ptxas reading maps K2L's, K6L's and the lookup gradient
-    segment's kernels (packed, and unpacked under their own cap) to their
-    modes and blocks; its operation count of a lookup backward step is the
-    lit step's with K5's three gradient fetches for the six taps and four
-    8-corner scatters for the tap window's."""
+    segment's kernels (packed, with and without the float2 pair, and
+    unpacked under their own cap) to their modes and blocks; its operation
+    count of a lookup backward step is the lit step's with K5's three
+    gradient fetches for the six taps and four 8-corner scatters for the
+    tap window's."""
     import chip_smoke
 
     instantiations = (("30march_bwd_lookup_params_kernel", "Lb0ELb0E", 120),
                       ("39march_bwd_lookup_unpacked_params_kernel", "Lb1ELb0E", 150),
-                      ("31march_bwd_lookup_scatter_kernel", "Lb0ELb1E", 168),
+                      ("31march_bwd_lookup_scatter_kernel", "Lb0ELb1ELb0E", 168),
+                      ("31march_bwd_lookup_scatter_kernel", "Lb0ELb0ELb1E", 160),
                       ("40march_bwd_lookup_unpacked_scatter_kernel", "Lb0ELb0E", 192),
-                      ("23brick_lookup_bwd_kernel", "Lb1ELb1E", 160),
+                      ("23brick_lookup_bwd_kernel", "Lb1ELb1ELb0E", 160),
                       ("32brick_lookup_unpacked_bwd_kernel", "Lb0ELb0E", 190))
     log = "\n".join(
         f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{kernel}I{args}EEv8GradArgs' "
@@ -339,10 +345,11 @@ def test_chip_smoke_reads_the_lookup_kernels():
     got = chip_smoke.ptxas_by_kernel(log, threads=threads)
     assert set(got) == {
         "K2L march_bwd_lookup_params_kernel<0,0>", "K2L march_bwd_lookup_unpacked_params_kernel<1,0>",
-        "K6L march_bwd_lookup_scatter_kernel<0,1>", "K6L march_bwd_lookup_unpacked_scatter_kernel<0,0>",
-        "K7_scatter_lookup brick_lookup_bwd_kernel<1,1>",
+        "K6L march_bwd_lookup_scatter_kernel<0,1,0>", "K6L march_bwd_lookup_scatter_kernel<0,0,1>",
+        "K6L march_bwd_lookup_unpacked_scatter_kernel<0,0>",
+        "K7_scatter_lookup brick_lookup_bwd_kernel<1,1,0>",
         "K7_scatter_lookup brick_lookup_unpacked_bwd_kernel<0,0>"}
-    assert got["K6L march_bwd_lookup_scatter_kernel<0,1>"]["blocks_per_sm"] == 3
+    assert got["K6L march_bwd_lookup_scatter_kernel<0,1,0>"]["blocks_per_sm"] == 3
     assert got["K6L march_bwd_lookup_unpacked_scatter_kernel<0,0>"]["blocks_per_sm"] == 2
     assert (got["K2L march_bwd_lookup_params_kernel<0,0>"]["threads"]
             == threads["march_bwd_lookup_params_kernel"] == threads["march_bwd_lit_params_kernel"])
@@ -376,15 +383,42 @@ def distinct_corners(s, dims) -> torch.Tensor:
     return 1 + (addr[:, 1:] != addr[:, :-1]).sum(dim=-1)
 
 
-@pytest.mark.parametrize("name", list(CASES))
-def test_chip_smoke_counts_the_lookup_scatter_from_the_walk(name):
+def distinct_sectors(s, dims, elem) -> torch.Tensor:
+    """Per sample, the distinct 32-byte sectors among its 8 clamped corners
+    in a grid of ``dims`` (x, y, z) and ``elem`` bytes a voxel, x fastest:
+    their byte addresses over 32, sorted, counted where they change."""
+    lo, hi = [], []
+    for c, n in zip(s, dims):
+        i = torch.clamp(torch.floor(c * float(n) - 0.5), -1.0, float(n)).long()
+        lo.append(torch.clamp(i, 0, n - 1))
+        hi.append(torch.clamp(i + 1, 0, n - 1))
+    w, h, _ = dims
+    sec = torch.stack([(x + w * (y + h * z)) * elem // 32 for z in (lo[2], hi[2])
+                       for y in (lo[1], hi[1]) for x in (lo[0], hi[0])], dim=-1)
+    sec = sec.sort(dim=-1).values
+    return 1 + (sec[:, 1:] != sec[:, :-1]).sum(dim=-1)
+
+
+@pytest.mark.parametrize(
+    "name,count", [pytest.param(n, "adds", id=n) for n in CASES]
+    + [pytest.param(n, "widths", id=f"{n}-widths_and_sectors") for n in CASES])
+def test_chip_smoke_counts_the_lookup_scatter_from_the_walk(name, count):
     """``chip_smoke.march_scatter_adds`` (K6L; over the plain march's samples
     or a given samples plane) and ``lookup_scatter_adds`` (the lookup
     gradient segment) count, from the plain walk, 8 atomic adds
     a sample for emission, each gradient volume and each role not aliased
     to emission; the voxels those adds reach equal a count of each sample's
     distinct clamped corners; the four bricks' walks take the single-device
-    march's samples and reach as many voxels."""
+    march's samples and reach as many voxels. The ``widths`` cases: where
+    the pack exists, the four cotangents of emission and the gradient
+    volumes go out as 8 float4 reductions a sample (32 scalar adds
+    otherwise), absorption's and reflection's as 8 float2 ones beside it
+    where both have emission's shape, any other role's as 8 scalar ones;
+    the 32-byte sectors they reach, and those the scalar adds into each grid
+    would reach, equal a count of the distinct sectors of each sample's
+    corners (``distinct_sectors``), at most two a row pair of the float4
+    accumulator, fewer than the four scalar grids', and the bricks' sum is
+    the single device's."""
     import chip_smoke
     from volume_renderer_tpu_torch.ops import raymarch_core as core
 
@@ -397,6 +431,42 @@ def test_chip_smoke_counts_the_lookup_scatter_from_the_walk(name):
     n = counted["samples"]
     consts, pos, step, steps = chip_smoke.march_samples(tscene, opts)
     assert n == int(steps.sum()) > 0
+    if count == "widths":
+        packed = cuda_march.pack_lookup(tscene) is not None
+        assert packed == (name != "unpacked_other_shape")
+        paired = packed and cuda_grads.has_pair(tscene)
+        assert paired == (name == "packed_both_own")
+        pack, pair = "+".join(["emission", *LOOKUP_KEYS]), "absorption+reflection"
+        vector = (("emission", *LOOKUP_KEYS) if packed else ()) + (
+            ("absorption", "reflection") if paired else ())
+        scalar = [k for k in grids if k not in vector]
+        assert counted["reductions"] == {"float4": 8 * n * packed, "float2": 8 * n * paired,
+                                         "scalar": 8 * n * len(scalar)}
+        assert counted["reductions_per_sample"] == {
+            "float4": 8.0 * packed, "float2": 8.0 * paired, "scalar": 8.0 * len(scalar)}
+        targets = {pack: 16} if packed else {}
+        targets.update({pair: 8} if paired else {})
+        targets.update({k: 4 for k in scalar})
+        assert set(counted["sectors"]) == set(targets)
+        sectors, scalar = dict.fromkeys(targets, 0), dict.fromkeys(grids, 0)
+        for k in range(int(steps.max())):
+            act = steps > k
+            s = [c[act] for c in core.to_sample_coords(pos, consts)]
+            for counts, elems in ((sectors, targets), (scalar, dict.fromkeys(grids, 4))):
+                for key, elem in elems.items():
+                    v = getattr(tscene, key.split("+")[0]).data
+                    dims = (v.shape[2], v.shape[1], v.shape[0])
+                    counts[key] += int(distinct_sectors(s, dims, elem).sum())
+            pos = pos + step
+        assert counted["sectors"] == sectors and counted["sectors_scalar"] == scalar
+        assert counted["sectors_per_sample"] == sum(sectors.values()) / n
+        assert counted["sectors_per_sample_scalar"] == sum(scalar.values()) / n
+        if packed:  # at most 2 a row pair, fewer than the four float32 grids reach
+            assert sectors[pack] <= 8 * n
+            assert sectors[pack] < sum(scalar[k] for k in ("emission", *LOOKUP_KEYS))
+        if paired:
+            assert sectors[pair] <= scalar["absorption"] + scalar["reflection"]
+        consts, pos, step, steps = chip_smoke.march_samples(tscene, opts)
     assert chip_smoke.march_scatter_adds(tscene, opts, steps.reshape(H, W)) == counted
     assert counted["adds"] == {k: 8 * n for k in grids}
     assert counted["atomic_adds_per_sample"] == 8 * len(grids)
@@ -417,6 +487,10 @@ def test_chip_smoke_counts_the_lookup_scatter_from_the_walk(name):
     parts = [chip_smoke.lookup_scatter_adds(b, opts, w, e)
              for b, w, e in zip(split.bricks, fwd.w_in, fwd.entry)]
     assert sum(p["samples"] for p in parts) == n
+    if count == "widths":
+        for key in ("reductions", "sectors", "sectors_scalar"):
+            assert {k: sum(p[key][k] for p in parts) for k in counted[key]} == counted[key]
+        return
     for p in parts:
         assert p["adds"] == {k: 8 * p["samples"] for k in grids}
     assert {k: sum(p["voxels"][k] for p in parts) for k in grids} == voxels

@@ -104,11 +104,14 @@ def test_slabbed_saves_the_lookup_pack():
 
 def test_training_budgets_the_lookup_gradient_grids():
     """A lit lookup scene's training step scatters into the three gradient
-    volumes' grids too (K6L, the lookup gradient segment): on every tier its
-    estimate exceeds the same scene's with on-the-fly gradients, above what
-    rendering adds, by those grids (or the windows the tier holds of them).
-    Under a budget just below the whole-grid step the card's planner picks
-    the slabbed sweep, which holds no pack and no whole-grid state."""
+    volumes' grids too (K6L, the lookup gradient segment), through a float4
+    accumulator of four grids beside them, and absorption's and
+    reflection's, separate and of emission's shape here, through a float2
+    one of two: on every tier its estimate exceeds the same scene's with
+    on-the-fly gradients, above what rendering adds, by those grids and the
+    accumulators (or the windows the tier holds of them). Under a budget just below the whole-grid step the card's
+    planner picks the slabbed sweep, which holds no pack and no whole-grid
+    state."""
     _, otf = make_scenes(vol_shape=VOL, lighting=True)
     _, lookup = make_scenes(vol_shape=VOL, lighting=True, gradient_volumes=True)
     opts = lookup.options(W, H)
@@ -122,10 +125,10 @@ def test_training_budgets_the_lookup_gradient_grids():
 
     window = (d // 2 + 2 * HALO) * h * w * 4
     brick = (d // 4 + 2 * HALO) * h * w * 4
-    want = {("cuda", ()): 3 * grid, ("cuda_dp", ()): 3 * grid,
-            ("bricked", (("n_devices", 4),)): (1 + slots) * 3 * brick,
-            ("slabbed", (("n_slabs", 2),)): 3 * grid + 3 * window,
-            ("streamed", (("n_slabs", 2),)): 3 * window}
+    want = {("cuda", ()): (3 + 6) * grid, ("cuda_dp", ()): (3 + 6) * grid,
+            ("bricked", (("n_devices", 4),)): (1 + slots) * 3 * brick + 6 * brick,
+            ("slabbed", (("n_slabs", 2),)): 3 * grid + (3 + 6) * window,
+            ("streamed", (("n_slabs", 2),)): (3 + 6) * window}
     for (path, kw), extra in want.items():
         assert added(lookup, path, **dict(kw)) - added(otf, path, **dict(kw)) == extra, path
     whole = tier_bytes(lookup, opts, "cuda", training=True)

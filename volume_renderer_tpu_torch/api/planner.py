@@ -47,8 +47,13 @@ bytes):
 - with ``training``: the gradient grids (emission, absorption and
   reflection, each unless aliased, and a lit lookup scene's three gradient
   volumes', as the scatter kernels add into them; K6L reads K5's pack,
-  counted above, made once a call) and the optimizer's grid-sized state, read from ``optimizer`` when one is
-  passed, else two a parameter (Adam's moments); the backward's per-ray
+  counted above, made once a call), on a card beside them the gradient
+  accumulators of a lit lookup scene whose pack exists, four grids and,
+  with absorption and reflection separate and of emission's shape, two
+  more (K6L's, ``ops.cuda_grads.zero_accumulators``; as many windows a
+  brick or a slab for the lookup gradient segment, ``_accumulator_bytes``),
+  and the optimizer's grid-sized state, read from ``optimizer`` when one
+  is passed, else two a parameter (Adam's moments); the backward's per-ray
   planes;
 - for the sweeps: one window (a slab and ``2 * HALO`` halo rows) a role;
   the streamed tier holds two a role on the device, the one that marches
@@ -78,6 +83,7 @@ import torch
 from volume_renderer_tpu_torch._device import DeviceLike
 from volume_renderer_tpu_torch.models.scene import RenderOptions, Scene
 from volume_renderer_tpu_torch.ops.brick_march import HALO
+from volume_renderer_tpu_torch.ops.cuda_grads import has_pair
 from volume_renderer_tpu_torch.ops.cuda_march import is_lookup
 from volume_renderer_tpu_torch.parallel.mesh import check_mesh
 
@@ -221,6 +227,17 @@ def _pack_bytes(scene: Scene, rows: Optional[int] = None) -> int:
     return 8 * (d if rows is None else rows) * _nbytes(plane)
 
 
+def _accumulator_bytes(scene: Scene, rows: Optional[int] = None) -> int:
+    """The gradient accumulators into which K6L (the whole depth) and the
+    lookup gradient segment (a window or brick of ``rows`` rows) add their
+    cotangents where the pack exists: emission's and the gradient volumes',
+    four grids, and absorption's and reflection's, two more where
+    ``ops.cuda_grads.has_pair``; alive beside the grids they are unpacked
+    into."""
+    four = _pack_bytes(scene, rows) // 2
+    return four + (four // 2 if four and has_pair(scene) else 0)
+
+
 def _lights(scene: Scene) -> int:
     return int(scene.light_positions.shape[0]) if scene.has_lighting else 0
 
@@ -255,11 +272,16 @@ def tier_bytes(scene: Scene, opts: RenderOptions, path: str, *, n_slabs: int = 1
     lut = _nbytes(scene.illumination.shape) if scene.has_lighting else 0
     slots = optimizer_slots(optimizer)
     grad_state = _grad_grid_bytes(scene) + slots * _trained_bytes(scene) if training else 0
+
+    def acc(rows: Optional[int] = None) -> int:
+        """The scatter kernels' accumulators, in their training steps."""
+        return _accumulator_bytes(scene, rows) if training and route == "kernel" else 0
+
     sweep_rays = ray_state_bytes(opts, ("sweep" if route == "kernel" else "plain") + suffix,
                                  n_lights)
     if path in ("cuda", "cuda_dp", "plain"):
         pack = _pack_bytes(scene) if path != "plain" else 0
-        return vol + pack + grad_state + ray_state_bytes(opts, route + suffix, n_lights)
+        return vol + pack + grad_state + acc() + ray_state_bytes(opts, route + suffix, n_lights)
     if path == "bricked":
         # one brick a device; the relay's stacked (B, H, W) opacities and
         # dots on the first; training adds the brick's halo-padded gradient
@@ -270,13 +292,15 @@ def tier_bytes(scene: Scene, opts: RenderOptions, path: str, *, n_slabs: int = 1
         d = scene.emission.data.shape[0]
         pack = _pack_bytes(scene, d // n_devices + 2 * HALO) if d > 1 else 0
         est = brick + pack + lut + sweep_rays + 2 * _F32 * opts.width * opts.height * n_devices
-        return est + ((1 + slots) * brick if training else 0)
+        grads = (1 + slots) * brick + (acc(d // n_devices + 2 * HALO) if d > 1 else 0)
+        return est + (grads if training else 0)
     if path in ("slabbed", "streamed"):
         d = scene.emission.data.shape[0]
         if any(shape[0] % n_slabs for _, shape in uniq) or d // n_slabs + 2 * HALO > d:
             return None
         win = sum((shape[0] // n_slabs + 2 * HALO) * _nbytes(shape[1:]) for _, shape in uniq)
-        slab_grads = win if training else 0  # the backward's window-shaped gradients
+        # the backward's window-shaped gradients, and its accumulator
+        slab_grads = win + acc(d // n_slabs + 2 * HALO) if training else 0
         pack = _pack_bytes(scene, d // n_slabs + 2 * HALO)  # lit phase 2's, a window a launch
         if path == "slabbed":  # the windows are views of the grids
             return vol + pack + grad_state + slab_grads + sweep_rays

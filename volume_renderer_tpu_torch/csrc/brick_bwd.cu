@@ -72,9 +72,17 @@
 //   K6L's, on the brick's windows, the gradient volumes' windows placed as
 //   emission's: where the four windows have one shape the kernel reads lit
 //   phase 2's packed window (ops/cuda_bricks.py, pack_window; PACKED) and
-//   scatters the four cotangents at its one cell (scatter_packed), else
-//   each window at its own corners. Same cap and blocks (the unpacked
-//   form a higher cap, kUnpackedMaxRegisters, which it needs not to spill).
+//   adds the four cotangents of a corner as one float4 reduction into an
+//   accumulator of the packed window's shape, and, where absorption's and
+//   reflection's windows have emission's shape and place (PAIRED), their two
+//   as one float2 reduction into a (D_win, H, W, 2) one (scatter_packed),
+//   which the wrapper unpacks into the padded grids: 16 reductions a
+//   sample where the scalar scatter issued 48, which had made the segment
+//   32.4 ms over 4 bricks at 256^3 / 512^2 on an H100, more than the lit
+//   segment's 30.9; 18.7-18.9 ms in turns with it (PERF.md). Otherwise
+//   each window at its own corners, scalar. Same cap and blocks (the
+//   unpacked form a higher cap, kUnpackedMaxRegisters, which it needs not
+//   to spill).
 //
 // Build flags as for march_fwd.cu (-fmad=false, no fast math). Plain C
 // interface, loaded with ctypes (ops/cuda_bricks.py).
@@ -91,9 +99,16 @@ struct BrickGradArgs {
   float* d_em;          // zero-initialised padded gradient grids;
   float* d_ab;          // null when absorption is aliased to emission,
   float* d_re;          // reflection aliased or the scene unlit
-  float* d_gx;          // the gradient volumes' padded grids: lookup only,
-  float* d_gy;          // else null
+  float* d_gx;          // the gradient volumes' padded grids: lookup unpacked
+  float* d_gy;          // only, else null
   float* d_gz;
+  float4* d_pack;       // lookup from the packed window: the zeroed accumulator of
+                        // emission's and the gradient windows' cotangents, the packed
+                        // window's shape, 16-byte aligned (d_em, d_gx, d_gy, d_gz null)
+  float2* d_pair;       // with d_pack, absorption and reflection windows of emission's
+                        // shape and place, neither aliased: the zeroed (D_win, H, W, 2)
+                        // accumulator of their cotangents, 8-byte aligned (d_ab, d_re
+                        // null); else null
   float* planes;        // (2, height, width); lit (3 + 3 n_lights, height, width)
 };
 
@@ -189,9 +204,9 @@ __global__ void __launch_bounds__(kScatterThreads) brick_bwd_kernel(const BrickG
 }
 
 // The lit gradient segment of one ray: the brick's own samples replayed with
-// K6's sample replay (lit_replay_sample), or with LOOKUP K6L's, over its
-// windows.
-template <bool LOOKUP, bool PACKED, bool AB_ALIASED, bool RE_ALIASED>
+// K6's sample replay (lit_replay_sample), or with LOOKUP K6L's (PAIRED as
+// K6L's), over its windows.
+template <bool LOOKUP, bool PACKED, bool AB_ALIASED, bool RE_ALIASED, bool PAIRED = false>
 __device__ __forceinline__ void brick_lit_bwd_ray(const BrickGradArgs& ga) {
   constexpr int kT = kScatterThreads;
   extern __shared__ float light_sums[];  // [3 n_lights][kT], a column per thread
@@ -220,13 +235,14 @@ __device__ __forceinline__ void brick_lit_bwd_ray(const BrickGradArgs& ga) {
     float tfar;
     ray_step(m, px, py, step, tfar, r.origin);
     const LitConsts c = lit_consts(m, true);  // the fast entry points' angle adjoint
-    const LitGrids d = {ga.d_em, ga.d_ab, ga.d_re, ga.d_gx, ga.d_gy, ga.d_gz};
+    const LitGrids d = {ga.d_em, ga.d_ab, ga.d_re,   ga.d_gx,
+                        ga.d_gy, ga.d_gz, ga.d_pack, ga.d_pair};
     const LitPlaces<ZSlab> z = {{a.em_d_global, a.em_z_off}, {a.ab_d_global, a.ab_z_off},
                                 {a.re_d_global, a.re_z_off}, {a.gx_d_global, a.gx_z_off},
                                 {a.gy_d_global, a.gy_z_off}, {a.gz_d_global, a.gz_z_off}};
     march_brick(a, e, step, tfar, threshold, sw, [&](V3 s, V3 p, float& w) {
-      lit_replay_sample<true, LOOKUP, PACKED, AB_ALIASED, RE_ALIASED>(m, c, d, z, p, s, w, r,
-                                                                      sums, kT);
+      lit_replay_sample<true, LOOKUP, PACKED, AB_ALIASED, RE_ALIASED, PAIRED>(m, c, d, z, p, s,
+                                                                              w, r, sums, kT);
     });
   }
 
@@ -244,10 +260,10 @@ __global__ void __maxnreg__(kLitMaxRegisters) brick_lit_bwd_kernel(const BrickGr
 }
 
 // The lit gradient segment with lookup gradient volumes, from lit phase 2's
-// packed window.
-template <bool AB_ALIASED, bool RE_ALIASED>
+// packed window; PAIRED as K6L's.
+template <bool AB_ALIASED, bool RE_ALIASED, bool PAIRED>
 __global__ void __maxnreg__(kLitMaxRegisters) brick_lookup_bwd_kernel(const BrickGradArgs ga) {
-  brick_lit_bwd_ray<true, true, AB_ALIASED, RE_ALIASED>(ga);
+  brick_lit_bwd_ray<true, true, AB_ALIASED, RE_ALIASED, PAIRED>(ga);
 }
 
 // The same with gradient windows of another shape than emission's, each
@@ -278,8 +294,14 @@ cudaError_t launch_lit(const BrickGradArgs& ga, cudaStream_t stream) {
   const dim3 grid((m.width + kScatterCols - 1) / kScatterCols,
                   (m.height + kScatterRows - 1) / kScatterRows);
   const size_t shared = sizeof(float) * 3 * m.n_lights * kScatterThreads;
-  if constexpr (LOOKUP && PACKED) {
-    brick_lookup_bwd_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
+  if constexpr (LOOKUP && PACKED && !AB && !RE) {
+    if (ga.d_pair != nullptr) {
+      brick_lookup_bwd_kernel<false, false, true><<<grid, block, shared, stream>>>(ga);
+    } else {
+      brick_lookup_bwd_kernel<false, false, false><<<grid, block, shared, stream>>>(ga);
+    }
+  } else if constexpr (LOOKUP && PACKED) {
+    brick_lookup_bwd_kernel<AB, RE, false><<<grid, block, shared, stream>>>(ga);
   } else if constexpr (LOOKUP) {
     brick_lookup_unpacked_bwd_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
   } else {
@@ -316,7 +338,8 @@ int vr_brick_bwd_max_lights() {
 // cudaError_t. lit: the lit form (planes 3 + 3 n_lights, d_re unless
 // re_aliased), from the emission taps or, with lookup, from the gradient
 // windows (d_gx, d_gy, d_gz; from args->b.m.packed where the host packed
-// emission and the gradient windows, the packed grid emission's shape by 4).
+// emission and the gradient windows, the packed grid emission's shape by 4,
+// and then into d_pack, of the packed grid's shape, instead).
 int vr_brick_bwd(const BrickGradArgs* args, int ab_aliased, int lit, int lookup,
                  int re_aliased, void* stream) {
   const BrickGradArgs& ga = *args;
@@ -326,18 +349,32 @@ int vr_brick_bwd(const BrickGradArgs* args, int ab_aliased, int lit, int lookup,
   if (a.entry_step == nullptr || a.entry_state == nullptr || a.w_in == nullptr)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the accumulators are the lookup segment's alone, from the packed window
+  if (!(lit && lookup && a.m.packed.data != nullptr) &&
+      (ga.d_pack != nullptr || ga.d_pair != nullptr))
+    return (int)cudaErrorInvalidValue;
   if (lit) {
     if (a.m.n_lights > vr_brick_bwd_max_lights() || a.m.lut.data == nullptr ||
-        (!re_aliased && (a.m.re.data == nullptr || ga.d_re == nullptr)))
+        (!re_aliased && (a.m.re.data == nullptr || (ga.d_re == nullptr && ga.d_pair == nullptr))))
       return (int)cudaErrorInvalidValue;
     if (!lookup) return (int)launch_lit_aliasing<false>(ga, ab_aliased, re_aliased, s);
     const MarchArgs& m = a.m;
-    if (m.gx.data == nullptr || m.gy.data == nullptr || m.gz.data == nullptr ||
-        ga.d_gx == nullptr || ga.d_gy == nullptr || ga.d_gz == nullptr)
+    if (m.gx.data == nullptr || m.gy.data == nullptr || m.gz.data == nullptr)
       return (int)cudaErrorInvalidValue;
     const Vol4& pk = m.packed;
-    if (pk.data == nullptr) return (int)launch_lit_aliasing<true>(ga, ab_aliased, re_aliased, s);
-    if (pk.d != m.em.d || pk.h != m.em.h || pk.w != m.em.w ||
+    if (pk.data == nullptr) {
+      if (ga.d_em == nullptr || ga.d_gx == nullptr || ga.d_gy == nullptr || ga.d_gz == nullptr)
+        return (int)cudaErrorInvalidValue;
+      return (int)launch_lit_aliasing<true>(ga, ab_aliased, re_aliased, s);
+    }
+    // the pair: absorption and reflection separate, of emission's shape and place
+    if (ga.d_pair != nullptr &&
+        (ab_aliased || re_aliased || reinterpret_cast<size_t>(ga.d_pair) % 8 != 0 ||
+         !same_place(m.ab, a.ab_z_off, a.ab_d_global, a) ||
+         !same_place(m.re, a.re_z_off, a.re_d_global, a)))
+      return (int)cudaErrorInvalidValue;
+    if (ga.d_pack == nullptr || reinterpret_cast<size_t>(ga.d_pack) % 16 != 0 ||
+        pk.d != m.em.d || pk.h != m.em.h || pk.w != m.em.w ||
         !same_place(m.gx, a.gx_z_off, a.gx_d_global, a) ||
         !same_place(m.gy, a.gy_z_off, a.gy_d_global, a) ||
         !same_place(m.gz, a.gz_z_off, a.gz_d_global, a))

@@ -23,7 +23,11 @@
 // window's adjoint (scatter_em_taps), or LOOKUP to the three gradient
 // volumes at their own corners (scatter; the lookup gradient is the sampled
 // value itself, no tap difference); emission's own cotangent at its 8
-// corners (LOOKUP), absorption and reflection at their own (scatter); and
+// corners (LOOKUP; with PACKED the four cotangents of the pack's cell as
+// one float4 a corner into an accumulator of the pack's layout,
+// scatter_packed), absorption and reflection at their own (scatter; beside
+// the pack, where both have emission's shape, as one float2 at emission's
+// cell, PAIRED); and
 // the per-ray sums of the transfer parameters:
 //   E   = sum T alpha em          -> factor_emission, color
 //   F   = sum d absorption * ab   -> factor_absorption
@@ -235,13 +239,30 @@ __device__ __forceinline__ void angle_bwd(V3 a, V3 b, float d_ang, bool floor_, 
   db = {d_r * (a.x * inv - rb * b.x), d_r * (a.y * inv - rb * b.y), d_r * (a.z * inv - rb * b.z)};
 }
 
-// Adjoint of fetch_packed: c.x, c.y, c.z, c.w times the 8 trilinear weights
-// of cell k into the emission and the three gradient grids of a lookup
-// replay, all of the pack's shape v and placed as zp places it: one set of
-// offsets and weights for the four, 32 atomic adds.
-template <class ZP>
-__device__ __forceinline__ void scatter_packed(float* const (&grids)[4], const Vol& v,
-                                               const Cell& k, float4 c, ZP zp) {
+__device__ __forceinline__ float4 scaled(float4 c, float w) {
+  return make_float4(w * c.x, w * c.y, w * c.z, w * c.w);
+}
+__device__ __forceinline__ float2 scaled(float2 c, float w) {
+  return make_float2(w * c.x, w * c.y);
+}
+
+// Adjoint of fetch_packed: each channel of c times the 8 trilinear weights of
+// cell k into acc, a float32 accumulator of several volumes' cotangents, of
+// shape v by the channels and placed as zp places it, x fastest: one vector
+// reduction a corner (atomicAdd on a float4 or a float2, red.global.add.v4.f32
+// or .v2.f32, which compute capability 9.x has for global memory), 8 a
+// sample where the grids took 8 scalar adds each. x0 and x1 are neighbours,
+// so a row pair of a float4 accumulator reaches at most two 32-byte sectors,
+// of a float2 one at most two as well, mostly one.
+// - T float4, a lookup replay's pack (D, H, W, 4) of emission's and the
+//   three gradient volumes' cotangents, laid out as K5's pack: 8 float4
+//   reductions a sample for 32 scalar adds;
+// - T float2, its pair (D, H, W, 2) of absorption's and reflection's, both
+//   of emission's shape and neither aliased, at emission's cell: 8 float2
+//   reductions a sample for 16 scalar adds.
+template <class T, class ZP>
+__device__ __forceinline__ void scatter_packed(T* acc, const Vol& v, const Cell& k, T c,
+                                               ZP zp) {
   const int x0 = clamp_index(k.x, v.w), x1 = clamp_index(k.x + 1, v.w);
   const int y0 = clamp_index(k.y, v.h), y1 = clamp_index(k.y + 1, v.h);
   const int z0 = corner_row(k.z, v, zp), z1 = corner_row(k.z + 1, v, zp);
@@ -253,20 +274,22 @@ __device__ __forceinline__ void scatter_packed(float* const (&grids)[4], const V
                          x0 + r01, x1 + r01, x0 + r11, x1 + r11};
   float w[8];
   corner_weights(k, w);
-  const float d[4] = {c.x, c.y, c.z, c.w};
 #pragma unroll
-  for (int n = 0; n < 4; ++n) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) atomicAdd(grids[n] + off[j], w[j] * d[n]);
-  }
+  for (int j = 0; j < 8; ++j) atomicAdd(acc + off[j], scaled(c, w[j]));
 }
 
 // The gradient grids a lit replay scatters into; null where the role is
 // aliased to emission (its cotangent is added to emission's), where the
 // replay does not scatter (lit K2), or, for the gradient volumes' (gx, gy,
-// gz), without lookup gradients.
+// gz), without lookup gradients. With lookup gradients read from the pack,
+// emission's and the gradient volumes' cotangents go into pack, the float4
+// accumulator of the pack's layout, instead of em, gx, gy and gz; PAIRED,
+// absorption's and reflection's into pair, the float2 accumulator of
+// emission's shape, instead of ab and re.
 struct LitGrids {
   float *em, *ab, *re, *gx, *gy, *gz;
+  float4* pack;
+  float2* pair;
 };
 
 // Where each grid a lit replay reads lies along z: all WholeZ for the
@@ -304,13 +327,17 @@ struct LitRay {
 // SCATTER, the per-ray sums in r, the per-light sums at sums[k * stride],
 // k = 3 l + c), and updates sw past it. z places every grid along z. LOOKUP:
 // the gradient volumes shade the sample, from a.packed with PACKED (the
-// four volumes of one shape, emission's).
-template <bool SCATTER, bool LOOKUP, bool PACKED, bool AB_ALIASED, bool RE_ALIASED, class ZP>
+// four volumes of one shape, emission's). PAIRED: absorption and reflection,
+// of emission's shape and place, scatter as one float2 at emission's cell.
+template <bool SCATTER, bool LOOKUP, bool PACKED, bool AB_ALIASED, bool RE_ALIASED,
+          bool PAIRED, class ZP>
 __device__ __forceinline__ void lit_replay_sample(const MarchArgs& a, const LitConsts& c,
                                                   const LitGrids& d, const LitPlaces<ZP>& z,
                                                   V3 p, V3 s, float& sw, LitRay& r,
                                                   float* sums, int stride) {
   static_assert(LOOKUP || !PACKED, "only the lookup gradient volumes are packed");
+  static_assert(!PAIRED || (PACKED && !AB_ALIASED && !RE_ALIASED),
+                "absorption and reflection pair beside the pack, neither aliased");
   const float fe = c.fe, fa = c.fa, fr = c.fr, tstep = c.tstep;
   const V3 color = c.color, g = r.g, origin = r.origin;
   // ---- the step's forward values, as march_fwd.cu has them ----
@@ -426,19 +453,19 @@ __device__ __forceinline__ void lit_replay_sample(const MarchArgs& a, const LitC
     const float d_ab = d_absorption * fa;
     if (AB_ALIASED) {
       d_at_em = d_at_em + d_ab;
-    } else {
+    } else if (!PAIRED) {
       scatter(d.ab, a.ab, sq, d_ab, z.ab);
     }
     const float d_re = d_refl * fr;
     if (RE_ALIASED) {
       d_at_em = d_at_em + d_re;
-    } else {
+    } else if (!PAIRED) {
       scatter(d.re, a.re, sq, d_re, z.re);
     }
     if constexpr (LOOKUP && PACKED) {
-      float* const grids[4] = {d.em, d.gx, d.gy, d.gz};
-      scatter_packed(grids, a.em, cell_of(a.em, as_slab(a.em, z.em), sq),
-                     make_float4(d_at_em, d_grad.x, d_grad.y, d_grad.z), z.em);
+      const Cell k = cell_of(a.em, as_slab(a.em, z.em), sq);
+      scatter_packed(d.pack, a.em, k, make_float4(d_at_em, d_grad.x, d_grad.y, d_grad.z), z.em);
+      if constexpr (PAIRED) scatter_packed(d.pair, a.em, k, make_float2(d_ab, d_re), z.em);
     } else if constexpr (LOOKUP) {
       scatter(d.em, a.em, sq, d_at_em, z.em);
       scatter(d.gx, a.gx, sq, d_grad.x, z.gx);

@@ -77,15 +77,28 @@
 // - Lit with lookup gradient volumes, K2L and K6L replay K5's step: where
 //   emission and the three gradient volumes have one shape they read the
 //   float4 grid that the wrapper packs once a call (ops/cuda_march.py,
-//   pack_lookup; PACKED), one 16-byte load a corner, and K6L scatters the
-//   four cotangents at that one cell (scatter_packed: one set of offsets
-//   and weights, 32 atomic adds); otherwise each volume is fetched and
-//   scattered at its own corners. With absorption and reflection in volumes
-//   of their own that is 48 atomic adds a sample (chip_smoke.py counts
-//   them from the plain walk, march_scatter_adds). K6L keeps K6's register
-//   cap and 16x8 blocks (three an SM), K2L lit K2's 16 x kK2LitRows; their
-//   unpacked forms get more registers (kUnpackedMaxRegisters, two blocks an
-//   SM), which they need not to spill.
+//   pack_lookup; PACKED), one 16-byte load a corner; otherwise each volume
+//   is fetched and scattered at its own corners. What bounded K6L was its
+//   scatter: 48 scalar atomic adds a sample (32 for the four cotangents of
+//   the pack's cell, 16 for absorption and reflection) ran 36.5 ms at
+//   256^3 / 512^2 on an H100, 1.34x K6 though it loads fewer voxels, and
+//   29 ms more than K2L, which replays the same samples and scatters
+//   nothing (PERF.md). From the pack K6L now adds a corner's four
+//   cotangents as one vector reduction (scatter_packed: atomicAdd on a
+//   float4, REDG.E.ADD.F32x4) into a zeroed (D, H, W, 4) accumulator laid
+//   out as the pack, and, where absorption and reflection are volumes of
+//   emission's shape (PAIRED), their two as one float2 reduction at
+//   emission's cell into a (D, H, W, 2) one; the wrapper unpacks both into
+//   the grids (ops/cuda_grads.py). That is 16 reductions a sample instead
+//   of 48, each row pair in one or two 32-byte sectors an accumulator
+//   (chip_smoke.py counts both from the plain walk, march_scatter_adds).
+//   In turns on one card the float4 step took K6L from 36.5 to 21.0-21.7
+//   ms and the float2 step to 16.8-17.3; PAIRED also needs fewer registers
+//   (145 against 168), since one cell serves the six grids. K6L keeps K6's
+//   register cap and 16x8 blocks (three an SM), K2L lit K2's 16 x
+//   kK2LitRows; their unpacked forms keep their scalar scatters and get
+//   more registers (kUnpackedMaxRegisters, two blocks an SM), which they
+//   need not to spill.
 // - Lit, the replay fetches the centre and the six taps through the shared
 //   window of march_common.cuh (20 loads instead of 56), and the scatter of
 //   their cotangents is the window's adjoint (scatter_em_taps): each window
@@ -117,9 +130,16 @@ struct GradArgs {
   float* d_em;         // zero-initialised gradient grids, SCATTER only;
   float* d_ab;         // null when the role is aliased to emission
   float* d_re;         // or unlit
-  float* d_gx;         // the gradient volumes' grids: K6L only, else null
+  float* d_gx;         // the gradient volumes' grids: K6L unpacked only, else null
   float* d_gy;
   float* d_gz;
+  float4* d_pack;      // K6L from the pack: the zeroed (D, H, W, 4) accumulator of
+                       // emission's and the gradient volumes' cotangents, 16-byte
+                       // aligned, laid out as the pack (d_em, d_gx, d_gy, d_gz null)
+  float2* d_pair;      // K6L from the pack with absorption and reflection of
+                       // emission's shape, neither aliased: the zeroed (D, H, W, 2)
+                       // accumulator of their cotangents, 8-byte aligned (d_ab,
+                       // d_re null); else null
   float* planes;       // (3 + 3 n_lights, height, width)
   int angle_floor;
 };
@@ -130,11 +150,11 @@ namespace {
 constexpr int kThreads = kBlock * kBlock;
 
 // The lit backward march of one ray (lit K2, and K6 with SCATTER; K2L and
-// K6L with LOOKUP): the pixel of this thread of a COLS x ROWS block, its
-// samples replayed by lit_replay_sample (lit_replay.cuh) over the whole
-// volumes.
-template <bool SCATTER, bool LOOKUP, bool PACKED, bool AB_ALIASED, bool RE_ALIASED, int COLS,
-          int ROWS>
+// K6L with LOOKUP, PAIRED absorption and reflection as one float2): the
+// pixel of this thread of a COLS x ROWS block, its samples replayed by
+// lit_replay_sample (lit_replay.cuh) over the whole volumes.
+template <bool SCATTER, bool LOOKUP, bool PACKED, bool AB_ALIASED, bool RE_ALIASED, bool PAIRED,
+          int COLS, int ROWS>
 __device__ __forceinline__ void march_bwd_ray(const GradArgs& ga) {
   constexpr int kT = COLS * ROWS;
   extern __shared__ float light_sums[];  // [3 n_lights][kT], a column per thread
@@ -161,13 +181,14 @@ __device__ __forceinline__ void march_bwd_ray(const GradArgs& ga) {
 
   if (hit && !(r.g.x == 0.0f && r.g.y == 0.0f && r.g.z == 0.0f)) {
     const LitConsts c = lit_consts(a, ga.angle_floor != 0);
-    const LitGrids d = {ga.d_em, ga.d_ab, ga.d_re, ga.d_gx, ga.d_gy, ga.d_gz};
+    const LitGrids d = {ga.d_em, ga.d_ab, ga.d_re,   ga.d_gx,
+                        ga.d_gy, ga.d_gz, ga.d_pack, ga.d_pair};
     float sw = 0.0f;
     float t = tnear;
     V3 p = {r.origin.x + dir.x * tnear, r.origin.y + dir.y * tnear, r.origin.z + dir.z * tnear};
     const V3 step = {dir.x * tstep, dir.y * tstep, dir.z * tstep};
     for (int i = 0; i < a.n_steps; ++i) {
-      lit_replay_sample<SCATTER, LOOKUP, PACKED, AB_ALIASED, RE_ALIASED>(
+      lit_replay_sample<SCATTER, LOOKUP, PACKED, AB_ALIASED, RE_ALIASED, PAIRED>(
           a, c, d, LitPlaces<WholeZ>{}, p, to_sample(a, p), sw, r, light_sums + tid, kT);
       // ---- advance exactly like the forward march ----
       t = t + tstep;
@@ -193,7 +214,7 @@ constexpr int kK2LitRows = 8;
 template <bool AB_ALIASED, bool RE_ALIASED>
 __global__ void __launch_bounds__(kBlock * kK2LitRows)
     march_bwd_lit_params_kernel(const GradArgs ga) {
-  march_bwd_ray<false, false, false, AB_ALIASED, RE_ALIASED, kBlock, kK2LitRows>(ga);
+  march_bwd_ray<false, false, false, AB_ALIASED, RE_ALIASED, false, kBlock, kK2LitRows>(ga);
 }
 
 // K2L: lit K2 with lookup gradient volumes, from the packed grid, in lit K2's
@@ -201,7 +222,7 @@ __global__ void __launch_bounds__(kBlock * kK2LitRows)
 template <bool AB_ALIASED, bool RE_ALIASED>
 __global__ void __launch_bounds__(kBlock * kK2LitRows)
     march_bwd_lookup_params_kernel(const GradArgs ga) {
-  march_bwd_ray<false, true, true, AB_ALIASED, RE_ALIASED, kBlock, kK2LitRows>(ga);
+  march_bwd_ray<false, true, true, AB_ALIASED, RE_ALIASED, false, kBlock, kK2LitRows>(ga);
 }
 
 // K6 in a kernel of its own, in 16x8 blocks (a warp is two rows of 16
@@ -215,14 +236,15 @@ constexpr int kK6Cols = 16, kK6Rows = 8;
 
 template <bool AB_ALIASED, bool RE_ALIASED>
 __global__ void __maxnreg__(kLitMaxRegisters) march_bwd_lit_scatter_kernel(const GradArgs ga) {
-  march_bwd_ray<true, false, false, AB_ALIASED, RE_ALIASED, kK6Cols, kK6Rows>(ga);
+  march_bwd_ray<true, false, false, AB_ALIASED, RE_ALIASED, false, kK6Cols, kK6Rows>(ga);
 }
 
 // K6L: K6 with lookup gradient volumes, from the packed grid, under K6's
-// register cap and in its blocks.
-template <bool AB_ALIASED, bool RE_ALIASED>
+// register cap and in its blocks; PAIRED (absorption and reflection of
+// emission's shape, neither aliased) their cotangents as one float2.
+template <bool AB_ALIASED, bool RE_ALIASED, bool PAIRED>
 __global__ void __maxnreg__(kLitMaxRegisters) march_bwd_lookup_scatter_kernel(const GradArgs ga) {
-  march_bwd_ray<true, true, true, AB_ALIASED, RE_ALIASED, kK6Cols, kK6Rows>(ga);
+  march_bwd_ray<true, true, true, AB_ALIASED, RE_ALIASED, PAIRED, kK6Cols, kK6Rows>(ga);
 }
 
 // K2L and K6L with gradient volumes of another shape than emission's (no
@@ -233,13 +255,13 @@ __global__ void __maxnreg__(kLitMaxRegisters) march_bwd_lookup_scatter_kernel(co
 template <bool AB_ALIASED, bool RE_ALIASED>
 __global__ void __maxnreg__(kUnpackedMaxRegisters)
     march_bwd_lookup_unpacked_params_kernel(const GradArgs ga) {
-  march_bwd_ray<false, true, false, AB_ALIASED, RE_ALIASED, kBlock, kK2LitRows>(ga);
+  march_bwd_ray<false, true, false, AB_ALIASED, RE_ALIASED, false, kBlock, kK2LitRows>(ga);
 }
 
 template <bool AB_ALIASED, bool RE_ALIASED>
 __global__ void __maxnreg__(kUnpackedMaxRegisters)
     march_bwd_lookup_unpacked_scatter_kernel(const GradArgs ga) {
-  march_bwd_ray<true, true, false, AB_ALIASED, RE_ALIASED, kK6Cols, kK6Rows>(ga);
+  march_bwd_ray<true, true, false, AB_ALIASED, RE_ALIASED, false, kK6Cols, kK6Rows>(ga);
 }
 
 // K3 in a kernel of its own: the unlit replay with the carried scatter.
@@ -479,8 +501,14 @@ cudaError_t launch_lit(const GradArgs& ga, cudaStream_t stream) {
   const dim3 block(cols, rows);
   const dim3 grid((a.width + cols - 1) / cols, (a.height + rows - 1) / rows);
   const size_t shared = sizeof(float) * 3 * a.n_lights * cols * rows;
-  if constexpr (SCATTER && LOOKUP && PACKED) {
-    march_bwd_lookup_scatter_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
+  if constexpr (SCATTER && LOOKUP && PACKED && !AB && !RE) {
+    if (ga.d_pair != nullptr) {
+      march_bwd_lookup_scatter_kernel<false, false, true><<<grid, block, shared, stream>>>(ga);
+    } else {
+      march_bwd_lookup_scatter_kernel<false, false, false><<<grid, block, shared, stream>>>(ga);
+    }
+  } else if constexpr (SCATTER && LOOKUP && PACKED) {
+    march_bwd_lookup_scatter_kernel<AB, RE, false><<<grid, block, shared, stream>>>(ga);
   } else if constexpr (SCATTER && LOOKUP) {
     march_bwd_lookup_unpacked_scatter_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
   } else if constexpr (SCATTER) {
@@ -518,12 +546,20 @@ cudaError_t launch_lookup(const GradArgs& ga, bool ab_aliased, bool re_aliased,
   const MarchArgs& a = ga.m;
   if (a.gx.data == nullptr || a.gy.data == nullptr || a.gz.data == nullptr)
     return cudaErrorInvalidValue;
-  if (SCATTER && (ga.d_gx == nullptr || ga.d_gy == nullptr || ga.d_gz == nullptr))
-    return cudaErrorInvalidValue;
   const Vol4& pk = a.packed;
   if (pk.data == nullptr) {
+    if (ga.d_pair != nullptr || (SCATTER && (ga.d_em == nullptr || ga.d_gx == nullptr ||
+                                             ga.d_gy == nullptr || ga.d_gz == nullptr)))
+      return cudaErrorInvalidValue;
     return launch_lit_aliasing<SCATTER, true, false>(ga, ab_aliased, re_aliased, stream);
   }
+  if (SCATTER && (ga.d_pack == nullptr || reinterpret_cast<size_t>(ga.d_pack) % 16 != 0))
+    return cudaErrorInvalidValue;
+  // the pair: absorption and reflection separate and of emission's shape
+  if (ga.d_pair != nullptr &&
+      (!SCATTER || ab_aliased || re_aliased || reinterpret_cast<size_t>(ga.d_pair) % 8 != 0 ||
+       !same_shape(a.ab, a.em.d, a.em.h, a.em.w) || !same_shape(a.re, a.em.d, a.em.h, a.em.w)))
+    return cudaErrorInvalidValue;
   const int d = a.em.d, h = a.em.h, w = a.em.w;
   if (pk.d != d || pk.h != h || pk.w != w || !same_shape(a.gx, d, h, w) ||
       !same_shape(a.gy, d, h, w) || !same_shape(a.gz, d, h, w))
@@ -546,12 +582,17 @@ int vr_march_bwd_max_lights() { return (48 * 1024) / (int)(sizeof(float) * 3 * k
 // cudaError_t. lit: lighting, from the emission taps or, with lookup, from
 // the gradient volumes (args->m.gx, gy, gz, and args->m.packed where the
 // host packed them with emission); scatter: also the voxel grids (K3 unlit,
-// K6 lit, K6L lookup), else only the per-ray planes (K2, K2L).
+// K6 lit, K6L lookup; from the pack into args->d_pack and, absorption and
+// reflection of emission's shape, args->d_pair), else only the per-ray
+// planes (K2, K2L).
 int vr_march_bwd(const GradArgs* args, int lit, int scatter, int lookup, int ab_aliased,
                  int re_aliased, void* stream) {
   const GradArgs& ga = *args;
   if (ga.m.width <= 0 || ga.m.height <= 0) return (int)cudaSuccess;
   if (lit && ga.m.n_lights > vr_march_bwd_max_lights()) return (int)cudaErrorInvalidValue;
+  // the accumulators are K6L's alone
+  if (!(lit && lookup && scatter) && (ga.d_pack != nullptr || ga.d_pair != nullptr))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lit && lookup) {
     return (int)(scatter ? launch_lookup<true>(ga, ab_aliased, re_aliased, s)

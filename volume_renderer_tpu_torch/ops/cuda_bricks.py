@@ -17,7 +17,11 @@ One brick's three passes, each a function of that brick's tensors:
   with the reflection grid and the light colors, ``K7_scatter_lit``; lit
   with lookup gradient volumes, also into their three grids,
   ``K7_scatter_lookup``, reading phase 2's packed window where the four
-  windows have one shape).
+  windows have one shape, and adding emission's and the three windows'
+  cotangents into one float4 accumulator of the packed window's shape (and
+  absorption's and reflection's into one float2 accumulator, where their
+  windows have emission's shape and place), which the wrapper unpacks into
+  the padded grids).
 
 Phase 2 and the gradient segment resume every ray from phase 1's record and
 require it: nothing walks a ray from step 0 but phase 1, which fetches
@@ -47,7 +51,9 @@ import torch
 from volume_renderer_tpu_torch.models.scene import RenderOptions, Scene
 from volume_renderer_tpu_torch.ops import _build, brick_march, cuda_march
 from volume_renderer_tpu_torch.ops.brick_march import Brick, Entry
-from volume_renderer_tpu_torch.ops.cuda_grads import is_lookup, parameter_grads
+from volume_renderer_tpu_torch.ops.cuda_grads import (
+    ACC_KEYS, PACK_KEYS, accumulator_pointers, is_lookup, parameter_grads, unpack_accumulator,
+    zero_accumulators)
 from volume_renderer_tpu_torch.ops.cuda_march import _MarchArgs, _checked
 
 
@@ -90,6 +96,8 @@ class _BrickGradArgs(ctypes.Structure):
         ("d_gx", ctypes.c_void_p),
         ("d_gy", ctypes.c_void_p),
         ("d_gz", ctypes.c_void_p),
+        ("d_pack", ctypes.c_void_p),
+        ("d_pair", ctypes.c_void_p),
         ("planes", ctypes.c_void_p),
     ]
 
@@ -347,24 +355,26 @@ def brick_gradients(brick: Brick, opts: RenderOptions, camera_x_offset: float,
     if n_lights > lib.vr_brick_bwd_max_lights():
         raise ValueError(f"the lit gradient segment takes at most "
                          f"{lib.vr_brick_bwd_max_lights()} lights, got {n_lights}")
-    grids = {"emission": torch.zeros_like(scene.emission.data)}
-    if not scene.absorption_aliased:
-        grids["absorption"] = torch.zeros_like(scene.absorption.data)
-    if not scene.reflection_aliased:  # the lit form fills it; unlit it stays zero
-        grids["reflection"] = torch.zeros_like(scene.reflection.data)
-    if lookup:
-        for key in ("gradient_x", "gradient_y", "gradient_z"):
-            grids[key] = torch.zeros_like(getattr(scene, key).data)
-    planes = torch.empty(((3 + 3 * n_lights) if lit else 2, rows, opts.width),
-                         dtype=torch.float32, device=dev)
-    args.d_em = grids["emission"].data_ptr()
-    args.d_ab = grids["absorption"].data_ptr() if "absorption" in grids else None
-    args.d_re = grids["reflection"].data_ptr() if lit and "reflection" in grids else None
-    args.d_gx, args.d_gy, args.d_gz = (grids[k].data_ptr() if k in grids else None
-                                       for k in ("gradient_x", "gradient_y", "gradient_z"))
-    args.planes = planes.data_ptr()
     packed = pack_window(brick) if packed is None else packed  # alive until enqueued
     _set_window_pack(args.b.m, brick, packed)
+    # from the packed window, emission's and the gradient windows' cotangents
+    # go into one float4 accumulator of its shape, and absorption's and
+    # reflection's, windows of emission's shape (so of its place), into one
+    # float2 accumulator
+    accs = zero_accumulators(scene) if packed is not None else []
+    if accs:
+        args.d_pack, args.d_pair = accumulator_pointers(accs, scene.emission.data.shape, dev)
+    accumulated = {k for acc in accs for k in ACC_KEYS[acc.shape[-1]]}
+    roles = ("emission", "absorption", "reflection") + (PACK_KEYS[1:] if lookup else ())
+    grids = {k: torch.zeros_like(getattr(scene, k).data) for k in roles
+             if getattr(scene, k) is not None and k not in accumulated}
+    planes = torch.empty(((3 + 3 * n_lights) if lit else 2, rows, opts.width),
+                         dtype=torch.float32, device=dev)
+    args.d_em, args.d_gx, args.d_gy, args.d_gz, args.d_ab = (
+        grids[k].data_ptr() if k in grids else None for k in PACK_KEYS + ("absorption",))
+    # the lit form fills reflection's; unlit it stays zero
+    args.d_re = grids["reflection"].data_ptr() if lit and "reflection" in grids else None
+    args.planes = planes.data_ptr()
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -375,6 +385,11 @@ def brick_gradients(brick: Brick, opts: RenderOptions, camera_x_offset: float,
         raise RuntimeError(f"brick_bwd launch failed: {lib.vr_cuda_error_string(err).decode()}")
     cuda_march.count_launch("K7_scatter_lookup" if lookup
                             else "K7_scatter_lit" if lit else "K7_scatter")
+    if accs:
+        for acc in accs:
+            unpack_accumulator(acc, grids)
+        del accs, acc
+        grids = {k: grids[k] for k in roles if k in grids}  # the keys' order without a pack
 
     grids.update(parameter_grads(scene, opts, g, planes))
     return grids

@@ -16,7 +16,12 @@ shape from one grid packed for the call (``pack_pair``). A lit scene with
 lookup gradient volumes takes K6L with grids (``gradient_x``, ``gradient_y``
 and ``gradient_z`` among them) and K2L without: K5's step replayed, from
 K5's float4 grid (``ops.cuda_march.pack_lookup``) made once a call where the
-four volumes have one shape. For a scene on the CPU they run the plain
+four volumes have one shape. There K6L adds emission's and the gradient
+volumes' cotangents into one float4 accumulator of the pack's layout and,
+where absorption and reflection are separate and of emission's shape,
+theirs into one float2 accumulator (``zero_accumulators``), a vector
+reduction a corner each, which the wrapper unpacks into the grids
+(``unpack_accumulator``). For a scene on the CPU they run the plain
 version, ``ops.vjp.replay_backward``. There is no fallback: on a CUDA scene
 a failed build, a tensor the kernel does not take or a refused launch
 raises.
@@ -30,7 +35,7 @@ is parallel to the view or light direction within 1e-3 rad.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -42,6 +47,12 @@ from volume_renderer_tpu_torch.ops.vjp import replay_backward
 
 PARAM_KEYS = ("factor_emission", "factor_absorption", "factor_reflection", "color",
               "light_colors")
+# the grids whose cotangents K6L and the lookup gradient segment add into an
+# accumulator, by channel: the float4 one's are K5's pack's channels, the
+# float2 one's absorption and reflection
+PACK_KEYS = ("emission", "gradient_x", "gradient_y", "gradient_z")
+PAIR_KEYS = ("absorption", "reflection")
+ACC_KEYS = {4: PACK_KEYS, 2: PAIR_KEYS}  # by an accumulator's channels
 
 
 class _GradArgs(ctypes.Structure):
@@ -58,6 +69,8 @@ class _GradArgs(ctypes.Structure):
         ("d_gx", ctypes.c_void_p),
         ("d_gy", ctypes.c_void_p),
         ("d_gz", ctypes.c_void_p),
+        ("d_pack", ctypes.c_void_p),
+        ("d_pair", ctypes.c_void_p),
         ("planes", ctypes.c_void_p),
         ("angle_floor", ctypes.c_int),
     ]
@@ -117,11 +130,75 @@ def zero_grids(scene: Scene) -> Dict[str, torch.Tensor]:
     return {k: torch.zeros_like(v) for k, v in _grid_volumes(scene).items()}
 
 
+def has_pair(scene: Scene) -> bool:
+    """Absorption and reflection separate and of emission's shape: beside the
+    pack, K6L and the lookup gradient segment add their cotangents into one
+    float2 accumulator at emission's cell."""
+    return (not scene.absorption_aliased and not scene.reflection_aliased
+            and scene.absorption.data.shape == scene.emission.data.shape
+            == scene.reflection.data.shape)
+
+
+def zero_accumulators(scene: Scene) -> List[torch.Tensor]:
+    """K6L's zeroed gradient accumulators for a lit lookup scene on a CUDA
+    device whose emission and gradient volumes have one shape (where K5's
+    pack exists): a contiguous float32 (D, H, W, 4) laid out as the pack,
+    channel c the cotangent of ``PACK_KEYS[c]``, and, where ``has_pair``, a
+    (D, H, W, 2) of ``PAIR_KEYS``. Made once by a caller whose calls share
+    one set of grids; empty for any other scene."""
+    if scene.device.type != "cuda" or not is_lookup(scene):
+        return []
+    shape = tuple(scene.emission.data.shape)
+    if any(tuple(getattr(scene, k).data.shape) != shape for k in PACK_KEYS):
+        return []
+    return [torch.zeros(shape + (n,), dtype=torch.float32, device=scene.device)
+            for n in ((4, 2) if has_pair(scene) else (4,))]
+
+
+def unpack_accumulator(acc: torch.Tensor, grids: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """The channels of a gradient accumulator ``acc`` (``zero_accumulators``;
+    the lookup gradient segment's of a window's shape) as the grids they
+    hold, ``PACK_KEYS`` of a float4 one (..., 4), ``PAIR_KEYS`` of a float2
+    one (..., 2): each added into ``grids[key]`` in place where ``grids``
+    holds the key, else made a contiguous grid of its own there. Returns
+    ``grids`` (a new dict for None). Plain PyTorch on any device."""
+    grids = {} if grids is None else grids
+    for c, key in enumerate(ACC_KEYS[acc.shape[-1]]):
+        if key in grids:
+            grids[key].add_(acc[..., c])
+        else:
+            grids[key] = acc[..., c].contiguous()
+    return grids
+
+
+def accumulator_pointers(accs: List[torch.Tensor], shape: Tuple[int, ...],
+                         device: torch.device) -> Tuple[Optional[int], Optional[int]]:
+    """The pointers of the float4 and, if any, the float2 accumulator in
+    ``accs``, each checked as ``shape`` (the grids') by its channels on
+    ``device``, contiguous and aligned to its vector (it is reduced into as
+    float4 or float2)."""
+    ptrs = {4: None, 2: None}
+    for acc in accs:
+        n = _checked(acc, "a gradient accumulator", device, 4).shape[-1]
+        if n not in ptrs or ptrs[n] is not None or tuple(acc.shape) != tuple(shape) + (n,):
+            raise ValueError(f"the gradient accumulators must be one {tuple(shape) + (4,)} "
+                             f"and at most one {tuple(shape) + (2,)}, got {tuple(acc.shape)}")
+        if acc.data_ptr() % (4 * n):
+            raise ValueError(f"a gradient accumulator must be {4 * n}-byte aligned")
+        ptrs[n] = acc.data_ptr()
+    if ptrs[4] is None:
+        raise ValueError("the float2 accumulator goes beside a float4 one")
+    return ptrs[4], ptrs[2]
+
+
 def march_backward(scene: Scene, opts: RenderOptions, g: torch.Tensor, image: torch.Tensor,
                    camera_x_offset: float = 0.0, scatter: bool = True,
                    angle_floor: bool = True, y_offset: int = 0, n_rows: Optional[int] = None,
                    grids: Optional[Dict[str, torch.Tensor]] = None,
-                   packed: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                   packed: Optional[torch.Tensor] = None,
+                   accumulators: Optional[List[torch.Tensor]] = None
+                   ) -> Dict[str, torch.Tensor]:
     """One launch of the backward kernel on a CUDA ``scene``: the gradients
     for the cotangent ``g`` and the forward kernel's ``image``, both
     (n_rows, W, 3), of the band of ``n_rows`` image rows from ``y_offset``
@@ -130,7 +207,13 @@ def march_backward(scene: Scene, opts: RenderOptions, g: torch.Tensor, image: to
     device) receives the scatter and is returned; None makes new ones.
     ``packed`` (K2L, K6L): ``ops.cuda_march.pack_lookup(scene)``, made once
     by a caller that launches several bands or the forward too; None packs
-    here."""
+    here. K6L from the pack scatters emission's and the gradient volumes'
+    cotangents into a float4 accumulator (and absorption's and reflection's
+    into a float2 one, ``has_pair``), which this call makes and unpacks into
+    the grids; ``accumulators`` (``zero_accumulators(scene)``, with
+    ``grids``) are ones shared by several bands' calls instead, which the
+    caller unpacks into ``grids`` once after the last
+    (``unpack_accumulator``)."""
     dev = scene.device
     if dev.type != "cuda":
         raise ValueError(f"march_backward launches a CUDA kernel; the scene is on {dev}")
@@ -152,10 +235,21 @@ def march_backward(scene: Scene, opts: RenderOptions, g: torch.Tensor, image: to
         raise ValueError(f"the backward kernel takes at most {lib.vr_march_bwd_max_lights()} "
                          f"lights, got {n_lights}")
 
+    accs = []  # K6L from the pack: the accumulators
+    if scatter and lookup and packed is not None:
+        accs = zero_accumulators(scene) if accumulators is None else accumulators
+        args.d_pack, args.d_pair = accumulator_pointers(accs, scene.emission.data.shape, dev)
+    elif accumulators:
+        raise ValueError("accumulators are taken by K6L from the packed grid alone")
+    accumulated = {k for acc in accs for k in ACC_KEYS[acc.shape[-1]]}
     if not scatter:
         grids = {}
     elif grids is None:
-        grids = zero_grids(scene)
+        if accumulators is not None:
+            raise ValueError("shared accumulators need the grids they are unpacked into")
+        # the accumulated grids come from the accumulators
+        grids = {k: torch.zeros_like(v) for k, v in _grid_volumes(scene).items()
+                 if k not in accumulated}
     else:
         for key, volume in _grid_volumes(scene).items():
             if key not in grids or grids[key].shape != volume.shape:
@@ -171,12 +265,13 @@ def march_backward(scene: Scene, opts: RenderOptions, g: torch.Tensor, image: to
             raise ValueError("the packed emission and absorption must be 8-byte aligned")
         args.pair = _Vol2(pair.data_ptr(), d, h, w)
     args.g, args.image, args.planes = g.data_ptr(), image.data_ptr(), planes.data_ptr()
-    args.d_em, args.d_ab = (grids[k].data_ptr() if k in grids else None
-                            for k in ("emission", "absorption"))
+    # an accumulated grid's cotangents go into its accumulator
+    args.d_em, args.d_gx, args.d_gy, args.d_gz, args.d_ab = (
+        grids[k].data_ptr() if k in grids and k not in accumulated else None
+        for k in PACK_KEYS + ("absorption",))
     # K3 has no reflection term: an unlit scene's reflection grid stays zero
-    args.d_re = grids["reflection"].data_ptr() if lit and "reflection" in grids else None
-    args.d_gx, args.d_gy, args.d_gz = (grids[k].data_ptr() if k in grids else None
-                                       for k in ("gradient_x", "gradient_y", "gradient_z"))
+    args.d_re = (grids["reflection"].data_ptr()
+                 if lit and "reflection" in grids and "reflection" not in accumulated else None)
     args.angle_floor = int(angle_floor)
 
     with torch.cuda.device(dev):
@@ -187,6 +282,10 @@ def march_backward(scene: Scene, opts: RenderOptions, g: torch.Tensor, image: to
     if err != 0:
         raise RuntimeError(f"march_bwd launch failed: {lib.vr_cuda_error_string(err).decode()}")
     cuda_march.count_launch(grad_mode(scene, scatter))
+    if accumulators is None and accs:
+        for acc in accs:
+            unpack_accumulator(acc, grids)
+        grids = {k: grids[k] for k in _grid_volumes(scene)}  # zero_grids' order
 
     out = dict(grids)
     out.update(parameter_grads(scene, opts, g, planes))
@@ -225,7 +324,8 @@ def parameter_grads(scene: Scene, opts: RenderOptions, g: torch.Tensor,
 def _grads_fast(scene: Scene, opts: RenderOptions, g, camera_x_offset: float,
                 image: Optional[torch.Tensor], scatter: bool, y_offset: int = 0,
                 n_rows: Optional[int] = None, grids: Optional[Dict[str, torch.Tensor]] = None,
-                packed: Optional[torch.Tensor] = None):
+                packed: Optional[torch.Tensor] = None,
+                accumulators: Optional[List[torch.Tensor]] = None):
     dev = scene.device
     n_rows = band_rows(opts, y_offset, n_rows)
     g = torch.as_tensor(g, dtype=torch.float32, device=dev).contiguous()
@@ -243,7 +343,8 @@ def _grads_fast(scene: Scene, opts: RenderOptions, g, camera_x_offset: float,
                 grads[key] = acc.add_(grads[key])
     else:
         grads = march_backward(scene, opts, g, image, camera_x_offset, scatter=scatter,
-                               y_offset=y_offset, n_rows=n_rows, grids=grids, packed=packed)
+                               y_offset=y_offset, n_rows=n_rows, grids=grids, packed=packed,
+                               accumulators=accumulators)
     if not scatter:
         grads = {k: v for k, v in grads.items() if k in PARAM_KEYS}
     return image, grads
@@ -254,6 +355,7 @@ def voxel_grads_fast(scene: Scene, opts: RenderOptions, g, camera_x_offset: floa
                      n_rows: Optional[int] = None,
                      grids: Optional[Dict[str, torch.Tensor]] = None,
                      packed: Optional[torch.Tensor] = None,
+                     accumulators: Optional[List[torch.Tensor]] = None,
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full backward, pixel -> voxel grids and transfer parameters.
 
@@ -276,10 +378,15 @@ def voxel_grads_fast(scene: Scene, opts: RenderOptions, g, camera_x_offset: floa
     on every device, so that the bands of one device share one set.
     ``packed``: a lit lookup scene's ``ops.cuda_march.pack_lookup``, made
     once by a caller of several bands (None: one pack a call, on a CUDA
-    scene).
+    scene). ``accumulators``: with ``grids``, K6L's accumulators
+    (``zero_accumulators(scene)``) shared by the bands, into which the
+    accumulated grids' cotangents go until the caller unpacks them into
+    ``grids`` (``unpack_accumulator``); None for a CPU scene (the plain
+    replay adds into ``grids``).
     """
     return _grads_fast(scene, opts, g, camera_x_offset, image, scatter=True,
-                       y_offset=y_offset, n_rows=n_rows, grids=grids, packed=packed)
+                       y_offset=y_offset, n_rows=n_rows, grids=grids, packed=packed,
+                       accumulators=accumulators)
 
 
 def transfer_grads_fast(scene: Scene, opts: RenderOptions, g, camera_x_offset: float = 0.0,

@@ -9,7 +9,9 @@ the band's device, as the TPU kernel runs with ``band=`` in every shard:
 - forward: no communication; the bands are joined on ``mesh[0]``;
 - backward: the bands of one device scatter into one set of gradient grids
   (their atomic adds commute), so a device holds one set however many
-  bands it marches; the sets of the devices and the bands' parameter
+  bands it marches (K6L's bands from K5's pack share its accumulators of
+  the grids' cotangents too, unpacked into the set once after the last);
+  the sets of the devices and the bands' parameter
   gradients are summed on ``mesh[0]``, the counterpart of ``psum``.
 
 K5's packed grid is made once for each device and call (a render, a
@@ -37,7 +39,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from volume_renderer_tpu_torch.models.scene import RenderOptions, Scene
-from volume_renderer_tpu_torch.ops.cuda_grads import voxel_grads_fast, zero_grids
+from volume_renderer_tpu_torch.ops.cuda_grads import (
+    unpack_accumulator, voxel_grads_fast, zero_accumulators, zero_grids)
 from volume_renderer_tpu_torch.ops.cuda_march import lookup_pack, render_rows_fast
 from volume_renderer_tpu_torch.parallel.mesh import check_mesh
 from volume_renderer_tpu_torch.parallel.sharding import bands, scenes_on
@@ -116,6 +119,9 @@ def _backward(on: Dict[torch.device, Scene], opts: RenderOptions, g, camera_x_of
         raise ValueError(f"g and image must be {shape}, got {tuple(g.shape)} and "
                          f"{tuple(image.shape)}")
     grids = {dev: zero_grids(s) for dev, s in on.items()}
+    # K6L from the pack: one set of accumulators a device, none for any other scene
+    accs = {dev: zero_accumulators(s) if packs[dev] is not None else []
+            for dev, s in on.items()}
     layout = _layout(opts, mesh)
 
     def work(k):
@@ -123,11 +129,16 @@ def _backward(on: Dict[torch.device, Scene], opts: RenderOptions, g, camera_x_of
         cut = slice(y0, y0 + rows)
         grads = voxel_grads_fast(on[dev], opts, g[cut].to(dev), camera_x_offset,
                                  image[cut].to(dev).contiguous(), y_offset=y0, n_rows=rows,
-                                 grids=grids[dev], packed=packs[dev])[1]
+                                 grids=grids[dev], packed=packs[dev],
+                                 accumulators=accs[dev] or None)[1]
         # the grids stay in grids[dev]; the band's own keys were made on its stream
         return {key: value for key, value in grads.items() if key not in grids[dev]}
 
     per_band = _run_bands([band[0] for band in layout], work)
+    for dev, dev_accs in accs.items():  # after every band of the device (_run_bands joins them)
+        for acc in dev_accs:
+            unpack_accumulator(acc, grids[dev])
+    del accs
     parts = {key: [acc[key] for acc in grids.values()] for key in grids[layout[0][0]]}
     parts.update({key: [band[key] for band in per_band] for key in per_band[0]})
     out = {}
