@@ -8,8 +8,9 @@ Phases, one JSON line each; any failure raises and exits nonzero:
 1. device:  the card, its power limit, and the build of every kernel
             source (one nvcc each, started together), with the registers,
             spills and resulting blocks an SM that ptxas reports for each
-            kernel instantiation (K2L, K6L and the lookup gradient segment
-            among them). No kernel may spill.
+            kernel instantiation (K2L's paired, unpaired and unpacked forms,
+            K6L and the lookup gradient segment among them). No kernel may
+            spill.
 2. goldens: the five tests/goldens scenes through VolumeRenderer on the
             card, held against the committed images.
 3. kernel_vs_plain: the forward march kernel against its plain PyTorch
@@ -29,9 +30,13 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             emission's shape) and not (aliased, of another shape), K6L and
             K2L on K5's noisy scene (packed with absorption aliased, packed
             with two lights and reflection aliased, unpacked with gradient
-            volumes of another shape), every gradient key (K3's grids
-            within 1e-5 of scale, every other key within 1e-4, the gradient
-            volumes' grids included).
+            volumes of another shape, packed with absorption and reflection
+            of emission's shape: K6L's float2 accumulator and K2L's paired
+            form, and with reflection of another shape: K2L's unpaired
+            form), every gradient key (K3's grids within 1e-5 of scale,
+            every other key within 1e-4, the gradient volumes' grids
+            included), and the form each K2L call launched
+            (LAUNCHES_BY_FORM).
 5. main_path: VolumeRenderer.render() at 256^3 / 512^2 for the unlit (K1),
             lit on-the-fly (K4) and lit lookup (K5) flagship scenes, with
             the launch counts set to 0 just before and read just after;
@@ -40,7 +45,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             train.train_step_fast on the unlit scene (K1 + K3 a step), on
             the lit one (K4 + K6) and on the lit lookup one (K5 + K6L), and
             three-step transfer-parameter fits through transfer_grads_fast
-            (K1 + K2, K5 + K2L), counted like phase 5. The loss must fall.
+            (K1 + K2, K5 + K2L: K2L's paired form, counted by form), counted
+            like phase 5. The loss must fall.
             Before the counted steps, the first step's gradients are held
             against the plain replay on a 64-row band (rows 224-287), and K2,
             lit K2 and K2L against the replays of the K3, K6 and K6L steps' bands
@@ -66,7 +72,10 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             (march_scatter_adds: the values added a sample, the reductions
             by width, float4, float2 and scalar, and the 32-byte sectors
             they reach), and K2's pack alone and, at
-            256^3 / 512^2, the gather model of its float2 corner loads.
+            256^3 / 512^2, the gather model of its float2 corner loads;
+            K2L's kernel alone (K5's pack and its pair made outside the
+            timed call), each pack alone, the gather model of the pair's
+            float2 corner loads and the tail factor of its blocks.
 
 8. bricks_vs_plain: the z-brick kernels (K7) at 24^3 / 256x192, 4 bricks:
             each launch form on every brick (phase 1 opacity and entry
@@ -163,11 +172,16 @@ Phases, one JSON line each; any failure raises and exits nonzero:
             noisy scene (K6L's backward alone, forward + backward and
             train_step_fast at 256^3 / 512^2; the lookup segment over 4
             bricks and the lookup bricked training step; every turn's
-            grids within 1e-5 of scale of the parent's first turn's). The
+            grids within 1e-5 of scale of the parent's first turn's), and
+            K2L on K5's noisy scene at 256^3 / 512^2 (the backward call, the
+            kernel alone, forward + backward, the transfer-fit step, each
+            pack; the per-ray planes and gradients must be equal). The
             lookup part alone, a process a version, with a reference the
-            first writes:
+            first writes, and the K2L part alone:
               for d in P N N P; do echo lookup | python3 chip_smoke.py \
                   --turn --repo $d --grids-ref lookup_ref.pt; done
+              for d in P N N P; do echo k2l | python3 chip_smoke.py \
+                  --turn --repo $d; done
 12. dp_vs_single: rays-DP (parallel/pallas_dp.py) at 128^3 / 256x192
             with 5 bands on the one card, the last one shorter: the K1, K4
             and K5 band launches joined must equal the single launch's image
@@ -973,7 +987,7 @@ KERNEL_PARAMS = {
     "brick_lit_fwd_kernel": ("LOOKUP", "AB_ALIASED", "RE_ALIASED", "PACKED"),
     "brick_bwd_kernel": ("AB_ALIASED", "AB_OWN_CELL"),
     "brick_lit_bwd_kernel": ("AB_ALIASED", "RE_ALIASED"),
-    "march_bwd_lookup_params_kernel": ("AB_ALIASED", "RE_ALIASED"),
+    "march_bwd_lookup_params_kernel": ("AB_ALIASED", "RE_ALIASED", "PAIR_IN"),
     "march_bwd_lookup_scatter_kernel": ("AB_ALIASED", "RE_ALIASED", "PAIRED"),
     "march_bwd_lookup_unpacked_params_kernel": ("AB_ALIASED", "RE_ALIASED"),
     "march_bwd_lookup_unpacked_scatter_kernel": ("AB_ALIASED", "RE_ALIASED"),
@@ -982,7 +996,7 @@ KERNEL_PARAMS = {
 }
 # Threads a block by mode or kernel, where it is not 16x16 (K3, K6, K6L and
 # the K7 gradient segments run in 16x8 blocks: csrc/march_bwd.cu,
-# csrc/brick_bwd.cu; K7 phase 1, lit phase 2 and K2 (K2L) in 16 rows of a
+# csrc/brick_bwd.cu; K7 phase 1, lit phase 2, K2 and K2L in 16 rows of a
 # constant of their source: kernel_threads)
 KERNEL_THREADS = {"K3": 128, "K6": 128, "K6L": 128, "K7_scatter": 128, "K7_scatter_lit": 128,
                   "K7_scatter_lookup": 128}
@@ -992,13 +1006,13 @@ BLOCK_ROWS = {"K7_transmittance": ("brick_fwd.cu", "kPhase1Rows"),
               "K7_segment_lit_lookup": ("brick_fwd.cu", "kLitLookupRows"),
               "march_bwd_params_kernel": ("march_bwd.cu", "kK2Rows"),
               "march_bwd_lit_params_kernel": ("march_bwd.cu", "kK2LitRows"),
-              "march_bwd_lookup_params_kernel": ("march_bwd.cu", "kK2LitRows"),
-              "march_bwd_lookup_unpacked_params_kernel": ("march_bwd.cu", "kK2LitRows")}
+              "march_bwd_lookup_params_kernel": ("march_bwd.cu", "kK2LRows"),
+              "march_bwd_lookup_unpacked_params_kernel": ("march_bwd.cu", "kK2LRows")}
 
 
 def kernel_threads(repo):
-    """KERNEL_THREADS with the blocks of K7 phase 1, lit phase 2 and K2 as
-    the sources under ``repo`` set them (16x16 where a source has no such
+    """KERNEL_THREADS with the blocks of K7 phase 1, lit phase 2, K2 and K2L
+    as the sources under ``repo`` set them (16x16 where a source has no such
     constant)."""
     out = dict(KERNEL_THREADS)
     for key, (source, name) in BLOCK_ROWS.items():
@@ -1613,13 +1627,13 @@ def main() -> None:
     parser.add_argument("--out", help="also write every JSON line to this file")
     parser.add_argument("--parent", metavar="DIR",
                         help="a directory holding another version of volume_renderer_tpu_torch/ "
-                             "(e.g. the parent commit's): its K1-K7, K6L and the lookup segment "
-                             "are timed in turns with the checkout's (phase 11)")
+                             "(e.g. the parent commit's): its K1-K7, K6L, K2L and the lookup "
+                             "segment are timed in turns with the checkout's (phase 11)")
     parser.add_argument("--turn", action="store_true",
                         help="phase 11's turns: build, then for each line read on stdin time "
                              "the parts it names (march: K1-K6, bricks: K7, lit: the lit K7 "
-                             "forms, lookup: K6L and the lookup gradient segment; turn: all "
-                             "four) and print one JSON line")
+                             "forms, lookup: K6L and the lookup gradient segment, k2l: K2L; "
+                             "turn: all five) and print one JSON line")
     parser.add_argument("--grids-ref", metavar="FILE",
                         help="with --turn: the lookup part's grids of the first turn that "
                              "finds no FILE are written there, and every other turn's are held "
@@ -1729,11 +1743,13 @@ def main() -> None:
 
     def flagship(n, mode, n_lights=1, ab_aliased=True, re_aliased=False, noise=0.0, shape=None,
                  element_size=(1.0, 1.0, 1.0), rotate=(125, 25, 0), ab_other_shape=False,
-                 grad_other_shape=False):
+                 grad_other_shape=False, re_other_shape=False):
         """``ab_other_shape``: absorption at half the emission's height and
         width (a fetch, and with gradients a carry, of its own).
         ``grad_other_shape`` (K5): the gradient volumes of a volume at half
-        the emission's height and width, so that K5 is not packed."""
+        the emission's height and width, so that K5 is not packed.
+        ``re_other_shape``: reflection at half the emission's height and
+        width (K2L's unpaired form beside the pack)."""
         em = shell(n, noise, shape)
         ramp = torch.linspace(0.5, 1.0, em.shape[2], device=dev)[None, None, :]
         ab = None if ab_aliased else Volume.create((em * ramp).contiguous(), element_size)
@@ -1747,7 +1763,9 @@ def main() -> None:
                        light_colors=torch.tensor([[1.0, 1.0, 1.0], [0.5, 0.6, 1.0]],
                                                  device=dev)[:n_lights].contiguous())
             if not re_aliased:
-                lit["reflection"] = Volume.create(em.clone(), element_size)
+                lit["reflection"] = Volume.create(
+                    (em[:, ::2, ::2] * 0.8).contiguous() if re_other_shape else em.clone(),
+                    element_size)
             if mode == "K5":
                 src = em[:, ::2, ::2].contiguous() if grad_other_shape else em
                 lit.update(zip(("gradient_x", "gradient_y", "gradient_z"),
@@ -2172,6 +2190,52 @@ def main() -> None:
                                f"{TURN_GRID_TOL:g} of scale: {bad}")
         return out
 
+    def k2l_turn():
+        """K2L on K5's noisy scene at 256^3 / 512^2 from the first training
+        step's state, timed as phase 7 times it (CUDA events, warm, median
+        of 5): the backward call (K5's pack and, where the port packs one,
+        the pair made inside it), the kernel alone (both made outside the
+        timed call), transfer_grads_fast forward + backward, the
+        transfer-fit step with Adam, and each pack alone; with a digest of
+        the per-ray planes and the gradients, which have no atomics to
+        vary."""
+        size = MAIN["image"]
+        scene = flagship(MAIN["volume"], "K5", ab_aliased=False, noise=0.05)
+        opts = scene.options(size, size)
+        pair_of = getattr(cuda_grads, "pack_lookup_pair", None)  # None in an older port
+        with torch.no_grad():
+            target = render_forward_fast(scene, opts)
+            params, static_scene = train.split_params(scene)
+            params["emission"].mul_(1.3).add_(0.05)
+            merged = train.merge_params(params, static_scene)
+            img = render_forward_fast(merged, opts)
+            g = 2.0 * (img - target)
+            made = {"packed": cuda_march.pack_lookup(merged)}
+            if pair_of is not None:
+                made["pair"] = pair_of(merged)
+
+            def bwd():
+                return march_backward(merged, opts, g, img, scatter=False)
+
+            def fwd_bwd():
+                image = render_forward_fast(merged, opts)
+                return transfer_grads_fast(merged, opts, 2.0 * (image - target), image=image)
+
+            grads, planes = backward_planes(bwd)
+            ms = {"backward_ms": median_ms(bwd)[0],
+                  "kernel_ms": median_ms(lambda: march_backward(merged, opts, g, img,
+                                                                scatter=False, **made))[0],
+                  "fwd_bwd_ms": median_ms(fwd_bwd)[0],
+                  "pack_ms": median_ms(lambda: cuda_march.pack_lookup(merged))[0]}
+            if pair_of is not None:
+                ms["pair_pack_ms"] = median_ms(lambda: pair_of(merged))[0]
+            sha1 = digest(planes + [grads[k] for k in sorted(grads)])
+            del made
+        tparams, optimizer, ttarget = transfer_fit(scene, opts)
+        ms["train_step_ms"] = median_ms(
+            lambda: transfer_step(tparams, optimizer, scene, opts, ttarget))[0]
+        return {"ptxas": ptxas["march_bwd"], "ms": ms, "planes_sha1": sha1}
+
     if args.turn:  # a turn for each line on stdin, until it closes
         import tempfile
         emit({"phase": "ready"})
@@ -2179,7 +2243,7 @@ def main() -> None:
         grids_ref = args.grids_ref or os.path.join(grids_dir, "lookup_grids.pt")
         for line in sys.stdin:
             # the line names the parts to time: "march", "bricks", "lit",
-            # "lookup"; "turn" all four
+            # "lookup", "k2l"; "turn" all five
             parts = set(line.split()) or {"turn"}
             t_turn = time.perf_counter()
             out = {}
@@ -2191,6 +2255,8 @@ def main() -> None:
                 out["lit"] = lit_turn(grids_dir)
             if parts & {"turn", "lookup"}:
                 out["lookup"] = lookup_turn(grids_ref)
+            if parts & {"turn", "k2l"}:
+                out["k2l"] = k2l_turn()
             emit({"phase": "turn", "repo": os.path.abspath(args.repo), **out,
                   "seconds": time.perf_counter() - t_turn})
         return
@@ -2354,9 +2420,12 @@ def main() -> None:
     transfer_keys = ("factor_emission", "factor_absorption", "factor_reflection", "color",
                      "light_colors")
     # K6L and K2L (lit, lookup gradient volumes): K5's noisy scene packed with
-    # absorption aliased, separate with reflection aliased and two lights, and
-    # unpacked with gradient volumes of another shape; every key, the three
-    # gradient volumes' grids included, within GRAD_TOL
+    # absorption aliased, separate with reflection aliased and two lights,
+    # unpacked with gradient volumes of another shape, with absorption and
+    # reflection separate and of emission's shape (K6L's float2 accumulator,
+    # K2L's paired form) and with reflection of another shape (K2L's unpaired
+    # form); every key, the three gradient volumes' grids included, within
+    # GRAD_TOL, and the form of each K2L launch from the launch counts
     grads_compare = {}
     for name, mode, kw, offset, reuse in (
             ("K3_absorption_aliased", "K1", dict(ab_aliased=True), 0.0, False),
@@ -2374,7 +2443,11 @@ def main() -> None:
             ("K6L_packed_two_lights_reflection_aliased_image_reuse", "K5",
              dict(ab_aliased=False, re_aliased=True, n_lights=2), 0.0, True),
             ("K6L_gradients_other_shape", "K5", dict(ab_aliased=False, grad_other_shape=True),
-             0.0, False)):
+             0.0, False),
+            ("K2L_paired_absorption_reflection_separate", "K5", dict(ab_aliased=False), 0.0,
+             False),
+            ("K2L_unpaired_reflection_other_shape", "K5",
+             dict(ab_aliased=False, re_other_shape=True), 0.0, False)):
         scene = flagship(48 if kw is FACES else PLAIN["volume"], mode,
                          **{"noise": 0.05, **kw})
         # unlit K2 reads the packed pair where absorption is separate and of
@@ -2386,7 +2459,18 @@ def main() -> None:
         g = cotangent(PLAIN["height"], PLAIN["width"], seed=len(grads_compare))
         img0 = render_forward_fast(scene, opts, offset) if reuse else None
         img, got = voxel_grads_fast(scene, opts, g, offset, image=img0)
+        forms_before = dict(cuda_march.LAUNCHES_BY_FORM)
         _, got_transfer = transfer_grads_fast(scene, opts, g, offset, image=img)
+        k2_forms = {k: n - forms_before.get(k, 0) for k, n in cuda_march.LAUNCHES_BY_FORM.items()
+                    if n != forms_before.get(k, 0)}
+        if mode == "K5":
+            # paired where absorption and reflection are separate and of
+            # emission's shape beside the pack; never the plain version
+            form = ("unpacked" if "grad_other_shape" in kw else "unpaired"
+                    if kw["ab_aliased"] or "re_aliased" in kw or "re_other_shape" in kw
+                    else "paired")
+            if k2_forms != {f"K2L {form}": 1} or cuda_grads.k2l_form(scene) != form:
+                raise RuntimeError(f"{name}: K2L launched {k2_forms}, not its {form} form")
         torch.cuda.synchronize()
         assert img0 is None or img is img0
         want = replay_backward(scene, opts, g, img, offset, angle_floor=True)
@@ -2394,7 +2478,7 @@ def main() -> None:
         if mode == "K5" and (cuda_march.pack_lookup(scene) is None) != ("grad_other_shape" in kw):
             raise RuntimeError(f"{name}: K6L's pack made where it should not be, or not made")
         grads_compare[name] = {
-            "mode": bmode, "K2_paired": paired,
+            "mode": bmode, "K2_paired": paired, "K2_launches_by_form": k2_forms,
             "err_of_scale": check_grads(name, got, want, bmode, keys=want.keys()),
             "K2_err_of_scale": check_grads(name + " K2", got_transfer, want, pmode,
                                            keys=[k for k in want if k in transfer_keys])}
@@ -2523,6 +2607,12 @@ def main() -> None:
     losses = {mode: [float(step()) for _ in range(TRAIN_STEPS)] for mode, step in runs.items()}
     torch.cuda.synchronize()
     train_launches = dict(cuda_march.LAUNCHES_BY_MODE)
+    train_forms = dict(cuda_march.LAUNCHES_BY_FORM)
+    # the lookup fit's scene has absorption and reflection of emission's
+    # shape: every K2L launch is the paired form
+    if train_forms != {"K2L paired": train_launches["K2L"]}:
+        raise RuntimeError(f"the lookup fit launched K2L's forms {train_forms}, "
+                           f"not {train_launches['K2L']} paired ones")
     for mode, values in losses.items():
         if train_launches[mode] < TRAIN_STEPS:
             raise RuntimeError(f"the training path launched {mode} {train_launches[mode]} times")
@@ -2538,7 +2628,8 @@ def main() -> None:
                       "K2L": "transfer_grads_fast fit (lit, lookup gradient volumes)"},
             "volume": MAIN["volume"], "image": size, "steps": TRAIN_STEPS, "optimizer": "Adam",
             "lr": TRAIN_LR, "volume_noise": 0.05,
-            "launches": train_launches, "losses": losses, "first_step_vs_plain_band": first_step,
+            "launches": train_launches, "launches_by_form": train_forms, "losses": losses,
+            "first_step_vs_plain_band": first_step,
             "tolerance_of_scale": GRAD_TOLS})
     del runs, train_scenes, params, optimizer, static_scene, target, tparams, toptimizer
     del lscene, lparams, loptimizer, ltarget
@@ -2672,7 +2763,9 @@ def main() -> None:
         band's check against the plain replay, made here if None and
         ``band``. Unlit K2 also times its pack alone and, at 256^3 / 512^2,
         counts the gather model (gather_footprint) of its float2 corner
-        loads against float32 ones on a band of 64 rows."""
+        loads against float32 ones on a band of 64 rows; K2L likewise its
+        pair (and K5's pack, and the kernel without either) and the tail
+        factor of its blocks."""
         mode, fmode = grad_mode(scene, scatter), kernel_mode(scene)
         lit, lookup = scene.has_lighting, fmode == "K5"
         opts = scene.options(size, size)
@@ -2717,6 +2810,34 @@ def main() -> None:
                 extra["unpack_ms"] = median_ms(
                     lambda: [cuda_grads.unpack_accumulator(a, grids) for a in accs])[0]
                 del accs, grids
+            if mode == "K2L":
+                # K2L alone, K5's pack and the pair made outside the timed
+                # call (the call's ms includes both); each pack alone; the
+                # gather model of the pair's float2 corner loads against
+                # float32 ones on a band of 64 rows; the tails of K2L's
+                # blocks from K5's steps plane, whose samples it replays
+                packed = cuda_march.pack_lookup(merged)
+                lpair = cuda_grads.pack_lookup_pair(merged)
+                vols = [merged.absorption.data, merged.reflection.data]
+                if lpair is None or not torch.equal(lpair, torch.stack(vols, dim=-1)):
+                    raise RuntimeError("the K2L pair is not absorption and reflection side by side")
+                forms_before = dict(cuda_march.LAUNCHES_BY_FORM)
+                extra["kernel_ms"], extra["kernel_ms_all"] = median_ms(lambda: march_backward(
+                    merged, opts, g, img, scatter=False, packed=packed, pair=lpair))
+                extra["launches_by_form"] = {
+                    k: n - forms_before.get(k, 0) for k, n in cuda_march.LAUNCHES_BY_FORM.items()
+                    if n != forms_before.get(k, 0)}
+                if set(extra["launches_by_form"]) != {"K2L paired"}:
+                    raise RuntimeError(f"K2L alone launched {extra['launches_by_form']}")
+                del packed, lpair
+                extra["pack_ms"] = median_ms(lambda: cuda_march.pack_lookup(merged))[0]
+                extra["pair_pack_ms"] = median_ms(lambda: cuda_grads.pack_lookup_pair(merged))[0]
+                extra["gather_model"] = gather_footprint(
+                    merged, opts, (size - 64) // 2, 64, warp_cols=(16,), elems=(4, 8))
+                k2l_rows = threads["march_bwd_lookup_params_kernel"] // 16
+                extra["block"] = [16, k2l_rows]
+                extra["tail_factor"] = tail_factor(steps, 16, k2l_rows)
+                extra["tail_factors"] = tail_factors(steps)
             bwd_ms, bwd_all = median_ms(
                 lambda: march_backward(merged, opts, g, img, scatter=scatter))
 
@@ -3767,6 +3888,19 @@ def main() -> None:
             **{metric: compare_turns(lambda t: t["lookup"]["ms"][metric],
                                      lookup_bounds.get(metric))
                for metric in turns["new"][0]["lookup"]["ms"]}}
+        # K2L has no atomics: its planes and gradients are the parent's to the
+        # bit, whatever its fetch or block
+        if len({t["k2l"]["planes_sha1"] for t in every}) != 1:
+            raise RuntimeError("K2L: the parent's planes differ from the checkout's")
+        k2l_bound = cells[f"K2L_{MAIN['volume']}_{MAIN['image']}"]["bound_ms"]
+        k2l_ms, k2l_parent = turns["new"][0]["k2l"]["ms"], turns["parent"][0]["k2l"]["ms"]
+        compared[f"K2L_{MAIN['volume']}_{MAIN['image']}"] = {
+            "planes_equal": True,
+            **{metric: compare_turns(lambda t: t["k2l"]["ms"][metric],
+                                     k2l_bound if metric in ("backward_ms", "kernel_ms") else None)
+               for metric in k2l_ms if metric in k2l_parent},
+            **{metric: [t["k2l"]["ms"][metric] for t in turns["new"]]
+               for metric in k2l_ms if metric not in k2l_parent}}
         record({"phase": "parent_vs_new", "parent": args.parent, "order": "parent, new, new, parent",
                 "reps": 5,
                 "parent_ptxas": {**turns["parent"][0]["march"]["ptxas"],
@@ -4749,6 +4883,11 @@ def main() -> None:
                                                      "sectors_per_sample",
                                                      "sectors_per_sample_scalar")}
                if "atomic_adds" in cell else {}),
+            # K2L: the kernel without the packs, each pack, its blocks' tails
+            # and its forms in the fit's counted steps
+            **({**{k: cell[k] for k in ("kernel_ms", "pack_ms", "pair_pack_ms", "block",
+                                        "tail_factor")},
+                "launches_by_form": train_forms} if mode == "K2L" else {}),
             "cell": f"{MAIN['volume']}^3 volume, {MAIN['image']}^2 image, K5's noisy scene",
         })
     for form, source, what in (

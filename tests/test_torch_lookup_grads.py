@@ -47,7 +47,7 @@ from volume_renderer_tpu_torch import train
 from volume_renderer_tpu_torch.api.planner import tier_bytes
 from volume_renderer_tpu_torch.convert import scene_from_arrays
 from volume_renderer_tpu_torch.models.volume import Volume
-from volume_renderer_tpu_torch.ops import cuda_bricks, cuda_grads, cuda_march, cuda_slab
+from volume_renderer_tpu_torch.ops import _build, cuda_bricks, cuda_grads, cuda_march, cuda_slab
 from volume_renderer_tpu_torch.ops.cuda_grads import transfer_grads_fast, voxel_grads_fast
 from volume_renderer_tpu_torch.ops.cuda_march import render_forward_fast
 from volume_renderer_tpu_torch.ops.vjp import replay_backward
@@ -323,13 +323,15 @@ def test_bands_of_rows_sum_to_the_whole_launch():
 def test_chip_smoke_reads_the_lookup_kernels():
     """chip_smoke's ptxas reading maps K2L's, K6L's and the lookup gradient
     segment's kernels (packed, with and without the float2 pair, and
-    unpacked under their own cap) to their modes and blocks; its operation
+    unpacked under their own cap) to their modes and blocks, K2L's in 16 x
+    kK2LRows; its operation
     count of a lookup backward step is the lit step's with K5's three
     gradient fetches for the six taps and four 8-corner scatters for the
     tap window's."""
     import chip_smoke
 
-    instantiations = (("30march_bwd_lookup_params_kernel", "Lb0ELb0E", 120),
+    instantiations = (("30march_bwd_lookup_params_kernel", "Lb0ELb0ELb0E", 120),
+                      ("30march_bwd_lookup_params_kernel", "Lb0ELb0ELb1E", 110),
                       ("39march_bwd_lookup_unpacked_params_kernel", "Lb1ELb0E", 150),
                       ("31march_bwd_lookup_scatter_kernel", "Lb0ELb1ELb0E", 168),
                       ("31march_bwd_lookup_scatter_kernel", "Lb0ELb0ELb1E", 160),
@@ -344,15 +346,21 @@ def test_chip_smoke_reads_the_lookup_kernels():
     threads = chip_smoke.kernel_threads(chip_smoke.REPO)
     got = chip_smoke.ptxas_by_kernel(log, threads=threads)
     assert set(got) == {
-        "K2L march_bwd_lookup_params_kernel<0,0>", "K2L march_bwd_lookup_unpacked_params_kernel<1,0>",
+        "K2L march_bwd_lookup_params_kernel<0,0,0>", "K2L march_bwd_lookup_params_kernel<0,0,1>",
+        "K2L march_bwd_lookup_unpacked_params_kernel<1,0>",
         "K6L march_bwd_lookup_scatter_kernel<0,1,0>", "K6L march_bwd_lookup_scatter_kernel<0,0,1>",
         "K6L march_bwd_lookup_unpacked_scatter_kernel<0,0>",
         "K7_scatter_lookup brick_lookup_bwd_kernel<1,1,0>",
         "K7_scatter_lookup brick_lookup_unpacked_bwd_kernel<0,0>"}
     assert got["K6L march_bwd_lookup_scatter_kernel<0,1,0>"]["blocks_per_sm"] == 3
     assert got["K6L march_bwd_lookup_unpacked_scatter_kernel<0,0>"]["blocks_per_sm"] == 2
-    assert (got["K2L march_bwd_lookup_params_kernel<0,0>"]["threads"]
-            == threads["march_bwd_lookup_params_kernel"] == threads["march_bwd_lit_params_kernel"])
+    source = (_build.CSRC_DIR / "march_bwd.cu").read_text()
+    k2l_rows = int(source.split("constexpr int kK2LRows = ")[1].split(";")[0])
+    for args in ("0,0,0", "0,0,1"):
+        assert (got[f"K2L march_bwd_lookup_params_kernel<{args}>"]["threads"]
+                == threads["march_bwd_lookup_params_kernel"] == 16 * k2l_rows)
+    assert (got["K2L march_bwd_lookup_unpacked_params_kernel<1,0>"]["threads"]
+            == threads["march_bwd_lookup_unpacked_params_kernel"] == 16 * k2l_rows)
     for n_lights in (1, 2):
         for ab, re in ((False, False), (True, False), (False, True), (True, True)):
             lit = chip_smoke.bwd_flops_per_step(True, True, ab, re, n_lights)

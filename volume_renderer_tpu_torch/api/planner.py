@@ -39,8 +39,10 @@ bytes):
   stacked, then their packed copy, eight grids (``_pack_bytes``). The
   sweeps and the bricks pack the windows likewise for each launch of lit
   phase 2 (``ops.cuda_bricks.pack_window``): eight windows. K2's float2
-  pair of emission and absorption is made by ``transfer_grads_fast`` alone,
-  which no tier calls, so it is not counted;
+  pair of emission and absorption, and K2L's of absorption and reflection
+  (``ops.cuda_grads.pack_pair``, ``pack_lookup_pair``), are made inside
+  ``transfer_grads_fast`` alone, which no tier calls, so they are not
+  counted;
 - per-ray planes: the kernels' image; the sweeps' and bricks' entry
   records (H, W) int32 and (H, W, 4), opacities, contributions, the carried
   image and their temporaries (``ray_state_bytes``);

@@ -2,8 +2,9 @@
 //
 // What the kernels share for the corners of a trilinear sample: the cell
 // (the lower corner before any clamp, and the weights), the fetch of one or
-// two volumes or of a packed grid (K5's four volumes, K2's two, lit K7
-// phase 2's four windows) at its corners, and the carry that sums a ray's
+// two volumes or of a packed grid (K5's four volumes, K2's two, K2L's
+// absorption and reflection, lit K7 phase 2's four windows) at its
+// corners, and the carry that sums a ray's
 // shares of a cell's corners in registers before they go out as atomic
 // adds. The z-brick kernels address a halo-padded grid
 // (ZSlab: its global depth and the global row of its first row); a
@@ -193,11 +194,13 @@ __device__ __forceinline__ float4 fetch_packed(const Vol4& v, const Cell& k, ZP 
           blend_cell(c[0].w, c[1].w, c[2].w, c[3].w, c[4].w, c[5].w, c[6].w, c[7].w, k)};
 }
 
-// The two volumes of a Vol2 at the corners of cell k (K2): one 8-byte load
-// a corner, each channel the float that sample() gives.
-__device__ __forceinline__ float2 fetch_packed2(const Vol2& v, const Cell& k) {
+// The two volumes of a Vol2 at the corners of cell k (unlit K2; K2L's
+// absorption and reflection at emission's cell): one 8-byte load a corner,
+// each channel the float that sample() gives.
+template <class ZP = WholeZ>
+__device__ __forceinline__ float2 fetch_packed2(const Vol2& v, const Cell& k, ZP zp = ZP()) {
   float2 c[8];
-  load_corners(v, k, c);
+  load_corners(v, k, c, zp);
   return {blend_cell(c[0].x, c[1].x, c[2].x, c[3].x, c[4].x, c[5].x, c[6].x, c[7].x, k),
           blend_cell(c[0].y, c[1].y, c[2].y, c[3].y, c[4].y, c[5].y, c[6].y, c[7].y, k)};
 }

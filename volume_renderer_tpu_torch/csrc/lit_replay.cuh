@@ -11,7 +11,11 @@
 // The emission gradient that shades a sample comes from the six emission
 // taps (on-the-fly, K4's step) or, LOOKUP, from the three gradient volumes
 // (K5's step: each fetched at its own corners, or with PACKED one cell of
-// the float4 grid that packs emission and the three, fetch_packed).
+// the float4 grid that packs emission and the three, fetch_packed). K2L
+// reads absorption and reflection at that cell too, where both are of
+// emission's shape (PAIR_IN): one float2 grid that the wrapper packs for the
+// call (ops/cuda_grads.py, pack_lookup_pair), as unlit K2 reads emission and
+// absorption from its pair (pack_pair).
 //
 // Per sample, given the pixel cotangent g, the saved image's g . out and the
 // carried prefix = sum T (g . s) and opacity:
@@ -329,24 +333,39 @@ struct LitRay {
 // the gradient volumes shade the sample, from a.packed with PACKED (the
 // four volumes of one shape, emission's). PAIRED: absorption and reflection,
 // of emission's shape and place, scatter as one float2 at emission's cell.
+// PAIR_IN (K2L): absorption and reflection, of emission's shape and place,
+// are read from pair, their (D, H, W, 2) grid, at the pack's cell: one
+// 8-byte load a corner and no cell of their own, where sampling each
+// volume makes 8 four-byte loads at a cell it computes itself. Each
+// channel is blended as sample() blends its volume, so both are the same
+// floats.
 template <bool SCATTER, bool LOOKUP, bool PACKED, bool AB_ALIASED, bool RE_ALIASED,
-          bool PAIRED, class ZP>
+          bool PAIRED, bool PAIR_IN = false, class ZP>
 __device__ __forceinline__ void lit_replay_sample(const MarchArgs& a, const LitConsts& c,
                                                   const LitGrids& d, const LitPlaces<ZP>& z,
                                                   V3 p, V3 s, float& sw, LitRay& r,
-                                                  float* sums, int stride) {
+                                                  float* sums, int stride,
+                                                  const Vol2& pair = Vol2{}) {
   static_assert(LOOKUP || !PACKED, "only the lookup gradient volumes are packed");
   static_assert(!PAIRED || (PACKED && !AB_ALIASED && !RE_ALIASED),
                 "absorption and reflection pair beside the pack, neither aliased");
+  static_assert(!PAIR_IN || (PACKED && !SCATTER && !AB_ALIASED && !RE_ALIASED),
+                "K2L reads absorption and reflection as a pair beside the pack, neither aliased");
   const float fe = c.fe, fa = c.fa, fr = c.fr, tstep = c.tstep;
   const V3 color = c.color, g = r.g, origin = r.origin;
   // ---- the step's forward values, as march_fwd.cu has them ----
-  float em;
+  float em, ab_in = 0.0f, re_in = 0.0f;  // ab_in, re_in: PAIR_IN's
   V3 grad;
   if constexpr (LOOKUP && PACKED) {
-    const float4 q = fetch_packed(a.packed, cell_of(a.em, as_slab(a.em, z.em), s), z.em);
+    const Cell k = cell_of(a.em, as_slab(a.em, z.em), s);
+    const float4 q = fetch_packed(a.packed, k, z.em);
     em = q.x;
     grad = {q.y, q.z, q.w};
+    if constexpr (PAIR_IN) {
+      const float2 w = fetch_packed2(pair, k, z.em);
+      ab_in = w.x;
+      re_in = w.y;
+    }
   } else if constexpr (LOOKUP) {
     em = z_sample(a.em, z.em, s);
     grad = {z_sample(a.gx, z.gx, s), z_sample(a.gy, z.gy, s), z_sample(a.gz, z.gz, s)};
@@ -355,7 +374,7 @@ __device__ __forceinline__ void lit_replay_sample(const MarchArgs& a, const LitC
     em = e.c;
     grad = {(e.xp - e.xm) * 0.5f, (e.yp - e.ym) * 0.5f, (e.zp - e.zm) * 0.5f};
   }
-  const float ab = AB_ALIASED ? em : z_sample(a.ab, z.ab, s);
+  const float ab = PAIR_IN ? ab_in : AB_ALIASED ? em : z_sample(a.ab, z.ab, s);
   const float emission = fe * em;
   const float absorption = fa * ab;
   const float transmit = expf(-absorption * tstep);
@@ -369,7 +388,7 @@ __device__ __forceinline__ void lit_replay_sample(const MarchArgs& a, const LitC
   float d_refl = 0.0f;
   V3 d_grad = {0.0f, 0.0f, 0.0f};
   {
-    const float re = RE_ALIASED ? em : z_sample(a.re, z.re, s);
+    const float re = PAIR_IN ? re_in : RE_ALIASED ? em : z_sample(a.re, z.re, s);
     const float g2 = dot(grad, grad);
     const float inv = g2 > kGradEps2 ? rsqrtf(g2) : 0.0f;
     const V3 n = {grad.x * -inv, grad.y * -inv, grad.z * -inv};

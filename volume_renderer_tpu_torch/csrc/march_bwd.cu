@@ -61,7 +61,8 @@
 // What the design does about it. A thread per ray, in blocks 16 rays wide
 // (a warp is two rows of 16 neighbouring rays): K3 and K6 in 16x8, so the
 // atomics of a warp fall into few cache lines, K2 in 16 x kK2Rows unlit and
-// 16 x kK2LitRows lit (see their kernels). atomicAdd whose result is unused
+// 16 x kK2LitRows lit, K2L in 16 x kK2LRows (see their kernels). atomicAdd
+// whose result is unused
 // compiles to a reduction (RED) that does not wait for the old value.
 // - Unlit K2 (march_bwd_params_kernel) has no scatter: what it waits on is
 //   K1's gathers. Where absorption has emission's shape it reads both from
@@ -95,10 +96,21 @@
 //   In turns on one card the float4 step took K6L from 36.5 to 21.0-21.7
 //   ms and the float2 step to 16.8-17.3; PAIRED also needs fewer registers
 //   (145 against 168), since one cell serves the six grids. K6L keeps K6's
-//   register cap and 16x8 blocks (three an SM), K2L lit K2's 16 x
-//   kK2LitRows; their unpacked forms keep their scalar scatters and get
-//   more registers (kUnpackedMaxRegisters, two blocks an SM), which they
-//   need not to spill.
+//   register cap and 16x8 blocks (three an SM); the unpacked forms of K6L
+//   and K2L keep their scalar fetches and scatters and get more registers
+//   (kUnpackedMaxRegisters, two blocks an SM), which they need not to spill.
+// - K2L scatters nothing: what bounds it is K5's replayed step, its load
+//   instructions above all. A one-light sample made 32: 8 of the float4
+//   pack, 8 of the LUT, and 16 for absorption and reflection, each sampled
+//   at a cell of its own. Where both are volumes of emission's shape
+//   (PAIR_IN) it reads them from one (D, H, W, 2) grid that the wrapper
+//   packs for the call (ops/cuda_grads.py, pack_lookup_pair) at the pack's
+//   cell: 8 eight-byte loads for 16 four-byte ones, one cell for three,
+//   4.09 sectors a sample for 6.78 (chip_smoke.py, gather_footprint). Each
+//   channel is blended as sample() blends its volume, so the per-ray planes
+//   are the unpaired form's to the bit. In turns at 256^3 / 512^2 on an
+//   "NVIDIA H100 80GB HBM3" at 700 W the call went from 8.08 and 7.75 ms
+//   to 6.32 and 6.38, the pair's pack (0.23 ms) included (PERF.md).
 // - Lit, the replay fetches the centre and the six taps through the shared
 //   window of march_common.cuh (20 loads instead of 56), and the scatter of
 //   their cotangents is the window's adjoint (scatter_em_taps): each window
@@ -124,7 +136,10 @@
 // Mirrored field for field by GradArgs in ops/cuda_grads.py.
 struct GradArgs {
   MarchArgs m;         // out and steps are unused
-  Vol2 pair;           // unlit K2: emission and absorption of one shape, or null
+  Vol2 pair;           // by mode, of emission's shape, 8-byte aligned, or null:
+                       // unlit K2: emission and absorption (PAIRED);
+                       // K2L from the pack: absorption and reflection, neither
+                       // aliased (PAIR_IN); every other mode null
   const float* g;      // (height, width, 3) pixel cotangent
   const float* image;  // (height, width, 3) the forward kernel's output
   float* d_em;         // zero-initialised gradient grids, SCATTER only;
@@ -150,11 +165,12 @@ namespace {
 constexpr int kThreads = kBlock * kBlock;
 
 // The lit backward march of one ray (lit K2, and K6 with SCATTER; K2L and
-// K6L with LOOKUP, PAIRED absorption and reflection as one float2): the
-// pixel of this thread of a COLS x ROWS block, its samples replayed by
-// lit_replay_sample (lit_replay.cuh) over the whole volumes.
+// K6L with LOOKUP, PAIRED K6L's absorption and reflection scattered as one
+// float2, PAIR_IN K2L's read as one from ga.pair): the pixel of this thread
+// of a COLS x ROWS block, its samples replayed by lit_replay_sample
+// (lit_replay.cuh) over the whole volumes.
 template <bool SCATTER, bool LOOKUP, bool PACKED, bool AB_ALIASED, bool RE_ALIASED, bool PAIRED,
-          int COLS, int ROWS>
+          bool PAIR_IN, int COLS, int ROWS>
 __device__ __forceinline__ void march_bwd_ray(const GradArgs& ga) {
   constexpr int kT = COLS * ROWS;
   extern __shared__ float light_sums[];  // [3 n_lights][kT], a column per thread
@@ -188,8 +204,9 @@ __device__ __forceinline__ void march_bwd_ray(const GradArgs& ga) {
     V3 p = {r.origin.x + dir.x * tnear, r.origin.y + dir.y * tnear, r.origin.z + dir.z * tnear};
     const V3 step = {dir.x * tstep, dir.y * tstep, dir.z * tstep};
     for (int i = 0; i < a.n_steps; ++i) {
-      lit_replay_sample<SCATTER, LOOKUP, PACKED, AB_ALIASED, RE_ALIASED, PAIRED>(
-          a, c, d, LitPlaces<WholeZ>{}, p, to_sample(a, p), sw, r, light_sums + tid, kT);
+      lit_replay_sample<SCATTER, LOOKUP, PACKED, AB_ALIASED, RE_ALIASED, PAIRED, PAIR_IN>(
+          a, c, d, LitPlaces<WholeZ>{}, p, to_sample(a, p), sw, r, light_sums + tid, kT,
+          ga.pair);
       // ---- advance exactly like the forward march ----
       t = t + tstep;
       if (!(sw <= threshold) || !(t <= tfar)) break;
@@ -214,15 +231,23 @@ constexpr int kK2LitRows = 8;
 template <bool AB_ALIASED, bool RE_ALIASED>
 __global__ void __launch_bounds__(kBlock * kK2LitRows)
     march_bwd_lit_params_kernel(const GradArgs ga) {
-  march_bwd_ray<false, false, false, AB_ALIASED, RE_ALIASED, false, kBlock, kK2LitRows>(ga);
+  march_bwd_ray<false, false, false, AB_ALIASED, RE_ALIASED, false, false, kBlock, kK2LitRows>(
+      ga);
 }
 
-// K2L: lit K2 with lookup gradient volumes, from the packed grid, in lit K2's
-// blocks.
-template <bool AB_ALIASED, bool RE_ALIASED>
-__global__ void __launch_bounds__(kBlock * kK2LitRows)
+// K2L: lit K2 with lookup gradient volumes, from the packed grid; PAIR_IN
+// (absorption and reflection separate and of emission's shape) both read
+// from the pair at the pack's cell. In 16 x kK2LRows blocks, its unpacked
+// form too: in turns on an H100 (PERF.md) 16x4 ran within the noise of
+// 16x8 (the kernel 5.76-5.92 ms against 5.65-6.24), 16x16 slower
+// (6.34-6.74 against 5.96-6.17), and one light's sums in registers instead
+// of shared memory slower too (6.25-6.91).
+constexpr int kK2LRows = 8;
+
+template <bool AB_ALIASED, bool RE_ALIASED, bool PAIR_IN>
+__global__ void __launch_bounds__(kBlock * kK2LRows)
     march_bwd_lookup_params_kernel(const GradArgs ga) {
-  march_bwd_ray<false, true, true, AB_ALIASED, RE_ALIASED, false, kBlock, kK2LitRows>(ga);
+  march_bwd_ray<false, true, true, AB_ALIASED, RE_ALIASED, false, PAIR_IN, kBlock, kK2LRows>(ga);
 }
 
 // K6 in a kernel of its own, in 16x8 blocks (a warp is two rows of 16
@@ -236,7 +261,7 @@ constexpr int kK6Cols = 16, kK6Rows = 8;
 
 template <bool AB_ALIASED, bool RE_ALIASED>
 __global__ void __maxnreg__(kLitMaxRegisters) march_bwd_lit_scatter_kernel(const GradArgs ga) {
-  march_bwd_ray<true, false, false, AB_ALIASED, RE_ALIASED, false, kK6Cols, kK6Rows>(ga);
+  march_bwd_ray<true, false, false, AB_ALIASED, RE_ALIASED, false, false, kK6Cols, kK6Rows>(ga);
 }
 
 // K6L: K6 with lookup gradient volumes, from the packed grid, under K6's
@@ -244,7 +269,7 @@ __global__ void __maxnreg__(kLitMaxRegisters) march_bwd_lit_scatter_kernel(const
 // emission's shape, neither aliased) their cotangents as one float2.
 template <bool AB_ALIASED, bool RE_ALIASED, bool PAIRED>
 __global__ void __maxnreg__(kLitMaxRegisters) march_bwd_lookup_scatter_kernel(const GradArgs ga) {
-  march_bwd_ray<true, true, true, AB_ALIASED, RE_ALIASED, PAIRED, kK6Cols, kK6Rows>(ga);
+  march_bwd_ray<true, true, true, AB_ALIASED, RE_ALIASED, PAIRED, false, kK6Cols, kK6Rows>(ga);
 }
 
 // K2L and K6L with gradient volumes of another shape than emission's (no
@@ -255,13 +280,13 @@ __global__ void __maxnreg__(kLitMaxRegisters) march_bwd_lookup_scatter_kernel(co
 template <bool AB_ALIASED, bool RE_ALIASED>
 __global__ void __maxnreg__(kUnpackedMaxRegisters)
     march_bwd_lookup_unpacked_params_kernel(const GradArgs ga) {
-  march_bwd_ray<false, true, false, AB_ALIASED, RE_ALIASED, false, kBlock, kK2LitRows>(ga);
+  march_bwd_ray<false, true, false, AB_ALIASED, RE_ALIASED, false, false, kBlock, kK2LRows>(ga);
 }
 
 template <bool AB_ALIASED, bool RE_ALIASED>
 __global__ void __maxnreg__(kUnpackedMaxRegisters)
     march_bwd_lookup_unpacked_scatter_kernel(const GradArgs ga) {
-  march_bwd_ray<true, true, false, AB_ALIASED, RE_ALIASED, false, kK6Cols, kK6Rows>(ga);
+  march_bwd_ray<true, true, false, AB_ALIASED, RE_ALIASED, false, false, kK6Cols, kK6Rows>(ga);
 }
 
 // K3 in a kernel of its own: the unlit replay with the carried scatter.
@@ -493,11 +518,14 @@ cudaError_t launch_unlit_scatter(const GradArgs& ga, bool ab_aliased, cudaStream
 }
 
 // Lit K2 (SCATTER false) and K6, with LOOKUP K2L and K6L (from the packed
-// grid with PACKED), by which roles are aliased to emission.
+// grid with PACKED), by which roles are aliased to emission; from the pack
+// K6L's PAIRED form where the host gave the float2 accumulator (d_pair), K2L's
+// PAIR_IN form where it gave the pair (pair).
 template <bool SCATTER, bool LOOKUP, bool PACKED, bool AB, bool RE>
 cudaError_t launch_lit(const GradArgs& ga, cudaStream_t stream) {
   const MarchArgs& a = ga.m;
-  constexpr int cols = SCATTER ? kK6Cols : kBlock, rows = SCATTER ? kK6Rows : kK2LitRows;
+  constexpr int cols = SCATTER ? kK6Cols : kBlock;
+  constexpr int rows = SCATTER ? kK6Rows : LOOKUP ? kK2LRows : kK2LitRows;
   const dim3 block(cols, rows);
   const dim3 grid((a.width + cols - 1) / cols, (a.height + rows - 1) / rows);
   const size_t shared = sizeof(float) * 3 * a.n_lights * cols * rows;
@@ -513,8 +541,14 @@ cudaError_t launch_lit(const GradArgs& ga, cudaStream_t stream) {
     march_bwd_lookup_unpacked_scatter_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
   } else if constexpr (SCATTER) {
     march_bwd_lit_scatter_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
+  } else if constexpr (LOOKUP && PACKED && !AB && !RE) {
+    if (ga.pair.data != nullptr) {
+      march_bwd_lookup_params_kernel<false, false, true><<<grid, block, shared, stream>>>(ga);
+    } else {
+      march_bwd_lookup_params_kernel<false, false, false><<<grid, block, shared, stream>>>(ga);
+    }
   } else if constexpr (LOOKUP && PACKED) {
-    march_bwd_lookup_params_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
+    march_bwd_lookup_params_kernel<AB, RE, false><<<grid, block, shared, stream>>>(ga);
   } else if constexpr (LOOKUP) {
     march_bwd_lookup_unpacked_params_kernel<AB, RE><<<grid, block, shared, stream>>>(ga);
   } else {
@@ -548,17 +582,25 @@ cudaError_t launch_lookup(const GradArgs& ga, bool ab_aliased, bool re_aliased,
     return cudaErrorInvalidValue;
   const Vol4& pk = a.packed;
   if (pk.data == nullptr) {
-    if (ga.d_pair != nullptr || (SCATTER && (ga.d_em == nullptr || ga.d_gx == nullptr ||
-                                             ga.d_gy == nullptr || ga.d_gz == nullptr)))
+    if (ga.d_pair != nullptr || ga.pair.data != nullptr ||
+        (SCATTER && (ga.d_em == nullptr || ga.d_gx == nullptr || ga.d_gy == nullptr ||
+                     ga.d_gz == nullptr)))
       return cudaErrorInvalidValue;
     return launch_lit_aliasing<SCATTER, true, false>(ga, ab_aliased, re_aliased, stream);
   }
   if (SCATTER && (ga.d_pack == nullptr || reinterpret_cast<size_t>(ga.d_pack) % 16 != 0))
     return cudaErrorInvalidValue;
-  // the pair: absorption and reflection separate and of emission's shape
+  // the pairs, K6L's accumulator and K2L's grid: absorption and reflection
+  // separate and of emission's shape
+  const bool own_pair = !ab_aliased && !re_aliased && same_shape(a.ab, a.em.d, a.em.h, a.em.w) &&
+                        same_shape(a.re, a.em.d, a.em.h, a.em.w);
   if (ga.d_pair != nullptr &&
-      (!SCATTER || ab_aliased || re_aliased || reinterpret_cast<size_t>(ga.d_pair) % 8 != 0 ||
-       !same_shape(a.ab, a.em.d, a.em.h, a.em.w) || !same_shape(a.re, a.em.d, a.em.h, a.em.w)))
+      (!SCATTER || !own_pair || reinterpret_cast<size_t>(ga.d_pair) % 8 != 0))
+    return cudaErrorInvalidValue;
+  const Vol2& q = ga.pair;
+  if (q.data != nullptr &&
+      (SCATTER || !own_pair || reinterpret_cast<size_t>(q.data) % 8 != 0 ||
+       q.d != a.em.d || q.h != a.em.h || q.w != a.em.w))
     return cudaErrorInvalidValue;
   const int d = a.em.d, h = a.em.h, w = a.em.w;
   if (pk.d != d || pk.h != h || pk.w != w || !same_shape(a.gx, d, h, w) ||
@@ -584,15 +626,17 @@ int vr_march_bwd_max_lights() { return (48 * 1024) / (int)(sizeof(float) * 3 * k
 // host packed them with emission); scatter: also the voxel grids (K3 unlit,
 // K6 lit, K6L lookup; from the pack into args->d_pack and, absorption and
 // reflection of emission's shape, args->d_pair), else only the per-ray
-// planes (K2, K2L).
+// planes (K2, K2L; args->pair the pair the host packed for the call, unlit
+// K2's emission and absorption, K2L's absorption and reflection, or null).
 int vr_march_bwd(const GradArgs* args, int lit, int scatter, int lookup, int ab_aliased,
                  int re_aliased, void* stream) {
   const GradArgs& ga = *args;
   if (ga.m.width <= 0 || ga.m.height <= 0) return (int)cudaSuccess;
   if (lit && ga.m.n_lights > vr_march_bwd_max_lights()) return (int)cudaErrorInvalidValue;
-  // the accumulators are K6L's alone
+  // the accumulators are K6L's alone, the pair unlit K2's and K2L's
   if (!(lit && lookup && scatter) && (ga.d_pack != nullptr || ga.d_pair != nullptr))
     return (int)cudaErrorInvalidValue;
+  if (ga.pair.data != nullptr && (scatter || (lit && !lookup))) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lit && lookup) {
     return (int)(scatter ? launch_lookup<true>(ga, ab_aliased, re_aliased, s)

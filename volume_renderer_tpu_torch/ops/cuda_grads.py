@@ -21,7 +21,9 @@ volumes' cotangents into one float4 accumulator of the pack's layout and,
 where absorption and reflection are separate and of emission's shape,
 theirs into one float2 accumulator (``zero_accumulators``), a vector
 reduction a corner each, which the wrapper unpacks into the grids
-(``unpack_accumulator``). For a scene on the CPU they run the plain
+(``unpack_accumulator``); K2L reads those two from one float2 grid packed
+for the call (``pack_lookup_pair``, ``k2l_form``), at the pack's cell. For
+a scene on the CPU they run the plain
 version, ``ops.vjp.replay_backward``. There is no fallback: on a CUDA scene
 a failed build, a tensor the kernel does not take or a refused launch
 raises.
@@ -103,6 +105,18 @@ def pack_pair(scene: Scene) -> Optional[torch.Tensor]:
     return interleave([scene.emission.data, scene.absorption.data])
 
 
+def pack_lookup_pair(scene: Scene) -> Optional[torch.Tensor]:
+    """K2L's packed pair: absorption and reflection as one contiguous
+    float32 (D, H, W, 2) tensor, channels ``PAIR_KEYS`` (absorption,
+    reflection), so that the kernel loads a corner of both at once at the
+    cell of K5's pack. Made for each call, as ``pack_pair`` is for unlit K2;
+    None unless ``k2l_form`` is "paired" (the kernel then samples each
+    volume at a cell of its own)."""
+    if k2l_form(scene) != "paired":
+        return None
+    return interleave([scene.absorption.data, scene.reflection.data])
+
+
 def grad_mode(scene: Scene, scatter: bool) -> str:
     """Which backward mode a call needs: K2, K3 or K6; K2L or K6L for a lit
     lookup scene."""
@@ -133,10 +147,32 @@ def zero_grids(scene: Scene) -> Dict[str, torch.Tensor]:
 def has_pair(scene: Scene) -> bool:
     """Absorption and reflection separate and of emission's shape: beside the
     pack, K6L and the lookup gradient segment add their cotangents into one
-    float2 accumulator at emission's cell."""
+    float2 accumulator at emission's cell, and K2L reads them from one float2
+    grid (``pack_lookup_pair``)."""
     return (not scene.absorption_aliased and not scene.reflection_aliased
             and scene.absorption.data.shape == scene.emission.data.shape
             == scene.reflection.data.shape)
+
+
+def has_pack(scene: Scene) -> bool:
+    """Emission and the three gradient volumes of one shape: where K5's
+    float4 pack exists (``ops.cuda_march.pack_lookup``)."""
+    shape = scene.emission.data.shape
+    return all(getattr(scene, k).data.shape == shape for k in PACK_KEYS)
+
+
+def k2l_form(scene: Scene) -> Optional[str]:
+    """The form of K2L that ``march_backward`` launches for a lit lookup
+    scene: "paired" (the pack, and absorption and reflection read from
+    ``pack_lookup_pair``'s grid at its cell) where ``has_pack`` and
+    ``has_pair``, "unpaired" (the pack; absorption and reflection sampled
+    each at its own cell) where only ``has_pack``, "unpacked" (each volume
+    at its own cell) otherwise; None for any other scene."""
+    if not is_lookup(scene):
+        return None
+    if not has_pack(scene):
+        return "unpacked"
+    return "paired" if has_pair(scene) else "unpaired"
 
 
 def zero_accumulators(scene: Scene) -> List[torch.Tensor]:
@@ -146,11 +182,9 @@ def zero_accumulators(scene: Scene) -> List[torch.Tensor]:
     channel c the cotangent of ``PACK_KEYS[c]``, and, where ``has_pair``, a
     (D, H, W, 2) of ``PAIR_KEYS``. Made once by a caller whose calls share
     one set of grids; empty for any other scene."""
-    if scene.device.type != "cuda" or not is_lookup(scene):
+    if scene.device.type != "cuda" or not is_lookup(scene) or not has_pack(scene):
         return []
     shape = tuple(scene.emission.data.shape)
-    if any(tuple(getattr(scene, k).data.shape) != shape for k in PACK_KEYS):
-        return []
     return [torch.zeros(shape + (n,), dtype=torch.float32, device=scene.device)
             for n in ((4, 2) if has_pair(scene) else (4,))]
 
@@ -197,7 +231,8 @@ def march_backward(scene: Scene, opts: RenderOptions, g: torch.Tensor, image: to
                    angle_floor: bool = True, y_offset: int = 0, n_rows: Optional[int] = None,
                    grids: Optional[Dict[str, torch.Tensor]] = None,
                    packed: Optional[torch.Tensor] = None,
-                   accumulators: Optional[List[torch.Tensor]] = None
+                   accumulators: Optional[List[torch.Tensor]] = None,
+                   pair: Optional[torch.Tensor] = None,
                    ) -> Dict[str, torch.Tensor]:
     """One launch of the backward kernel on a CUDA ``scene``: the gradients
     for the cotangent ``g`` and the forward kernel's ``image``, both
@@ -213,7 +248,9 @@ def march_backward(scene: Scene, opts: RenderOptions, g: torch.Tensor, image: to
     the grids; ``accumulators`` (``zero_accumulators(scene)``, with
     ``grids``) are ones shared by several bands' calls instead, which the
     caller unpacks into ``grids`` once after the last
-    (``unpack_accumulator``)."""
+    (``unpack_accumulator``). ``pair``: the call's packed pair, unlit K2's
+    (``pack_pair``) or K2L's paired form's (``pack_lookup_pair``), made by
+    the caller; None packs here where the mode takes one."""
     dev = scene.device
     if dev.type != "cuda":
         raise ValueError(f"march_backward launches a CUDA kernel; the scene is on {dev}")
@@ -257,13 +294,22 @@ def march_backward(scene: Scene, opts: RenderOptions, g: torch.Tensor, image: to
             _checked(grids[key], f"the {key} gradient grid", dev, 3)
     planes = torch.empty((3 + 3 * n_lights, n_rows, opts.width), dtype=torch.float32,
                          device=dev)
-    # unlit K2: the pair stays referenced until the launch is enqueued
-    pair = pack_pair(scene) if not (lit or scatter) else None
+    # the pair, unlit K2's or K2L's, stays referenced until the launch is enqueued
+    form = k2l_form(scene) if not scatter else None
+    if not (lit or scatter):
+        pair, what = pack_pair(scene) if pair is None else pair, "emission and absorption"
+    elif form == "paired":
+        pair, what = (pack_lookup_pair(scene) if pair is None else pair,
+                      "absorption and reflection")
+    elif pair is not None:
+        raise ValueError("a pair is taken by unlit K2 and K2L's paired form alone")
     if pair is not None:
-        d, h, w, _ = _checked(pair, "packed emission and absorption", dev, 4).shape
+        shape = tuple(scene.emission.data.shape) + (2,)
+        if tuple(_checked(pair, f"the packed {what}", dev, 4).shape) != shape:
+            raise ValueError(f"the packed {what} must be {shape}, got {tuple(pair.shape)}")
         if pair.data_ptr() % 8:
-            raise ValueError("the packed emission and absorption must be 8-byte aligned")
-        args.pair = _Vol2(pair.data_ptr(), d, h, w)
+            raise ValueError(f"the packed {what} must be 8-byte aligned")
+        args.pair = _Vol2(pair.data_ptr(), *shape[:3])
     args.g, args.image, args.planes = g.data_ptr(), image.data_ptr(), planes.data_ptr()
     # an accumulated grid's cotangents go into its accumulator
     args.d_em, args.d_gx, args.d_gy, args.d_gz, args.d_ab = (
@@ -281,7 +327,7 @@ def march_backward(scene: Scene, opts: RenderOptions, g: torch.Tensor, image: to
                                ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"march_bwd launch failed: {lib.vr_cuda_error_string(err).decode()}")
-    cuda_march.count_launch(grad_mode(scene, scatter))
+    cuda_march.count_launch(grad_mode(scene, scatter), form)
     if accumulators is None and accs:
         for acc in accs:
             unpack_accumulator(acc, grids)

@@ -37,6 +37,11 @@ LAUNCHES_BY_MODE: Dict[str, int] = {
     "K7_transmittance": 0, "K7_segment": 0, "K7_scatter": 0,
     "K7_segment_lit": 0, "K7_scatter_lit": 0, "K7_scatter_lookup": 0}
 
+# launches of a mode's kernel forms since the last reset, keyed "<mode>
+# <form>": K2L's "paired", "unpaired" and "unpacked" (ops/cuda_grads.py,
+# k2l_form)
+LAUNCHES_BY_FORM: Dict[str, int] = {}
+
 _MODE_IDS = {"K1": 0, "K4": 1, "K5": 2}
 
 
@@ -45,13 +50,18 @@ def reset_launch_counts() -> None:
     LAUNCHES = 0
     for k in LAUNCHES_BY_MODE:
         LAUNCHES_BY_MODE[k] = 0
+    LAUNCHES_BY_FORM.clear()
 
 
-def count_launch(mode: str) -> None:
-    """One more launch of ``mode``; called where a kernel was launched."""
+def count_launch(mode: str, form: Optional[str] = None) -> None:
+    """One more launch of ``mode`` (of its ``form``, where a mode has forms
+    that ``LAUNCHES_BY_FORM`` counts); called where a kernel was launched."""
     global LAUNCHES
     LAUNCHES += 1
     LAUNCHES_BY_MODE[mode] += 1
+    if form is not None:
+        key = f"{mode} {form}"
+        LAUNCHES_BY_FORM[key] = LAUNCHES_BY_FORM.get(key, 0) + 1
 
 
 class _Vol(ctypes.Structure):
