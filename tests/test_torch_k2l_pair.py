@@ -131,8 +131,7 @@ def test_the_form_k2l_launches(name):
 
 def test_launches_are_counted_by_form():
     """count_launch counts a form beside its mode; a reset clears both."""
-    saved = (cuda_march.LAUNCHES, dict(cuda_march.LAUNCHES_BY_MODE),
-             dict(cuda_march.LAUNCHES_BY_FORM))
+    saved = (dict(cuda_march.LAUNCHES_BY_MODE), dict(cuda_march.LAUNCHES_BY_FORM))
     try:
         cuda_march.reset_launch_counts()
         cuda_march.count_launch("K2L", "paired")
@@ -140,14 +139,15 @@ def test_launches_are_counted_by_form():
         cuda_march.count_launch("K2L", "unpacked")
         cuda_march.count_launch("K5")
         assert cuda_march.LAUNCHES_BY_FORM == {"K2L paired": 2, "K2L unpacked": 1}
-        assert cuda_march.LAUNCHES_BY_MODE["K2L"] == 3 and cuda_march.LAUNCHES == 4
+        assert cuda_march.LAUNCHES_BY_MODE["K2L"] == 3
+        assert sum(cuda_march.LAUNCHES_BY_MODE.values()) == 4
         cuda_march.reset_launch_counts()
-        assert cuda_march.LAUNCHES_BY_FORM == {} and cuda_march.LAUNCHES == 0
+        assert cuda_march.LAUNCHES_BY_FORM == {}
+        assert sum(cuda_march.LAUNCHES_BY_MODE.values()) == 0
     finally:
-        cuda_march.LAUNCHES = saved[0]
-        cuda_march.LAUNCHES_BY_MODE.update(saved[1])
+        cuda_march.LAUNCHES_BY_MODE.update(saved[0])
         cuda_march.LAUNCHES_BY_FORM.clear()
-        cuda_march.LAUNCHES_BY_FORM.update(saved[2])
+        cuda_march.LAUNCHES_BY_FORM.update(saved[1])
 
 
 def test_march_backward_launches_only_on_a_card():

@@ -80,10 +80,10 @@ def test_render_rows_band_is_slice_of_full_image(y_offset, n_rows):
 def test_render_forward_fast_on_cpu_is_plain_version(name):
     _, tscene = make_scenes(**CASES[name])
     opts = tscene.options(W, H)
-    before = cuda_march.LAUNCHES
+    before = sum(cuda_march.LAUNCHES_BY_MODE.values())
     steps = torch.zeros((H, W), dtype=torch.int32)
     got = cuda_march.render_forward_fast(tscene, opts, 0.25, steps=steps)
-    assert cuda_march.LAUNCHES == before
+    assert sum(cuda_march.LAUNCHES_BY_MODE.values()) == before
     np.testing.assert_array_equal(got.numpy(), render_forward(tscene, opts, 0.25).numpy())
     assert int(steps.sum()) > 0 and int(steps.max()) <= opts.n_steps
 

@@ -40,6 +40,7 @@ from volume_renderer_tpu_torch.ops import cuda_slab, slab
 from volume_renderer_tpu_torch.ops.cuda_march import render_forward_fast
 from volume_renderer_tpu_torch.ops.oracle import render_oracle
 from volume_renderer_tpu_torch.parallel import bricks, pallas_dp
+from volume_renderer_tpu_torch.utils.profiling import span
 
 
 class StereoRenderMode(enum.Enum):
@@ -216,15 +217,17 @@ class VolumeRenderer:
         return self._placed(scene, self._on_device) if resident else scene
 
     def _render_once(self, camera_x_offset: float, width: int, height: int) -> torch.Tensor:
-        scene = self._build_scene(resident=False)
+        with span("facade.build_scene"):
+            scene = self._build_scene(resident=False)
         opts = build_render_options(scene.emission.extent_xyz, scene.emission.element_size_um,
                                     width, height)
         if self.backend == "oracle":
             return render_oracle(scene, opts, camera_x_offset, device=self.device)
         # memory pre-flight from the volumes' shapes, before any grid moves
         # (the reference errors instead, mmanager.hxx:144-173)
-        plan = plan_render(scene, opts, budget_bytes=self.memory_budget_bytes, mesh=self.mesh,
-                           device=self.device)
+        with span("facade.plan"):
+            plan = plan_render(scene, opts, budget_bytes=self.memory_budget_bytes,
+                               mesh=self.mesh, device=self.device)
         self.last_plan = plan
         kernel = self.device.type == "cuda"
         if plan.path == "streamed":
@@ -250,30 +253,31 @@ class VolumeRenderer:
 
     def render(self) -> torch.Tensor:
         """Render to an (H, W, 3) image; stereo if camera_x_offset != 0."""
-        width, height = (int(v) for v in self.image_resolution)
-        if width <= 0 or height <= 0:
-            raise ValueError("image_resolution must be set to positive (width, height)")
+        with span("facade.render"):
+            width, height = (int(v) for v in self.image_resolution)
+            if width <= 0 or height <= 0:
+                raise ValueError("image_resolution must be set to positive (width, height)")
 
-        if self.camera_x_offset == 0:
-            return self._render_once(0.0, width, height)
+            if self.camera_x_offset == 0:
+                return self._render_once(0.0, width, height)
 
-        # Off-axis stereo: two passes at widened resolution, crop the
-        # disparity delta from opposite sides, merge. The reference uses the
-        # image HEIGHT in the disparity formula; replicated verbatim.
-        base = self.camera_x_offset / 2.0
-        fov = 2.0 * np.arctan(1.0 / self.focal_length)
-        delta = int(round((base * height) / (2.0 * self.focal_length * np.tan(fov / 2.0))))
+            # Off-axis stereo: two passes at widened resolution, crop the
+            # disparity delta from opposite sides, merge. The reference uses the
+            # image HEIGHT in the disparity formula; replicated verbatim.
+            base = self.camera_x_offset / 2.0
+            fov = 2.0 * np.arctan(1.0 / self.focal_length)
+            delta = int(round((base * height) / (2.0 * self.focal_length * np.tan(fov / 2.0))))
 
-        wide = width + delta
-        right = self._render_once(base, wide, height)
-        left = self._render_once(-base, wide, height)
+            wide = width + delta
+            right = self._render_once(base, wide, height)
+            left = self._render_once(-base, wide, height)
 
-        left_c = left[:, delta:, :]
-        right_c = right[:, : wide - delta, :]
+            left_c = left[:, delta:, :]
+            right_c = right[:, : wide - delta, :]
 
-        if self.stereo_output == StereoRenderMode.RED_CYAN:
-            return torch.stack([left_c[:, :, 0], right_c[:, :, 1], right_c[:, :, 2]], dim=-1)
-        return torch.cat([left_c, right_c], dim=1)
+            if self.stereo_output == StereoRenderMode.RED_CYAN:
+                return torch.stack([left_c[:, :, 0], right_c[:, :, 1], right_c[:, :, 2]], dim=-1)
+            return torch.cat([left_c, right_c], dim=1)
 
     # ---- introspection --------------------------------------------------
 

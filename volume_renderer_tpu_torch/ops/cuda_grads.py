@@ -46,6 +46,7 @@ from volume_renderer_tpu_torch.ops import _build, cuda_march
 from volume_renderer_tpu_torch.ops.cuda_march import (
     _MarchArgs, _Vol2, _checked, band_rows, interleave, is_lookup, render_rows_fast)
 from volume_renderer_tpu_torch.ops.vjp import replay_backward
+from volume_renderer_tpu_torch.utils.profiling import span
 
 PARAM_KEYS = ("factor_emission", "factor_absorption", "factor_reflection", "color",
               "light_colors")
@@ -251,91 +252,92 @@ def march_backward(scene: Scene, opts: RenderOptions, g: torch.Tensor, image: to
     (``unpack_accumulator``). ``pair``: the call's packed pair, unlit K2's
     (``pack_pair``) or K2L's paired form's (``pack_lookup_pair``), made by
     the caller; None packs here where the mode takes one."""
-    dev = scene.device
-    if dev.type != "cuda":
-        raise ValueError(f"march_backward launches a CUDA kernel; the scene is on {dev}")
-    n_rows = band_rows(opts, y_offset, n_rows)
-    shape = (n_rows, opts.width, 3)
-    for name, t in (("g", g), ("image", image)):
-        if tuple(_checked(t, name, dev, 3).shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    lit, lookup = scene.has_lighting, is_lookup(scene)
-    lib = _library()
-    args = _GradArgs()
-    args.m, settings = cuda_march.march_args(scene, opts, camera_x_offset, lookup=lookup,
-                                             y_offset=y_offset, n_rows=n_rows)
-    if lookup:  # the pack stays referenced until the launch is enqueued
-        packed = cuda_march.pack_lookup(scene) if packed is None else packed
-        cuda_march.set_packed(args.m, scene, packed)
-    n_lights = args.m.n_lights if lit else 0
-    if n_lights > lib.vr_march_bwd_max_lights():
-        raise ValueError(f"the backward kernel takes at most {lib.vr_march_bwd_max_lights()} "
-                         f"lights, got {n_lights}")
+    with span("march.backward"):
+        dev = scene.device
+        if dev.type != "cuda":
+            raise ValueError(f"march_backward launches a CUDA kernel; the scene is on {dev}")
+        n_rows = band_rows(opts, y_offset, n_rows)
+        shape = (n_rows, opts.width, 3)
+        for name, t in (("g", g), ("image", image)):
+            if tuple(_checked(t, name, dev, 3).shape) != shape:
+                raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        lit, lookup = scene.has_lighting, is_lookup(scene)
+        lib = _library()
+        args = _GradArgs()
+        args.m, settings = cuda_march.march_args(scene, opts, camera_x_offset, lookup=lookup,
+                                                 y_offset=y_offset, n_rows=n_rows)
+        if lookup:  # the pack stays referenced until the launch is enqueued
+            packed = cuda_march.pack_lookup(scene) if packed is None else packed
+            cuda_march.set_packed(args.m, scene, packed)
+        n_lights = args.m.n_lights if lit else 0
+        if n_lights > lib.vr_march_bwd_max_lights():
+            raise ValueError(f"the backward kernel takes at most {lib.vr_march_bwd_max_lights()} "
+                             f"lights, got {n_lights}")
 
-    accs = []  # K6L from the pack: the accumulators
-    if scatter and lookup and packed is not None:
-        accs = zero_accumulators(scene) if accumulators is None else accumulators
-        args.d_pack, args.d_pair = accumulator_pointers(accs, scene.emission.data.shape, dev)
-    elif accumulators:
-        raise ValueError("accumulators are taken by K6L from the packed grid alone")
-    accumulated = {k for acc in accs for k in ACC_KEYS[acc.shape[-1]]}
-    if not scatter:
-        grids = {}
-    elif grids is None:
-        if accumulators is not None:
-            raise ValueError("shared accumulators need the grids they are unpacked into")
-        # the accumulated grids come from the accumulators
-        grids = {k: torch.zeros_like(v) for k, v in _grid_volumes(scene).items()
-                 if k not in accumulated}
-    else:
-        for key, volume in _grid_volumes(scene).items():
-            if key not in grids or grids[key].shape != volume.shape:
-                raise ValueError(f"grids must hold a {key} grid of shape {tuple(volume.shape)}")
-            _checked(grids[key], f"the {key} gradient grid", dev, 3)
-    planes = torch.empty((3 + 3 * n_lights, n_rows, opts.width), dtype=torch.float32,
-                         device=dev)
-    # the pair, unlit K2's or K2L's, stays referenced until the launch is enqueued
-    form = k2l_form(scene) if not scatter else None
-    if not (lit or scatter):
-        pair, what = pack_pair(scene) if pair is None else pair, "emission and absorption"
-    elif form == "paired":
-        pair, what = (pack_lookup_pair(scene) if pair is None else pair,
-                      "absorption and reflection")
-    elif pair is not None:
-        raise ValueError("a pair is taken by unlit K2 and K2L's paired form alone")
-    if pair is not None:
-        shape = tuple(scene.emission.data.shape) + (2,)
-        if tuple(_checked(pair, f"the packed {what}", dev, 4).shape) != shape:
-            raise ValueError(f"the packed {what} must be {shape}, got {tuple(pair.shape)}")
-        if pair.data_ptr() % 8:
-            raise ValueError(f"the packed {what} must be 8-byte aligned")
-        args.pair = _Vol2(pair.data_ptr(), *shape[:3])
-    args.g, args.image, args.planes = g.data_ptr(), image.data_ptr(), planes.data_ptr()
-    # an accumulated grid's cotangents go into its accumulator
-    args.d_em, args.d_gx, args.d_gy, args.d_gz, args.d_ab = (
-        grids[k].data_ptr() if k in grids and k not in accumulated else None
-        for k in PACK_KEYS + ("absorption",))
-    # K3 has no reflection term: an unlit scene's reflection grid stays zero
-    args.d_re = (grids["reflection"].data_ptr()
-                 if lit and "reflection" in grids and "reflection" not in accumulated else None)
-    args.angle_floor = int(angle_floor)
+        accs = []  # K6L from the pack: the accumulators
+        if scatter and lookup and packed is not None:
+            accs = zero_accumulators(scene) if accumulators is None else accumulators
+            args.d_pack, args.d_pair = accumulator_pointers(accs, scene.emission.data.shape, dev)
+        elif accumulators:
+            raise ValueError("accumulators are taken by K6L from the packed grid alone")
+        accumulated = {k for acc in accs for k in ACC_KEYS[acc.shape[-1]]}
+        if not scatter:
+            grids = {}
+        elif grids is None:
+            if accumulators is not None:
+                raise ValueError("shared accumulators need the grids they are unpacked into")
+            # the accumulated grids come from the accumulators
+            grids = {k: torch.zeros_like(v) for k, v in _grid_volumes(scene).items()
+                     if k not in accumulated}
+        else:
+            for key, volume in _grid_volumes(scene).items():
+                if key not in grids or grids[key].shape != volume.shape:
+                    raise ValueError(f"grids must hold a {key} grid of shape {tuple(volume.shape)}")
+                _checked(grids[key], f"the {key} gradient grid", dev, 3)
+        planes = torch.empty((3 + 3 * n_lights, n_rows, opts.width), dtype=torch.float32,
+                             device=dev)
+        # the pair, unlit K2's or K2L's, stays referenced until the launch is enqueued
+        form = k2l_form(scene) if not scatter else None
+        if not (lit or scatter):
+            pair, what = pack_pair(scene) if pair is None else pair, "emission and absorption"
+        elif form == "paired":
+            pair, what = (pack_lookup_pair(scene) if pair is None else pair,
+                          "absorption and reflection")
+        elif pair is not None:
+            raise ValueError("a pair is taken by unlit K2 and K2L's paired form alone")
+        if pair is not None:
+            shape = tuple(scene.emission.data.shape) + (2,)
+            if tuple(_checked(pair, f"the packed {what}", dev, 4).shape) != shape:
+                raise ValueError(f"the packed {what} must be {shape}, got {tuple(pair.shape)}")
+            if pair.data_ptr() % 8:
+                raise ValueError(f"the packed {what} must be 8-byte aligned")
+            args.pair = _Vol2(pair.data_ptr(), *shape[:3])
+        args.g, args.image, args.planes = g.data_ptr(), image.data_ptr(), planes.data_ptr()
+        # an accumulated grid's cotangents go into its accumulator
+        args.d_em, args.d_gx, args.d_gy, args.d_gz, args.d_ab = (
+            grids[k].data_ptr() if k in grids and k not in accumulated else None
+            for k in PACK_KEYS + ("absorption",))
+        # K3 has no reflection term: an unlit scene's reflection grid stays zero
+        args.d_re = (grids["reflection"].data_ptr()
+                     if lit and "reflection" in grids and "reflection" not in accumulated else None)
+        args.angle_floor = int(angle_floor)
 
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.vr_march_bwd(ctypes.byref(args), int(lit), int(scatter), int(lookup),
-                               int(scene.absorption_aliased), int(scene.reflection_aliased),
-                               ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"march_bwd launch failed: {lib.vr_cuda_error_string(err).decode()}")
-    cuda_march.count_launch(grad_mode(scene, scatter), form)
-    if accumulators is None and accs:
-        for acc in accs:
-            unpack_accumulator(acc, grids)
-        grids = {k: grids[k] for k in _grid_volumes(scene)}  # zero_grids' order
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.vr_march_bwd(ctypes.byref(args), int(lit), int(scatter), int(lookup),
+                                   int(scene.absorption_aliased), int(scene.reflection_aliased),
+                                   ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"march_bwd launch failed: {lib.vr_cuda_error_string(err).decode()}")
+        cuda_march.count_launch(grad_mode(scene, scatter), form)
+        if accumulators is None and accs:
+            for acc in accs:
+                unpack_accumulator(acc, grids)
+            grids = {k: grids[k] for k in _grid_volumes(scene)}  # zero_grids' order
 
-    out = dict(grids)
-    out.update(parameter_grads(scene, opts, g, planes))
-    return out
+        out = dict(grids)
+        out.update(parameter_grads(scene, opts, g, planes))
+        return out
 
 
 def parameter_grads(scene: Scene, opts: RenderOptions, g: torch.Tensor,

@@ -25,13 +25,13 @@ import torch
 from volume_renderer_tpu_torch.models.scene import RenderOptions, Scene
 from volume_renderer_tpu_torch.ops import _build
 from volume_renderer_tpu_torch.ops.forward import render_rows
+from volume_renderer_tpu_torch.utils.profiling import span
 
-# launches of the kernels since the last reset, in all and by mode: the
-# forward march (K1, K4, K5), the backward march (K2, K3, K6; K2L and K6L
-# with lookup gradient volumes) and the launch forms of the z-brick march
-# (K7: phase 1 opacity, phase 2 shaded segment unlit and lit, gradient
-# segment unlit, lit and lit with lookup gradients; ops/cuda_bricks.py)
-LAUNCHES = 0
+# launches of the kernels since the last reset, by mode: the forward march
+# (K1, K4, K5), the backward march (K2, K3, K6; K2L and K6L with lookup
+# gradient volumes) and the launch forms of the z-brick march (K7: phase 1
+# opacity, phase 2 shaded segment unlit and lit, gradient segment unlit, lit
+# and lit with lookup gradients; ops/cuda_bricks.py); their sum is every launch
 LAUNCHES_BY_MODE: Dict[str, int] = {
     "K1": 0, "K4": 0, "K5": 0, "K2": 0, "K3": 0, "K6": 0, "K2L": 0, "K6L": 0,
     "K7_transmittance": 0, "K7_segment": 0, "K7_scatter": 0,
@@ -46,8 +46,6 @@ _MODE_IDS = {"K1": 0, "K4": 1, "K5": 2}
 
 
 def reset_launch_counts() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
     for k in LAUNCHES_BY_MODE:
         LAUNCHES_BY_MODE[k] = 0
     LAUNCHES_BY_FORM.clear()
@@ -56,8 +54,6 @@ def reset_launch_counts() -> None:
 def count_launch(mode: str, form: Optional[str] = None) -> None:
     """One more launch of ``mode`` (of its ``form``, where a mode has forms
     that ``LAUNCHES_BY_FORM`` counts); called where a kernel was launched."""
-    global LAUNCHES
-    LAUNCHES += 1
     LAUNCHES_BY_MODE[mode] += 1
     if form is not None:
         key = f"{mode} {form}"
@@ -258,8 +254,9 @@ def pack_lookup(scene: Scene) -> Optional[torch.Tensor]:
     gradient_y, gradient_z), so that the kernel loads a corner of the four
     at once. Made for each render; None where the four differ in shape (the
     kernel then fetches each volume on its own)."""
-    return interleave([v.data for v in (scene.emission, scene.gradient_x, scene.gradient_y,
-                                        scene.gradient_z)])
+    with span("march.pack", device=True):
+        return interleave([v.data for v in (scene.emission, scene.gradient_x,
+                                            scene.gradient_y, scene.gradient_z)])
 
 
 def lookup_pack(scene: Scene) -> Optional[torch.Tensor]:
@@ -296,39 +293,40 @@ def render_rows_fast(scene: Scene, opts: RenderOptions, camera_x_offset: float =
     ``packed`` (K5): ``pack_lookup(scene)``, made once by a caller that
     renders several bands of one scene; None packs here.
     """
-    dev = scene.device
-    n_rows = band_rows(opts, y_offset, n_rows)
-    if dev.type == "cpu":
-        return render_rows(scene, opts, camera_x_offset, y_offset, n_rows, steps=steps)
-    if dev.type != "cuda":
-        raise ValueError(f"render_rows_fast takes CPU or CUDA scenes, not {dev.type}")
+    with span("march.forward"):
+        dev = scene.device
+        n_rows = band_rows(opts, y_offset, n_rows)
+        if dev.type == "cpu":
+            return render_rows(scene, opts, camera_x_offset, y_offset, n_rows, steps=steps)
+        if dev.type != "cuda":
+            raise ValueError(f"render_rows_fast takes CPU or CUDA scenes, not {dev.type}")
 
-    mode = kernel_mode(scene)
-    # settings and packed stay referenced until the launch is enqueued
-    args, settings = march_args(scene, opts, camera_x_offset, lookup=mode == "K5",
-                                y_offset=y_offset, n_rows=n_rows)
-    if mode == "K5":
-        packed = pack_lookup(scene) if packed is None else packed
-        set_packed(args, scene, packed)
-    out = torch.empty((n_rows, opts.width, 3), dtype=torch.float32, device=dev)
-    if steps is not None:
-        if (steps.dtype != torch.int32 or steps.device != dev or not steps.is_contiguous()
-                or tuple(steps.shape) != (n_rows, opts.width)):
-            raise ValueError("steps must be a contiguous int32 (n_rows, W) tensor on the "
-                             "scene's device")
-    args.out = out.data_ptr()
-    args.steps = None if steps is None else steps.data_ptr()
+        mode = kernel_mode(scene)
+        # settings and packed stay referenced until the launch is enqueued
+        args, settings = march_args(scene, opts, camera_x_offset, lookup=mode == "K5",
+                                    y_offset=y_offset, n_rows=n_rows)
+        if mode == "K5":
+            packed = pack_lookup(scene) if packed is None else packed
+            set_packed(args, scene, packed)
+        out = torch.empty((n_rows, opts.width, 3), dtype=torch.float32, device=dev)
+        if steps is not None:
+            if (steps.dtype != torch.int32 or steps.device != dev or not steps.is_contiguous()
+                    or tuple(steps.shape) != (n_rows, opts.width)):
+                raise ValueError("steps must be a contiguous int32 (n_rows, W) tensor on the "
+                                 "scene's device")
+        args.out = out.data_ptr()
+        args.steps = None if steps is None else steps.data_ptr()
 
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.vr_march_fwd(ctypes.byref(args), _MODE_IDS[mode],
-                               int(scene.absorption_aliased), int(scene.reflection_aliased),
-                               ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"march_fwd launch failed: {lib.vr_cuda_error_string(err).decode()}")
-    count_launch(mode)
-    return out
+        lib = _library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.vr_march_fwd(ctypes.byref(args), _MODE_IDS[mode],
+                                   int(scene.absorption_aliased), int(scene.reflection_aliased),
+                                   ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"march_fwd launch failed: {lib.vr_cuda_error_string(err).decode()}")
+        count_launch(mode)
+        return out
 
 
 def render_forward_fast(scene: Scene, opts: RenderOptions, camera_x_offset: float = 0.0,

@@ -39,6 +39,7 @@ from volume_renderer_tpu_torch.ops.forward import render_rows
 from volume_renderer_tpu_torch.ops.vjp import render_fused
 from volume_renderer_tpu_torch.parallel.mesh import check_mesh
 from volume_renderer_tpu_torch.parallel.sharding import scenes_on
+from volume_renderer_tpu_torch.utils.profiling import span
 
 Params = Dict[str, torch.Tensor]
 
@@ -168,18 +169,20 @@ def train_step_fast(params: Params, optimizer: torch.optim.Optimizer, scene: Sce
     neighbouring voxels: keep the optimizer's step per voxel far below
     those differences, or the normals scramble and the loss rises (PERF.md).
     """
-    with torch.no_grad():
-        merged = merge_params(params, scene)
-        packed = lookup_pack(merged)
-        img = render_rows_fast(merged, opts, camera_x_offset, packed=packed)
-        resid = img - target.to(torch.float32)
-        loss = torch.sum(resid ** 2)
-        _, grads = voxel_grads_fast(merged, opts, 2.0 * resid, camera_x_offset, image=img,
-                                    packed=packed)
-        for key, p in params.items():
-            p.grad = grads[key].reshape(p.shape)
-    optimizer.step()
-    return loss
+    with span("train.step"):
+        with torch.no_grad():
+            merged = merge_params(params, scene)
+            packed = lookup_pack(merged)
+            img = render_rows_fast(merged, opts, camera_x_offset, packed=packed)
+            resid = img - target.to(torch.float32)
+            loss = torch.sum(resid ** 2)
+            _, grads = voxel_grads_fast(merged, opts, 2.0 * resid, camera_x_offset, image=img,
+                                        packed=packed)
+            for key, p in params.items():
+                p.grad = grads[key].reshape(p.shape)
+        with span("train.optimizer", device=True):
+            optimizer.step()
+        return loss
 
 
 def train_step_streamed(params: Params, optimizer: torch.optim.Optimizer, scene: Scene,
